@@ -20,6 +20,8 @@ from . import random
 from . import initializer
 from . import initializer as init   # alias namespace, as in the JAX package
 from . import ops
+from . import autograd
+from . import optimizer
 from . import gluon
 from . import models
 from . import serving

@@ -1,4 +1,5 @@
 """Model definitions of the PyTorch port."""
 from .transformer import (MultiHeadAttention, PositionwiseFFN,
                           TransformerEncoderLayer, TransformerEncoder,
-                          BERTModel, bert_base, bert_small)
+                          BERTModel, FusedMLMCELoss, bert_base,
+                          bert_small)

@@ -1,10 +1,12 @@
 """Transformer encoder and BERT of the PyTorch port (counterpart of
 incubator_mxnet_tpu/models/transformer.py).
 
-Unmasked attention at inference is one call of the flash-attention
-forward (`ops.attention._contrib_flash_attention`): the CUDA kernel on
-the card, its plain version on the CPU.  Every layer takes `device`
-(default `cuda:0`) and `dtype`, and builds its parameters there.
+Unmasked attention without live attention dropout is one call of
+`ops.attention._contrib_flash_attention`: the flash forward kernel, and
+in training its two backward kernels, on the card; their plain versions
+on the CPU.  Every layer takes `device` (default `cuda:0`) and `dtype`,
+and builds its parameters there.  `FusedMLMCELoss` owns the MLM vocab
+projection and fuses it into a chunked softmax cross-entropy.
 """
 from __future__ import annotations
 
@@ -14,13 +16,13 @@ import torch
 
 from ..context import resolve_device
 from ..gluon import nn
-from ..gluon.block import HybridBlock
+from ..gluon.block import HybridBlock, new_parameter
 from ..ops import attention as _att
 from ..ops import nn as ops
 
 __all__ = ["MultiHeadAttention", "PositionwiseFFN",
            "TransformerEncoderLayer", "TransformerEncoder", "BERTModel",
-           "bert_base", "bert_small"]
+           "FusedMLMCELoss", "bert_base", "bert_small"]
 
 
 class MultiHeadAttention(HybridBlock):
@@ -166,6 +168,33 @@ class BERTModel(HybridBlock):
         h = ops.leaky_relu(self.mlm_dense(x), act_type="gelu")
         h = self.mlm_ln(h)
         return h if self.decoder is None else self.decoder(h)
+
+
+class FusedMLMCELoss(HybridBlock):
+    """Vocab projection fused into the softmax cross-entropy, chunked over
+    rows so the (B·T, vocab) logits of more than one chunk never exist
+    (`ops.nn.fused_linear_softmax_ce`).  Owns the projection's `weight`
+    (vocab, in_units) and `bias` (vocab,): pair it with
+    `BERTModel(output_hidden=True)`.
+
+    forward(h, label): h (B, T, D) or (N, D); label (B, T) or (N,).
+    Returns the per-row loss (N,).
+    """
+
+    def __init__(self, vocab_size, in_units, num_chunks=0, dtype="float32",
+                 device=None):
+        super().__init__()
+        dev = resolve_device(device)
+        self._nchunk = num_chunks
+        self.weight = new_parameter("weight", (vocab_size, in_units), None,
+                                    dev, dtype)
+        self.bias = new_parameter("bias", (vocab_size,), "zeros", dev, dtype)
+
+    def forward(self, h, label):
+        h2 = h if h.ndim == 2 else h.reshape(-1, h.shape[-1])
+        return ops.fused_linear_softmax_ce(h2, self.weight, self.bias,
+                                           label.reshape(-1),
+                                           num_chunks=self._nchunk)
 
 
 def bert_base(vocab_size=30522, **kwargs):

@@ -2,3 +2,4 @@
 left to XLA, hand-written CUDA kernels for what it wrote in Pallas."""
 from . import nn
 from . import attention
+from . import optimizer

@@ -33,6 +33,16 @@ SOURCES = {
             + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
             ctypes.c_int),
     }),
+    "flash_attention_bwd": ("flash_attention_bwd.cu", {
+        "mxt_flash_attention_bwd_dq": (
+            [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3
+            + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
+            ctypes.c_int),
+        "mxt_flash_attention_bwd_dkv": (
+            [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3
+            + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
+            ctypes.c_int),
+    }),
 }
 
 _LOCK = threading.Lock()

@@ -45,6 +45,10 @@ def test_import_loads_no_jax_and_needs_no_nvcc(tmp_path):
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'incubator_mxnet_tpu')]; "
             "assert not bad, bad; assert a.flash_fwd_launches == 0; "
+            "assert a.flash_bwd_dq_launches == a.flash_bwd_dkv_launches "
+            "== 0; mx.autograd, mx.optimizer.Adam, mx.gluon.Trainer, "
+            "mx.gluon.loss.SoftmaxCrossEntropyLoss, "
+            "mx.models.FusedMLMCELoss; "
             "print('ok')")
     out = subprocess.run([sys.executable, "-c", code], cwd=str(tmp_path),
                          env=env, capture_output=True, text=True,
