@@ -33,8 +33,25 @@ Drives incubator_mxnet_tpu_torch only (never JAX or the JAX package):
              loss finite); each step launches each of the three kernels
              12 times.
    train_profile — device time by kernel over one training step.
-7. kernels — one JSON line per the port's kernel table, then the card's
-             name and power limit, then the final {"ok": true, ...} line.
+7. kernel_conv — the fused 1x1-conv + BatchNorm-statistics kernel against
+             its plain version at the 12 shapes of a ResNet-50 step (bf16,
+             batch 128), the tool's 5 shapes in f32 and ragged shapes,
+             timed beside the plain version and the library route
+             (cuDNN's 1x1 convolution, then the two f32 sums).
+8. train_resnet — resnet50_v1b (1000 classes, random weights from seed 0)
+             + SoftmaxCrossEntropyLoss + SGD (lr 0.1, momentum 0.9, wd
+             1e-4), as bench.py's run_cachedop: one batch-2 f32 step's
+             loss, 161 gradients and running statistics against a CPU
+             copy (gradients against the copy's own rounding spread), a
+             small ResNet v1b's gradients against its CPU copy; then
+             batch 128 x 3 x 224 x 224 cast to bf16, labels
+             from RandomState(0), 2 warm-up and 10 timed steps (step ms by
+             CUDA events, images/s, peak memory, every loss finite); each
+             step launches the conv kernel 33 times.
+   train_resnet_profile — device time by kernel over one such step.
+9. kernels — one JSON line per the port's kernel table (4 rows), then the
+             card's name and power limit, then the final {"ok": true, ...}
+             line.
 
 Every phase prints one JSON line; the first failure raises and exits
 nonzero with its traceback.  Without a CUDA device it exits 1 and prints
@@ -84,6 +101,35 @@ TRAIN_TOL = 1e-3
 TRAIN_BATCH = 8
 TRAIN_WARMUP = 2
 TRAIN_STEPS = 10
+# fused 1x1 conv + statistics against its plain version.  f32 y: the
+# same f32 sums over C in another order, 1e-4 of the largest |y|.  bf16
+# y: both round the f32 accumulator, so at most one bf16 ulp apart
+# (2**-7 |y|).  The sums of N·HW f32 terms in another order: Σy within
+# CONV_SUM_TOL of sqrt(N·HW·Σy²) (which is at least Σ|y|), Σy² within
+# CONV_SUM_TOL of itself.  A wrong tile, mask or channel moves a sum by
+# 1/64 of it or more.
+CONV_SUM_TOL = 1e-5
+RESNET_BATCH = 128
+RESNET_PARITY_BATCH = 2
+RESNET_SITES = 33       # pointwise conv + BatchNorm pairs of resnet50_v1b
+# running statistics after the parity step, card against the CPU copy:
+# batch statistics from the kernel's sums against the CPU's, f32 through
+# 50 layers; each tensor within 1e-4 of its scale
+RUNNING_TOL = 1e-4
+# resnet50_v1b's batch-2 gradients are not a smooth function of the
+# inputs at rounding level: scaling the input by 1 + 2**-22 on the CPU
+# flips about 80 ReLU decisions and moves most gradients by 1-20 % of
+# their scale (the same size at 2**-16: discrete flips, not growth).  So
+# the card's gradients are held to RESNET_SPREAD_FACTOR times the spread
+# the CPU copy shows against itself under that perturbation, in its
+# largest and its median tensor (the spread itself varies with the
+# perturbation: 0.17-0.35 of scale in the largest tensor, 0.018-0.027 in
+# the median one); a wrong gradient path moves its tensors by O(1) of
+# their scale.  The small ResNet below, free of such flips, is held to
+# TRAIN_TOL per tensor.
+RESNET_SPREAD_FACTOR = 3.0
+SMALL_RESNET = dict(layers=[1, 1, 1, 1], channels=[8, 16, 32, 64, 128],
+                    classes=10, thumbnail=True, stride_on_3x3=True)
 # sustained serving window: closed-loop clients, each keeping INFLIGHT
 # singles outstanding, so the queue stays deeper than the largest bucket
 WINDOW_CLIENTS = 3
@@ -460,6 +506,278 @@ def phase_train(torch, mx, att):
     return dict(zip(("fwd", "dq", "dkv"), launches))
 
 
+# (C, HW, O, sites): the pointwise conv + BatchNorm pairs of one
+# resnet50_v1b step at batch 128 and 224 x 224 images
+RESNET_CONV_SHAPES = [
+    (64, 3136, 64, 1), (64, 3136, 256, 4), (256, 3136, 64, 2),
+    (256, 3136, 128, 1), (128, 784, 512, 4), (512, 784, 128, 3),
+    (512, 784, 256, 1), (256, 196, 1024, 6), (1024, 196, 256, 5),
+    (1024, 196, 512, 1), (512, 49, 2048, 3), (2048, 49, 512, 2)]
+# kernel_conv cases (N, C, HW, O, dtype): the step's shapes in bf16, the
+# tool's five shapes in f32, ragged shapes in both dtypes
+CONV_CASES = ([(RESNET_BATCH, C, HW, O, "bfloat16")
+               for C, HW, O, _ in RESNET_CONV_SHAPES]
+              + [(RESNET_BATCH, C, HW, O, "float32") for C, HW, O in (
+                  (64, 3136, 256), (128, 784, 512), (256, 196, 1024),
+                  (512, 49, 2048), (256, 3136, 64))]
+              + [(3, 72, 49, 80, "bfloat16"), (3, 72, 49, 80, "float32"),
+                 (5, 17, 33, 65, "bfloat16"), (1, 1, 1, 1, "float32")])
+
+
+def _conv_bound(N, C, HW, O, dtype):
+    """Least time (ms) of the fused call: the 2·N·HW·C·O product
+    operations at the dtype's peak; x and w read, y written, and the two
+    (O,) f32 sums written once."""
+    elem = 4 if dtype == "float32" else 2
+    flops = 2.0 * N * HW * C * O
+    nbytes = (N * C * HW + O * C + N * O * HW) * elem + 2 * 4.0 * O
+    t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES_S
+    return max(t_ops, t_bytes) * 1e3, \
+        "operations" if t_ops >= t_bytes else "bytes"
+
+
+def phase_kernel_conv(torch, cs):
+    """The fused 1x1-conv + statistics kernel against its plain version
+    over CONV_CASES; returns the per-step sums over the 33 launch sites
+    of a bf16 resnet50_v1b step."""
+    import torch.nn.functional as F
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2)
+    sites = {(C, HW, O): k for C, HW, O, k in RESNET_CONV_SHAPES}
+    step = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
+                max_abs_err=0.0, launches=0)
+    bound_by_ms = dict(bytes=0.0, operations=0.0)
+    for N, C, HW, O, dt in CONV_CASES:
+        dtype = getattr(torch, dt)
+        x = torch.randn(N, C, HW, device="cuda", generator=gen).to(dtype)
+        w = (torch.randn(O, C, device="cuda", generator=gen) * 0.05) \
+            .to(dtype)
+        y, s1, s2 = cs.fused_conv1x1_stats(x, w)
+        torch.cuda.synchronize()
+        ref_y, ref_s1, ref_s2 = cs.fused_conv1x1_stats_plain(x, w)
+        ref = ref_y.float()
+        diff = (y.float() - ref).abs()
+        err_y = diff.max().item()
+        tol_y = (torch.full_like(ref, 1e-4 * ref.abs().max().item())
+                 if dt == "float32" else 2.0 ** -7 * ref.abs())
+        err_y_over_tol = (diff / tol_y.clamp_min(1e-30)).max().item()
+        rel_s1 = ((s1 - ref_s1).abs()
+                  / (N * HW * ref_s2).sqrt().clamp_min(1e-30)).max().item()
+        rel_s2 = ((s2 - ref_s2).abs() / ref_s2.clamp_min(1e-30)) \
+            .max().item()
+        ok = (err_y_over_tol <= 1.0 and rel_s1 <= CONV_SUM_TOL
+              and rel_s2 <= CONV_SUM_TOL)
+        ms = _time_ms(torch, lambda: cs.fused_conv1x1_stats(x, w))
+        plain_ms = _time_ms(torch, lambda: cs.fused_conv1x1_stats_plain(
+            x, w))
+        # the library route: cuDNN's 1x1 convolution, then the two f32
+        # sums of its (rounded) output; a yardstick the port never calls
+        x4, w4 = x.reshape(N, C, HW, 1), w.reshape(O, C, 1, 1)
+
+        def library():
+            y4 = F.conv2d(x4, w4).float()
+            return y4.sum(dim=(0, 2, 3)), y4.square().sum(dim=(0, 2, 3))
+
+        library_ms = _time_ms(torch, library)
+        bound_ms, bound_by = _conv_bound(N, C, HW, O, dt)
+        row = dict(phase="kernel_conv", name="conv1x1_stats", N=N, C=C,
+                   HW=HW, O=O, dtype=dt, err_y=err_y,
+                   err_y_over_tol=err_y_over_tol, rel_err_s1=rel_s1,
+                   rel_err_s2=rel_s2, tol_sums=CONV_SUM_TOL, ok=ok, ms=ms,
+                   plain_ms=plain_ms, library_ms=library_ms,
+                   library="F.conv2d 1x1 + two f32 sums",
+                   bound_ms=bound_ms, bound_by=bound_by,
+                   bound_share=bound_ms / ms)
+        _emit(row)
+        _check(ok, "conv1x1_stats disagrees with its plain version: %r"
+               % (row,))
+        k = sites.get((C, HW, O)) if (N, dt) == (RESNET_BATCH,
+                                                 "bfloat16") else None
+        if k:
+            for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
+                step[key] += k * row[key]
+            step["max_abs_err"] = max(step["max_abs_err"], err_y)
+            bound_by_ms[bound_by] += k * bound_ms
+            step["launches"] += k
+    _check(step["launches"] == RESNET_SITES, "the step's conv shapes cover "
+           "%d launch sites, not %d" % (step["launches"], RESNET_SITES))
+    # what bounds most of the step's summed bound
+    step["bound_by"] = max(bound_by_ms, key=bound_by_ms.get)
+    return step
+
+
+def _resnet_step(mx, net, loss_fn, trainer, x, y):
+    with mx.autograd.record():
+        loss = loss_fn(net(x), y)
+    mx.autograd.backward(loss)
+    trainer.step(x.shape[0])
+    return loss.detach()
+
+
+def _resnet_grads(mx, net, loss_fn, x, y):
+    """One forward and backward in training mode: the per-example loss,
+    {name: gradient} of the trainable tensors and {name: value} of the
+    running statistics (which the forward updated), on the CPU."""
+    with mx.autograd.record():
+        loss = loss_fn(net(x), y)
+    mx.autograd.backward(loss)
+    params = net.collect_params()
+    # copies: the next forward updates the running statistics in place
+    return (loss.detach().cpu(),
+            {n: p.grad.detach().cpu().clone() for n, p in params.items()
+             if p.requires_grad},
+            {n: p.detach().cpu().clone() for n, p in params.items()
+             if not p.requires_grad})
+
+
+def _small_resnet_parity(torch, mx, loss_fn):
+    """A small ResNet v1b (9 fused pairs) through one f32 step of batch 4
+    on the card against a CPU copy: every gradient within TRAIN_TOL of
+    its scale."""
+    from incubator_mxnet_tpu_torch.gluon.model_zoo.vision import resnet
+    kw = dict(SMALL_RESNET)
+    args = (resnet.BottleneckV1, kw.pop("layers"), kw.pop("channels"))
+    net = resnet.ResNetV1(*args, device="cuda:0", **kw)
+    cpu = resnet.ResNetV1(*args, device="cpu", **kw)
+    cpu.load_state_dict({k: v.cpu() for k, v in net.state_dict().items()})
+    rs = np.random.RandomState(1)
+    x = torch.from_numpy(rs.randn(4, 3, 32, 32).astype(np.float32))
+    y = torch.from_numpy(rs.randint(0, 10, 4).astype(np.float32))
+    loss, grads, _ = _resnet_grads(mx, net, loss_fn, x.cuda(), y.cuda())
+    ref_loss, ref_grads, _ = _resnet_grads(mx, cpu, loss_fn, x, y)
+    err = _scaled_err(grads, ref_grads)
+    worst = max(err, key=err.get)
+    return dict(batch=4, image=[3, 32, 32], gradients=len(err),
+                loss_max_abs_err=(loss - ref_loss).abs().max().item(),
+                worst_grad_err_over_scale=err[worst], worst_grad=worst,
+                grad_tol=TRAIN_TOL)
+
+
+def _scaled_err(got, ref):
+    """{name: max-abs error over max-abs value}, each value floored at
+    1e-3 of the largest among `ref`."""
+    top = max(r.abs().max().item() for r in ref.values())
+    return {n: (got[n].cpu() - r).abs().max().item()
+            / max(r.abs().max().item(), 1e-3 * top) for n, r in ref.items()}
+
+
+def phase_train_resnet(torch, mx, cs):
+    """resnet50_v1b training through the port's entry points, as
+    bench.py's run_cachedop; returns the conv kernel's launches over the
+    timed steps."""
+    from incubator_mxnet_tpu_torch.gluon.model_zoo.vision import \
+        resnet50_v1b
+    rs = np.random.RandomState(0)
+    images = rs.randn(RESNET_BATCH, 3, 224, 224).astype(np.float32)
+    labels = rs.randint(0, 1000, RESNET_BATCH).astype(np.float32)
+    mx.random.seed(0)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    net = resnet50_v1b(classes=1000, device="cuda:0")
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    params = net.collect_params()
+    trainer = mx.gluon.Trainer(params, "sgd", {
+        "learning_rate": 0.1, "momentum": 0.9, "wd": 1e-4})
+
+    # parity: one batch-2 f32 step against a CPU copy (TF32 is off)
+    cpu_net = resnet50_v1b(classes=1000, device="cpu")
+    cpu_net.load_state_dict({k: v.cpu() for k, v in net.state_dict().items()})
+    x2 = torch.from_numpy(images[:RESNET_PARITY_BATCH])
+    y2 = torch.from_numpy(labels[:RESNET_PARITY_BATCH])
+    loss2, grads, running = _resnet_grads(mx, net, loss_fn, x2.cuda(),
+                                          y2.cuda())
+    trainer.step(RESNET_PARITY_BATCH)
+    ref_loss, ref_grads, ref_running = _resnet_grads(mx, cpu_net, loss_fn,
+                                                     x2, y2)
+    # the CPU copy against itself, its input scaled by 1 + 2**-22
+    _, spread_grads, _ = _resnet_grads(mx, cpu_net, loss_fn,
+                                       x2 * (1.0 + 2.0 ** -22), y2)
+    loss_err = (loss2.cpu() - ref_loss).abs().max().item()
+    grad_err = _scaled_err(grads, ref_grads)
+    spread = _scaled_err(spread_grads, ref_grads)
+    run_err = _scaled_err(running, ref_running)
+    worst_grad = max(grad_err, key=grad_err.get)
+    worst_run = max(run_err, key=run_err.get)
+    grad_max = dict(card=grad_err[worst_grad], cpu_spread=max(spread.values()))
+    grad_median = dict(card=statistics.median(grad_err.values()),
+                       cpu_spread=statistics.median(spread.values()))
+    del cpu_net, ref_grads, spread_grads, grads, running, ref_running
+    small = _small_resnet_parity(torch, mx, loss_fn)
+
+    x = torch.from_numpy(images).cuda().to(torch.bfloat16)  # bench.py's cast
+    y = torch.from_numpy(labels).cuda()
+    for _ in range(TRAIN_WARMUP):
+        _resnet_step(mx, net, loss_fn, trainer, x, y)
+    torch.cuda.synchronize()
+    cs.conv1x1_stats_launches = 0       # the main path starts here
+    events = [torch.cuda.Event(enable_timing=True)
+              for _ in range(TRAIN_STEPS + 1)]
+    losses, per_step = [], []
+    t0 = time.perf_counter()
+    events[0].record()
+    for i in range(TRAIN_STEPS):
+        before = cs.conv1x1_stats_launches
+        losses.append(_resnet_step(mx, net, loss_fn, trainer, x, y).mean())
+        events[i + 1].record()
+        per_step.append(cs.conv1x1_stats_launches - before)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = cs.conv1x1_stats_launches    # the main path ends here
+    step_ms = [events[i].elapsed_time(events[i + 1])
+               for i in range(TRAIN_STEPS)]
+    losses = [v.item() for v in losses]
+    _emit(dict(phase="train_resnet", model="resnet50_v1b", classes=1000,
+               dtype="bfloat16", batch=RESNET_BATCH, image=[3, 224, 224],
+               optimizer="sgd", lr=0.1, momentum=0.9, wd=1e-4,
+               parity=dict(batch=RESNET_PARITY_BATCH, dtype="float32",
+                           loss_max_abs_err=loss_err,
+                           loss_mean=loss2.mean().item(),
+                           grad_err_over_scale_max=grad_max,
+                           grad_err_over_scale_median=grad_median,
+                           worst_grad=worst_grad,
+                           spread_factor=RESNET_SPREAD_FACTOR,
+                           within_train_tol=sum(
+                               v <= TRAIN_TOL for v in grad_err.values()),
+                           gradients=len(grad_err),
+                           worst_running_err_over_scale=run_err[worst_run],
+                           worst_running=worst_run, running_tol=RUNNING_TOL,
+                           running_tensors=len(run_err),
+                           small_resnet=small),
+               warmup_steps=TRAIN_WARMUP, steps=TRAIN_STEPS,
+               step_ms=step_ms, step_ms_median=statistics.median(step_ms),
+               wall_s=wall,
+               images_per_s=TRAIN_STEPS * RESNET_BATCH / wall,
+               losses=losses,
+               max_memory_allocated=torch.cuda.max_memory_allocated(),
+               conv1x1_stats_launches=launches,
+               launches_per_step=sorted(set(per_step))))
+    _check(loss_err <= SERVE_TOL, "batch-2 loss differs from the CPU copy "
+           "by %g > %g" % (loss_err, SERVE_TOL))
+    _check(len(grad_err) == 161, "%d trainable tensors, not 161"
+           % len(grad_err))
+    for name, v in (("largest", grad_max), ("median", grad_median)):
+        _check(v["card"] <= RESNET_SPREAD_FACTOR * v["cpu_spread"],
+               "the %s gradient error against the CPU copy, %g of its "
+               "scale, exceeds %g x the CPU copy's own rounding spread %g"
+               % (name, v["card"], RESNET_SPREAD_FACTOR, v["cpu_spread"]))
+    _check(small["worst_grad_err_over_scale"] <= TRAIN_TOL,
+           "small ResNet gradient differs from the CPU copy: %r" % (small,))
+    _check(small["loss_max_abs_err"] <= 1e-4,
+           "small ResNet loss differs from the CPU copy: %r" % (small,))
+    _check(run_err[worst_run] <= RUNNING_TOL, "running statistic %s differs "
+           "from the CPU copy: %g of its scale > %g"
+           % (worst_run, run_err[worst_run], RUNNING_TOL))
+    _check(all(math.isfinite(v) for v in losses),
+           "non-finite training loss: %r" % (losses,))
+    _check(all(c == RESNET_SITES for c in per_step),
+           "a training step launched the conv kernel %r times, not %d"
+           % (per_step, RESNET_SITES))
+    _profile(torch, lambda: _resnet_step(mx, net, loss_fn, trainer, x, y),
+             1, top=16, phase="train_resnet_profile",
+             batch=[RESNET_BATCH, 3, 224, 224], steps=1)
+    return launches
+
+
 def _window(eng, rs, vocab):
     """Sustained traffic: WINDOW_CLIENTS threads each submit
     WINDOW_PER_CLIENT singles, keeping WINDOW_INFLIGHT of them outstanding
@@ -608,11 +926,15 @@ def _registers(reports):
     regs, name = {}, None
     for log in reports.values():
         for line in log.splitlines():
-            m = re.search(r"(flash_[a-z_]+_kernel)I(f|13__nv_bfloat16)Li(\d+)E",
-                          line)
+            m = re.search(r"(flash_[a-z_]+_kernel|conv1x1_stats_kernel|"
+                          r"stats_reduce_kernel)"
+                          r"(?:I(f|13__nv_bfloat16)(?:Li(\d+))?E)?", line)
             if "Compiling entry function" in line and m:
-                dt = "f32" if m.group(2) == "f" else "bf16"
-                name = "%s<%s, %s>" % (m.group(1), dt, m.group(3))
+                args = [a for a in (m.group(2), m.group(3)) if a]
+                if args and args[0] in ("f", "13__nv_bfloat16"):
+                    args[0] = "f32" if args[0] == "f" else "bf16"
+                name = m.group(1) + ("<%s>" % ", ".join(args) if args
+                                     else "")
             m = re.search(r"Used (\d+) registers", line)
             if m and name:
                 regs[name], name = int(m.group(1)), None
@@ -628,6 +950,7 @@ def main():
     import incubator_mxnet_tpu_torch as mx
     from incubator_mxnet_tpu_torch.ops import _kernels
     from incubator_mxnet_tpu_torch.ops import attention as att
+    from incubator_mxnet_tpu_torch.ops import conv_stats as cs
 
     # f32 products stay full f32 on the card (no TF32), so the kernel and
     # the served logits can be held to f32 tolerances
@@ -655,6 +978,8 @@ def main():
     launches = phase_serve(torch, mx, att)
     bwd_row = phase_kernel_bwd(torch, att)
     train_launches = phase_train(torch, mx, att)
+    conv_step = phase_kernel_conv(torch, cs)
+    conv_launches = phase_train_resnet(torch, mx, cs)
     shape = dict(shape=[main_row["BH"], main_row["T"], main_row["d"]],
                  dtype=main_row["dtype"])
     bwd_src = "incubator_mxnet_tpu_torch/ops/csrc/flash_attention_bwd.cu"
@@ -687,7 +1012,17 @@ def main():
              plain_ms=bwd_row["dkv_plain_ms"],
              bound_ms=bwd_row["dkv_bound_ms"],
              bound_by=bwd_row["dkv_bound_by"],
-             library_ms=bwd_row["library_ms"], **shape)]})
+             library_ms=bwd_row["library_ms"], **shape),
+        dict(name="conv1x1_stats", route="cuda",
+             source="incubator_mxnet_tpu_torch/ops/csrc/conv1x1_stats.cu",
+             replaces="tools/conv_stats_pallas_experiment.py:9",
+             launches=conv_launches, parity="ok",
+             max_abs_err=conv_step["max_abs_err"], ms=conv_step["ms"],
+             plain_ms=conv_step["plain_ms"], bound_ms=conv_step["bound_ms"],
+             bound_by=conv_step["bound_by"],
+             library_ms=conv_step["library_ms"],
+             shape="the %d launch sites of one resnet50_v1b step, summed"
+                   % RESNET_SITES, dtype="bfloat16", batch=RESNET_BATCH)]})
     print(smi, flush=True)
     _emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                   "count": torch.cuda.device_count()}})

@@ -2,9 +2,14 @@
 incubator_mxnet_tpu/autograd.py) on top of torch's own autograd.
 
 * `record()` / `pause()` scope recording: inside `record()` torch grad
-  mode is on, inside `pause()` it is off.  `is_recording()` and
-  `is_training()` report the scope's flags.  The port's layers do not
-  read `is_training()`: dropout follows `Module.train()` / `eval()`.
+  mode is on, inside `pause()` it is off.  `train_mode()` /
+  `predict_mode()` set only the training flag.  `is_recording()` and
+  `is_training()` report the scope's flags.
+* Training mode is `is_training()`, as in the JAX package: `record()`
+  turns it on (`train_mode=True` by default), and the layers read it --
+  dropout is live, attention leaves the fused path for attention
+  dropout, and BatchNorm takes batch statistics and updates its running
+  ones only while it is on.  `Module.train()` / `eval()` decide nothing.
 * `backward(heads, head_grads=None)` seeds ones for a head without a
   gradient, whatever its shape, as MXNet does (a per-row loss vector is
   a valid head; `Tensor.backward()` refuses one).
@@ -21,7 +26,8 @@ import torch
 
 from .base import MXNetError
 
-__all__ = ["record", "pause", "is_recording", "is_training", "backward"]
+__all__ = ["record", "pause", "train_mode", "predict_mode", "is_recording",
+           "is_training", "backward"]
 
 _STATE = threading.local()
 
@@ -47,21 +53,28 @@ def set_training(flag: bool) -> bool:
 
 
 class _RecordingStateScope:
+    """Sets the flags that are not None for the scope; recording also sets
+    torch grad mode."""
+
     def __init__(self, recording, training):
         self._rec, self._train = recording, training
         self._prev_rec = self._prev_train = self._grad = None
 
     def __enter__(self):
-        self._prev_rec = set_recording(self._rec)
-        self._prev_train = set_training(self._train)
-        self._grad = torch.set_grad_enabled(self._rec)
-        self._grad.__enter__()
+        if self._rec is not None:
+            self._prev_rec = set_recording(self._rec)
+            self._grad = torch.set_grad_enabled(self._rec)
+            self._grad.__enter__()
+        if self._train is not None:
+            self._prev_train = set_training(self._train)
         return self
 
     def __exit__(self, *exc):
-        self._grad.__exit__(*exc)
-        set_recording(self._prev_rec)
-        set_training(self._prev_train)
+        if self._rec is not None:
+            self._grad.__exit__(*exc)
+            set_recording(self._prev_rec)
+        if self._train is not None:
+            set_training(self._prev_train)
 
 
 def record(train_mode: bool = True):
@@ -73,6 +86,18 @@ def record(train_mode: bool = True):
 def pause(train_mode: bool = False):
     """`with autograd.pause():` — recording (torch grad mode) off."""
     return _RecordingStateScope(False, train_mode)
+
+
+def train_mode():
+    """`with autograd.train_mode():` -- training mode on, recording as
+    it was."""
+    return _RecordingStateScope(None, True)
+
+
+def predict_mode():
+    """`with autograd.predict_mode():` -- training mode off, recording as
+    it was."""
+    return _RecordingStateScope(None, False)
 
 
 def _reachable_leaves(heads):

@@ -34,6 +34,23 @@ class _Var:
         self.doc = doc
 
 
+_TRUE = ("1", "true", "yes", "on")
+_FALSE = ("0", "false", "no", "off")
+
+
+def _to_bool(s):
+    v = str(s).lower()
+    if v in _TRUE:
+        return True
+    if v in _FALSE:
+        return False
+    raise ValueError("not a boolean: %r" % (s,))
+
+
+def _conv(var):
+    return _to_bool if var.type is bool else var.type
+
+
 def register(name: str, type_: Callable = str, default: Any = None,
              doc: str = ""):
     """Register a knob.  Re-registration with an identical signature is a
@@ -65,7 +82,7 @@ def get(name: str):
     if raw is None:
         return var.default
     try:
-        return var.type(raw)
+        return _conv(var)(raw)
     except (TypeError, ValueError) as e:
         if name not in _warned:
             _warned.add(name)
@@ -78,7 +95,7 @@ def set(name: str, value) -> None:     # noqa: A001 — parity naming
     """Process-local override (wins over the environment), validated
     eagerly."""
     var = _var(name)
-    var.type(str(value))
+    _conv(var)(str(value))
     _OVERRIDES[name] = str(value)
 
 
@@ -100,3 +117,8 @@ register("MXNET_SERVE_BUCKETS", str, "",
          "InferenceEngine: comma-separated batch bucket sizes (e.g. "
          "'1,2,4,8'). Empty = powers of two up to MXNET_SERVE_MAX_BATCH. "
          "Every request batch is padded up to a bucket")
+register("MXNET_BN_STABLE_VAR", bool, False,
+         "BatchNorm batch statistics: 1 = shifted two-pass variance "
+         "E[(x-mean)^2] (safe when |mean| >> std), 0 = one-pass "
+         "E[x^2]-E[x]^2 clamped at 0 (one read of x; the statistics the "
+         "fused 1x1-conv kernel produces, so only 0 fuses)")

@@ -2,4 +2,5 @@
 from .block import Block, HybridBlock
 from . import nn
 from . import loss
+from . import model_zoo
 from .trainer import Trainer

@@ -4,28 +4,71 @@ incubator_mxnet_tpu/gluon/nn/basic_layers.py).
 The JAX layers defer input widths to the first forward; here a layer
 with parameters takes its input width (`in_units`, `in_channels`) when
 it is built, so its parameters exist and are initialized at once.
+
+Dropout and BatchNorm follow `autograd.is_training()` (on inside
+`autograd.record()`), as the JAX ops do, not `Module.train()`.
+
+`HybridSequential` runs a pointwise `Conv2D` followed by a `BatchNorm`
+that takes batch statistics as one fused step: `ops.conv_stats`' kernel
+computes the product and the sums Σy, Σy² in one pass, and the
+BatchNorm normalizes with statistics from those sums instead of reading
+y again.  The children and their parameter names stay as they are.
 """
 from __future__ import annotations
 
+import torch
+
 from ..block import HybridBlock, new_parameter
+from .conv_layers import Conv2D
+from ... import autograd as _ag
+from ... import config as _config
 from ... import random as _rnd
 from ...context import resolve_device
+from ...ops import conv_stats as _conv_stats
 from ...ops import nn as ops
 
-__all__ = ["HybridSequential", "Dense", "Dropout", "Embedding", "LayerNorm"]
+__all__ = ["HybridSequential", "Dense", "Dropout", "Embedding", "LayerNorm",
+           "BatchNorm", "Flatten"]
+
+
+def _fuses(block, nxt):
+    """A pointwise Conv2D whose BatchNorm takes batch statistics in the
+    one-pass form the kernel's sums give."""
+    return (isinstance(block, Conv2D) and block.pointwise
+            and isinstance(nxt, BatchNorm) and nxt.batch_stats
+            and nxt._axis == 1 and not _config.get("MXNET_BN_STABLE_VAR"))
+
+
+def _conv1x1_bn(conv, bn, x):
+    N, C, H, W = x.shape
+    w = conv.weight.reshape(conv.weight.shape[0], C)
+    if w.dtype != x.dtype:              # amp: follow activation dtype
+        w = w.to(x.dtype)
+    y, s1, s2 = _conv_stats.conv1x1_stats(
+        x.contiguous().reshape(N, C, H * W), w)
+    return bn(y.reshape(N, -1, H, W), sums=(s1, s2, N * H * W))
 
 
 class HybridSequential(HybridBlock):
     """Children run in order; they are named "0", "1", ... as the JAX
-    package's `register_child` names them."""
+    package's `register_child` names them.  A pointwise Conv2D followed
+    by a BatchNorm taking batch statistics runs fused (module doc)."""
 
     def add(self, *blocks):
         for block in blocks:
             self.add_module(str(len(self._modules)), block)
 
     def forward(self, x, *args):
-        for block in self._modules.values():
-            x = block(x)
+        blocks = list(self._modules.values())
+        i = 0
+        while i < len(blocks):
+            nxt = blocks[i + 1] if i + 1 < len(blocks) else None
+            if _fuses(blocks[i], nxt):
+                x = _conv1x1_bn(blocks[i], nxt, x)
+                i += 2
+            else:
+                x = blocks[i](x)
+                i += 1
         return x
 
     def __iter__(self):
@@ -68,8 +111,8 @@ class Dense(HybridBlock):
 
 
 class Dropout(HybridBlock):
-    """Inverted dropout while training, the identity in `eval()`; the mask
-    comes from the input device's generator."""
+    """Inverted dropout while `autograd.is_training()`, else the identity;
+    the mask comes from the input device's generator."""
 
     def __init__(self, rate, axes=()):
         super().__init__()
@@ -78,7 +121,7 @@ class Dropout(HybridBlock):
         self._rate = rate
 
     def forward(self, x):
-        if not self.training:
+        if not _ag.is_training():
             return x
         return ops.dropout(x, self._rate, training=True,
                            generator=_rnd.generator(x.device))
@@ -118,3 +161,73 @@ class LayerNorm(HybridBlock):
     def forward(self, x):
         return ops.layer_norm(x, self.gamma, self.beta, axis=self._axis,
                               eps=self._epsilon)
+
+
+class BatchNorm(HybridBlock):
+    """ref: nn.BatchNorm.  gamma, beta and the running statistics
+    (`running_mean`, `running_var`: parameters without gradient, grad_req
+    'null' in the JAX package) over channel `axis`.  While
+    `autograd.is_training()` and not `use_global_stats` it normalizes
+    with the batch statistics and updates the running ones as
+    running * momentum + batch * (1 - momentum), with the biased batch
+    variance; otherwise it normalizes with the running ones."""
+
+    def __init__(self, axis=1, momentum=0.9, epsilon=1e-5, center=True,
+                 scale=True, use_global_stats=False,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 running_mean_initializer="zeros",
+                 running_variance_initializer="ones", in_channels=0,
+                 device=None, dtype="float32"):
+        super().__init__()
+        if in_channels <= 0:
+            raise ValueError("BatchNorm in the PyTorch port needs "
+                             "in_channels > 0 (widths are not deferred)")
+        self._axis = axis
+        self._momentum = momentum
+        self._epsilon = epsilon
+        self._scale = scale
+        self._use_global_stats = use_global_stats
+        dev = resolve_device(device)
+        shape = (in_channels,)
+        self.gamma = new_parameter("gamma", shape, gamma_initializer, dev,
+                                   dtype)
+        self.beta = new_parameter("beta", shape, beta_initializer, dev,
+                                  dtype)
+        self.running_mean = new_parameter(
+            "running_mean", shape, running_mean_initializer, dev, dtype)
+        self.running_var = new_parameter(
+            "running_var", shape, running_variance_initializer, dev, dtype)
+        self.gamma.requires_grad_(bool(scale))
+        self.beta.requires_grad_(bool(center))
+        self.running_mean.requires_grad_(False)
+        self.running_var.requires_grad_(False)
+
+    @property
+    def batch_stats(self):
+        """Whether a call now normalizes with batch statistics."""
+        return _ag.is_training() and not self._use_global_stats
+
+    def forward(self, x, sums=None):
+        """`sums` = (Σx, Σx², n) per channel, computed elsewhere (the
+        fused pointwise convolution), stands in for reading x for the
+        batch statistics."""
+        batch = self.batch_stats
+        out, mean, var = ops.batch_norm(
+            x, self.gamma, self.beta, self.running_mean, self.running_var,
+            eps=self._epsilon, fix_gamma=not self._scale,
+            use_global_stats=self._use_global_stats, axis=self._axis,
+            training=batch, sums=sums)
+        if batch:
+            m = self._momentum
+            with torch.no_grad():
+                for run, stat in ((self.running_mean, mean),
+                                  (self.running_var, var)):
+                    run.copy_(run * m + stat * (1 - m))
+        return out
+
+
+class Flatten(HybridBlock):
+    """ref: nn.Flatten: (N, ...) → (N, prod(...))."""
+
+    def forward(self, x):
+        return ops.flatten(x)

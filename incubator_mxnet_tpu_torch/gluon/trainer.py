@@ -5,8 +5,12 @@ incubator_mxnet_tpu/gluon/trainer.py).
 `nn.Parameter`s on one device.  `step(batch_size)` sets the optimizer's
 `rescale_grad` to `1 / batch_size` and updates, in place, every
 parameter that requires grad from the gradient the last backward wrote.
-With one device there is no kvstore; parameters on several devices, or
-a `dist` kvstore, raise "not yet ported".
+A parameter without gradient (`requires_grad=False`: grad_req 'null' in
+the JAX package, such as BatchNorm's running statistics) is kept in the
+list and never updated.  An aggregatable optimizer (SGD) updates all the
+parameters in one `update_multi` call, as the JAX Trainer's aggregated
+path does.  With one device there is no kvstore; parameters on several
+devices, or a `dist` kvstore, raise "not yet ported".
 """
 from __future__ import annotations
 
@@ -82,6 +86,7 @@ class Trainer:
         backward reached has no gradient: that raises, or is skipped with
         `ignore_stale_grad`."""
         self._optimizer.rescale_grad = self._scale / batch_size
+        live = []
         for i, p in enumerate(self._params):
             if not p.requires_grad:
                 continue
@@ -92,4 +97,18 @@ class Trainer:
                     "parameter #%d %s has no gradient: run backward first, "
                     "or pass ignore_stale_grad=True"
                     % (i, tuple(p.shape)))
-            self._updater(i, p.grad, p.data)
+            live.append(i)
+        updater = self._updater
+        if not self._optimizer.aggregatable:
+            for i in live:
+                updater(i, self._params[i].grad, self._params[i].data)
+            return
+        for i in live:
+            if i not in updater.states:
+                updater.states[i] = self._optimizer.create_state(
+                    i, self._params[i].data)
+        if live:
+            self._optimizer.update_multi(
+                live, [self._params[i].data for i in live],
+                [self._params[i].grad for i in live],
+                [updater.states[i] for i in live])

@@ -14,6 +14,7 @@ import math
 
 import torch
 
+from .. import autograd
 from ..context import resolve_device
 from ..gluon import nn
 from ..gluon.block import HybridBlock, new_parameter
@@ -50,8 +51,10 @@ class MultiHeadAttention(HybridBlock):
         H = self._num_heads
         # fused path: softmax(QK^T)V is one kernel and the score matrix
         # never reaches device memory.  Attention-prob dropout is live
-        # only while training, so inference fuses whatever the dropout.
-        if mask is None and (self.dropout is None or not self.training):
+        # only while training (autograd.is_training()), so inference
+        # fuses whatever the dropout.
+        if mask is None and (self.dropout is None
+                             or not autograd.is_training()):
             ctx = _att._contrib_flash_attention(
                 self.query(x), self.key(x), self.value(x), num_heads=H)
             return self.proj(ctx)

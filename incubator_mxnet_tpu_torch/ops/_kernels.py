@@ -43,6 +43,12 @@ SOURCES = {
             + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
             ctypes.c_int),
     }),
+    "conv1x1_stats": ("conv1x1_stats.cu", {
+        "mxt_conv1x1_stats_scratch": ([ctypes.c_int] * 3, ctypes.c_longlong),
+        "mxt_conv1x1_stats": (
+            [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
+            ctypes.c_int),
+    }),
 }
 
 _LOCK = threading.Lock()

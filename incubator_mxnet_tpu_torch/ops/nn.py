@@ -6,6 +6,16 @@ The two fused softmax cross-entropies are `torch.autograd.Function`s that
 keep the JAX package's memory-exact residuals: the logits (or, for the
 linear one, nothing row-sized but a per-row lse) and the labels; their
 backwards rebuild the softmax from the lse.
+
+The training BatchNorm is a `torch.autograd.Function` too: it saves only
+x, gamma and the per-channel mean and 1/std, as the JAX package's custom
+vjp does, and takes its statistics either from x (one pass, or two with
+`MXNET_BN_STABLE_VAR`) or from sums computed elsewhere: the fused 1x1
+convolution (`ops.conv_stats`) hands over Σy and Σy².
+
+`convolution` and `fully_connected` cast the weight to the activation's
+dtype (the JAX package's amp rule), so bf16 activations run against f32
+master weights.
 """
 from __future__ import annotations
 
@@ -14,7 +24,10 @@ import warnings
 import torch
 import torch.nn.functional as F
 
-__all__ = ["fully_connected", "layer_norm", "embedding", "leaky_relu",
+from .. import config as _config
+
+__all__ = ["fully_connected", "convolution", "pooling", "activation",
+           "flatten", "batch_norm", "layer_norm", "embedding", "leaky_relu",
            "dropout", "fused_softmax_ce", "fused_linear_softmax_ce"]
 
 
@@ -24,7 +37,190 @@ def fully_connected(data, weight, bias=None, num_hidden=0, no_bias=False,
     `flatten`, every axis after the first is folded into in_units."""
     if flatten and data.ndim > 2:
         data = data.reshape(data.shape[0], -1)
-    return F.linear(data, weight, None if no_bias else bias)
+    if weight.dtype != data.dtype:      # amp: follow activation dtype
+        weight = weight.to(data.dtype)
+    if no_bias or bias is None:
+        return F.linear(data, weight)
+    return F.linear(data, weight, bias.to(data.dtype))
+
+
+def convolution(data, weight, bias=None, kernel=(), stride=(), dilate=(),
+                pad=(), num_filter=0, num_group=1, no_bias=False,
+                workspace=1024, cudnn_tune=None, cudnn_off=False,
+                layout=None):
+    """2-D NCHW convolution, weight (num_filter, C/num_group, kh, kw); the
+    bias is added after the product, in the output dtype.  `workspace`
+    and `cudnn_*` are accepted and ignored, as in the JAX package."""
+    if data.ndim != 4 or layout not in (None, "NCHW"):
+        raise NotImplementedError("convolution over %d-d data, layout %r, "
+                                  "is not yet ported (2-D NCHW only)"
+                                  % (data.ndim, layout))
+    stride = tuple(stride) if stride else (1, 1)
+    dilate = tuple(dilate) if dilate else (1, 1)
+    pad = tuple(pad) if pad else (0, 0)
+    if weight.dtype != data.dtype:      # amp: follow activation dtype
+        weight = weight.to(data.dtype)
+    out = F.conv2d(data, weight, None, stride, pad, dilate, num_group)
+    if not no_bias and bias is not None:
+        out = out + bias.to(out.dtype).reshape(1, -1, 1, 1)
+    return out
+
+
+def pooling(data, kernel=(), pool_type="max", global_pool=False,
+            cudnn_off=False, pooling_convention="valid", stride=(), pad=(),
+            p_value=2, count_include_pad=True, layout=None):
+    """2-D pooling over NCHW data: max (padding is -inf), avg or sum.
+    `pooling_convention='full'` pads the high edge so that the output
+    size is the ceiling; avg divides by the window size with
+    `count_include_pad`, else by the count of real elements."""
+    if data.ndim != 4 or layout not in (None, "NCHW"):
+        raise NotImplementedError("pooling over %d-d data, layout %r, is "
+                                  "not yet ported (2-D NCHW only)"
+                                  % (data.ndim, layout))
+    if global_pool:
+        kernel, stride, pad = tuple(data.shape[2:]), (1, 1), (0, 0)
+    kernel = tuple(kernel)
+    stride = tuple(stride) if stride else (1, 1)
+    pad = tuple(pad) if pad else (0, 0)
+    extra = [0, 0]
+    if pooling_convention == "full":
+        for i in range(2):
+            in_sz = data.shape[2 + i] + 2 * pad[i]
+            out_sz = -(-(in_sz - kernel[i]) // stride[i]) + 1
+            extra[i] = max(0, (out_sz - 1) * stride[i] + kernel[i] - in_sz)
+    # F.pad takes (left, right) of the last axis first
+    widths = (pad[1], pad[1] + extra[1], pad[0], pad[0] + extra[0])
+
+    def window_sum(t):
+        return F.avg_pool2d(F.pad(t, widths), kernel, stride,
+                            divisor_override=1)
+
+    if pool_type == "max":
+        return F.max_pool2d(F.pad(data, widths, value=float("-inf")),
+                            kernel, stride)
+    if pool_type in ("avg", "sum"):
+        summed = window_sum(data)
+        if pool_type == "sum":
+            return summed
+        if count_include_pad:
+            return summed / (kernel[0] * kernel[1])
+        return summed / window_sum(torch.ones_like(data))
+    if pool_type == "lp":
+        raise NotImplementedError("pooling pool_type='lp' is not yet ported")
+    raise ValueError(pool_type)
+
+
+_ACTIVATIONS = {"relu": F.relu, "sigmoid": torch.sigmoid,
+                "tanh": torch.tanh, "softrelu": F.softplus,
+                "softsign": F.softsign}
+
+
+def activation(data, act_type="relu"):
+    """relu, sigmoid, tanh, softrelu (softplus) or softsign."""
+    try:
+        return _ACTIVATIONS[act_type](data)
+    except KeyError:
+        raise ValueError(act_type) from None
+
+
+def flatten(data):
+    """(N, ...) → (N, prod(...))."""
+    return data.reshape(data.shape[0], -1)
+
+
+def _bcast_shape(x, axis):
+    return tuple(x.shape[axis] if i == axis else 1 for i in range(x.ndim))
+
+
+def _bn_stats(x, axis):
+    """Batch mean and biased variance over every axis but `axis`, in f32:
+    one pass E[x²] - E[x]², clamped at 0; with `MXNET_BN_STABLE_VAR` the
+    shifted two-pass E[(x - mean)²]."""
+    red = tuple(i for i in range(x.ndim) if i != axis)
+    x32 = x.float()
+    m1 = x32.mean(dim=red)
+    if _config.get("MXNET_BN_STABLE_VAR"):
+        d = x32 - m1.reshape(_bcast_shape(x, axis))
+        return m1, d.square().mean(dim=red)
+    m2 = x32.square().mean(dim=red)
+    return m1, torch.clamp_min(m2 - m1.square(), 0.0)
+
+
+def _moments(s1, s2, n):
+    """Mean and one-pass biased variance, clamped at 0, from the f32 sums
+    Σx and Σx² of n values per channel."""
+    m1 = s1.reshape(-1) / n
+    m2 = s2.reshape(-1) / n
+    return m1, torch.clamp_min(m2 - m1.square(), 0.0)
+
+
+class _BNTrain(torch.autograd.Function):
+    """Training BatchNorm (out, mean, var) over channel `axis`.  With
+    `s1` None the statistics come from x (`_bn_stats`); otherwise from
+    the sums s1 = Σx, s2 = Σx² of n values per channel.  Saves x, gamma,
+    mean and 1/std; the statistics are non-differentiable outputs and
+    their cotangents are ignored."""
+
+    @staticmethod
+    def forward(ctx, x, g, b, axis, eps, s1, s2, n):
+        bshape = _bcast_shape(x, axis)
+        if s1 is None:
+            mean, var = _bn_stats(x, axis)
+        else:
+            mean, var = _moments(s1, s2, n)
+        inv = torch.rsqrt(var + eps)
+        g32 = g.float()
+        scale = (g32 * inv).reshape(bshape)
+        shift = (b.float() - mean * g32 * inv).reshape(bshape)
+        # in the activation dtype: no full-size f32 intermediate
+        out = x * scale.to(x.dtype) + shift.to(x.dtype)
+        ctx.save_for_backward(x, g, mean, inv)
+        ctx.axis = axis
+        ctx.mark_non_differentiable(mean, var)
+        return out, mean, var
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dy, _dmean, _dvar):
+        x, g, mean, inv = ctx.saved_tensors
+        axis = ctx.axis
+        red = tuple(i for i in range(x.ndim) if i != axis)
+        bshape = _bcast_shape(x, axis)
+        n = x.numel() // x.shape[axis]
+        dy32 = dy.float()
+        xhat = (x.float() - mean.reshape(bshape)) * inv.reshape(bshape)
+        dbeta = dy32.sum(dim=red)
+        dgamma = (dy32 * xhat).sum(dim=red)
+        m1 = (dbeta / n).reshape(bshape)
+        m2 = (dgamma / n).reshape(bshape)
+        dx = (g.float() * inv).reshape(bshape) * (dy32 - m1 - xhat * m2)
+        return (dx.to(x.dtype), dgamma.to(g.dtype), dbeta.to(g.dtype), None,
+                None, None, None, None)
+
+
+def batch_norm(data, gamma, beta, moving_mean, moving_var, eps=1e-3,
+               momentum=0.9, fix_gamma=True, use_global_stats=False,
+               axis=1, training=True, sums=None):
+    """BatchNorm over channel `axis` → (out, mean, var).  While
+    `training` and not `use_global_stats`, the batch statistics
+    normalize (taken from `sums` = (Σx, Σx², n) when given, else from
+    data; ignored otherwise); otherwise the moving ones.  `fix_gamma`
+    treats gamma as 1.  The caller updates the moving statistics
+    (`momentum` is taken for the JAX signature and not used here)."""
+    axis = axis % data.ndim
+    g = torch.ones_like(gamma) if fix_gamma else gamma
+    if training and not use_global_stats:
+        s1, s2, n = sums if sums is not None else (None, None, 0)
+        return _BNTrain.apply(data, g, beta, axis, eps, s1, s2, n)
+    bshape = _bcast_shape(data, axis)
+    mean = moving_mean.float()
+    var = moving_var.float()
+    inv = torch.rsqrt(var + eps)
+    g32 = g.float()
+    scale = (g32 * inv).reshape(bshape)
+    shift = (beta.float() - mean * g32 * inv).reshape(bshape)
+    out = data * scale.to(data.dtype) + shift.to(data.dtype)
+    return out, mean, var
 
 
 def layer_norm(data, gamma, beta, axis=-1, eps=1e-5):

@@ -1,6 +1,6 @@
 """mx.optimizer namespace of the PyTorch port."""
-from .optimizer import (Optimizer, Adam, register, create, get_updater,
-                        Updater)
+from .optimizer import (Optimizer, SGD, Adam, register, create,
+                        get_updater, Updater)
 
-__all__ = ["Optimizer", "Adam", "register", "create", "get_updater",
+__all__ = ["Optimizer", "SGD", "Adam", "register", "create", "get_updater",
            "Updater"]

@@ -1,10 +1,13 @@
 """Optimizers of the PyTorch port (counterpart of
 incubator_mxnet_tpu/optimizer/optimizer.py): the `Optimizer` base with
-its registry, `Adam`, and the `Updater` that keeps per-index state.
+its registry, `SGD`, `Adam`, and the `Updater` that keeps per-index
+state.
 
 Weights, gradients and states are torch tensors; an update writes the
-weight and its state in place (`ops.optimizer`).  SGD and the other
-optimizers of the JAX package are not yet ported.
+weight and its state in place (`ops.optimizer`).  An optimizer with
+`aggregatable = True` (SGD) also has `update_multi`, which the Trainer
+calls once for all its parameters.  The other optimizers of the JAX
+package are not yet ported.
 """
 from __future__ import annotations
 
@@ -15,7 +18,7 @@ import torch
 from ..base import MXNetError
 from ..ops import optimizer as _ops
 
-__all__ = ["Optimizer", "Adam", "register", "create", "get_updater",
+__all__ = ["Optimizer", "SGD", "Adam", "register", "create", "get_updater",
            "Updater"]
 
 _OPT_REGISTRY = {}
@@ -99,6 +102,53 @@ class Optimizer:
 
     def update(self, index, weight, grad, state):
         raise NotImplementedError
+
+    #: whether `update_multi` updates a list of parameters at once
+    aggregatable = False
+
+
+@register
+class SGD(Optimizer):
+    """ref: optimizer.SGD → sgd_update / sgd_mom_update, and
+    multi_sgd(_mom)_update on the aggregated path.  Gradients are dense
+    here, so `lazy_update` (the JAX package's row-sparse path) is
+    accepted and changes nothing."""
+
+    def __init__(self, momentum=0.0, lazy_update=True, **kwargs):
+        super().__init__(**kwargs)
+        self.momentum = momentum
+
+    def create_state(self, index, weight):
+        if self.momentum == 0.0:
+            return None
+        return torch.zeros_like(weight)
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        kw = dict(lr=self._get_lr(index), wd=self._get_wd(index),
+                  rescale_grad=self.rescale_grad,
+                  clip_gradient=self.clip_gradient)
+        if state is None:
+            _ops.sgd_update(weight, grad, **kw)
+        else:
+            _ops.sgd_mom_update(weight, grad, state, momentum=self.momentum,
+                                **kw)
+
+    aggregatable = True
+
+    def update_multi(self, indices, weights, grads, states):
+        """One multi-tensor update of the parameters at `indices`."""
+        for i in indices:
+            self._update_count(i)
+        lrs = [self._get_lr(i) for i in indices]
+        wds = [self._get_wd(i) for i in indices]
+        kw = dict(rescale_grad=self.rescale_grad,
+                  clip_gradient=self.clip_gradient)
+        if self.momentum == 0.0:
+            _ops.multi_sgd_update(weights, grads, lrs, wds, **kw)
+        else:
+            _ops.multi_sgd_mom_update(weights, grads, states, lrs, wds,
+                                      momentum=self.momentum, **kw)
 
 
 @register

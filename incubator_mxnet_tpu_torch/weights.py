@@ -4,7 +4,9 @@
 JAX block's `_collect_params_with_prefix()` as numpy, keyed by the
 same structural names the port's `collect_params()` uses, and copies
 them into the port's module.  Names must match one to one and shapes
-exactly; there is no fuzzy matching.
+exactly; there is no fuzzy matching.  BatchNorm's running statistics
+are parameters without gradient on both sides (`running_mean`,
+`running_var`), so they are carried like any other.
 """
 from __future__ import annotations
 

@@ -11,6 +11,7 @@ import pytest
 import torch
 
 import incubator_mxnet_tpu as jmx
+from incubator_mxnet_tpu import autograd as jag
 from incubator_mxnet_tpu.models import transformer as jtr
 from incubator_mxnet_tpu.ops import attention as jatt
 import incubator_mxnet_tpu_torch as tmx
@@ -149,13 +150,57 @@ def test_block_helpers():
 
 
 def test_dropout_trains_and_is_identity_in_eval():
+    # training mode is autograd's, as in the JAX package: the module's
+    # train()/eval() flag decides nothing
     layer = tmx.gluon.nn.Dropout(0.25)
     x = torch.ones((64, 256))
-    assert layer.eval()(x) is x
+    assert layer.train()(x) is x              # outside record(): identity
+    with tmx.autograd.predict_mode():
+        assert layer(x) is x
     tmx.random.seed(1)
-    a = layer.train()(x)
+    with tmx.autograd.record():
+        a = layer.eval()(x)
     tmx.random.seed(1)
-    assert torch.equal(layer(x), a)           # drawn from the generator
+    with tmx.autograd.train_mode():
+        assert torch.equal(layer(x), a)       # drawn from the generator
     kept = a != 0
     assert 0.7 < kept.float().mean().item() < 0.8
     assert torch.allclose(a[kept], torch.full_like(a[kept], 1 / 0.75))
+
+
+def test_training_mode_follows_autograd_record_as_in_jax():
+    # the fault: the port decided training from Module.training (True
+    # from construction), so user code outside record() ran dropout
+    # where the JAX package runs the identity
+    ones = np.ones((4, 8), np.float32)
+    jdrop, tdrop = jmx.gluon.nn.Dropout(0.5), tmx.gluon.nn.Dropout(0.5)
+    # a bert_small with live dropout, outside record() and without
+    # .eval(), against the JAX package's logits on the same weights
+    kw = dict(KW, dropout=0.1)
+    jmx.random.seed(4)          # the same weights whatever ran before
+    jnet = jtr.bert_small(**kw)
+    jnet.initialize()
+    tokens = np.random.RandomState(4).randint(0, 1000, (2, 32)) \
+        .astype(np.int32)
+    ref = jnet(jmx.nd.array(tokens, dtype="int32")).asnumpy()
+    params = {name: p.data().asnumpy()
+              for name, p in jnet._collect_params_with_prefix().items()}
+    net = tmx.models.bert_small(device="cpu", **kw)
+    tmx.weights.load_reference_params(net, params)
+    assert net.training
+    with torch.no_grad():
+        out = net(torch.from_numpy(tokens)).numpy()
+    diffs = dict(
+        jax_dropout=float(np.abs(jdrop(jmx.nd.array(ones)).asnumpy()
+                                 - ones).max()),
+        port_dropout=float((tdrop(torch.from_numpy(ones)) - 1).abs().max()),
+        logits=float(np.abs(out - ref).max()))
+    # outside record(): dropout is the identity in both packages, and the
+    # logits agree to f32 sums in another order through 2 layers
+    assert diffs["jax_dropout"] == diffs["port_dropout"] == 0.0, diffs
+    assert diffs["logits"] <= 1e-5, diffs
+    with jag.record():
+        assert not np.array_equal(jdrop(jmx.nd.array(ones)).asnumpy(), ones)
+    with tmx.autograd.record():
+        assert not torch.equal(tdrop(torch.from_numpy(ones)),
+                               torch.ones(4, 8))

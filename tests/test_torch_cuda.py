@@ -1,5 +1,5 @@
 """PyTorch port on the card: the CUDA kernels against their plain versions,
-and the serving and training paths through them.
+and the serving and training paths (BERT, ResNet) through them.
 
 Marked `cuda`; each test skips without a CUDA device.  This file imports
 neither JAX nor the JAX package, so on a machine with the card (and no
@@ -13,6 +13,7 @@ import torch
 
 import incubator_mxnet_tpu_torch as tmx
 from incubator_mxnet_tpu_torch.ops import attention as tatt
+from incubator_mxnet_tpu_torch.ops import conv_stats as tcs
 
 pytestmark = [pytest.mark.torch_port, pytest.mark.cuda]
 
@@ -21,10 +22,14 @@ pytestmark = [pytest.mark.torch_port, pytest.mark.cuda]
 def card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
-    prev = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False   # f32 stays f32
+    prev = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    # f32 stays f32, in cuBLAS and in cuDNN's convolutions
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     yield torch.device("cuda", 0)
-    torch.backends.cuda.matmul.allow_tf32 = prev
+    torch.backends.cuda.matmul.allow_tf32, \
+        torch.backends.cudnn.allow_tf32 = prev
 
 
 @pytest.mark.parametrize("BH,T,d,dtype,causal", [
@@ -188,4 +193,91 @@ def test_bert_training_step_through_kernels(card):
         err = (p.grad.cpu() - r.grad).abs().max().item()
         assert err <= 1e-3 * max(r.grad.abs().max().item(), 1e-3 * gmax)
     trainer.step(2)
+    assert all(bool(torch.isfinite(p).all()) for p in net.parameters())
+
+
+@pytest.mark.parametrize("N,C,HW,O", [
+    (3, 72, 49, 80), (5, 17, 33, 65), (2, 256, 196, 128), (1, 1, 1, 1),
+    (4, 64, 3136, 64)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv1x1_stats_kernel_matches_plain_version(card, N, C, HW, O,
+                                                    dtype):
+    gen = torch.Generator(device=card)
+    gen.manual_seed(2)
+    x = torch.randn(N, C, HW, device=card, generator=gen).to(dtype)
+    w = (torch.randn(O, C, device=card, generator=gen) * 0.05).to(dtype)
+    before = tcs.conv1x1_stats_launches
+    y, s1, s2 = tcs.fused_conv1x1_stats(x, w)
+    torch.cuda.synchronize()
+    assert tcs.conv1x1_stats_launches == before + 1
+    assert y.dtype == dtype and y.shape == (N, O, HW)
+    assert s1.shape == s2.shape == (1, O) and s1.dtype == torch.float32
+    ref_y, ref_s1, ref_s2 = tcs.fused_conv1x1_stats_plain(x, w)
+    ref = ref_y.float()
+    if dtype == torch.float32:
+        tol = 1e-4 * ref.abs().max()        # f32 sums over C in another order
+    else:
+        # both round the f32 accumulator to bf16: one ulp apart at most
+        tol = 2.0 ** -7 * ref.abs()
+    assert bool(((y.float() - ref).abs() <= tol).all())
+    # the sums of N·HW f32 terms in another order: Σy within 1e-5 of
+    # sqrt(N·HW·Σy²) (at least Σ|y|), Σy² within 1e-5 of itself
+    n = N * HW
+    assert bool(((s1 - ref_s1).abs() <= 1e-5 * (n * ref_s2).sqrt()).all())
+    assert bool(((s2 - ref_s2).abs() <= 1e-5 * ref_s2).all())
+
+
+def test_conv1x1_stats_kernel_raises_on_what_it_does_not_take(card):
+    x = torch.zeros(2, 8, 10, device=card)
+    w = torch.zeros(4, 8, device=card)
+    before = tcs.conv1x1_stats_launches
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        tcs.fused_conv1x1_stats(x.half(), w.half())
+    with pytest.raises(ValueError, match="contiguous"):
+        tcs.fused_conv1x1_stats(x.transpose(0, 1).contiguous()
+                                .transpose(0, 1), w)
+    with pytest.raises(ValueError, match="different devices"):
+        tcs.fused_conv1x1_stats(x, w.cpu())
+    assert tcs.conv1x1_stats_launches == before
+
+
+def test_resnet_training_step_through_kernel(card):
+    from incubator_mxnet_tpu_torch.gluon.model_zoo.vision import resnet
+    kw = dict(classes=10, thumbnail=True, stride_on_3x3=True)
+    args = (resnet.BottleneckV1, [1, 1, 1, 1], [8, 16, 32, 64, 128])
+    tmx.random.seed(0)
+    net = resnet.ResNetV1(*args, **kw)
+    cpu = resnet.ResNetV1(*args, device="cpu", **kw)
+    cpu.load_state_dict({k: v.cpu() for k, v in net.state_dict().items()})
+    rs = np.random.RandomState(0)
+    x = torch.from_numpy(rs.randn(4, 3, 16, 16).astype(np.float32))
+    y = torch.from_numpy(rs.randint(0, 10, 4).astype(np.float32))
+    loss_fn = tmx.gluon.loss.SoftmaxCrossEntropyLoss()
+    trainer = tmx.gluon.Trainer(net.collect_params(), "sgd",
+                                {"learning_rate": 0.1, "momentum": 0.9,
+                                 "wd": 1e-4})
+    before = tcs.conv1x1_stats_launches
+    with tmx.autograd.record():
+        loss = loss_fn(net(x.to(card)), y.to(card))
+    tmx.autograd.backward(loss)
+    torch.cuda.synchronize()
+    # conv1 and conv3 of 4 bottlenecks and one stride-1 downsample
+    assert tcs.conv1x1_stats_launches - before == 9
+    with tmx.autograd.record():
+        ref = loss_fn(cpu(x), y)
+    tmx.autograd.backward(ref)
+    assert (loss.cpu() - ref.detach()).abs().max().item() <= 1e-4
+    got, want = net.collect_params(), cpu.collect_params()
+    gmax = max(p.grad.abs().max().item() for p in want.values()
+               if p.requires_grad)
+    for name, r in want.items():
+        if r.requires_grad:
+            # 1e-3 of each gradient's scale, floored at 1e-3 of the largest
+            err = (got[name].grad.cpu() - r.grad).abs().max().item()
+            assert err <= 1e-3 * max(r.grad.abs().max().item(),
+                                     1e-3 * gmax), name
+        else:                               # running statistics
+            err = (got[name].detach().cpu() - r.detach()).abs().max()
+            assert err.item() <= 1e-4 * r.abs().max().item(), name
+    trainer.step(4)
     assert all(bool(torch.isfinite(p).all()) for p in net.parameters())

@@ -49,6 +49,12 @@ def test_import_loads_no_jax_and_needs_no_nvcc(tmp_path):
             "== 0; mx.autograd, mx.optimizer.Adam, mx.gluon.Trainer, "
             "mx.gluon.loss.SoftmaxCrossEntropyLoss, "
             "mx.models.FusedMLMCELoss; "
+            "import incubator_mxnet_tpu_torch.ops.conv_stats as c; "
+            "assert c.conv1x1_stats_launches == 0; "
+            "from incubator_mxnet_tpu_torch.gluon.model_zoo.vision import "
+            "resnet50_v1b; mx.optimizer.SGD, mx.gluon.nn.Conv2D, "
+            "mx.gluon.nn.BatchNorm, mx.gluon.nn.GlobalAvgPool2D, "
+            "mx.autograd.train_mode, mx.ops.nn.pooling; "
             "print('ok')")
     out = subprocess.run([sys.executable, "-c", code], cwd=str(tmp_path),
                          env=env, capture_output=True, text=True,
