@@ -7,7 +7,8 @@ Drives incubator_mxnet_tpu_torch only (never JAX or the JAX package):
 
 1. env     — card name, power limit and compute capability (must be 9.0).
 2. build   — compiles every CUDA kernel of the port from the checkout's
-             sources (one nvcc per source, all started together).
+             sources (one nvcc per source, all started together), with
+             ptxas's registers and spill stores per kernel instance.
 3. kernel  — each kernel against its plain PyTorch version on the card, at
              the serving shapes and at edge cases, timed with CUDA events
              beside the plain version and one PyTorch library call.
@@ -21,10 +22,13 @@ Drives incubator_mxnet_tpu_torch only (never JAX or the JAX package):
              window.  The kernel must launch 12 times per batch.
    profile — device time by kernel over full-bucket forwards
              (torch.profiler), and the device's busy share of that wall.
-5. kernel_bwd — the flash backward's dQ and dK/dV kernels against their
-             plain versions on the card, over the forward phase's cases,
-             timed beside the plain versions and the backward of
-             scaled_dot_product_attention.
+5. kernel_bwd — the flash backward's dQ and dK/dV kernels (tensor cores:
+             bf16 mma.sync, f32 as 3xTF32) against their plain versions on
+             the card, over the forward phase's cases, timed beside the
+             plain versions and the backward of scaled_dot_product_attention
+             alone (autograd.grad over a kept graph), read as the device
+             time of the kernels it launches, with their names; the pair's
+             own device time and its ratio to the library's beside it.
 6. train   — BERT-base MLM at full width (f32, dropout 0, output_hidden
              + FusedMLMCELoss, Adam lr 1e-4, batch 8 x 512 tokens from
              RandomState(0)): one batch-1 step's loss and every gradient
@@ -57,6 +61,7 @@ Every phase prints one JSON line; the first failure raises and exits
 nonzero with its traceback.  Without a CUDA device it exits 1 and prints
 nothing on standard output.
 """
+import contextlib
 import json
 import math
 import re
@@ -70,9 +75,16 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
-# H100 SXM data-sheet peaks (dense): exact f32 on CUDA cores, bf16 on tensor
-# cores, HBM3 bandwidth.  Used only for the least time a call could take.
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+# H100 SXM data-sheet peaks (dense) and HBM3 bandwidth, used only for the
+# least time a call could take.  An f32-accurate product has two routes on
+# the card: scalar FMAs on the CUDA cores (67 TFLOP/s) and the 3xTF32 split
+# on the tensor cores (three TF32 products at 495 TFLOP/s for each f32 one,
+# so 165 TFLOP/s).  The f32 bound takes the faster route; the f32 phase rows
+# carry the CUDA-core bound beside it as bound_cuda_core_ms (the kernels line
+# carries bound_ms only).  bf16 runs on the tensor
+# cores at 989 TFLOP/s.
+PEAK_FLOPS = {"float32": 495e12 / 3, "bfloat16": 989e12}
+PEAK_FLOPS_F32_CUDA_CORES = 67e12
 PEAK_BYTES_S = 3.35e12
 SERVE_BUCKETS = (1, 2, 4, 8)
 SEQ = 512
@@ -183,18 +195,35 @@ def _out_tolerance(torch, ref, dt):
     return 2.0 ** -6 * (ref.abs() + ref.pow(2).mean().sqrt())
 
 
-def _bound(BH, T, d, dtype, causal, products, tensors, rows):
-    """Least time (ms) for a flash kernel: `products` (T, T, d) matrix
-    products of 2·d flops per (query, key) pair this mask keeps;
-    `tensors` (BH, T, d) operands and `rows` (BH, T) f32 statistics each
-    read or written once."""
+def _roofline(flops, nbytes, dtype, prefix=""):
+    """{bound_ms, bound_by}: the least time (ms) of a call that does `flops`
+    at the dtype's faster route and moves `nbytes` at HBM bandwidth, and
+    which of the two bounds it; for f32 also bound_cuda_core_ms and
+    bound_cuda_core_by, the same with the products on the CUDA cores.
+    Keys take `prefix`."""
+    def one(peak):
+        t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES_S
+        return max(t_ops, t_bytes) * 1e3, \
+            "operations" if t_ops >= t_bytes else "bytes"
+    out = dict(zip((prefix + "bound_ms", prefix + "bound_by"),
+                   one(PEAK_FLOPS[dtype])))
+    if dtype == "float32":
+        out.update(zip((prefix + "bound_cuda_core_ms",
+                        prefix + "bound_cuda_core_by"),
+                       one(PEAK_FLOPS_F32_CUDA_CORES)))
+    return out
+
+
+def _bound(BH, T, d, dtype, causal, products, tensors, rows, prefix=""):
+    """Roofline of a flash kernel: `products` (T, T, d) matrix products of
+    2·d flops per (query, key) pair this mask keeps; `tensors` (BH, T, d)
+    operands and `rows` (BH, T) f32 statistics each read or written
+    once."""
     elem = 4 if dtype == "float32" else 2
     pairs = T * (T + 1) // 2 if causal else T * T
     flops = 2.0 * products * BH * d * pairs
     nbytes = tensors * BH * T * d * elem + rows * 4.0 * BH * T
-    t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES_S
-    return max(t_ops, t_bytes) * 1e3, \
-        "operations" if t_ops >= t_bytes else "bytes"
+    return _roofline(flops, nbytes, dtype, prefix)
 
 
 def _flash_bound(BH, T, d, dtype, causal):
@@ -205,13 +234,15 @@ def _flash_bound(BH, T, d, dtype, causal):
 def _dq_bound(BH, T, d, dtype, causal):
     """dQ: S, dP and dS·K; q, k, v, dO, O and lse read, dq and delta
     written."""
-    return _bound(BH, T, d, dtype, causal, products=3, tensors=6, rows=2)
+    return _bound(BH, T, d, dtype, causal, products=3, tensors=6, rows=2,
+                  prefix="dq_")
 
 
 def _dkv_bound(BH, T, d, dtype, causal):
     """dK/dV: S, dP, P^T·dO and dS^T·Q; q, k, v, dO, lse and delta read,
     dk and dv written."""
-    return _bound(BH, T, d, dtype, causal, products=4, tensors=6, rows=2)
+    return _bound(BH, T, d, dtype, causal, products=4, tensors=6, rows=2,
+                  prefix="dkv_")
 
 
 # kernel cases (BH, T, d, dtype, causal): the serving and training shape
@@ -254,13 +285,12 @@ def phase_kernel(torch, att):
         q4, k4, v4 = q[None], k[None], v[None]
         library_ms = _time_ms(torch, lambda: F.scaled_dot_product_attention(
             q4, k4, v4, is_causal=causal, scale=scale))
-        bound_ms, bound_by = _flash_bound(BH, T, d, dt, causal)
         row = dict(phase="kernel", name="flash_attention_fwd", BH=BH, T=T,
                    d=d, dtype=dt, causal=causal, err_out=err_out,
                    err_out_over_bound=err_ratio, err_lse=err_lse,
                    tol_lse=TOL, ok=ok, ms=ms,
                    plain_ms=plain_ms, library_ms=library_ms,
-                   bound_ms=bound_ms, bound_by=bound_by)
+                   **_flash_bound(BH, T, d, dt, causal))
         _emit(row)
         _check(ok, "flash_attention_fwd disagrees with its plain version: "
                    "%r" % (row,))
@@ -269,11 +299,10 @@ def phase_kernel(torch, att):
     return main
 
 
-def _profile(torch, fn, reps, top=8, **row):
-    """Device time per kernel name over `reps` back-to-back calls of `fn`
-    (after one unprofiled call), from torch.profiler; `busy_share` is that
-    time over the host wall of the profiled window (profiler overhead
-    included).  Emits `row` with the breakdown."""
+def _device_kernels(torch, fn, reps):
+    """[(device us, kernel name, calls)] of the CUDA kernels that `reps`
+    back-to-back calls of `fn` (after one unprofiled call) launch, largest
+    first, from torch.profiler, and the host wall of that window (us)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -292,6 +321,24 @@ def _profile(torch, fn, reps, top=8, **row):
             if ev.device_type == DeviceType.CUDA
             and ev.self_device_time_total > 0]
     rows.sort(reverse=True)
+    return rows, wall_us
+
+
+def _device_ms(torch, fn, reps=20):
+    """Device time (ms) per call of `fn`: its kernels' summed self time
+    over `reps` calls, divided by `reps`; and those kernels by name with
+    their time (us) and launches per call."""
+    rows, _ = _device_kernels(torch, fn, reps)
+    return sum(r[0] for r in rows) / reps / 1e3, \
+        [dict(kernel=k[:120], us=us / reps, calls=n / reps)
+         for us, k, n in rows]
+
+
+def _profile(torch, fn, reps, top=8, **row):
+    """Device time per kernel name over `reps` calls of `fn`; `busy_share`
+    is that time over the host wall of the profiled window (profiler
+    overhead included).  Emits `row` with the breakdown."""
+    rows, wall_us = _device_kernels(torch, fn, reps)
     device_us = sum(r[0] for r in rows)
     _emit(dict(row, wall_us=wall_us, device_us=device_us,
                busy_share=device_us / wall_us,
@@ -362,31 +409,38 @@ def phase_kernel_bwd(torch, att):
         dkv_plain_ms = _time_ms(
             torch, lambda: att.flash_attention_bwd_dkv_plain(
                 q, k, v, do, lse, delta, scale, causal))
-        # the library's backward: scaled_dot_product_attention on 4-D
-        # (1, BH, T, d) views, forward + backward minus forward; it gives
-        # dq, dk and dv together, so both kernel rows carry the same value
+        # device time of the pair, as the library's is read below
+        pair_device_ms, _ = _device_ms(torch, lambda: att.flash_attention_bwd(
+            q, k, v, out, lse, do, scale, causal))
+        # the library's backward alone: scaled_dot_product_attention's
+        # forward once on 4-D (1, BH, T, d) views with its graph kept, then
+        # autograd.grad over it again and again, timed by CUDA events and
+        # by the device time of the kernels it launches.  It gives dq, dk
+        # and dv together, so both kernel rows carry the same value.
         q4, k4, v4 = (t[None].detach().requires_grad_() for t in (q, k, v))
+        out4 = F.scaled_dot_product_attention(q4, k4, v4, is_causal=causal,
+                                              scale=scale)
         do4 = do[None]
 
-        def sdpa():
-            return F.scaled_dot_product_attention(q4, k4, v4,
-                                                  is_causal=causal,
-                                                  scale=scale)
+        def sdpa_bwd():
+            return torch.autograd.grad(out4, (q4, k4, v4), do4,
+                                       retain_graph=True)
 
-        fwd_ms = _time_ms(torch, sdpa)
-        fwd_bwd_ms = _time_ms(torch, lambda: torch.autograd.grad(
-            sdpa(), (q4, k4, v4), do4))
-        library_ms = fwd_bwd_ms - fwd_ms
-        dq_bound, dq_by = _dq_bound(BH, T, d, dt, causal)
-        dkv_bound, dkv_by = _dkv_bound(BH, T, d, dt, causal)
+        library_events_ms = _time_ms(torch, sdpa_bwd)
+        library_ms, library_kernels = _device_ms(torch, sdpa_bwd)
+        del out4
         row = dict(phase="kernel_bwd", BH=BH, T=T, d=d, dtype=dt,
                    causal=causal, err=errs, err_over_bound=ratios,
                    err_delta=err_delta, tol_delta=tol_delta, ok=ok,
                    dq_ms=dq_ms, dkv_ms=dkv_ms, dq_plain_ms=dq_plain_ms,
-                   dkv_plain_ms=dkv_plain_ms, library_ms=library_ms,
-                   library="sdpa fwd+bwd minus fwd, 4-D views",
-                   dq_bound_ms=dq_bound, dq_bound_by=dq_by,
-                   dkv_bound_ms=dkv_bound, dkv_bound_by=dkv_by)
+                   dkv_plain_ms=dkv_plain_ms, pair_device_ms=pair_device_ms,
+                   library_ms=library_ms, library_events_ms=library_events_ms,
+                   library="sdpa backward alone (autograd.grad over a kept "
+                           "graph, 4-D views), device time",
+                   library_kernels=library_kernels[:4],
+                   pair_device_over_library=pair_device_ms / library_ms,
+                   **_dq_bound(BH, T, d, dt, causal),
+                   **_dkv_bound(BH, T, d, dt, causal))
         _emit(row)
         _check(ok, "flash backward disagrees with its plain version: %r"
                % (row,))
@@ -401,6 +455,27 @@ def _train_step(mx, net, head, trainer, x, y):
     mx.autograd.backward(loss)
     trainer.step(x.shape[0])
     return loss.detach()
+
+
+def _tf32(torch, x, nearest=True):
+    """x cut to TF32 (10 mantissa bits): to nearest, or truncated as the
+    tensor cores read an f32 operand."""
+    bits = x.contiguous().view(torch.int32)
+    return (((bits + 0x1000) if nearest else bits) & ~0x1fff) \
+        .view(torch.float32)
+
+
+@contextlib.contextmanager
+def _plain_backward(att, matmul):
+    """The attention backward taken by its plain version on the card, its
+    products through `matmul`; the kernels again on exit."""
+    bwd, mm = att.flash_attention_bwd, att._matmul
+    att.flash_attention_bwd, att._matmul = att.flash_attention_bwd_plain, \
+        matmul
+    try:
+        yield
+    finally:
+        att.flash_attention_bwd, att._matmul = bwd, mm
 
 
 def _launch_counts(att):
@@ -436,19 +511,38 @@ def phase_train(torch, mx, att):
     cpu_params.update({"loss." + n: p
                        for n, p in cpu_head.collect_params().items()})
     x1, y1 = torch.from_numpy(tokens[:1]), torch.from_numpy(labels[:1])
-    loss1 = _train_step(mx, net, head, trainer, x1.cuda(), y1.cuda())
     with mx.autograd.record():
         ref_loss = cpu_head(cpu_net(x1), y1)
     mx.autograd.backward(ref_loss)
-    loss_err = (loss1.cpu() - ref_loss.detach()).abs().max().item()
     gmax = max(p.grad.abs().max().item() for p in cpu_params.values())
-    worst, worst_name = 0.0, None
-    for name, p in params.items():
-        ref = cpu_params[name].grad
-        err = (p.grad.cpu() - ref).abs().max().item()
-        ratio = err / max(ref.abs().max().item(), 1e-3 * gmax)
-        if ratio >= worst:
-            worst, worst_name = ratio, name
+
+    def worst_grad():
+        worst, worst_name = 0.0, None
+        for name, p in params.items():
+            ref = cpu_params[name].grad
+            err = (p.grad.cpu() - ref).abs().max().item()
+            ratio = err / max(ref.abs().max().item(), 1e-3 * gmax)
+            if ratio >= worst:
+                worst, worst_name = ratio, name
+        return worst, worst_name
+
+    # the same gradients with the attention backward's plain version in
+    # place of the kernels, its products in f32 and in one TF32 product
+    # each: the kernels' share of the distance to the CPU copy, and what
+    # TRAIN_TOL makes of 1xTF32 products.  Read only, held to nothing.
+    plain_bwd = {}
+    for label, matmul in (("f32", torch.matmul),
+                          ("1xtf32", lambda a, b: torch.matmul(
+                              _tf32(torch, a), _tf32(torch, b)))):
+        with _plain_backward(att, matmul):
+            with mx.autograd.record():
+                loss = head(net(x1.cuda()), y1.cuda())
+            mx.autograd.backward(loss)
+        plain_bwd[label] = dict(zip(("worst_grad_err_over_scale",
+                                     "worst_grad"), worst_grad()))
+    loss1 = _train_step(mx, net, head, trainer, x1.cuda(), y1.cuda())
+    loss_err = (loss1.cpu() - ref_loss.detach()).abs().max().item()
+    worst, worst_name = worst_grad()
     del cpu_net, cpu_head, cpu_params, ref_loss
 
     x = torch.from_numpy(tokens).cuda()
@@ -481,7 +575,7 @@ def phase_train(torch, mx, att):
                            loss_mean=loss1.mean().item(),
                            worst_grad_err_over_scale=worst,
                            worst_grad=worst_name, tol=TRAIN_TOL,
-                           tensors=len(params)),
+                           tensors=len(params), plain_backward=plain_bwd),
                warmup_steps=TRAIN_WARMUP, steps=TRAIN_STEPS,
                step_ms=step_ms, step_ms_median=statistics.median(step_ms),
                wall_s=wall,
@@ -525,15 +619,12 @@ CONV_CASES = ([(RESNET_BATCH, C, HW, O, "bfloat16")
 
 
 def _conv_bound(N, C, HW, O, dtype):
-    """Least time (ms) of the fused call: the 2·N·HW·C·O product
-    operations at the dtype's peak; x and w read, y written, and the two
-    (O,) f32 sums written once."""
+    """Roofline of the fused call: the 2·N·HW·C·O product operations; x
+    and w read, y written, and the two (O,) f32 sums written once."""
     elem = 4 if dtype == "float32" else 2
     flops = 2.0 * N * HW * C * O
     nbytes = (N * C * HW + O * C + N * O * HW) * elem + 2 * 4.0 * O
-    t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES_S
-    return max(t_ops, t_bytes) * 1e3, \
-        "operations" if t_ops >= t_bytes else "bytes"
+    return _roofline(flops, nbytes, dtype)
 
 
 def phase_kernel_conv(torch, cs):
@@ -579,15 +670,14 @@ def phase_kernel_conv(torch, cs):
             return y4.sum(dim=(0, 2, 3)), y4.square().sum(dim=(0, 2, 3))
 
         library_ms = _time_ms(torch, library)
-        bound_ms, bound_by = _conv_bound(N, C, HW, O, dt)
+        bound = _conv_bound(N, C, HW, O, dt)
         row = dict(phase="kernel_conv", name="conv1x1_stats", N=N, C=C,
                    HW=HW, O=O, dtype=dt, err_y=err_y,
                    err_y_over_tol=err_y_over_tol, rel_err_s1=rel_s1,
                    rel_err_s2=rel_s2, tol_sums=CONV_SUM_TOL, ok=ok, ms=ms,
                    plain_ms=plain_ms, library_ms=library_ms,
-                   library="F.conv2d 1x1 + two f32 sums",
-                   bound_ms=bound_ms, bound_by=bound_by,
-                   bound_share=bound_ms / ms)
+                   library="F.conv2d 1x1 + two f32 sums", **bound,
+                   bound_share=bound["bound_ms"] / ms)
         _emit(row)
         _check(ok, "conv1x1_stats disagrees with its plain version: %r"
                % (row,))
@@ -597,7 +687,7 @@ def phase_kernel_conv(torch, cs):
             for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
                 step[key] += k * row[key]
             step["max_abs_err"] = max(step["max_abs_err"], err_y)
-            bound_by_ms[bound_by] += k * bound_ms
+            bound_by_ms[row["bound_by"]] += k * row["bound_ms"]
             step["launches"] += k
     _check(step["launches"] == RESNET_SITES, "the step's conv shapes cover "
            "%d launch sites, not %d" % (step["launches"], RESNET_SITES))
@@ -919,11 +1009,12 @@ def phase_serve(torch, mx, att):
     return launches
 
 
-def _registers(reports):
-    """{"kernel<dtype, d>": registers per thread} from ptxas's report: each
-    "Compiling entry function" line names a template instance by its
-    mangled name, and the next "Used N registers" line is its count."""
-    regs, name = {}, None
+def _ptxas(reports):
+    """{"kernel<dtype, d>": {registers, spill_store_bytes}} from ptxas's
+    report: each "Compiling entry function" line names a template instance
+    by its mangled name, the spill line and the "Used N registers" line
+    that follow are its own."""
+    out, name = {}, None
     for log in reports.values():
         for line in log.splitlines():
             m = re.search(r"(flash_[a-z_]+_kernel|conv1x1_stats_kernel|"
@@ -935,10 +1026,14 @@ def _registers(reports):
                     args[0] = "f32" if args[0] == "f" else "bf16"
                 name = m.group(1) + ("<%s>" % ", ".join(args) if args
                                      else "")
+                out[name] = {}
+            m = re.search(r"(\d+) bytes spill stores", line)
+            if m and name:
+                out[name]["spill_store_bytes"] = int(m.group(1))
             m = re.search(r"Used (\d+) registers", line)
             if m and name:
-                regs[name], name = int(m.group(1)), None
-    return regs
+                out[name]["registers"], name = int(m.group(1)), None
+    return out
 
 
 def main():
@@ -968,11 +1063,12 @@ def main():
 
     t0 = time.monotonic()
     reports = _kernels.build_all()
-    spills = sum(int(n) for log in reports.values()
-                 for n in re.findall(r"(\d+) bytes spill stores", log))
+    ptxas = _ptxas(reports)
     _emit(dict(phase="build", seconds=time.monotonic() - t0,
                kernels=sorted(_kernels.SOURCES), built=sorted(reports),
-               spill_store_bytes=spills, registers=_registers(reports)))
+               spill_store_bytes=sum(k.get("spill_store_bytes", 0)
+                                     for k in ptxas.values()),
+               ptxas=ptxas))
 
     main_row = phase_kernel(torch, att)
     launches = phase_serve(torch, mx, att)
@@ -1003,7 +1099,10 @@ def main():
              plain_ms=bwd_row["dq_plain_ms"],
              bound_ms=bwd_row["dq_bound_ms"],
              bound_by=bwd_row["dq_bound_by"],
-             library_ms=bwd_row["library_ms"], **shape),
+             library_ms=bwd_row["library_ms"],
+             library_events_ms=bwd_row["library_events_ms"],
+             library_kernel=bwd_row["library_kernels"][0]["kernel"],
+             **shape),
         dict(name="flash_attention_bwd_dkv", route="cuda", source=bwd_src,
              replaces="incubator_mxnet_tpu/ops/attention.py:278",
              launches=train_launches["dkv"], parity="ok",
@@ -1012,7 +1111,10 @@ def main():
              plain_ms=bwd_row["dkv_plain_ms"],
              bound_ms=bwd_row["dkv_bound_ms"],
              bound_by=bwd_row["dkv_bound_by"],
-             library_ms=bwd_row["library_ms"], **shape),
+             library_ms=bwd_row["library_ms"],
+             library_events_ms=bwd_row["library_events_ms"],
+             library_kernel=bwd_row["library_kernels"][0]["kernel"],
+             **shape),
         dict(name="conv1x1_stats", route="cuda",
              source="incubator_mxnet_tpu_torch/ops/csrc/conv1x1_stats.cu",
              replaces="tools/conv_stats_pallas_experiment.py:9",

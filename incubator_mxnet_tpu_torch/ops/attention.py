@@ -50,6 +50,10 @@ _NEG_INF = -1e30
 KERNEL_HEAD_DIMS = (16, 32, 64, 128)
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
+#: the product of the plain versions; a test swaps in an emulation of the
+#: f32 kernels' 3xTF32 split to hold its accuracy
+_matmul = torch.matmul
+
 #: launches of the CUDA flash-attention kernels in this process
 flash_fwd_launches = 0
 flash_bwd_dq_launches = 0
@@ -74,7 +78,7 @@ def naive_attention(q, k, v, scale, causal=False, bias=None):
 def _scores(q, k, scale, causal):
     """f32 S = q k^T * scale, -1e30 above the diagonal when causal."""
     f32 = torch.float32
-    s = torch.matmul(q.to(f32), k.to(f32).transpose(-1, -2)) * scale
+    s = _matmul(q.to(f32), k.to(f32).transpose(-1, -2)) * scale
     if causal:
         T = s.shape[-1]
         mask = torch.ones((T, T), dtype=torch.bool, device=s.device).tril()
@@ -93,7 +97,7 @@ def flash_attention_fwd_plain(q, k, v, scale, causal=False):
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True)
-    acc = torch.matmul(p.to(q.dtype).to(f32), v.to(f32))
+    acc = _matmul(p.to(q.dtype).to(f32), v.to(f32))
     out = (acc / l).to(q.dtype)
     return out, (m + torch.log(l)).squeeze(-1)
 
@@ -108,9 +112,9 @@ def flash_attention_bwd_dq_plain(q, k, v, out, lse, dout, scale,
     do = dout.to(f32)
     delta = (do * out.to(f32)).sum(-1)
     p = torch.exp(_scores(q, k, scale, causal) - lse.unsqueeze(-1))
-    dp = torch.matmul(do, v.to(f32).transpose(-1, -2))
+    dp = _matmul(do, v.to(f32).transpose(-1, -2))
     ds = p * (dp - delta.unsqueeze(-1)) * scale
-    dq = torch.matmul(ds.to(k.dtype).to(f32), k.to(f32))
+    dq = _matmul(ds.to(k.dtype).to(f32), k.to(f32))
     return dq.to(q.dtype), delta
 
 
@@ -123,10 +127,10 @@ def flash_attention_bwd_dkv_plain(q, k, v, dout, lse, delta, scale,
     f32 = torch.float32
     do = dout.to(f32)
     p = torch.exp(_scores(q, k, scale, causal) - lse.unsqueeze(-1))
-    dv = torch.matmul(p.to(dout.dtype).to(f32).transpose(-1, -2), do)
-    dp = torch.matmul(do, v.to(f32).transpose(-1, -2))
+    dv = _matmul(p.to(dout.dtype).to(f32).transpose(-1, -2), do)
+    dp = _matmul(do, v.to(f32).transpose(-1, -2))
     ds = p * (dp - delta.unsqueeze(-1)) * scale
-    dk = torch.matmul(ds.to(q.dtype).to(f32).transpose(-1, -2), q.to(f32))
+    dk = _matmul(ds.to(q.dtype).to(f32).transpose(-1, -2), q.to(f32))
     return dk.to(k.dtype), dv.to(v.dtype)
 
 
@@ -165,6 +169,14 @@ def _check_kernel_operands(q, k, v, *more, name="flash_attention_fwd"):
     if q.numel() >= 2 ** 31 or q.shape[1] > 65535 * 64:
         raise ValueError("%s kernel takes < 2**31 elements per operand and "
                          "T <= %d" % (name, 65535 * 64))
+
+
+def _check_aligned(*ops, name):
+    """The backward kernels copy (BH, T, d) rows in 16-byte pieces
+    (cp.async), so each operand must start on a 16-byte boundary."""
+    if any(t.data_ptr() % 16 for t in ops):
+        raise ValueError("%s kernel needs (BH, T, d) operands that start on "
+                         "16-byte boundaries" % name)
 
 
 def _check_row_stats(q, *rows, name):
@@ -213,6 +225,7 @@ def _flash_bwd_dq_cuda(q, k, v, out, lse, dout, scale, causal):
     global flash_bwd_dq_launches
     name = "flash_attention_bwd_dq"
     _check_kernel_operands(q, k, v, out, dout, name=name)
+    _check_aligned(q, k, v, out, dout, name=name)
     _check_row_stats(q, lse, name=name)
     BH, T, d = q.shape
     dq = torch.empty_like(q)
@@ -235,6 +248,7 @@ def _flash_bwd_dkv_cuda(q, k, v, dout, lse, delta, scale, causal):
     global flash_bwd_dkv_launches
     name = "flash_attention_bwd_dkv"
     _check_kernel_operands(q, k, v, dout, name=name)
+    _check_aligned(q, k, v, dout, name=name)
     _check_row_stats(q, lse, delta, name=name)
     BH, T, d = q.shape
     dk = torch.empty_like(k)

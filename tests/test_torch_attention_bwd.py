@@ -48,11 +48,15 @@ def _pallas_bwd(q, k, v, do, scale, causal):
     return out, lse128[..., 0], grads
 
 
-@pytest.mark.parametrize("causal", [False, True])
-def test_bwd_plain_matches_pallas_kernels(pallas_interpret, causal):
+# every head dim the CUDA kernels take; d = 32 keeps its first ids
+@pytest.mark.parametrize("d,causal", [
+    pytest.param(d, causal, id=str(causal) if d == 32 else
+                 "d%d-%s" % (d, causal))
+    for d in tatt.KERNEL_HEAD_DIMS for causal in (False, True)])
+def test_bwd_plain_matches_pallas_kernels(pallas_interpret, d, causal):
     # T = 256 with 128-blocks: a 2 x 2 grid of (q, k) blocks per head, so
     # the Pallas kernels carry their accumulators across blocks
-    BH, T, d = 2, 256, 32
+    BH, T = 2, 256
     assert jatt._bwd_block_sizes(T) == (128, 128)
     q, k, v, do = _arrays(BH, T, d)
     scale = 1.0 / np.sqrt(d)
@@ -63,6 +67,57 @@ def test_bwd_plain_matches_pallas_kernels(pallas_interpret, causal):
         assert g.dtype == torch.float32 and g.shape == (BH, T, d)
         np.testing.assert_allclose(g.numpy(), np.asarray(r), rtol=TOL,
                                    atol=TOL)
+
+
+BWD_TOL = 1e-4      # chip_smoke.BWD_TOL: f32 kernels against the plain version
+
+
+def _tf32(x, nearest=True):
+    """x cut to TF32 (10 mantissa bits): to nearest with ties away from
+    zero, as the kernels round `big`, or truncated, as the tensor cores
+    read `small`."""
+    bits = x.contiguous().view(torch.int32)
+    return (((bits + 0x1000) if nearest else bits) & ~0x1fff) \
+        .view(torch.float32)
+
+
+def _matmul_3xtf32(a, b):
+    """a·b as the f32 kernels compute it on the tensor cores: each operand
+    split into big = tf32(x) and small = x - big (read as truncated TF32),
+    then big·big + big·small + small·big with f32 accumulation."""
+    ab, bb = _tf32(a), _tf32(b)
+    as_, bs = _tf32(a - ab, nearest=False), _tf32(b - bb, nearest=False)
+    return (torch.matmul(as_, bb) + torch.matmul(ab, bs)
+            + torch.matmul(ab, bb))
+
+
+def _matmul_1xtf32(a, b):
+    return torch.matmul(_tf32(a), _tf32(b))
+
+
+@pytest.mark.parametrize("d", tatt.KERNEL_HEAD_DIMS)
+@pytest.mark.parametrize("causal", [False, True])
+def test_bwd_3xtf32_products_stay_within_f32_tolerance(monkeypatch, d,
+                                                       causal):
+    # the accuracy argument of the f32 kernels: the plain backward with
+    # every product in 3xTF32 stays within BWD_TOL of its largest gradient
+    # of the f32 plain backward (about 1e-6 here), where one TF32 product
+    # per product (which the parity contract forbids) does not (4e-4 and
+    # more), so the tolerance tells the two apart
+    q, k, v, do = _torch(*_arrays(2, 96, d, seed=11))
+    scale = 1.0 / np.sqrt(d)
+    out, lse = tatt.flash_attention_fwd_plain(q, k, v, scale, causal)
+    ref = tatt.flash_attention_bwd_plain(q, k, v, out, lse, do, scale, causal)
+
+    def err(matmul):
+        monkeypatch.setattr(tatt, "_matmul", matmul)
+        got = tatt.flash_attention_bwd_plain(q, k, v, out, lse, do, scale,
+                                             causal)
+        return max(((g - r).abs().max() / r.abs().max()).item()
+                   for g, r in zip(got, ref))
+
+    assert err(_matmul_3xtf32) <= BWD_TOL
+    assert err(_matmul_1xtf32) > BWD_TOL
 
 
 def test_bwd_plain_bf16_matches_pallas_kernels(pallas_interpret):
@@ -167,7 +222,8 @@ def test_inference_mode_saves_nothing():
 
 
 @pytest.mark.parametrize("case", ["dtype", "head_dim", "out_shape", "layout",
-                                  "lse_dtype", "lse_shape", "device"])
+                                  "lse_dtype", "lse_shape", "device",
+                                  "alignment"])
 def test_bwd_operand_checks_raise(case):
     q = torch.zeros((2, 16, 64))
     k = v = out = do = q
@@ -188,6 +244,12 @@ def test_bwd_operand_checks_raise(case):
         if case == "device":
             m = torch.empty((2, 16, 64), device="meta")
             tatt.flash_attention_bwd(m, m, m, m, lse, m, 0.1)
+        if case == "alignment":
+            # 4 bytes past a 16-byte boundary: the cp.async loads refuse it
+            flat = torch.zeros(2 * 16 * 64 + 4)
+            first = (-flat.data_ptr() // 4) % 4 + 1
+            tatt._check_aligned(q, flat[first:first + 2 * 16 * 64]
+                                .view(2, 16, 64), name="bwd")
         tatt._check_kernel_operands(q, k, v, out, do, name="bwd")
         tatt._check_row_stats(q, lse, delta, name="bwd")
 

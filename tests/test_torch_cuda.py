@@ -102,6 +102,19 @@ def test_engine_serves_through_kernel(card):
         assert (o.cpu() - r).abs().max().item() <= 1e-4
 
 
+def _bwd_inputs(card, BH, T, d, dtype, causal, seed=1):
+    """q, k, v, dO (randn/2 from `seed`) and the forward kernel's out and
+    lse."""
+    gen = torch.Generator(device=card)
+    gen.manual_seed(seed)
+    q, k, v, do = (torch.randn(BH, T, d, device=card, generator=gen)
+                   .mul_(0.5).to(dtype) for _ in range(4))
+    out, lse = tatt.flash_attention_fwd(q, k, v, d ** -0.5, causal)
+    return q, k, v, do, out, lse
+
+
+# every head dim x both dtypes x causal or not, at a ragged T (77, not a
+# multiple of 16) and at two whole tiles of 128 query rows
 @pytest.mark.parametrize("BH,T,d,dtype,causal", [
     (8, 512, 64, torch.float32, False),
     (8, 512, 64, torch.float32, True),
@@ -110,15 +123,14 @@ def test_engine_serves_through_kernel(card):
     (8, 200, 64, torch.bfloat16, True),
     (8, 256, 32, torch.bfloat16, False),
     (4, 130, 128, torch.bfloat16, False),
-])
+] + [(3, T, d, dtype, causal) for T in (77, 256)
+     for d in tatt.KERNEL_HEAD_DIMS
+     for dtype in (torch.float32, torch.bfloat16)
+     for causal in (False, True)])
 def test_flash_bwd_kernels_match_plain_version(card, BH, T, d, dtype,
                                                causal):
-    gen = torch.Generator(device=card)
-    gen.manual_seed(1)
-    q, k, v, do = (torch.randn(BH, T, d, device=card, generator=gen)
-                   .mul_(0.5).to(dtype) for _ in range(4))
+    q, k, v, do, out, lse = _bwd_inputs(card, BH, T, d, dtype, causal)
     scale = d ** -0.5
-    out, lse = tatt.flash_attention_fwd(q, k, v, scale, causal)
     before = (tatt.flash_bwd_dq_launches, tatt.flash_bwd_dkv_launches)
     dq, dk, dv = tatt.flash_attention_bwd(q, k, v, out, lse, do, scale,
                                           causal)
@@ -140,6 +152,22 @@ def test_flash_bwd_kernels_match_plain_version(card, BH, T, d, dtype,
         assert bool(((got.float() - r).abs() <= tol).all())
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_bwd_kernels_are_deterministic(card, dtype):
+    # one owner per output element, no atomics: two launches on the same
+    # inputs give the same bits in dq, dk, dv and D
+    q, k, v, do, out, lse = _bwd_inputs(card, 16, 333, 64, dtype, True)
+    first = tatt.flash_attention_bwd_dq(q, k, v, out, lse, do, 0.125, True)
+    first += tatt.flash_attention_bwd_dkv(q, k, v, do, lse, first[1], 0.125,
+                                          True)
+    second = tatt.flash_attention_bwd_dq(q, k, v, out, lse, do, 0.125, True)
+    second += tatt.flash_attention_bwd_dkv(q, k, v, do, lse, second[1],
+                                           0.125, True)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
 def test_flash_bwd_kernels_raise_on_what_they_do_not_take(card):
     q = torch.zeros((2, 16, 64), device=card)
     lse = torch.zeros((2, 16), device=card)
@@ -150,6 +178,10 @@ def test_flash_bwd_kernels_raise_on_what_they_do_not_take(card):
         tatt.flash_attention_bwd(q, q, q, q, lse,
                                  q.transpose(0, 1).contiguous()
                                  .transpose(0, 1), 0.1)
+    with pytest.raises(ValueError, match="16-byte"):
+        flat = torch.zeros(2 * 16 * 64 + 1, device=card)
+        tatt.flash_attention_bwd(q, q, q, q, lse,
+                                 flat[1:].view(2, 16, 64), 0.1)
     assert (tatt.flash_bwd_dq_launches,
             tatt.flash_bwd_dkv_launches) == before
 

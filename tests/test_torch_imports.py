@@ -1,8 +1,8 @@
 """PyTorch port: import guards.
 
-The port and chip_smoke.py run on a machine without JAX, so they may
-import neither JAX nor anything of the JAX package, and importing them
-may need no CUDA compiler.
+The port, chip_smoke.py and bwd_precision_study.py run on a machine
+without JAX, so they may import neither JAX nor anything of the JAX
+package, and importing them may need no CUDA compiler.
 """
 import ast
 import os
@@ -29,7 +29,8 @@ def _imported_modules(path):
 
 
 def test_no_jax_or_jax_package_imports_in_source():
-    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                          ROOT / "bwd_precision_study.py"]
     assert len(files) > 10
     bad = [(str(f.relative_to(ROOT)), mod) for f in files
            for mod in _imported_modules(f)
