@@ -12,7 +12,8 @@ It prints one JSON object per line:
   `two_accumulators` (ops/csrc/flash_attention_bwd.cu as it is: the small
   terms of the 3xTF32 split in an accumulator of their own) and
   `one_accumulator` (the same source with all three products of a k step
-  in one accumulator, built from it by a text replacement).  `err` is the
+  in one accumulator, built from it by a text replacement in a copy of
+  csrc/, `kernel_variant`).  `err` is the
   largest error over chip_smoke.BWD_TOL of the largest gradient;
   `dk_colsum` is max |sum over key rows of dK| over max |dK|, which is 0
   in exact arithmetic (the rows of dS sum to 0), `dk_colsum_plain` the
@@ -28,9 +29,9 @@ Nothing here is held to a bound: it reads.  Exits 1 without a card.
 """
 import ctypes
 import json
+import shutil
 import subprocess
 import sys
-from pathlib import Path
 
 import numpy as np
 
@@ -73,6 +74,24 @@ ONE = ("      mma_tf32(acc[j], as, bb0, bb1);\n"
 
 def _emit(obj):
     print(json.dumps(obj), flush=True)
+
+
+def kernel_variant(_kernels, build, name, variant, path, old, new):
+    """Register kernel library `variant`: library `name` built from a copy
+    of csrc/ under `build` in which the text `old` of csrc file `path`
+    (the source or one of its headers) is replaced by `new`.  The copy
+    keeps the local includes resolving, and the variant's library name
+    hashes its own text."""
+    root = build / variant
+    if root.exists():
+        shutil.rmtree(root)
+    shutil.copytree(_kernels._CSRC, root)
+    text = (root / path).read_text()
+    cs._check(text.count(old) == 1, "%s no longer holds, once, the text "
+              "the %s variant replaces" % (path, variant))
+    (root / path).write_text(text.replace(old, new))
+    _kernels.SOURCES[variant] = (str(root / _kernels.SOURCES[name][0]),
+                                 _kernels.SOURCES[name][1])
 
 
 def _tf32_np(x):
@@ -221,12 +240,9 @@ def main():
     probe(torch, _kernels, build)
 
     name = "flash_attention_bwd"
-    src = (_kernels._CSRC / _kernels.SOURCES[name][0]).read_text()
-    cs._check(src.count(TWO) == 1, "flash_attention_bwd.cu no longer holds "
-              "the S/dP small-term accumulator this study replaces")
-    one = build / "flash_attention_bwd_one_accumulator.cu"
-    one.write_text(src.replace(TWO, ONE))
-    _kernels.SOURCES["one_accumulator"] = (str(one), _kernels.SOURCES[name][1])
+    # the S/dP products' small-term accumulator (product_nt, f32)
+    kernel_variant(_kernels, build, name, "one_accumulator",
+                   "flash_tiles.cuh", TWO, ONE)
     _kernels.build_all([name, "one_accumulator"])
     libs = {"two_accumulators": _kernels.library(name),
             "one_accumulator": _kernels.library("one_accumulator")}

@@ -37,11 +37,15 @@ Drives incubator_mxnet_tpu_torch only (never JAX or the JAX package):
              loss finite); each step launches each of the three kernels
              12 times.
    train_profile — device time by kernel over one training step.
-7. kernel_conv — the fused 1x1-conv + BatchNorm-statistics kernel against
-             its plain version at the 12 shapes of a ResNet-50 step (bf16,
-             batch 128), the tool's 5 shapes in f32 and ragged shapes,
-             timed beside the plain version and the library route
-             (cuDNN's 1x1 convolution, then the two f32 sums).
+7. kernel_conv — the fused 1x1-conv + BatchNorm-statistics kernel at the
+             12 shapes of a ResNet-50 step (bf16, batch 128), the tool's 5
+             shapes in f32 and ragged shapes, each with the kernel
+             instance it takes (every step shape must take the tensor
+             cores): its sums and f32 y against the plain version, and a
+             bf16 y, the kernel's and the plain version's, against the
+             exact product; timed beside the plain version, the library
+             route (cuDNN's 1x1 convolution, then the two f32 sums) and
+             cuDNN's 1x1 convolution alone.
 8. train_resnet — resnet50_v1b (1000 classes, random weights from seed 0)
              + SoftmaxCrossEntropyLoss + SGD (lr 0.1, momentum 0.9, wd
              1e-4), as bench.py's run_cachedop: one batch-2 f32 step's
@@ -113,13 +117,16 @@ TRAIN_TOL = 1e-3
 TRAIN_BATCH = 8
 TRAIN_WARMUP = 2
 TRAIN_STEPS = 10
-# fused 1x1 conv + statistics against its plain version.  f32 y: the
+# fused 1x1 conv + statistics.  f32 y against the plain version: the
 # same f32 sums over C in another order, 1e-4 of the largest |y|.  bf16
-# y: both round the f32 accumulator, so at most one bf16 ulp apart
-# (2**-7 |y|).  The sums of N·HW f32 terms in another order: Σy within
+# y, the kernel's and the plain version's alike, against the exact (f64)
+# product e: within conv_stats.conv1x1_y_bound, 2**-8 |e| + 1.01 C 2**-23
+# sum_c |w x|, what an f32 sum over C in any order and any rounding of
+# its adds, then rounded to bf16, can miss e by (its docstring derives
+# it).  The sums of N·HW f32 terms in another order: Σy within
 # CONV_SUM_TOL of sqrt(N·HW·Σy²) (which is at least Σ|y|), Σy² within
-# CONV_SUM_TOL of itself.  A wrong tile, mask or channel moves a sum by
-# 1/64 of it or more.
+# CONV_SUM_TOL of itself.  A wrong tile or mask moves a sum by O(1) of
+# it, a dropped input channel Σy² by about 1/C of it (4.9e-4 at C 2048).
 CONV_SUM_TOL = 1e-5
 RESNET_BATCH = 128
 RESNET_PARITY_BATCH = 2
@@ -600,22 +607,31 @@ def phase_train(torch, mx, att):
     return dict(zip(("fwd", "dq", "dkv"), launches))
 
 
-# (C, HW, O, sites): the pointwise conv + BatchNorm pairs of one
-# resnet50_v1b step at batch 128 and 224 x 224 images
-RESNET_CONV_SHAPES = [
-    (64, 3136, 64, 1), (64, 3136, 256, 4), (256, 3136, 64, 2),
-    (256, 3136, 128, 1), (128, 784, 512, 4), (512, 784, 128, 3),
-    (512, 784, 256, 1), (256, 196, 1024, 6), (1024, 196, 256, 5),
-    (1024, 196, 512, 1), (512, 49, 2048, 3), (2048, 49, 512, 2)]
-# kernel_conv cases (N, C, HW, O, dtype): the step's shapes in bf16, the
-# tool's five shapes in f32, ragged shapes in both dtypes
-CONV_CASES = ([(RESNET_BATCH, C, HW, O, "bfloat16")
-               for C, HW, O, _ in RESNET_CONV_SHAPES]
-              + [(RESNET_BATCH, C, HW, O, "float32") for C, HW, O in (
-                  (64, 3136, 256), (128, 784, 512), (256, 196, 1024),
-                  (512, 49, 2048), (256, 3136, 64))]
-              + [(3, 72, 49, 80, "bfloat16"), (3, 72, 49, 80, "float32"),
-                 (5, 17, 33, 65, "bfloat16"), (1, 1, 1, 1, "float32")])
+def conv_cases(cs):
+    """kernel_conv cases (N, C, HW, O, dtype): the step's shapes in bf16
+    (`cs.RESNET_CONV_SHAPES`), the tool's five shapes in f32, ragged
+    shapes in both dtypes."""
+    return ([(RESNET_BATCH, C, HW, O, "bfloat16")
+             for C, HW, O, _ in cs.RESNET_CONV_SHAPES]
+            + [(RESNET_BATCH, C, HW, O, "float32") for C, HW, O in (
+                (64, 3136, 256), (128, 784, 512), (256, 196, 1024),
+                (512, 49, 2048), (256, 3136, 64))]
+            + [(3, 72, 49, 80, "bfloat16"), (3, 72, 49, 80, "float32"),
+               (5, 17, 33, 65, "bfloat16"), (1, 1, 1, 1, "float32")])
+
+
+def conv_y_errors(torch, cs, x, w, y, ref_y):
+    """The largest error of y over its elementwise tolerance (ok <= 1).
+    f32 {kernel}: |y - plain| against 1e-4 of the largest |plain|.  bf16
+    {kernel, plain}: |y - e| of the kernel's y and of the plain version's
+    against `cs.conv1x1_y_bound`."""
+    if x.dtype == torch.float32:
+        tol = 1e-4 * ref_y.abs().max().item()
+        return dict(kernel=(y - ref_y).abs().max().item() / max(tol, 1e-30))
+    exact, bound = cs.conv1x1_y_bound(x, w)
+    bound.clamp_(min=1e-300)
+    return {name: ((got.double() - exact).abs() / bound).max().item()
+            for name, got in (("kernel", y), ("plain", ref_y))}
 
 
 def _conv_bound(N, C, HW, O, dtype):
@@ -629,40 +645,38 @@ def _conv_bound(N, C, HW, O, dtype):
 
 def phase_kernel_conv(torch, cs):
     """The fused 1x1-conv + statistics kernel against its plain version
-    over CONV_CASES; returns the per-step sums over the 33 launch sites
+    over `conv_cases`; returns the per-step sums over the 33 launch sites
     of a bf16 resnet50_v1b step."""
     import torch.nn.functional as F
     gen = torch.Generator(device="cuda")
     gen.manual_seed(2)
-    sites = {(C, HW, O): k for C, HW, O, k in RESNET_CONV_SHAPES}
-    step = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
-                max_abs_err=0.0, launches=0)
+    sites = {(C, HW, O): k for C, HW, O, k in cs.RESNET_CONV_SHAPES}
+    step = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, library_conv_ms=0.0,
+                bound_ms=0.0, max_abs_err=0.0, launches=0)
     bound_by_ms = dict(bytes=0.0, operations=0.0)
-    for N, C, HW, O, dt in CONV_CASES:
+    for N, C, HW, O, dt in conv_cases(cs):
         dtype = getattr(torch, dt)
         x = torch.randn(N, C, HW, device="cuda", generator=gen).to(dtype)
         w = (torch.randn(O, C, device="cuda", generator=gen) * 0.05) \
             .to(dtype)
+        path = cs.conv1x1_stats_path(N, C, HW, O, dtype)
         y, s1, s2 = cs.fused_conv1x1_stats(x, w)
         torch.cuda.synchronize()
         ref_y, ref_s1, ref_s2 = cs.fused_conv1x1_stats_plain(x, w)
-        ref = ref_y.float()
-        diff = (y.float() - ref).abs()
-        err_y = diff.max().item()
-        tol_y = (torch.full_like(ref, 1e-4 * ref.abs().max().item())
-                 if dt == "float32" else 2.0 ** -7 * ref.abs())
-        err_y_over_tol = (diff / tol_y.clamp_min(1e-30)).max().item()
+        err_y = (y.float() - ref_y.float()).abs().max().item()
+        y_over_bound = conv_y_errors(torch, cs, x, w, y, ref_y)
         rel_s1 = ((s1 - ref_s1).abs()
                   / (N * HW * ref_s2).sqrt().clamp_min(1e-30)).max().item()
         rel_s2 = ((s2 - ref_s2).abs() / ref_s2.clamp_min(1e-30)) \
             .max().item()
-        ok = (err_y_over_tol <= 1.0 and rel_s1 <= CONV_SUM_TOL
+        ok = (max(y_over_bound.values()) <= 1.0 and rel_s1 <= CONV_SUM_TOL
               and rel_s2 <= CONV_SUM_TOL)
         ms = _time_ms(torch, lambda: cs.fused_conv1x1_stats(x, w))
         plain_ms = _time_ms(torch, lambda: cs.fused_conv1x1_stats_plain(
             x, w))
         # the library route: cuDNN's 1x1 convolution, then the two f32
-        # sums of its (rounded) output; a yardstick the port never calls
+        # sums of its (rounded) output, and the convolution alone;
+        # yardsticks the port never calls
         x4, w4 = x.reshape(N, C, HW, 1), w.reshape(O, C, 1, 1)
 
         def library():
@@ -670,21 +684,27 @@ def phase_kernel_conv(torch, cs):
             return y4.sum(dim=(0, 2, 3)), y4.square().sum(dim=(0, 2, 3))
 
         library_ms = _time_ms(torch, library)
+        library_conv_ms = _time_ms(torch, lambda: F.conv2d(x4, w4))
         bound = _conv_bound(N, C, HW, O, dt)
         row = dict(phase="kernel_conv", name="conv1x1_stats", N=N, C=C,
-                   HW=HW, O=O, dtype=dt, err_y=err_y,
-                   err_y_over_tol=err_y_over_tol, rel_err_s1=rel_s1,
+                   HW=HW, O=O, dtype=dt, path=path, err_y=err_y,
+                   y_over_bound=y_over_bound, rel_err_s1=rel_s1,
                    rel_err_s2=rel_s2, tol_sums=CONV_SUM_TOL, ok=ok, ms=ms,
                    plain_ms=plain_ms, library_ms=library_ms,
-                   library="F.conv2d 1x1 + two f32 sums", **bound,
+                   library="F.conv2d 1x1 + two f32 sums",
+                   library_conv_ms=library_conv_ms, **bound,
                    bound_share=bound["bound_ms"] / ms)
         _emit(row)
-        _check(ok, "conv1x1_stats disagrees with its plain version: %r"
-               % (row,))
+        _check(ok, "conv1x1_stats disagrees with its plain version or the "
+                   "exact product: %r" % (row,))
         k = sites.get((C, HW, O)) if (N, dt) == (RESNET_BATCH,
                                                  "bfloat16") else None
         if k:
-            for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
+            _check(path.startswith("tensor_cores"), "the step shape %r "
+                   "takes the %s instance, not the tensor cores"
+                   % ((C, HW, O), path))
+            for key in ("ms", "plain_ms", "library_ms", "library_conv_ms",
+                        "bound_ms"):
                 step[key] += k * row[key]
             step["max_abs_err"] = max(step["max_abs_err"], err_y)
             bound_by_ms[row["bound_by"]] += k * row["bound_ms"]
@@ -1009,21 +1029,26 @@ def phase_serve(torch, mx, att):
     return launches
 
 
+# template arguments of a mangled kernel name: float, bf16, int, bool
+_PTX_ARG = {"f": "f32", "13__nv_bfloat16": "bf16", "Lb0E": "false",
+            "Lb1E": "true"}
+
+
 def _ptxas(reports):
-    """{"kernel<dtype, d>": {registers, spill_store_bytes}} from ptxas's
+    """{"kernel<args>": {registers, spill_store_bytes}} from ptxas's
     report: each "Compiling entry function" line names a template instance
     by its mangled name, the spill line and the "Used N registers" line
     that follow are its own."""
     out, name = {}, None
     for log in reports.values():
         for line in log.splitlines():
-            m = re.search(r"(flash_[a-z_]+_kernel|conv1x1_stats_kernel|"
-                          r"stats_reduce_kernel)"
-                          r"(?:I(f|13__nv_bfloat16)(?:Li(\d+))?E)?", line)
+            m = re.search(r"(flash_[a-z_]+_kernel|conv1x1_stats(?:_tc)?_kernel"
+                          r"|stats_reduce_kernel)"
+                          r"((?:I(?:f|13__nv_bfloat16|Li\d+E|Lb[01]E)+E)?)",
+                          line)
             if "Compiling entry function" in line and m:
-                args = [a for a in (m.group(2), m.group(3)) if a]
-                if args and args[0] in ("f", "13__nv_bfloat16"):
-                    args[0] = "f32" if args[0] == "f" else "bf16"
+                args = [_PTX_ARG.get(a, a[2:-1]) for a in re.findall(
+                    r"13__nv_bfloat16|Li\d+E|Lb[01]E|f", m.group(2))]
                 name = m.group(1) + ("<%s>" % ", ".join(args) if args
                                      else "")
                 out[name] = {}
@@ -1123,6 +1148,7 @@ def main():
              plain_ms=conv_step["plain_ms"], bound_ms=conv_step["bound_ms"],
              bound_by=conv_step["bound_by"],
              library_ms=conv_step["library_ms"],
+             library_conv_ms=conv_step["library_conv_ms"],
              shape="the %d launch sites of one resnet50_v1b step, summed"
                    % RESNET_SITES, dtype="bfloat16", batch=RESNET_BATCH)]})
     print(smi, flush=True)

@@ -3,16 +3,18 @@
 Each kernel is one `csrc/<name>.cu` with a plain C interface.  It is
 compiled by `nvcc` for `sm_90a` into a shared library under the
 checkout's `build/kernels/` at first use and loaded with `ctypes`.  The
-library's file name carries a hash of its source, so an edited source is
-rebuilt and a stale library is never loaded.  Nothing here runs at
-import time: a machine without `nvcc` imports the package and uses the
-plain PyTorch versions on CPU tensors.
+library's file name carries a hash of its source and of every local
+header it includes (`#include "x.cuh"`, followed recursively), so an
+edited source or header is rebuilt and a stale library is never loaded.
+Nothing here runs at import time: a machine without `nvcc` imports the
+package and uses the plain PyTorch versions on CPU tensors.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -44,7 +46,8 @@ SOURCES = {
             ctypes.c_int),
     }),
     "conv1x1_stats": ("conv1x1_stats.cu", {
-        "mxt_conv1x1_stats_scratch": ([ctypes.c_int] * 3, ctypes.c_longlong),
+        "mxt_conv1x1_stats_path": ([ctypes.c_int] * 5, ctypes.c_int),
+        "mxt_conv1x1_stats_scratch": ([ctypes.c_int] * 5, ctypes.c_longlong),
         "mxt_conv1x1_stats": (
             [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
             ctypes.c_int),
@@ -66,10 +69,29 @@ def _nvcc():
         "are built from source at first use on a CUDA host" % home)
 
 
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def local_headers(src):
+    """The local headers that `src` includes, directly or through another
+    header, each once, in the order they are first included."""
+    seen, todo = [], [src]
+    while todo:
+        cur = todo.pop(0)
+        for inc in _INCLUDE.findall(cur.read_text()):
+            hdr = (cur.parent / inc).resolve()
+            if hdr not in seen:
+                seen.append(hdr)
+                todo.append(hdr)
+    return seen
+
+
 def _lib_path(name):
     src = _CSRC / SOURCES[name][0]
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:12]
-    return src, _BUILD / ("lib%s-%s.so" % (name, digest))
+    digest = hashlib.sha256()
+    for part in [src] + local_headers(src):
+        digest.update(part.read_bytes())
+    return src, _BUILD / ("lib%s-%s.so" % (name, digest.hexdigest()[:12]))
 
 
 def _command(src, out):

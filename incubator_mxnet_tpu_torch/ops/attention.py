@@ -23,7 +23,9 @@ For each of them:
 `_FlashAttention` is the `torch.autograd.Function` that ties them
 together: its forward is `flash_attention_fwd` and saves (q, k, v, out,
 lse); its backward is `flash_attention_bwd`.  `flash_attention` and
-`_contrib_flash_attention` go through it on both devices.
+`_contrib_flash_attention` go through it on both devices for the head
+dims the kernels take (`KERNEL_HEAD_DIMS`), and through
+`naive_attention` for the others.
 
 `flash_fwd_launches`, `flash_bwd_dq_launches` and `flash_bwd_dkv_launches`
 count kernel launches, so a run can show that its attention went through
@@ -172,8 +174,8 @@ def _check_kernel_operands(q, k, v, *more, name="flash_attention_fwd"):
 
 
 def _check_aligned(*ops, name):
-    """The backward kernels copy (BH, T, d) rows in 16-byte pieces
-    (cp.async), so each operand must start on a 16-byte boundary."""
+    """The kernels copy (BH, T, d) rows in 16-byte pieces (cp.async), so
+    each operand must start on a 16-byte boundary."""
     if any(t.data_ptr() % 16 for t in ops):
         raise ValueError("%s kernel needs (BH, T, d) operands that start on "
                          "16-byte boundaries" % name)
@@ -205,6 +207,7 @@ def _stream(dev):
 def _flash_fwd_cuda(q, k, v, scale, causal):
     global flash_fwd_launches
     _check_kernel_operands(q, k, v)
+    _check_aligned(q, k, v, name="flash_attention_fwd")
     BH, T, d = q.shape
     out = torch.empty_like(q)
     lse = torch.empty((BH, T), dtype=torch.float32, device=q.device)
@@ -333,12 +336,15 @@ class _FlashAttention(torch.autograd.Function):
 def flash_attention(q, k, v, scale=None, causal=False, bias=None):
     """Fused attention over (B, H, T, d) operands (any leading batch dims).
     Returns (B, H, T, d), differentiable through the flash backward.  An
-    additive `bias` is not part of the kernels' function and goes through
-    `naive_attention`, as in the JAX package."""
+    additive `bias` is not part of the kernels' function, and a head dim
+    outside `KERNEL_HEAD_DIMS` has no kernel instance: both go through
+    `naive_attention` (plain autograd) on either device, as the JAX
+    package's dispatch sends what its kernel does not take.  The kernel
+    wrappers themselves still raise on such a head dim."""
     *lead, T, d = q.shape
     if scale is None:
         scale = 1.0 / math.sqrt(d)
-    if bias is not None:
+    if bias is not None or d not in KERNEL_HEAD_DIMS:
         return naive_attention(q, k, v, scale, causal=causal, bias=bias)
     BH = math.prod(lead)
     out = _FlashAttention.apply(

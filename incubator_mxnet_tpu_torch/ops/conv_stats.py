@@ -10,7 +10,7 @@ is rounded, as the Pallas kernel sums them.
 
 * a CUDA tensor launches the hand-written kernel
   (`csrc/conv1x1_stats.cu`), or raises `ValueError` for what it does not
-  take (dtype, layout, shapes);
+  take (dtype, layout, shapes, operands off 16-byte boundaries);
 * a CPU tensor takes the plain PyTorch version
   (`fused_conv1x1_stats_plain`), with the same rounding points;
 * there is no fallback between the two and no size threshold.
@@ -19,7 +19,13 @@ is rounded, as the Pallas kernel sums them.
 the gradient, s1 and s2 are non-differentiable.  The JAX package has no
 backward kernel for it, so the backward is two plain GEMMs
 (dx = wᵀ·dy, dw = Σₙ dy·xᵀ) in dy's dtype.  `conv1x1_stats_launches`
-counts kernel launches.
+counts kernel launches.  The kernel library picks one of its instances
+by shape (`conv1x1_stats_path` names it): bf16 with C a multiple of 32
+takes the tensor cores, the rest scalar FMAs on the CUDA cores.
+
+`conv1x1_y_bound(x, w)` is the elementwise bound that a bf16 y is held
+to, the kernel's and the plain version's alike; `RESNET_CONV_SHAPES`
+lists the pointwise convolutions of a resnet50_v1b step.
 """
 from __future__ import annotations
 
@@ -28,12 +34,47 @@ import torch
 from . import _kernels
 
 __all__ = ["fused_conv1x1_stats", "fused_conv1x1_stats_plain",
-           "conv1x1_stats"]
+           "conv1x1_stats", "conv1x1_stats_path", "conv1x1_y_bound",
+           "PATHS", "RESNET_CONV_SHAPES"]
 
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
+#: the kernel library's instances, by the number its
+#: `mxt_conv1x1_stats_path` returns
+PATHS = ("cuda_cores", "tensor_cores_rows", "tensor_cores_slabs")
+
+#: (C, HW, O, sites): the pointwise conv + BatchNorm pairs of one
+#: resnet50_v1b step at 224 x 224 images, with how many of each a step has
+RESNET_CONV_SHAPES = [
+    (64, 3136, 64, 1), (64, 3136, 256, 4), (256, 3136, 64, 2),
+    (256, 3136, 128, 1), (128, 784, 512, 4), (512, 784, 128, 3),
+    (512, 784, 256, 1), (256, 196, 1024, 6), (1024, 196, 256, 5),
+    (1024, 196, 512, 1), (512, 49, 2048, 3), (2048, 49, 512, 2)]
+
 #: launches of the CUDA kernel in this process
 conv1x1_stats_launches = 0
+
+
+def conv1x1_y_bound(x, w):
+    """(e, bound): the exact product e = w·x (N, O, HW) in float64 and the
+    elementwise bound on |y - e| of a bf16 y = w·x summed in f32 in any
+    order, with any rounding of the adds:
+
+        |y - e| <= 2**-8 |e| + 1.01 C 2**-23 sum_c |w_oc| |x_cp|
+
+    The f32 sum s of C products meets |s - e| <= gamma_C sum_c |w x|,
+    gamma_C = C u / (1 - C u), where u = 2**-23 covers the tensor cores'
+    rounding toward zero (round to nearest needs only 2**-24); rounding s
+    to bf16 adds at most 2**-8 |s|; and 1.01 covers (1 + 2**-8) /
+    (1 - C 2**-23) up to C = 2048.  e is exact for bf16 operands up to
+    the f64 sums' rounding.  A wrong tile, row or mask moves y by O(|y|)
+    and breaks the bound."""
+    C = x.shape[1]
+    x64, w64 = x.double(), w.double()
+    exact = torch.matmul(w64, x64)
+    bound = 2.0 ** -8 * exact.abs() + 1.01 * C * 2.0 ** -23 * torch.matmul(
+        w64.abs(), x64.abs())
+    return exact, bound
 
 
 def fused_conv1x1_stats_plain(x, w):
@@ -59,11 +100,22 @@ def _check_operands(x, w):
                          % (name, tuple(x.shape), tuple(w.shape)))
     if not (x.is_contiguous() and w.is_contiguous()):
         raise ValueError("%s kernel needs contiguous operands" % name)
+    if x.data_ptr() % 16 or w.data_ptr() % 16:
+        raise ValueError("%s kernel needs operands that start on 16-byte "
+                         "boundaries (cp.async)" % name)
     N, C, HW = x.shape
     O = w.shape[0]
     if max(x.numel(), w.numel(), N * O * HW) >= 2 ** 31:
         raise ValueError("%s kernel takes < 2**31 elements per tensor"
                          % name)
+
+
+def conv1x1_stats_path(N, C, HW, O, dtype):
+    """The name of the kernel instance (`PATHS`) that x (N, C, HW),
+    w (O, C) of `dtype` take; builds the kernel library if needed."""
+    lib = _kernels.library("conv1x1_stats")
+    return PATHS[lib.mxt_conv1x1_stats_path(N, C, HW, O,
+                                            _KERNEL_DTYPES[dtype])]
 
 
 def _fused_cuda(x, w):
@@ -77,13 +129,13 @@ def _fused_cuda(x, w):
     if y.numel() == 0:
         return y, s1.zero_(), s2.zero_()
     lib = _kernels.library("conv1x1_stats")
-    scratch = torch.empty(lib.mxt_conv1x1_stats_scratch(N, HW, O),
+    code = _KERNEL_DTYPES[x.dtype]
+    scratch = torch.empty(lib.mxt_conv1x1_stats_scratch(N, C, HW, O, code),
                           dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         rc = lib.mxt_conv1x1_stats(
             x.data_ptr(), w.data_ptr(), y.data_ptr(), scratch.data_ptr(),
-            s1.data_ptr(), s2.data_ptr(), N, C, HW, O,
-            _KERNEL_DTYPES[x.dtype],
+            s1.data_ptr(), s2.data_ptr(), N, C, HW, O, code,
             torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise RuntimeError("fused_conv1x1_stats kernel launch failed with "

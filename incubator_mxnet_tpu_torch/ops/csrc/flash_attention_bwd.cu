@@ -24,7 +24,8 @@
 // in; dQ, D out: 0.011 ms at 3.35 TB/s) and the dK/dV kernel by operations
 // (0.013 ms).
 //
-// Design, the TPU's two-kernel split:
+// Design, the TPU's two-kernel split (tiles and fragment products in
+// flash_tiles.cuh, shared with the forward):
 //   * dQ kernel: grid (BH, ceil(T / 64)); a block of 4 warps owns 64 query
 //     rows, 16 per warp, and loops over key tiles of 64 rows (the TPU's
 //     sequential k axis).  Per tile each warp computes S = Q K^T and
@@ -79,271 +80,13 @@
 // What it leaves for later: wgmma and TMA (mma.sync reaches only part of the
 // tensor cores' rate on Hopper), warp specialisation, a fused single-pass
 // backward, and pre-split tf32 tiles (each warp splits the operands it reads).
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
+#include "flash_tiles.cuh"
 
 namespace {
-
-using bf16 = __nv_bfloat16;
-
-constexpr int kWarps = 4;
-constexpr int kThreads = 32 * kWarps;
-constexpr int kRows = 16 * kWarps;  // rows a block owns: query rows (dQ), key rows (dK/dV)
-constexpr int kKeyTile = 64;        // key rows per step of the dQ kernel
 
 // query rows per step of the dK/dV kernel: 32 at d = 128 keeps the dK and dV
 // accumulators (d/2 floats each per thread) and S^T, dP^T in registers
 template <int D> __host__ __device__ constexpr int query_tile() { return D == 128 ? 32 : 64; }
-
-// shared-memory row stride in elements: rows of 16-byte multiples, padded so
-// that 8 rows read together fall in distinct banks
-template <typename T, int D> __host__ __device__ constexpr int row_stride() {
-  return D + (sizeof(T) == 4 ? 4 : 8);
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared, or 16 zero bytes when !valid
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-
-// 4 bytes global -> shared, or 0.f when !valid
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(valid ? 4 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-// rows [row0, row0 + R) of a (seq, D) matrix into a tile of stride
-// row_stride<T, D>, rows at or past `seq` as zeros
-template <typename T, int D, int R>
-__device__ __forceinline__ void load_tile(T* dst, const T* __restrict__ src, int row0, int seq) {
-  constexpr int kPer = 16 / sizeof(T);  // elements per 16-byte chunk
-  constexpr int kChunks = D / kPer;     // chunks per row
-  constexpr int LD = row_stride<T, D>();
-  for (int i = threadIdx.x; i < R * kChunks; i += kThreads) {
-    const int r = i / kChunks, c = (i % kChunks) * kPer;
-    const bool ok = row0 + r < seq;
-    cp_async16(dst + r * LD + c, src + (size_t)(ok ? row0 + r : 0) * D + c, ok);
-  }
-}
-
-// R values of a (seq,) f32 row statistic from row0, 0 at or past `seq`
-template <int R>
-__device__ __forceinline__ void load_rows(float* dst, const float* __restrict__ src, int row0,
-                                          int seq) {
-  for (int i = threadIdx.x; i < R; i += kThreads) {
-    const bool ok = row0 + i < seq;
-    cp_async4(dst + i, src + (ok ? row0 + i : 0), ok);
-  }
-}
-
-// ---- bf16: mma.sync m16n8k16, fragments by ldmatrix ------------------------
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// (x, y) rounded to bf16 (nearest even, as astype does), x in the low half
-__device__ __forceinline__ uint32_t pack_bf16(float x, float y) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
-  return *reinterpret_cast<uint32_t*>(&h);
-}
-
-// acc (16 x N) += A B^T: A the warp's 16 rows of a (., D) tile, B the N rows
-// of another; the pattern of S = Q K^T
-template <int D, int N>
-__device__ __forceinline__ void product_nt(float (&acc)[N / 8][4], const bf16* a,
-                                           const bf16* b) {
-  constexpr int LD = row_stride<bf16, D>();
-  const int lane = threadIdx.x & 31, lr = lane & 7, lm = lane >> 3;
-#pragma unroll
-  for (int k0 = 0; k0 < D; k0 += 16) {
-    uint32_t af[4];  // 8x8 matrices: rows 0-7 / 8-15 x cols k0 / k0 + 8
-    ldmatrix_x4(af, a + ((lm & 1) * 8 + lr) * LD + k0 + (lm >> 1) * 8);
-#pragma unroll
-    for (int n0 = 0; n0 < N; n0 += 16) {
-      uint32_t bf[4];  // rows n0 / n0 + 8 x cols k0 / k0 + 8: b0, b1 of two n tiles
-      ldmatrix_x4(bf, b + (n0 + (lm >> 1) * 8 + lr) * LD + k0 + (lm & 1) * 8);
-      mma_bf16(acc[n0 / 8], af, bf[0], bf[1]);
-      mma_bf16(acc[n0 / 8 + 1], af, bf[2], bf[3]);
-    }
-  }
-}
-
-// out (16 x D) += P B: P (16 x N) in accumulator layout, rounded to bf16 here;
-// B the N rows of a (., D) tile; the pattern of dQ = dS K
-template <int D, int N>
-__device__ __forceinline__ void product_cn(float (&out)[D / 8][4], const float (&p)[N / 8][4],
-                                           const bf16* b) {
-  constexpr int LD = row_stride<bf16, D>();
-  const int lane = threadIdx.x & 31, lr = lane & 7, lm = lane >> 3;
-#pragma unroll
-  for (int kk = 0; kk < N / 16; ++kk) {
-    uint32_t af[4];
-    af[0] = pack_bf16(p[2 * kk][0], p[2 * kk][1]);
-    af[1] = pack_bf16(p[2 * kk][2], p[2 * kk][3]);
-    af[2] = pack_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1]);
-    af[3] = pack_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3]);
-#pragma unroll
-    for (int n0 = 0; n0 < D; n0 += 16) {
-      uint32_t bf[4];  // rows kk*16 / + 8 x cols n0 / n0 + 8, transposed
-      ldmatrix_x4_trans(bf, b + (kk * 16 + (lm & 1) * 8 + lr) * LD + n0 + (lm >> 1) * 8);
-      mma_bf16(out[n0 / 8], af, bf[0], bf[1]);
-      mma_bf16(out[n0 / 8 + 1], af, bf[2], bf[3]);
-    }
-  }
-}
-
-// ---- f32: 3xTF32 on mma.sync m16n8k8 ---------------------------------------
-
-// x = big + small.  big is x rounded to tf32 (nearest, ties away from zero,
-// as cvt.rna.tf32.f32 rounds) by two integer ops: add half a tf32 ulp, clear
-// the 13 low bits.  small = x - big is exact in f32 and goes to the mma as it
-// is: a tf32 operand is read from its top 19 bits, so small is truncated to
-// tf32 there.  No conversion instruction: those run at a fraction of the
-// integer and f32 rate, and three of them per operand pair bounded the f32
-// kernels.
-__device__ __forceinline__ void split(float x, uint32_t& big, uint32_t& small) {
-  big = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-  small = __float_as_uint(x - __uint_as_float(big));
-}
-
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// c += a.b in 3xTF32: the two small terms first, then big.big
-__device__ __forceinline__ void mma_3xtf32(float (&c)[4], const uint32_t (&ab)[4],
-                                           const uint32_t (&as)[4], uint32_t bb0, uint32_t bb1,
-                                           uint32_t bs0, uint32_t bs1) {
-  mma_tf32(c, as, bb0, bb1);
-  mma_tf32(c, ab, bs0, bs1);
-  mma_tf32(c, ab, bb0, bb1);
-}
-
-// acc (16 x N) += A B^T (S = Q K^T, dP = dO V^T and their transposes).  The
-// tensor cores round each mma's f32 sum toward zero, so an accumulator that
-// takes all three products of every k step drifts toward zero by up to an ulp
-// of itself per mma.  That drift is one-sided: it shifts every P = exp(S -
-// lse) and dP of a row the same way, so the rows of P no longer sum to 1 and
-// those of dS = P (dP - D) no longer to 0, and gradients that rest on that
-// cancellation (the key projection's) lose it.  So big.big goes to acc and
-// the two small terms, 2^-11 of it, to an accumulator of their own, where the
-// drift is 2^-11 smaller; the two meet once, in an f32 add that rounds to
-// nearest.
-template <int D, int N>
-__device__ __forceinline__ void product_nt(float (&acc)[N / 8][4], const float* a,
-                                           const float* b) {
-  constexpr int LD = row_stride<float, D>();
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  float lo[N / 8][4];
-#pragma unroll
-  for (int j = 0; j < N / 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) lo[j][e] = 0.f;
-#pragma unroll 2
-  for (int k0 = 0; k0 < D; k0 += 8) {
-    uint32_t ab[4], as[4];  // rows g, g + 8 x cols k0 + t, k0 + t + 4
-    split(a[g * LD + k0 + t], ab[0], as[0]);
-    split(a[(g + 8) * LD + k0 + t], ab[1], as[1]);
-    split(a[g * LD + k0 + t + 4], ab[2], as[2]);
-    split(a[(g + 8) * LD + k0 + t + 4], ab[3], as[3]);
-#pragma unroll
-    for (int j = 0; j < N / 8; ++j) {
-      uint32_t bb0, bs0, bb1, bs1;  // B[k][n] = b[n][k]: n = j*8 + g, k = k0 + t, k0 + t + 4
-      split(b[(j * 8 + g) * LD + k0 + t], bb0, bs0);
-      split(b[(j * 8 + g) * LD + k0 + t + 4], bb1, bs1);
-      mma_tf32(lo[j], as, bb0, bb1);
-      mma_tf32(lo[j], ab, bs0, bs1);
-      mma_tf32(acc[j], ab, bb0, bb1);
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < N / 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] += lo[j][e];
-}
-
-template <int D, int N>
-__device__ __forceinline__ void product_cn(float (&out)[D / 8][4], const float (&p)[N / 8][4],
-                                           const float* b) {
-  constexpr int LD = row_stride<float, D>();
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int j = 0; j < N / 8; ++j) {
-    // one k8 step per accumulator tile: k positions t and t + 4 are its
-    // columns 2t and 2t + 1
-    uint32_t ab[4], as[4];
-    split(p[j][0], ab[0], as[0]);
-    split(p[j][2], ab[1], as[1]);
-    split(p[j][1], ab[2], as[2]);
-    split(p[j][3], ab[3], as[3]);
-    const float* brow = b + (j * 8 + 2 * t) * LD + g;
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      uint32_t bb0, bs0, bb1, bs1;
-      split(brow[n * 8], bb0, bs0);
-      split(brow[LD + n * 8], bb1, bs1);
-      mma_3xtf32(out[n], ab, as, bb0, bb1, bs0, bs1);
-    }
-  }
-}
-
-// ---- both dtypes ------------------------------------------------------------
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
-
-// (x, y) to two adjacent elements
-__device__ __forceinline__ void store_pair(float* p, float x, float y) {
-  *reinterpret_cast<float2*>(p) = make_float2(x, y);
-}
-__device__ __forceinline__ void store_pair(bf16* p, float x, float y) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
-}
-
-// rows r and r + 8 of a (16 x D) accumulator to a (seq, D) matrix
-template <typename T, int D>
-__device__ __forceinline__ void store_rows(T* __restrict__ dst, const float (&acc)[D / 8][4],
-                                           int r, int seq) {
-  const int t = threadIdx.x & 3;
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
-    if (r < seq) store_pair(dst + (size_t)r * D + n * 8 + 2 * t, acc[n][0], acc[n][1]);
-    if (r + 8 < seq) store_pair(dst + (size_t)(r + 8) * D + n * 8 + 2 * t, acc[n][2], acc[n][3]);
-  }
-}
 
 template <typename T, int D>
 constexpr size_t dq_smem_bytes() {
@@ -564,14 +307,6 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
   }
   store_rows<T, D>(dk + base, acc_dk, row_a, seq);
   store_rows<T, D>(dv + base, acc_dv, row_a, seq);
-}
-
-template <typename Kernel>
-int prepare(Kernel kernel, size_t smem) {
-  if (smem > 48 * 1024)
-    return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                     (int)smem);
-  return 0;
 }
 
 template <typename T, int D>

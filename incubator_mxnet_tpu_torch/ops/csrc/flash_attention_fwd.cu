@@ -1,219 +1,210 @@
-// Flash-attention forward for Hopper (sm_90a), plain C interface for ctypes.
+// Flash-attention forward for Hopper (sm_90a) on the tensor cores, plain C
+// interface for ctypes.
 //
 // Replaces the Pallas TPU kernel `_fwd_kernel` (launched by `_flash_fwd`) in
 // incubator_mxnet_tpu/ops/attention.py.  It computes the same function:
 //   out = softmax(q k^T * scale [causal mask]) v      in the operand dtype
 //   lse = m + log(l)                                   per query row, f32
-// for q, k, v of shape (BH, T, d), row-major and contiguous.  Scores and the
-// online-softmax state (m, l, acc) are f32; P is rounded to the operand dtype
-// before P.V, as the TPU kernel casts it before its second matmul.
+// for q, k, v of shape (BH, T, d), row-major and contiguous, in f32 or bf16.
+// Scores and the online-softmax state (m, l, acc) are f32; P is rounded to
+// the operand dtype before P.V, as the TPU kernel casts it before its second
+// matmul.
 //
-// Design (simple and correct first):
-//   * grid (BH, ceil(T / BQ)); one block of 256 threads owns BQ = 64 query
-//     rows.  The TPU's sequential k grid axis becomes the loop over K/V tiles
-//     of BK = 64 rows inside the block.
-//   * Q, K and V tiles are staged in shared memory as f32 (rows padded by one
-//     float against bank conflicts); P goes through shared memory between the
-//     two products.  Each thread owns 4 query rows x 4 score columns of S and
-//     4 rows x d/16 columns of the accumulator; a row's 16 owners are 16
-//     consecutive lanes, so row max and row sum are warp shuffles.
-//   * The ragged last tile (any T) is masked in the kernel: rows past T are
-//     loaded as zeros and never written, columns past T get probability 0.
-//   * Causal: K tiles wholly above the diagonal are skipped, the diagonal
-//     tile is masked element by element.
+// Bound at the BERT-base shape (BH = 8*12, T = 512, d = 64): one call does
+// 4*BH*T^2*d = 6.4 GFLOP and must move q, k, v and out once (50 MB in f32,
+// 25 MB in bf16).  f32-accurate products: 0.039 ms as 3xTF32 on the tensor
+// cores (495 / 3 TFLOP/s), 0.096 ms as FMAs on the CUDA cores; bf16: 0.008 ms
+// of memory traffic at 3.35 TB/s against 0.007 ms of tensor-core work.
 //
-// Bound at the BERT-base serving shape (BH = 8*12, T = 512, d = 64): one call
-// does 4*BH*T^2*d = 6.4 GFLOP and must move q, k, v and out once (50 MB in
-// f32, 25 MB in bf16).  In exact f32 that is ~96 us of CUDA-core FMA at
-// 67 TFLOP/s (operations bound); in bf16 it is ~8 us of memory traffic at
-// 3.35 TB/s against ~7 us of tensor-core work at 989 TFLOP/s.
-// What this design leaves on the table: both products run as scalar FMAs on
-// CUDA cores (no mma/wgmma, so bf16 gets no tensor cores and f32 no TF32,
-// which the parity contract forbids anyway); shared-memory operands are read
-// with scalar loads at 2 FMAs per load; tiles are loaded synchronously with
-// no cp.async/TMA double buffering; bf16 inputs are widened to f32 in shared
-// memory, which doubles their footprint.
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
+// Design, modelled on the dQ kernel of flash_attention_bwd.cu (tiles and
+// products in flash_tiles.cuh):
+//   * grid (BH, ceil(T / 64)); a block of 4 warps owns 64 query rows, 16 per
+//     warp, and loops over key tiles of 64 rows (the TPU's sequential k axis),
+//     the next K/V tile in flight by cp.async during the current one's
+//     products (two buffers).  Q stays in shared memory and is re-read by
+//     every tile's S product, so that at d = 128 in f32 the 16 x 128
+//     accumulator, S and the small terms' accumulator stay in registers
+//     (255 of them there, with 4 bytes of spill stores; 169 at d = 64).
+//   * S = Q K^T on mma.sync: bf16 m16n8k16 with ldmatrix; f32 as 3xTF32 on
+//     m16n8k8 with the small terms in an accumulator of their own (the mma
+//     rounds its sums toward zero; product_nt).
+//   * The online softmax runs in f32 registers on S's accumulator fragments:
+//     a row's values sit in the 4 lanes of a quad, so the row max and row sum
+//     are two shuffles each.
+//   * O += P V, with P's accumulator fragment used in place as the A operand
+//     (product_cn): in bf16 P is rounded to bf16 there, in f32 it is split
+//     for 3xTF32 in registers, and each k8 step's sum is added to O with an
+//     f32 add that rounds to nearest, so that the mma's rounding toward zero
+//     does not shrink O one way (product_cn's kFold).
+//   * The ragged last tile (any T) is masked: rows past T load as zeros and
+//     are never written, columns past T get probability 0.  Causal: key
+//     tiles wholly above the diagonal are skipped, the diagonal tile is masked
+//     element by element.
+//   * Every output element has one owner: the same bits on every launch.
+// What it leaves for later: wgmma and TMA, warp specialisation, head dims
+// above 128, and reading q, k, v in their (B, T, H, d) layout.
+#include "flash_tiles.cuh"
 
 namespace {
 
-constexpr int kBQ = 64;        // query rows per block
-constexpr int kBK = 64;        // key rows per tile
-constexpr int kThreads = 256;  // 16 x 16 threads
-constexpr int kTM = 4;         // query rows per thread
-constexpr int kTN = 4;         // score columns per thread
 constexpr float kNegInf = -1e30f;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename scalar_t> __device__ __forceinline__ scalar_t from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);  // round to nearest even, as astype does
+template <typename T, int D>
+constexpr size_t fwd_smem_bytes() {
+  // Q (kRows rows), two K and two V tiles (kKeyTile rows)
+  return sizeof(T) * (size_t)row_stride<T, D>() * (kRows + 4 * kKeyTile);
 }
 
-template <int D>
-constexpr size_t smem_bytes() {
-  return sizeof(float) * (size_t)((kBQ + 2 * kBK) * (D + 1) + kBQ * (kBK + 1));
-}
-
-// Loads rows [row0, row0 + rows) of a (T, D) matrix into a padded f32 tile,
-// zero-filling rows at or past `seq`.  The rows are contiguous in memory, so
-// consecutive threads read consecutive elements.
-template <typename scalar_t, int D>
-__device__ __forceinline__ void load_tile(float* dst, const scalar_t* __restrict__ src,
-                                          int row0, int rows, int seq) {
-  for (int i = threadIdx.x; i < rows * D; i += kThreads) {
-    const int r = i / D, c = i % D;
-    dst[r * (D + 1) + c] = (row0 + r < seq) ? to_f32(src[(size_t)row0 * D + i]) : 0.f;
-  }
-}
-
-template <typename scalar_t, int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const scalar_t* __restrict__ q, const scalar_t* __restrict__ k,
-                 const scalar_t* __restrict__ v, scalar_t* __restrict__ out,
-                 float* __restrict__ lse, int seq, float scale, int causal) {
-  constexpr int DP = D + 1;
-  constexpr int BKP = kBK + 1;
-  constexpr int DN = D / 16;  // accumulator columns per thread
-  extern __shared__ float smem[];
-  float* qs = smem;             // kBQ x DP
-  float* ks = qs + kBQ * DP;    // kBK x DP
-  float* vs = ks + kBK * DP;    // kBK x DP
-  float* ps = vs + kBK * DP;    // kBQ x BKP
+flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                 T* __restrict__ out, float* __restrict__ lse, int seq, float scale,
+                 int causal) {
+  constexpr int LD = row_stride<T, D>();
+  constexpr int N = kKeyTile;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* qs = reinterpret_cast<T*>(smem);  // kRows x LD
+  T* ks = qs + kRows * LD;             // 2 x N x LD
+  T* vs = ks + 2 * N * LD;             // 2 x N x LD
 
-  const int q0 = blockIdx.y * kBQ;
-  const int tx = threadIdx.x % 16;  // score / output column group
-  const int ty = threadIdx.x / 16;  // query row group
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int q0 = blockIdx.y * kRows;
   const size_t base = (size_t)blockIdx.x * seq * D;
+  const int kend = causal ? min(seq, q0 + kRows) : seq;
+  const int tiles = (kend + N - 1) / N;
 
-  load_tile<scalar_t, D>(qs, q + base, q0, kBQ, seq);
+  load_tile<T, D, kRows>(qs, q + base, q0, seq);
+  load_tile<T, D, N>(ks, k + base, 0, seq);
+  load_tile<T, D, N>(vs, v + base, 0, seq);
+  cp_async_commit();
+  cp_async_wait_all();
+  __syncthreads();
 
-  float m[kTM], l[kTM], acc[kTM][DN];
+  // this thread's rows of S and O: row_a and row_a + 8
+  const int row_a = q0 + warp * 16 + (lane >> 2), row_b = row_a + 8;
+  const T* qw = qs + warp * 16 * LD;
+  const int tq = 2 * (lane & 3);
+
+  float acc[D / 8][4];
 #pragma unroll
-  for (int i = 0; i < kTM; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
+  for (int n = 0; n < D / 8; ++n)
 #pragma unroll
-    for (int j = 0; j < DN; ++j) acc[i][j] = 0.f;
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  float m_a = kNegInf, m_b = kNegInf, l_a = 0.f, l_b = 0.f;
+
+  for (int it = 0; it < tiles; ++it) {
+    const int buf = it & 1;
+    if (it + 1 < tiles) {  // the next K/V tile loads during this one's products
+      load_tile<T, D, N>(ks + (buf ^ 1) * N * LD, k + base, (it + 1) * N, seq);
+      load_tile<T, D, N>(vs + (buf ^ 1) * N * LD, v + base, (it + 1) * N, seq);
+      cp_async_commit();
+    }
+    const T* kt = ks + buf * N * LD;
+    const T* vt = vs + buf * N * LD;
+    const int k0 = it * N;
+
+    float s[N / 8][4];
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+    product_nt<D, N>(s, qw, kt);
+
+    // scaled and masked scores, and the tile's row maxima
+    float mx_a = kNegInf, mx_b = kNegInf;
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = e < 2 ? row_a : row_b;
+        const int col = k0 + j * 8 + tq + (e & 1);
+        const bool ok = col < seq && (!causal || col <= row);
+        s[j][e] = ok ? s[j][e] * scale : kNegInf;
+        if (e < 2) mx_a = fmaxf(mx_a, s[j][e]);
+        else mx_b = fmaxf(mx_b, s[j][e]);
+      }
+#pragma unroll
+    for (int off = 1; off <= 2; off <<= 1) {  // the 4 lanes of a row
+      mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, off));
+      mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, off));
+    }
+    const float mn_a = fmaxf(m_a, mx_a), mn_b = fmaxf(m_b, mx_b);
+    const float alpha_a = expf(m_a - mn_a), alpha_b = expf(m_b - mn_b);
+
+    // P = exp(S - m) in place of S, 0 where masked; row sums of the
+    // unrounded P
+    float rs_a = 0.f, rs_b = 0.f;
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = s[j][e] == kNegInf ? 0.f : expf(s[j][e] - (e < 2 ? mn_a : mn_b));
+        s[j][e] = p;
+        if (e < 2) rs_a += p;
+        else rs_b += p;
+      }
+#pragma unroll
+    for (int off = 1; off <= 2; off <<= 1) {
+      rs_a += __shfl_xor_sync(0xffffffffu, rs_a, off);
+      rs_b += __shfl_xor_sync(0xffffffffu, rs_b, off);
+    }
+    l_a = l_a * alpha_a + rs_a;
+    l_b = l_b * alpha_b + rs_b;
+    m_a = mn_a;
+    m_b = mn_b;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      acc[n][0] *= alpha_a;
+      acc[n][1] *= alpha_a;
+      acc[n][2] *= alpha_b;
+      acc[n][3] *= alpha_b;
+    }
+    // O += P V, P rounded to the operand dtype in product_cn; in f32 each
+    // k step's sum is folded into acc with a rounding f32 add
+    product_cn<D, N, true>(acc, s, vt);
+
+    if (it + 1 < tiles) cp_async_wait_all();
+    __syncthreads();  // the next tile is in; this one's buffers are free
   }
 
-  const int kend = causal ? min(seq, q0 + kBQ) : seq;
-  for (int k0 = 0; k0 < kend; k0 += kBK) {
-    __syncthreads();  // the previous tile's ks/vs/ps reads are done
-    load_tile<scalar_t, D>(ks, k + base, k0, kBK, seq);
-    load_tile<scalar_t, D>(vs, v + base, k0, kBK, seq);
-    __syncthreads();
-
-    // S = Q K^T for this thread's 4 rows x 4 columns (columns tx + 16 j)
-    float s[kTM][kTN];
+  const float inv_a = l_a > 0.f ? 1.f / l_a : 0.f, inv_b = l_b > 0.f ? 1.f / l_b : 0.f;
 #pragma unroll
-    for (int i = 0; i < kTM; ++i)
-#pragma unroll
-      for (int j = 0; j < kTN; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-    for (int c = 0; c < D; ++c) {
-      float qa[kTM], kb[kTN];
-#pragma unroll
-      for (int i = 0; i < kTM; ++i) qa[i] = qs[(ty * kTM + i) * DP + c];
-#pragma unroll
-      for (int j = 0; j < kTN; ++j) kb[j] = ks[(tx + 16 * j) * DP + c];
-#pragma unroll
-      for (int i = 0; i < kTM; ++i)
-#pragma unroll
-        for (int j = 0; j < kTN; ++j) s[i][j] = fmaf(qa[i], kb[j], s[i][j]);
-    }
-
-    // online softmax over this tile, row by row
-#pragma unroll
-    for (int i = 0; i < kTM; ++i) {
-      const int row = q0 + ty * kTM + i;
-      bool ok[kTN];
-      float mx = kNegInf;
-#pragma unroll
-      for (int j = 0; j < kTN; ++j) {
-        const int col = k0 + tx + 16 * j;
-        ok[j] = col < seq && (!causal || col <= row);
-        s[i][j] = ok[j] ? s[i][j] * scale : kNegInf;
-        mx = fmaxf(mx, s[i][j]);
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m[i], mx);
-      const float alpha = expf(m[i] - m_new);
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < kTN; ++j) {
-        const float p = ok[j] ? expf(s[i][j] - m_new) : 0.f;
-        rs += p;
-        ps[(ty * kTM + i) * BKP + tx + 16 * j] = to_f32(from_f32<scalar_t>(p));
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        rs += __shfl_xor_sync(0xffffffffu, rs, off);
-      l[i] = l[i] * alpha + rs;
-      m[i] = m_new;
-#pragma unroll
-      for (int j = 0; j < DN; ++j) acc[i][j] *= alpha;
-    }
-    __syncthreads();
-
-    // acc += P V for this thread's 4 rows x d/16 columns (columns tx + 16 j)
-#pragma unroll 4
-    for (int kk = 0; kk < kBK; ++kk) {
-      float pa[kTM];
-#pragma unroll
-      for (int i = 0; i < kTM; ++i) pa[i] = ps[(ty * kTM + i) * BKP + kk];
-#pragma unroll
-      for (int j = 0; j < DN; ++j) {
-        const float vb = vs[kk * DP + tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < kTM; ++i) acc[i][j] = fmaf(pa[i], vb, acc[i][j]);
-      }
-    }
+  for (int n = 0; n < D / 8; ++n) {
+    acc[n][0] *= inv_a;
+    acc[n][1] *= inv_a;
+    acc[n][2] *= inv_b;
+    acc[n][3] *= inv_b;
   }
-
-#pragma unroll
-  for (int i = 0; i < kTM; ++i) {
-    const int row = q0 + ty * kTM + i;
-    if (row >= seq) continue;
-    const float inv = l[i] > 0.f ? 1.f / l[i] : 0.f;
-#pragma unroll
-    for (int j = 0; j < DN; ++j)
-      out[base + (size_t)row * D + tx + 16 * j] = from_f32<scalar_t>(acc[i][j] * inv);
-    if (tx == 0) lse[(size_t)blockIdx.x * seq + row] = m[i] + logf(l[i]);
+  store_rows<T, D>(out + base, acc, row_a, seq);
+  if ((lane & 3) == 0) {
+    const size_t rbase = (size_t)blockIdx.x * seq;
+    if (row_a < seq) lse[rbase + row_a] = m_a + logf(l_a);
+    if (row_b < seq) lse[rbase + row_b] = m_b + logf(l_b);
   }
 }
 
-template <typename scalar_t, int D>
-int launch(const void* q, const void* k, const void* v, void* out, float* lse, int bh,
-           int seq, float scale, int causal, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<D>();
-  auto kernel = flash_fwd_kernel<scalar_t, D>;
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  dim3 grid(bh, (seq + kBQ - 1) / kBQ);
+template <typename T, int D>
+int launch(const void* q, const void* k, const void* v, void* out, float* lse, int bh, int seq,
+           float scale, int causal, cudaStream_t stream) {
+  constexpr size_t smem = fwd_smem_bytes<T, D>();
+  auto kernel = flash_fwd_kernel<T, D>;
+  const int err = prepare(kernel, smem);
+  if (err) return err;
+  dim3 grid(bh, (seq + kRows - 1) / kRows);
   kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const scalar_t*>(q), static_cast<const scalar_t*>(k),
-      static_cast<const scalar_t*>(v), static_cast<scalar_t*>(out), lse, seq, scale, causal);
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<T*>(out), lse, seq, scale, causal);
   return (int)cudaGetLastError();
 }
 
-template <typename scalar_t>
+template <typename T>
 int dispatch_d(int d, const void* q, const void* k, const void* v, void* out, float* lse,
                int bh, int seq, float scale, int causal, cudaStream_t stream) {
   switch (d) {
-    case 16: return launch<scalar_t, 16>(q, k, v, out, lse, bh, seq, scale, causal, stream);
-    case 32: return launch<scalar_t, 32>(q, k, v, out, lse, bh, seq, scale, causal, stream);
-    case 64: return launch<scalar_t, 64>(q, k, v, out, lse, bh, seq, scale, causal, stream);
-    case 128: return launch<scalar_t, 128>(q, k, v, out, lse, bh, seq, scale, causal, stream);
+    case 16: return launch<T, 16>(q, k, v, out, lse, bh, seq, scale, causal, stream);
+    case 32: return launch<T, 32>(q, k, v, out, lse, bh, seq, scale, causal, stream);
+    case 64: return launch<T, 64>(q, k, v, out, lse, bh, seq, scale, causal, stream);
+    case 128: return launch<T, 128>(q, k, v, out, lse, bh, seq, scale, causal, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -222,12 +213,12 @@ int dispatch_d(int d, const void* q, const void* k, const void* v, void* out, fl
 
 // dtype: 0 = float32, 1 = bfloat16.  Returns 0 or the CUDA error code of the
 // launch (cudaErrorInvalidValue for a head dim or dtype without an instance).
+// The (BH, T, d) operands must start on 16-byte boundaries (cp.async).
 extern "C" int mxt_flash_attention_fwd(const void* q, const void* k, const void* v,
                                        void* out, float* lse, int bh, int seq, int d,
                                        float scale, int causal, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return dispatch_d<float>(d, q, k, v, out, lse, bh, seq, scale, causal, s);
-  if (dtype == 1)
-    return dispatch_d<__nv_bfloat16>(d, q, k, v, out, lse, bh, seq, scale, causal, s);
+  if (dtype == 1) return dispatch_d<bf16>(d, q, k, v, out, lse, bh, seq, scale, causal, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -1,10 +1,12 @@
-// CPU emulation of the CUDA pieces that incubator_mxnet_tpu_torch's
-// flash-attention backward kernels use, so that their source can be compiled
-// with a host C++ compiler and run on small inputs where there is no card
-// (tests/test_torch_bwd_kernels_emulated.py).
+// CPU emulation of the CUDA pieces that incubator_mxnet_tpu_torch's kernels
+// use, so that their source can be compiled with a host C++ compiler and run
+// on small inputs where there is no card (tests/test_torch_bwd_kernels_
+// emulated.py, tests/test_torch_kernels_emulated.py).
 //
 // A block's CUDA threads are cooperative threads of one host thread; blocks
-// run one after another.  __syncthreads is a barrier of the block's threads.  The warp-wide
+// run one after another, so a kernel's static __shared__ arrays are static
+// locals, one per kernel, that each block finds as the last one left them.
+// __syncthreads is a barrier of the block's threads.  The warp-wide
 // instructions (ldmatrix, mma.sync, shfl) are collectives: each lane posts its
 // operands, the warp meets at a barrier, each lane reads what the PTX ISA says
 // it receives, and the warp meets again.  cp.async copies at once, so its
@@ -13,6 +15,7 @@
 // that rounding in 9 sums of 10, bwd_precision_study.py); the tests hold the
 // results to f32 or bf16 tolerances, not to the card's bits.
 // A tf32 operand is read from its top 19 bits, as the tensor cores read it.
+#pragma once
 #include <cmath>
 #include <cstddef>
 #include <cstdint>
@@ -27,7 +30,7 @@
 #define __device__
 #define __host__
 #define __forceinline__ inline
-#define __shared__
+#define __shared__ static
 #define __restrict__
 #define __launch_bounds__(...)
 #define __align__(n)
@@ -40,7 +43,7 @@ struct uint3 { unsigned x, y, z; };
 uint3 threadIdx;
 uint3 blockIdx;
 typedef void* cudaStream_t;
-enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
+enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1, cudaErrorInvalidConfiguration = 9 };
 enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize };
 // 232,448 bytes is the most dynamic shared memory a block may opt into
 template <class K>
@@ -50,6 +53,9 @@ using std::min;
 
 struct float2 { float x, y; };
 inline float2 make_float2(float x, float y) { return {x, y}; }
+struct float4 { float x, y, z, w; };
+struct uint4 { unsigned x, y, z, w; };
+inline uint4 make_uint4(unsigned x, unsigned y, unsigned z, unsigned w) { return {x, y, z, w}; }
 inline uint32_t __float_as_uint(float f) { uint32_t u; std::memcpy(&u, &f, 4); return u; }
 inline float __uint_as_float(uint32_t u) { float f; std::memcpy(&f, &u, 4); return f; }
 inline size_t __cvta_generic_to_shared(const void* p) { return reinterpret_cast<size_t>(p); }
@@ -175,6 +181,7 @@ inline void cp_async4(void* dst, const void* src, bool valid) {
 }
 inline void cp_async_commit() {}
 inline void cp_async_wait_all() {}
+template <int N> inline void cp_async_wait() {}
 
 // ldmatrix .x4: lanes 8m..8m+7 give the row addresses of 8x8 matrix m; lane
 // L receives row L/4, columns 2(L%4), 2(L%4)+1 of each matrix, or with .trans

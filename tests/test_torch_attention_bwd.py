@@ -262,3 +262,39 @@ def test_bwd_kernel_is_registered_for_the_build():
     text = (_kernels._CSRC / src).read_text()
     for fn in fns:
         assert 'extern "C" int %s(' % fn in text
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_head_dim_without_kernel_takes_naive_attention(monkeypatch, causal):
+    # 768 units over 16 heads: d 48 has no kernel instance, so the
+    # dispatcher sends it to naive_attention (plain autograd) on both
+    # devices, as the JAX package's flash_attention does
+    B, T, H, d = 1, 32, 16, 48
+    q, k, v, w = _arrays(B, T, H * d, seed=11)
+    calls = []
+    naive = tatt.naive_attention
+    monkeypatch.setattr(tatt, "naive_attention",
+                        lambda *a, **kw: calls.append(1) or naive(*a, **kw))
+
+    def f(q, k, v):
+        return jatt._contrib_flash_attention(q, k, v, num_heads=H,
+                                             causal=causal)
+
+    jq, jk, jv = (jnp.asarray(a) for a in (q, k, v))
+    ref = f(jq, jk, jv)
+    ref_grads = jax.grad(lambda *a: jnp.sum(f(*a) * w),
+                         argnums=(0, 1, 2))(jq, jk, jv)
+    tq, tk, tv = (t.requires_grad_() for t in _torch(q, k, v))
+    out = tatt._contrib_flash_attention(tq, tk, tv, num_heads=H,
+                                        causal=causal)
+    assert calls == [1]
+    assert "_FlashAttentionBackward" not in _grad_fn_names(out)
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(ref),
+                               rtol=2e-5, atol=2e-5)
+    (out * torch.from_numpy(w)).sum().backward()
+    for t, r in zip((tq, tk, tv), ref_grads):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(r), rtol=2e-5,
+                                   atol=2e-5)
+    # the kernel wrappers themselves still refuse the head dim
+    with pytest.raises(ValueError, match="head dim 48"):
+        tatt._check_kernel_operands(*(torch.zeros(2, 16, 48),) * 3)

@@ -17,11 +17,13 @@ Not covered here: the ordering of the two tile buffers.  The emulated
 cp.async copies at once and its waits do nothing, so a missing wait or
 __syncthreads between a tile's copy and its use would still pass here;
 the card's parity and determinism tests (tests/test_torch_cuda.py) check
-that ordering.  The rewrite reads the source as text: each
-`__device__ __forceinline__` helper either fits on its line or closes
-with a `}` line of its own, and each kernel has one
-`extern __shared__ ... smem[];` and one
-`kernel<<<grid, threads, smem, stream>>>(...);` launch.
+that ordering.  The rewrite reads the source and its local headers as
+text: each `__device__ __forceinline__` helper (optionally after a
+`template <...> ` on the same line) either fits on its line or closes
+with a `}` line of its own, dynamic shared memory is one
+`extern __shared__ ... smem[];` per kernel, and every launch is written
+`kernel<<<grid, threads, smem, stream>>>(...);`.  `_emulated_source` and
+`build_emulated` serve tests/test_torch_kernels_emulated.py too.
 """
 import ctypes
 import re
@@ -41,13 +43,34 @@ pytestmark = pytest.mark.torch_port
 HEADER = Path(__file__).resolve().parent / "cuda_emulation.h"
 
 
-def _emulated_source(src):
-    """The kernel source with its asm helpers dropped (the header defines
+_HELPER = re.compile(r"(template <[^>]*> )?__device__ __forceinline__")
+
+
+def _inline_headers(path, seen):
+    """The text of `path` with each local `#include "x.cuh"` replaced by
+    that header's text (itself inlined), each header once.  A local
+    include is what `_kernels.local_headers` hashes (`_kernels._INCLUDE`)."""
+    out = []
+    for line in path.read_text().split("\n"):
+        m = _kernels._INCLUDE.match(line)
+        if m is None:
+            out.append(line)
+            continue
+        hdr = (path.parent / m.group(1)).resolve()
+        if hdr not in seen:
+            seen.add(hdr)
+            out.append(_inline_headers(hdr, seen))
+    return "\n".join(line for line in out if line.strip() != "#pragma once")
+
+
+def _emulated_source(path):
+    """The kernel source at `path` (a `csrc/` file), its local headers
+    inlined, with its asm helpers dropped (the emulation header defines
     them) and each `kernel<<<grid, threads, smem, stream>>>(...)` turned
     into an emu::launch."""
-    lines, out, i = src.split("\n"), [], 0
+    lines, out, i = _inline_headers(path, set()).split("\n"), [], 0
     while i < len(lines):
-        if lines[i].startswith("__device__ __forceinline__"):
+        if _HELPER.match(lines[i]):
             j = i
             if not lines[i].rstrip().endswith("}"):
                 if "}" not in lines[i:]:
@@ -55,7 +78,7 @@ def _emulated_source(src):
                         "the emulation's rewrite expects each "
                         "`__device__ __forceinline__` helper to close with "
                         "a `}` line of its own; none follows line %d of "
-                        "flash_attention_bwd.cu" % (i + 1))
+                        "%s with its headers" % (i + 1, path.name))
                 j = lines.index("}", i)
             if "asm" in "\n".join(lines[i:j + 1]):
                 i = j + 1
@@ -66,35 +89,32 @@ def _emulated_source(src):
     src = src.replace("#include <cuda_runtime.h>",
                       '#include "%s"' % HEADER.name)
     src = src.replace("#include <cuda_bf16.h>", "")
-    for pattern, repl, what in (
+    for pattern, repl, marker, what in (
             (r"extern __shared__[^;]*\bsmem\[\];",
-             "unsigned char* smem = emu::smem;",
-             "one `extern __shared__ ... smem[];` per kernel"),
+             "unsigned char* smem = emu::smem;", "extern __shared__",
+             "`extern __shared__ ... smem[];`"),
             (r"(\w+)<<<([^,]+), ([^,]+), ([^,]+), [^>]+>>>\((.*?)\);",
-             r"emu::launch(\2, \3, \4, [&] { \1(\5); });",
-             "one `kernel<<<grid, threads, smem, stream>>>(...);` per "
-             "kernel")):
+             r"emu::launch(\2, \3, \4, [&] { \1(\5); });", "<<<",
+             "`kernel<<<grid, threads, smem, stream>>>(...);`")):
+        found = src.count(marker)
         src, n = re.subn(pattern, repl, src, flags=re.S)
-        if n != 2:
+        if n != found or (n == 0 and marker == "<<<"):
             raise ValueError(
-                "the emulation's rewrite expects %s, two in all, in "
-                "flash_attention_bwd.cu, and found %d: bring "
-                "_emulated_source up to date with the source's layout"
-                % (what, n))
+                "the emulation's rewrite expects every launch as %s, and "
+                "turned %d of %d in %s: bring _emulated_source up to date "
+                "with the source's layout" % (what, n, found, path.name))
     return src
 
 
-@pytest.fixture(scope="module")
-def emulated(tmp_path_factory):
-    """The backward kernels' C entry points, built for the CPU."""
+def build_emulated(name, work):
+    """Kernel library `name` of `_kernels.SOURCES` built for the CPU in
+    directory `work`, its C entry points bound as on the card."""
     cxx = shutil.which("g++") or shutil.which("c++")
     if cxx is None:
         pytest.skip("needs a host C++ compiler (g++) to build the emulation")
-    name = "flash_attention_bwd"
     cu, fns = _kernels.SOURCES[name]
-    work = tmp_path_factory.mktemp("emulated")
     src = work / (name + ".cpp")
-    src.write_text(_emulated_source((_kernels._CSRC / cu).read_text()))
+    src.write_text(_emulated_source(_kernels._CSRC / cu))
     lib = work / ("lib%s.so" % name)
     build = subprocess.run(
         [cxx, "-std=c++17", "-O1", "-shared", "-fPIC", "-w",
@@ -106,6 +126,13 @@ def emulated(tmp_path_factory):
         getattr(so, fn).argtypes = argtypes
         getattr(so, fn).restype = restype
     return so
+
+
+@pytest.fixture(scope="module")
+def emulated(tmp_path_factory):
+    """The backward kernels' C entry points, built for the CPU."""
+    return build_emulated("flash_attention_bwd",
+                          tmp_path_factory.mktemp("emulated"))
 
 
 def _tolerance(ref, dtype):

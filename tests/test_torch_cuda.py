@@ -38,6 +38,9 @@ def card():
     (8, 200, 128, torch.bfloat16, True),
     (8, 77, 16, torch.float32, False),
     (8, 256, 32, torch.bfloat16, False),
+    (8, 200, 128, torch.float32, True),
+    (4, 333, 128, torch.float32, False),
+    (4, 333, 128, torch.bfloat16, True),
 ])
 def test_flash_kernel_matches_plain_version(card, BH, T, d, dtype, causal):
     gen = torch.Generator(device=card)
@@ -65,6 +68,48 @@ def test_flash_kernel_matches_plain_version(card, BH, T, d, dtype, causal):
     assert (lse - ref_lse).abs().max().item() <= 1e-4
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_is_deterministic(card, dtype):
+    # one owner per output element: two launches on the same inputs give
+    # the same bits in out and lse
+    gen = torch.Generator(device=card)
+    gen.manual_seed(3)
+    q, k, v = (torch.randn(16, 333, 64, device=card, generator=gen)
+               .to(dtype) for _ in range(3))
+    first = tatt.flash_attention_fwd(q, k, v, 0.125, True)
+    second = tatt.flash_attention_fwd(q, k, v, 0.125, True)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_head_dim_without_kernel_takes_naive_attention(card, causal):
+    # 768 units over 16 heads: d 48 has no kernel instance, so
+    # flash_attention computes it with naive_attention and plain autograd,
+    # and no kernel launches
+    B, H, T, d = 2, 16, 64, 48
+    gen = torch.Generator(device=card)
+    gen.manual_seed(4)
+    q, k, v, w = (torch.randn(B, H, T, d, device=card, generator=gen)
+                  for _ in range(4))
+    qkv = [t.clone().requires_grad_() for t in (q, k, v)]
+    before = (tatt.flash_fwd_launches, tatt.flash_bwd_dq_launches,
+              tatt.flash_bwd_dkv_launches)
+    out = tatt.flash_attention(*qkv, causal=causal)
+    (out * w).sum().backward()
+    torch.cuda.synchronize()
+    assert (tatt.flash_fwd_launches, tatt.flash_bwd_dq_launches,
+            tatt.flash_bwd_dkv_launches) == before
+    ref_qkv = [t.cpu().requires_grad_() for t in (q, k, v)]
+    ref = tatt.naive_attention(*ref_qkv, d ** -0.5, causal=causal)
+    (ref * w.cpu()).sum().backward()
+    assert (out.detach().cpu() - ref.detach()).abs().max().item() <= 1e-4
+    for got, r in zip(qkv, ref_qkv):
+        assert (got.grad.cpu() - r.grad).abs().max().item() <= \
+            1e-4 * r.grad.abs().max().item()
+
+
 def test_flash_kernel_raises_on_what_it_does_not_take(card):
     q = torch.zeros((2, 16, 48), device=card)
     before = tatt.flash_fwd_launches
@@ -73,6 +118,10 @@ def test_flash_kernel_raises_on_what_it_does_not_take(card):
     h = torch.zeros((2, 16, 64), device=card, dtype=torch.float16)
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         tatt.flash_attention_fwd(h, h, h, 0.1)
+    k = torch.zeros((2, 16, 64), device=card)
+    with pytest.raises(ValueError, match="16-byte"):
+        flat = torch.zeros(2 * 16 * 64 + 1, device=card)
+        tatt.flash_attention_fwd(k, k, flat[1:].view(2, 16, 64), 0.1)
     assert tatt.flash_fwd_launches == before
 
 
@@ -228,16 +277,32 @@ def test_bert_training_step_through_kernels(card):
     assert all(bool(torch.isfinite(p).all()) for p in net.parameters())
 
 
-@pytest.mark.parametrize("N,C,HW,O", [
-    (3, 72, 49, 80), (5, 17, 33, 65), (2, 256, 196, 128), (1, 1, 1, 1),
-    (4, 64, 3136, 64)])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_conv1x1_stats_kernel_matches_plain_version(card, N, C, HW, O,
-                                                    dtype):
+def _conv_inputs(card, N, C, HW, O, dtype, seed=2):
     gen = torch.Generator(device=card)
-    gen.manual_seed(2)
+    gen.manual_seed(seed)
     x = torch.randn(N, C, HW, device=card, generator=gen).to(dtype)
     w = (torch.randn(O, C, device=card, generator=gen) * 0.05).to(dtype)
+    return x, w
+
+
+# with the instance bf16 takes (f32 always takes the CUDA cores): ragged
+# shapes; whole-image slabs at HW 49 and 196 (C 512 and 2048, O not a
+# multiple of 128); 16-byte rows, with a ragged column tile at HW 784
+@pytest.mark.parametrize("N,C,HW,O,bf16_path", [
+    (3, 72, 49, 80, "cuda_cores"), (5, 17, 33, 65, "cuda_cores"),
+    (2, 256, 196, 128, "tensor_cores_slabs"), (1, 1, 1, 1, "cuda_cores"),
+    (4, 64, 3136, 64, "tensor_cores_rows"),
+    (6, 512, 49, 2048, "tensor_cores_slabs"),
+    (5, 2048, 49, 520, "tensor_cores_slabs"),
+    (3, 512, 196, 1024, "tensor_cores_slabs"),
+    (2, 2048, 196, 72, "tensor_cores_slabs"),
+    (3, 256, 784, 200, "tensor_cores_rows")])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv1x1_stats_kernel_matches_plain_version(card, N, C, HW, O,
+                                                    bf16_path, dtype):
+    path = bf16_path if dtype == torch.bfloat16 else "cuda_cores"
+    assert tcs.conv1x1_stats_path(N, C, HW, O, dtype) == path
+    x, w = _conv_inputs(card, N, C, HW, O, dtype)
     before = tcs.conv1x1_stats_launches
     y, s1, s2 = tcs.fused_conv1x1_stats(x, w)
     torch.cuda.synchronize()
@@ -245,18 +310,34 @@ def test_conv1x1_stats_kernel_matches_plain_version(card, N, C, HW, O,
     assert y.dtype == dtype and y.shape == (N, O, HW)
     assert s1.shape == s2.shape == (1, O) and s1.dtype == torch.float32
     ref_y, ref_s1, ref_s2 = tcs.fused_conv1x1_stats_plain(x, w)
-    ref = ref_y.float()
     if dtype == torch.float32:
-        tol = 1e-4 * ref.abs().max()        # f32 sums over C in another order
+        # f32 sums over C in another order
+        assert bool(((y - ref_y).abs() <= 1e-4 * ref_y.abs().max()).all())
     else:
-        # both round the f32 accumulator to bf16: one ulp apart at most
-        tol = 2.0 ** -7 * ref.abs()
-    assert bool(((y.float() - ref).abs() <= tol).all())
+        # the kernel's y and the plain version's, each against the exact
+        # product: what an f32 sum over C in any order, rounded to bf16,
+        # can miss it by
+        exact, bound = tcs.conv1x1_y_bound(x, w)
+        for got in (y, ref_y):
+            assert bool(((got.double() - exact).abs() <= bound).all())
     # the sums of N·HW f32 terms in another order: Σy within 1e-5 of
     # sqrt(N·HW·Σy²) (at least Σ|y|), Σy² within 1e-5 of itself
     n = N * HW
     assert bool(((s1 - ref_s1).abs() <= 1e-5 * (n * ref_s2).sqrt()).all())
     assert bool(((s2 - ref_s2).abs() <= 1e-5 * ref_s2).all())
+
+
+@pytest.mark.parametrize("C,HW,O", [(512, 49, 2048), (1024, 196, 256),
+                                    (64, 3136, 256), (72, 49, 80)])
+def test_conv1x1_stats_kernel_is_deterministic(card, C, HW, O):
+    # one owner per scratch element and a fixed-order reduction: two
+    # launches on the same inputs give the same bits in y, s1 and s2
+    x, w = _conv_inputs(card, 4, C, HW, O, torch.bfloat16)
+    first = tcs.fused_conv1x1_stats(x, w)
+    second = tcs.fused_conv1x1_stats(x, w)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 def test_conv1x1_stats_kernel_raises_on_what_it_does_not_take(card):
@@ -270,6 +351,9 @@ def test_conv1x1_stats_kernel_raises_on_what_it_does_not_take(card):
                                 .transpose(0, 1), w)
     with pytest.raises(ValueError, match="different devices"):
         tcs.fused_conv1x1_stats(x, w.cpu())
+    with pytest.raises(ValueError, match="16-byte"):
+        flat = torch.zeros(2 * 8 * 10 + 1, device=card)
+        tcs.fused_conv1x1_stats(flat[1:].view(2, 8, 10), w)
     assert tcs.conv1x1_stats_launches == before
 
 
