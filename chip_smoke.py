@@ -11,7 +11,9 @@ Drives incubator_mxnet_tpu_torch only (never JAX or the JAX package):
              ptxas's registers and spill stores per kernel instance.
 3. kernel  — each kernel against its plain PyTorch version on the card, at
              the serving shapes and at edge cases, timed with CUDA events
-             beside the plain version and one PyTorch library call.
+             beside the plain version and one PyTorch library call, and by
+             the device time of its kernels (torch.profiler) beside the
+             library call's.
 4. serve   — BERT-base at full width (random weights from seed 0, f32)
              behind InferenceEngine on cuda:0: warmup; a burst of 12
              singles from 3 threads and one batch of 3, every result
@@ -28,7 +30,8 @@ Drives incubator_mxnet_tpu_torch only (never JAX or the JAX package):
              plain versions and the backward of scaled_dot_product_attention
              alone (autograd.grad over a kept graph), read as the device
              time of the kernels it launches, with their names; the pair's
-             own device time and its ratio to the library's beside it.
+             own device time, each kernel's, and the pair's ratio to the
+             library's beside it.
 6. train   — BERT-base MLM at full width (f32, dropout 0, output_hidden
              + FusedMLMCELoss, Adam lr 1e-4, batch 8 x 512 tokens from
              RandomState(0)): one batch-1 step's loss and every gradient
@@ -57,7 +60,26 @@ Drives incubator_mxnet_tpu_torch only (never JAX or the JAX package):
              CUDA events, images/s, peak memory, every loss finite); each
              step launches the conv kernel 33 times.
    train_resnet_profile — device time by kernel over one such step.
-9. kernels — one JSON line per the port's kernel table (4 rows), then the
+9. train_nmt — transformer_nmt_base (6 + 6 layers, 512 units, 8 heads,
+             vocab 32000, dropout 0, output_hidden + FusedMLMCELoss, Adam
+             lr 1e-4, f32) as bench.py's run_transformer_nmt (config 4b):
+             one batch-1 step's loss and every gradient against a CPU
+             copy; then batch 64 x source 64 x target 64 from
+             RandomState(0), 2 warm-up and 10 timed steps (step ms by CUDA
+             events, target tokens/s, peak memory, every loss finite);
+             each step launches each flash kernel 12 times, 6 of them
+             causal (the decoder's self-attention).
+   train_nmt_profile — device time by kernel over one such step.
+10. decode_nmt — the same model with its vocab projection: init_cache for
+             8 of those source rows at differing valid lengths with the
+             memory padded past the source, then 16 greedy decode_steps
+             on cuda:0 (ms per step); each step's logits against the
+             teacher-forced forward over the same prefix on the card and
+             against a CPU copy's decode steps.  The decode step attends
+             with torch.bmm: no flash kernel may launch.
+   decode_nmt_profile — device time by kernel over one prefill and its
+             greedy steps.
+11. kernels — one JSON line per the port's kernel table (4 rows), then the
              card's name and power limit, then the final {"ok": true, ...}
              line.
 
@@ -154,6 +176,19 @@ SMALL_RESNET = dict(layers=[1, 1, 1, 1], channels=[8, 16, 32, 64, 128],
 WINDOW_CLIENTS = 3
 WINDOW_PER_CLIENT = 200
 WINDOW_INFLIGHT = 8
+# bench.py's config 4b: transformer_nmt_base at batch 64, source and
+# target 64, vocab 32000
+NMT_VOCAB = 32000
+NMT_UNITS = 512
+NMT_BATCH = 64
+NMT_SEQ = 64
+NMT_LAYERS = 6
+# cached decode: 8 source rows of differing valid lengths, the memory
+# padded from 64 to 80 rows, 16 greedy steps from token 1
+NMT_DECODE_VALID = (64, 61, 55, 48, 40, 31, 17, 6)
+NMT_MEM_LEN = 80
+NMT_DECODE_STEPS = 16
+NMT_BOS = 1
 
 
 def _emit(obj):
@@ -252,22 +287,29 @@ def _dkv_bound(BH, T, d, dtype, causal):
                   prefix="dkv_")
 
 
-# kernel cases (BH, T, d, dtype, causal): the serving and training shape
-# first, then causal, bf16, ragged T and the other head dims
-CASES = [(96, SEQ, 64, "float32", False), (96, SEQ, 64, "float32", True),
+# kernel cases (BH, T, d, dtype, causal): the BERT serving and training
+# shape first, then causal, bf16, ragged T and the other head dims, then
+# the NMT step's shape (64 x 8 heads, T 64: one tile, every tile on the
+# diagonal when causal) both ways and a ragged causal T of one partial
+# tile
+BERT_CASE = (96, SEQ, 64, "float32", False)
+NMT_CASES = ((NMT_BATCH * 8, NMT_SEQ, 64, "float32", False),
+             (NMT_BATCH * 8, NMT_SEQ, 64, "float32", True))
+CASES = [BERT_CASE, (96, SEQ, 64, "float32", True),
          (96, SEQ, 64, "bfloat16", False), (96, SEQ, 64, "bfloat16", True),
          (8, 200, 64, "float32", False), (8, 200, 64, "bfloat16", True),
          (96, SEQ, 32, "float32", False), (96, SEQ, 128, "float32", False),
-         (8, 200, 16, "float32", True)]
+         (8, 200, 16, "float32", True)] + list(NMT_CASES) + [
+         (NMT_BATCH * 8, 50, 64, "float32", True)]
 
 
 def phase_kernel(torch, att):
-    """Flash forward kernel against its plain version; returns the row of
-    the serving shape (f32, BH = 8 * 12, T = 512, d = 64)."""
+    """Flash forward kernel against its plain version; returns its rows
+    by case."""
     import torch.nn.functional as F
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
-    main = None
+    rows = {}
     for BH, T, d, dt, causal in CASES:
         dtype = getattr(torch, dt)
         q, k, v = (torch.randn(BH, T, d, device="cuda", generator=gen)
@@ -292,43 +334,60 @@ def phase_kernel(torch, att):
         q4, k4, v4 = q[None], k[None], v[None]
         library_ms = _time_ms(torch, lambda: F.scaled_dot_product_attention(
             q4, k4, v4, is_causal=causal, scale=scale))
+        # device time of the kernel and of the library's kernels: at a short
+        # T a call's host work outlasts its kernel, and back-to-back calls
+        # timed by events then read the host's rate
+        device_ms, _ = _device_ms(torch, lambda: att.flash_attention_fwd(
+            q, k, v, scale, causal))
+        library_device_ms, _ = _device_ms(
+            torch, lambda: F.scaled_dot_product_attention(
+                q4, k4, v4, is_causal=causal, scale=scale))
         row = dict(phase="kernel", name="flash_attention_fwd", BH=BH, T=T,
                    d=d, dtype=dt, causal=causal, err_out=err_out,
                    err_out_over_bound=err_ratio, err_lse=err_lse,
-                   tol_lse=TOL, ok=ok, ms=ms,
+                   tol_lse=TOL, ok=ok, ms=ms, device_ms=device_ms,
                    plain_ms=plain_ms, library_ms=library_ms,
+                   library_device_ms=library_device_ms,
                    **_flash_bound(BH, T, d, dt, causal))
         _emit(row)
         _check(ok, "flash_attention_fwd disagrees with its plain version: "
                    "%r" % (row,))
-        if (BH, T, d, dt, causal) == (96, SEQ, 64, "float32", False):
-            main = row
-    return main
+        rows[BH, T, d, dt, causal] = row
+    return rows
 
 
-def _device_kernels(torch, fn, reps):
+def _device_kernels(torch, fn, reps, tries=3):
     """[(device us, kernel name, calls)] of the CUDA kernels that `reps`
     back-to-back calls of `fn` (after one unprofiled call) launch, largest
-    first, from torch.profiler, and the host wall of that window (us)."""
+    first, from torch.profiler, and the host wall of that window (us).
+    Every call launches the same kernels, so a trace in which a kernel's
+    count is not a multiple of `reps`, or that holds no kernel, lost
+    records (seen once on the card: no launch of a 20-call window, and
+    part of the next call's): the window is profiled again, and after
+    `tries` such traces the run fails."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    # kernels only: the aten op that launched a kernel carries the same
-    # device time again
-    rows = [(ev.self_device_time_total, ev.key, ev.count)
-            for ev in prof.key_averages()
-            if ev.device_type == DeviceType.CUDA
-            and ev.self_device_time_total > 0]
-    rows.sort(reverse=True)
-    return rows, wall_us
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        # kernels only: the aten op that launched a kernel carries the
+        # same device time again
+        rows = [(ev.self_device_time_total, ev.key, ev.count)
+                for ev in prof.key_averages()
+                if ev.device_type == DeviceType.CUDA
+                and ev.self_device_time_total > 0]
+        if rows and all(n % reps == 0 for _, _, n in rows):
+            rows.sort(reverse=True)
+            return rows, wall_us
+    raise RuntimeError("torch.profiler lost kernel records of %d calls in "
+                       "%d windows: %r" % (reps, tries, rows))
 
 
 def _device_ms(torch, fn, reps=20):
@@ -341,17 +400,32 @@ def _device_ms(torch, fn, reps=20):
          for us, k, n in rows]
 
 
+# the port's hand-written kernels among the profiler's kernel names (they
+# live in an anonymous namespace; cuDNN's own "..._flash_bprop_..." do not)
+_PORT_KERNEL = re.compile(r"::(flash_(?:fwd|bwd_dq|bwd_dkv)_kernel"
+                          r"|conv1x1_stats(?:_tc)?_kernel"
+                          r"|stats_reduce_kernel)\b")
+
+
 def _profile(torch, fn, reps, top=8, **row):
     """Device time per kernel name over `reps` calls of `fn`; `busy_share`
     is that time over the host wall of the profiled window (profiler
-    overhead included).  Emits `row` with the breakdown."""
+    overhead included).  Emits `row` with the breakdown: the `top`
+    kernels, and every kernel of the port's own (`port_kernels`) with
+    their sum and share."""
     rows, wall_us = _device_kernels(torch, fn, reps)
     device_us = sum(r[0] for r in rows)
+    port = [dict(kernel=k[:100], us=us, calls=n) for us, k, n in rows
+            if _PORT_KERNEL.search(k)]
+    port_us = sum(r["us"] for r in port)
     _emit(dict(row, wall_us=wall_us, device_us=device_us,
                busy_share=device_us / wall_us,
                top=[dict(kernel=k[:100], us=us, calls=n,
                          share=us / device_us if device_us else None)
-                    for us, k, n in rows[:top]]))
+                    for us, k, n in rows[:top]],
+               port_kernels=port, port_kernels_us=port_us,
+               port_kernels_share=port_us / device_us if device_us
+               else None))
 
 
 def phase_profile(torch, net, x, forwards=3):
@@ -375,11 +449,11 @@ def _grad_tolerance(torch, ref, dt):
 
 def phase_kernel_bwd(torch, att):
     """The dQ and dK/dV kernels against their plain versions over CASES;
-    returns the rows of the training shape (f32, BH 96, T 512, d 64)."""
+    returns their rows by case."""
     import torch.nn.functional as F
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1)
-    main = {}
+    rows = {}
     for BH, T, d, dt, causal in CASES:
         dtype = getattr(torch, dt)
         q, k, v, do = (torch.randn(BH, T, d, device="cuda", generator=gen)
@@ -416,9 +490,14 @@ def phase_kernel_bwd(torch, att):
         dkv_plain_ms = _time_ms(
             torch, lambda: att.flash_attention_bwd_dkv_plain(
                 q, k, v, do, lse, delta, scale, causal))
-        # device time of the pair, as the library's is read below
-        pair_device_ms, _ = _device_ms(torch, lambda: att.flash_attention_bwd(
-            q, k, v, out, lse, do, scale, causal))
+        # device time of the pair and of each kernel, as the library's is
+        # read below
+        pair_device_ms, pair_kernels = _device_ms(
+            torch, lambda: att.flash_attention_bwd(q, k, v, out, lse, do,
+                                                   scale, causal))
+        dq_device_ms, dkv_device_ms = (
+            sum(r["us"] for r in pair_kernels if name in r["kernel"]) / 1e3
+            for name in ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel"))
         # the library's backward alone: scaled_dot_product_attention's
         # forward once on 4-D (1, BH, T, d) views with its graph kept, then
         # autograd.grad over it again and again, timed by CUDA events and
@@ -440,7 +519,8 @@ def phase_kernel_bwd(torch, att):
                    causal=causal, err=errs, err_over_bound=ratios,
                    err_delta=err_delta, tol_delta=tol_delta, ok=ok,
                    dq_ms=dq_ms, dkv_ms=dkv_ms, dq_plain_ms=dq_plain_ms,
-                   dkv_plain_ms=dkv_plain_ms, pair_device_ms=pair_device_ms,
+                   dkv_plain_ms=dkv_plain_ms, dq_device_ms=dq_device_ms,
+                   dkv_device_ms=dkv_device_ms, pair_device_ms=pair_device_ms,
                    library_ms=library_ms, library_events_ms=library_events_ms,
                    library="sdpa backward alone (autograd.grad over a kept "
                            "graph, 4-D views), device time",
@@ -451,16 +531,16 @@ def phase_kernel_bwd(torch, att):
         _emit(row)
         _check(ok, "flash backward disagrees with its plain version: %r"
                % (row,))
-        if (BH, T, d, dt, causal) == (96, SEQ, 64, "float32", False):
-            main = row
-    return main
+        rows[BH, T, d, dt, causal] = row
+    return rows
 
 
-def _train_step(mx, net, head, trainer, x, y):
+def _train_step(mx, net, loss_fn, trainer, inputs, y):
+    """One training step of `net` on the tuple `inputs` (batch first)."""
     with mx.autograd.record():
-        loss = head(net(x), y)
+        loss = loss_fn(net(*inputs), y)
     mx.autograd.backward(loss)
-    trainer.step(x.shape[0])
+    trainer.step(inputs[0].shape[0])
     return loss.detach()
 
 
@@ -485,9 +565,20 @@ def _plain_backward(att, matmul):
         att.flash_attention_bwd, att._matmul = bwd, mm
 
 
-def _launch_counts(att):
-    return (att.flash_fwd_launches, att.flash_bwd_dq_launches,
-            att.flash_bwd_dkv_launches)
+# the three kernels' launch counters, then the causal ones among them
+_COUNT_KEYS = ("fwd", "dq", "dkv", "fwd_causal", "dq_causal", "dkv_causal")
+_COUNTERS = ("flash_fwd_launches", "flash_bwd_dq_launches",
+             "flash_bwd_dkv_launches", "flash_fwd_causal_launches",
+             "flash_bwd_dq_causal_launches", "flash_bwd_dkv_causal_launches")
+
+
+def _all_counts(att):
+    return tuple(getattr(att, name) for name in _COUNTERS)
+
+
+def _reset_counts(att):
+    for name in _COUNTERS:
+        setattr(att, name, 0)
 
 
 def phase_train(torch, mx, att):
@@ -547,7 +638,7 @@ def phase_train(torch, mx, att):
             mx.autograd.backward(loss)
         plain_bwd[label] = dict(zip(("worst_grad_err_over_scale",
                                      "worst_grad"), worst_grad()))
-    loss1 = _train_step(mx, net, head, trainer, x1.cuda(), y1.cuda())
+    loss1 = _train_step(mx, net, head, trainer, (x1.cuda(),), y1.cuda())
     loss_err = (loss1.cpu() - ref_loss.detach()).abs().max().item()
     worst, worst_name = worst_grad()
     del cpu_net, cpu_head, cpu_params, ref_loss
@@ -555,24 +646,23 @@ def phase_train(torch, mx, att):
     x = torch.from_numpy(tokens).cuda()
     y = torch.from_numpy(labels).cuda()
     for _ in range(TRAIN_WARMUP):
-        _train_step(mx, net, head, trainer, x, y)
+        _train_step(mx, net, head, trainer, (x,), y)
     torch.cuda.synchronize()
-    att.flash_fwd_launches = att.flash_bwd_dq_launches = 0
-    att.flash_bwd_dkv_launches = 0      # the main path starts here
+    _reset_counts(att)                  # the main path starts here
     events = [torch.cuda.Event(enable_timing=True)
               for _ in range(TRAIN_STEPS + 1)]
     losses, per_step = [], []
     t0 = time.perf_counter()
     events[0].record()
     for i in range(TRAIN_STEPS):
-        before = _launch_counts(att)
-        losses.append(_train_step(mx, net, head, trainer, x, y).mean())
+        before = _all_counts(att)[:3]
+        losses.append(_train_step(mx, net, head, trainer, (x,), y).mean())
         events[i + 1].record()
         per_step.append(tuple(a - b for a, b in
-                              zip(_launch_counts(att), before)))
+                              zip(_all_counts(att)[:3], before)))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = _launch_counts(att)      # the main path ends here
+    launches = _all_counts(att)[:3]     # the main path ends here
     step_ms = [events[i].elapsed_time(events[i + 1])
                for i in range(TRAIN_STEPS)]
     losses = [v.item() for v in losses]
@@ -601,7 +691,7 @@ def phase_train(torch, mx, att):
     _check(all(c == (layers,) * 3 for c in per_step),
            "a training step launched (fwd, dq, dkv) %r, not %d each"
            % (per_step, layers))
-    _profile(torch, lambda: _train_step(mx, net, head, trainer, x, y), 1,
+    _profile(torch, lambda: _train_step(mx, net, head, trainer, (x,), y), 1,
              top=16, phase="train_profile", batch=[TRAIN_BATCH, SEQ],
              steps=1)
     return dict(zip(("fwd", "dq", "dkv"), launches))
@@ -716,14 +806,6 @@ def phase_kernel_conv(torch, cs):
     return step
 
 
-def _resnet_step(mx, net, loss_fn, trainer, x, y):
-    with mx.autograd.record():
-        loss = loss_fn(net(x), y)
-    mx.autograd.backward(loss)
-    trainer.step(x.shape[0])
-    return loss.detach()
-
-
 def _resnet_grads(mx, net, loss_fn, x, y):
     """One forward and backward in training mode: the per-example loss,
     {name: gradient} of the trainable tensors and {name: value} of the
@@ -817,7 +899,7 @@ def phase_train_resnet(torch, mx, cs):
     x = torch.from_numpy(images).cuda().to(torch.bfloat16)  # bench.py's cast
     y = torch.from_numpy(labels).cuda()
     for _ in range(TRAIN_WARMUP):
-        _resnet_step(mx, net, loss_fn, trainer, x, y)
+        _train_step(mx, net, loss_fn, trainer, (x,), y)
     torch.cuda.synchronize()
     cs.conv1x1_stats_launches = 0       # the main path starts here
     events = [torch.cuda.Event(enable_timing=True)
@@ -827,7 +909,7 @@ def phase_train_resnet(torch, mx, cs):
     events[0].record()
     for i in range(TRAIN_STEPS):
         before = cs.conv1x1_stats_launches
-        losses.append(_resnet_step(mx, net, loss_fn, trainer, x, y).mean())
+        losses.append(_train_step(mx, net, loss_fn, trainer, (x,), y).mean())
         events[i + 1].record()
         per_step.append(cs.conv1x1_stats_launches - before)
     torch.cuda.synchronize()
@@ -882,7 +964,7 @@ def phase_train_resnet(torch, mx, cs):
     _check(all(c == RESNET_SITES for c in per_step),
            "a training step launched the conv kernel %r times, not %d"
            % (per_step, RESNET_SITES))
-    _profile(torch, lambda: _resnet_step(mx, net, loss_fn, trainer, x, y),
+    _profile(torch, lambda: _train_step(mx, net, loss_fn, trainer, (x,), y),
              1, top=16, phase="train_resnet_profile",
              batch=[RESNET_BATCH, 3, 224, 224], steps=1)
     return launches
@@ -1029,6 +1111,220 @@ def phase_serve(torch, mx, att):
     return launches
 
 
+def _nmt_data():
+    """bench.py's run_transformer_nmt inputs: src, tgt and labels (64 x 64
+    each) drawn in that order from RandomState(0)."""
+    rs = np.random.RandomState(0)
+    shape = (NMT_BATCH, NMT_SEQ)
+    src = rs.randint(0, NMT_VOCAB, shape).astype(np.int32)
+    tgt = rs.randint(0, NMT_VOCAB, shape).astype(np.int32)
+    labels = rs.randint(0, NMT_VOCAB, shape).astype(np.float32)
+    return src, tgt, labels
+
+
+def _nmt_model(mx, device, **kw):
+    return mx.models.transformer_nmt_base(NMT_VOCAB, NMT_VOCAB, dropout=0.0,
+                                          device=device, **kw)
+
+
+def phase_train_nmt(torch, mx, att):
+    """transformer_nmt_base training through the port's entry points, as
+    bench.py's run_transformer_nmt; returns each kernel's launches over
+    the timed steps, and the causal ones among them."""
+    src, tgt, labels = _nmt_data()
+    mx.random.seed(0)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    net = _nmt_model(mx, "cuda:0", output_hidden=True)
+    head = mx.models.FusedMLMCELoss(NMT_VOCAB, NMT_UNITS, device="cuda:0")
+    params = dict(net.collect_params())
+    params.update({"loss." + n: p for n, p in head.collect_params().items()})
+    trainer = mx.gluon.Trainer(params, "adam", {"learning_rate": 1e-4})
+
+    # parity: one batch-1 step's loss and gradients against a CPU copy
+    cpu_net = _nmt_model(mx, "cpu", output_hidden=True)
+    cpu_net.load_state_dict({k: v.cpu() for k, v in net.state_dict().items()})
+    cpu_head = mx.models.FusedMLMCELoss(NMT_VOCAB, NMT_UNITS, device="cpu")
+    cpu_head.load_state_dict({k: v.cpu()
+                              for k, v in head.state_dict().items()})
+    s1, t1, y1 = (torch.from_numpy(a[:1]) for a in (src, tgt, labels))
+    with mx.autograd.record():
+        ref_loss = cpu_head(cpu_net(s1, t1), y1)
+    mx.autograd.backward(ref_loss)
+    ref_grads = {n: p.grad for n, p in cpu_net.collect_params().items()}
+    ref_grads.update({"loss." + n: p.grad
+                      for n, p in cpu_head.collect_params().items()})
+    loss1 = _train_step(mx, net, head, trainer, (s1.cuda(), t1.cuda()),
+                        y1.cuda())
+    loss_err = (loss1.cpu() - ref_loss.detach()).abs().max().item()
+    grad_err = _scaled_err({n: p.grad for n, p in params.items()}, ref_grads)
+    worst_name = max(grad_err, key=grad_err.get)
+    del cpu_net, cpu_head, ref_grads, ref_loss
+
+    s, t, y = (torch.from_numpy(a).cuda() for a in (src, tgt, labels))
+    for _ in range(TRAIN_WARMUP):
+        _train_step(mx, net, head, trainer, (s, t), y)
+    torch.cuda.synchronize()
+    _reset_counts(att)                  # the main path starts here
+    events = [torch.cuda.Event(enable_timing=True)
+              for _ in range(TRAIN_STEPS + 1)]
+    losses, per_step = [], []
+    t0 = time.perf_counter()
+    events[0].record()
+    for i in range(TRAIN_STEPS):
+        before = _all_counts(att)
+        losses.append(_train_step(mx, net, head, trainer, (s, t), y).mean())
+        events[i + 1].record()
+        per_step.append(tuple(a - b for a, b in
+                              zip(_all_counts(att), before)))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(zip(_COUNT_KEYS, _all_counts(att)))  # the path ends here
+    step_ms = [events[i].elapsed_time(events[i + 1])
+               for i in range(TRAIN_STEPS)]
+    losses = [v.item() for v in losses]
+    per_step_want = (2 * NMT_LAYERS,) * 3 + (NMT_LAYERS,) * 3
+    _emit(dict(phase="train_nmt", model="transformer_nmt_base",
+               dtype="float32", batch=NMT_BATCH, src_len=NMT_SEQ,
+               tgt_len=NMT_SEQ, vocab=NMT_VOCAB, optimizer="adam", lr=1e-4,
+               parameters=sum(p.numel() for p in params.values()),
+               parity=dict(batch=1, loss_max_abs_err=loss_err,
+                           loss_mean=loss1.mean().item(),
+                           worst_grad_err_over_scale=grad_err[worst_name],
+                           worst_grad=worst_name, tol=TRAIN_TOL,
+                           tensors=len(grad_err)),
+               warmup_steps=TRAIN_WARMUP, steps=TRAIN_STEPS,
+               step_ms=step_ms, step_ms_median=statistics.median(step_ms),
+               wall_s=wall,
+               tgt_tokens_per_s=TRAIN_STEPS * NMT_BATCH * NMT_SEQ / wall,
+               losses=losses,
+               max_memory_allocated=torch.cuda.max_memory_allocated(),
+               launches=launches,
+               launches_per_step=[dict(zip(_COUNT_KEYS, c))
+                                  for c in sorted(set(per_step))]))
+    _check(loss_err <= SERVE_TOL, "batch-1 loss differs from the CPU copy "
+           "by %g > %g" % (loss_err, SERVE_TOL))
+    _check(grad_err[worst_name] <= TRAIN_TOL, "gradient of %s differs from "
+           "the CPU copy: %g of its scale > %g"
+           % (worst_name, grad_err[worst_name], TRAIN_TOL))
+    _check(all(math.isfinite(v) for v in losses),
+           "non-finite training loss: %r" % (losses,))
+    _check(all(c == per_step_want for c in per_step),
+           "a training step launched %r (%s), not %r"
+           % (per_step, ", ".join(_COUNT_KEYS), per_step_want))
+    _profile(torch, lambda: _train_step(mx, net, head, trainer, (s, t), y), 1,
+             top=16, phase="train_nmt_profile",
+             batch=[NMT_BATCH, NMT_SEQ, NMT_SEQ], steps=1)
+    return launches
+
+
+def phase_decode_nmt(torch, mx, att):
+    """transformer_nmt_base's cached decode on cuda:0: init_cache, then
+    NMT_DECODE_STEPS greedy decode_steps, each step's logits held against
+    the teacher-forced forward and a CPU copy."""
+    src, _, _ = _nmt_data()
+    rows = len(NMT_DECODE_VALID)
+    mx.random.seed(0)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    net = _nmt_model(mx, "cuda:0")
+    s = torch.from_numpy(src[:rows]).cuda()
+    valid = torch.tensor(NMT_DECODE_VALID, dtype=torch.float32,
+                         device="cuda")
+
+    def greedy():
+        """Prefill and NMT_DECODE_STEPS greedy steps from NMT_BOS: the fed
+        tokens (rows, steps), the logits (rows, steps, vocab) and CUDA
+        events around the prefill and each step."""
+        events = [torch.cuda.Event(enable_timing=True)
+                  for _ in range(NMT_DECODE_STEPS + 2)]
+        events[0].record()
+        cache = net.init_cache(s, valid, max_len=NMT_DECODE_STEPS,
+                               mem_len=NMT_MEM_LEN)
+        events[1].record()
+        tok = torch.full((rows,), NMT_BOS, dtype=torch.long, device="cuda")
+        fed, logits = [], []
+        for i in range(NMT_DECODE_STEPS):
+            fed.append(tok)
+            out, cache = net.decode_step(
+                tok, torch.full((rows,), i, device="cuda"), cache)
+            events[i + 2].record()
+            logits.append(out)
+            tok = out.argmax(-1)
+        return torch.stack(fed, 1), torch.stack(logits, 1), events
+
+    with torch.inference_mode():
+        greedy()                        # warm-up
+        # device time by kernel over one prefill and its greedy steps
+        _profile(torch, greedy, 1, top=8, phase="decode_nmt_profile",
+                 rows=rows, steps=NMT_DECODE_STEPS)
+        torch.cuda.synchronize()
+        _reset_counts(att)              # the main path starts here
+        t0 = time.perf_counter()
+        fed, logits, events = greedy()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(zip(_COUNT_KEYS, _all_counts(att)))  # path ends
+        prefill_ms = events[0].elapsed_time(events[1])
+        step_ms = [events[i + 1].elapsed_time(events[i + 2])
+                   for i in range(NMT_DECODE_STEPS)]
+        # the teacher-forced forward over the fed prefix, on the card
+        forced = net(s, fed, src_valid_length=valid)
+        err_forced = (logits - forced).abs().max().item()
+        cpu_net = _nmt_model(mx, "cpu")
+        cpu_net.load_state_dict({k: v.cpu()
+                                 for k, v in net.state_dict().items()})
+        cache = cpu_net.init_cache(s.cpu(), valid.cpu(),
+                                   max_len=NMT_DECODE_STEPS,
+                                   mem_len=NMT_MEM_LEN)
+        err_cpu = 0.0
+        for i in range(NMT_DECODE_STEPS):
+            out, cache = cpu_net.decode_step(fed[:, i].cpu(),
+                                             torch.full((rows,), i), cache)
+            err_cpu = max(err_cpu,
+                          (logits[:, i].cpu() - out).abs().max().item())
+    _emit(dict(phase="decode_nmt", model="transformer_nmt_base",
+               dtype="float32", rows=rows, src_len=NMT_SEQ,
+               src_valid_length=list(NMT_DECODE_VALID), mem_len=NMT_MEM_LEN,
+               steps=NMT_DECODE_STEPS, prefill_ms=prefill_ms,
+               step_ms=step_ms, step_ms_median=statistics.median(step_ms),
+               wall_s=wall, tokens_per_s=rows * NMT_DECODE_STEPS / wall,
+               max_memory_allocated=torch.cuda.max_memory_allocated(),
+               distinct_tokens=int(fed.unique().numel()),
+               forced_max_abs_err=err_forced, cpu_max_abs_err=err_cpu,
+               tol=SERVE_TOL, launches=launches))
+    _check(tuple(logits.shape) == (rows, NMT_DECODE_STEPS, NMT_VOCAB),
+           "decode logits of shape %s" % (tuple(logits.shape),))
+    _check(bool(torch.isfinite(logits).all()), "non-finite decode logits")
+    # f32 logits of size ~1 through 6 + 6 layers, held as the served ones
+    _check(err_forced <= SERVE_TOL, "decode logits differ from the "
+           "teacher-forced forward by %g > %g" % (err_forced, SERVE_TOL))
+    _check(err_cpu <= SERVE_TOL, "decode logits differ from the CPU copy "
+           "by %g > %g" % (err_cpu, SERVE_TOL))
+    _check(not any(launches.values()), "the decode steps launched flash "
+           "kernels: %r" % (launches,))
+
+
+def _nmt_shape_rows(fwd_rows, bwd_rows, kernel):
+    """One kernel's times at the NMT step's shape, non-causal and causal:
+    {ms, device_ms, plain_ms, bound_ms, bound_by, library_ms} with
+    library_ms the device time of SDPA (forward) or of its backward alone
+    (the dQ and dK/dV kernels together)."""
+    out = {}
+    for case in NMT_CASES:
+        if kernel == "fwd":
+            r, pre = fwd_rows[case], ""
+            library_ms = r["library_device_ms"]
+        else:
+            r, pre = bwd_rows[case], kernel + "_"
+            library_ms = r["library_ms"]
+        out["causal" if case[-1] else "non_causal"] = dict(
+            ms=r[pre + "ms"], device_ms=r[pre + "device_ms"],
+            plain_ms=r[pre + "plain_ms"], bound_ms=r[pre + "bound_ms"],
+            bound_by=r[pre + "bound_by"], library_ms=library_ms)
+    return out
+
+
 # template arguments of a mangled kernel name: float, bf16, int, bool
 _PTX_ARG = {"f": "f32", "13__nv_bfloat16": "bf16", "Lb0E": "false",
             "Lb1E": "true"}
@@ -1095,12 +1391,22 @@ def main():
                                      for k in ptxas.values()),
                ptxas=ptxas))
 
-    main_row = phase_kernel(torch, att)
+    fwd_rows = phase_kernel(torch, att)
+    main_row = fwd_rows[BERT_CASE]
     launches = phase_serve(torch, mx, att)
-    bwd_row = phase_kernel_bwd(torch, att)
+    bwd_rows = phase_kernel_bwd(torch, att)
+    bwd_row = bwd_rows[BERT_CASE]
     train_launches = phase_train(torch, mx, att)
     conv_step = phase_kernel_conv(torch, cs)
     conv_launches = phase_train_resnet(torch, mx, cs)
+    nmt_launches = phase_train_nmt(torch, mx, att)
+    phase_decode_nmt(torch, mx, att)
+
+    def nmt(kernel):
+        """A flash row's NMT-path launches and NMT-shape times."""
+        return dict(nmt_launches=dict(total=nmt_launches[kernel],
+                                      causal=nmt_launches[kernel + "_causal"]),
+                    nmt_shape=_nmt_shape_rows(fwd_rows, bwd_rows, kernel))
     shape = dict(shape=[main_row["BH"], main_row["T"], main_row["d"]],
                  dtype=main_row["dtype"])
     bwd_src = "incubator_mxnet_tpu_torch/ops/csrc/flash_attention_bwd.cu"
@@ -1115,7 +1421,7 @@ def main():
              ms=main_row["ms"], kernel_ms=main_row["ms"],
              plain_ms=main_row["plain_ms"], bound_ms=main_row["bound_ms"],
              bound_by=main_row["bound_by"],
-             library_ms=main_row["library_ms"], **shape),
+             library_ms=main_row["library_ms"], **shape, **nmt("fwd")),
         dict(name="flash_attention_bwd_dq", route="cuda", source=bwd_src,
              replaces="incubator_mxnet_tpu/ops/attention.py:232",
              launches=train_launches["dq"], parity="ok",
@@ -1127,7 +1433,7 @@ def main():
              library_ms=bwd_row["library_ms"],
              library_events_ms=bwd_row["library_events_ms"],
              library_kernel=bwd_row["library_kernels"][0]["kernel"],
-             **shape),
+             **shape, **nmt("dq")),
         dict(name="flash_attention_bwd_dkv", route="cuda", source=bwd_src,
              replaces="incubator_mxnet_tpu/ops/attention.py:278",
              launches=train_launches["dkv"], parity="ok",
@@ -1139,7 +1445,7 @@ def main():
              library_ms=bwd_row["library_ms"],
              library_events_ms=bwd_row["library_events_ms"],
              library_kernel=bwd_row["library_kernels"][0]["kernel"],
-             **shape),
+             **shape, **nmt("dkv")),
         dict(name="conv1x1_stats", route="cuda",
              source="incubator_mxnet_tpu_torch/ops/csrc/conv1x1_stats.cu",
              replaces="tools/conv_stats_pallas_experiment.py:9",

@@ -1,5 +1,7 @@
 """Model definitions of the PyTorch port."""
-from .transformer import (MultiHeadAttention, PositionwiseFFN,
-                          TransformerEncoderLayer, TransformerEncoder,
-                          BERTModel, FusedMLMCELoss, bert_base,
-                          bert_small)
+from .transformer import (MultiHeadAttention, CrossAttention,
+                          PositionwiseFFN, TransformerEncoderLayer,
+                          TransformerEncoder, TransformerDecoderLayer,
+                          TransformerDecoder, TransformerNMT,
+                          transformer_nmt_base, transformer_nmt_small,
+                          BERTModel, FusedMLMCELoss, bert_base, bert_small)

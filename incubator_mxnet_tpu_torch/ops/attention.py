@@ -29,7 +29,8 @@ dims the kernels take (`KERNEL_HEAD_DIMS`), and through
 
 `flash_fwd_launches`, `flash_bwd_dq_launches` and `flash_bwd_dkv_launches`
 count kernel launches, so a run can show that its attention went through
-the kernels.
+the kernels; `flash_fwd_causal_launches` and its two siblings count the
+causal ones among them.
 """
 from __future__ import annotations
 
@@ -60,6 +61,9 @@ _matmul = torch.matmul
 flash_fwd_launches = 0
 flash_bwd_dq_launches = 0
 flash_bwd_dkv_launches = 0
+flash_fwd_causal_launches = 0
+flash_bwd_dq_causal_launches = 0
+flash_bwd_dkv_causal_launches = 0
 
 
 def naive_attention(q, k, v, scale, causal=False, bias=None):
@@ -205,7 +209,7 @@ def _stream(dev):
 
 
 def _flash_fwd_cuda(q, k, v, scale, causal):
-    global flash_fwd_launches
+    global flash_fwd_launches, flash_fwd_causal_launches
     _check_kernel_operands(q, k, v)
     _check_aligned(q, k, v, name="flash_attention_fwd")
     BH, T, d = q.shape
@@ -221,11 +225,12 @@ def _flash_fwd_cuda(q, k, v, scale, causal):
             _KERNEL_DTYPES[q.dtype], _stream(q.device))
     _launched(rc, "flash_attention_fwd")
     flash_fwd_launches += 1
+    flash_fwd_causal_launches += bool(causal)
     return out, lse
 
 
 def _flash_bwd_dq_cuda(q, k, v, out, lse, dout, scale, causal):
-    global flash_bwd_dq_launches
+    global flash_bwd_dq_launches, flash_bwd_dq_causal_launches
     name = "flash_attention_bwd_dq"
     _check_kernel_operands(q, k, v, out, dout, name=name)
     _check_aligned(q, k, v, out, dout, name=name)
@@ -244,11 +249,12 @@ def _flash_bwd_dq_cuda(q, k, v, out, lse, dout, scale, causal):
             _KERNEL_DTYPES[q.dtype], _stream(q.device))
     _launched(rc, name)
     flash_bwd_dq_launches += 1
+    flash_bwd_dq_causal_launches += bool(causal)
     return dq, delta
 
 
 def _flash_bwd_dkv_cuda(q, k, v, dout, lse, delta, scale, causal):
-    global flash_bwd_dkv_launches
+    global flash_bwd_dkv_launches, flash_bwd_dkv_causal_launches
     name = "flash_attention_bwd_dkv"
     _check_kernel_operands(q, k, v, dout, name=name)
     _check_aligned(q, k, v, dout, name=name)
@@ -267,6 +273,7 @@ def _flash_bwd_dkv_cuda(q, k, v, dout, lse, delta, scale, causal):
             _KERNEL_DTYPES[q.dtype], _stream(q.device))
     _launched(rc, name)
     flash_bwd_dkv_launches += 1
+    flash_bwd_dkv_causal_launches += bool(causal)
     return dk, dv
 
 

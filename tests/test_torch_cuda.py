@@ -1,5 +1,6 @@
 """PyTorch port on the card: the CUDA kernels against their plain versions,
-and the serving and training paths (BERT, ResNet) through them.
+and the serving and training paths (BERT, ResNet, Transformer NMT and its
+cached decode step) through them.
 
 Marked `cuda`; each test skips without a CUDA device.  This file imports
 neither JAX nor the JAX package, so on a machine with the card (and no
@@ -275,6 +276,136 @@ def test_bert_training_step_through_kernels(card):
         assert err <= 1e-3 * max(r.grad.abs().max().item(), 1e-3 * gmax)
     trainer.step(2)
     assert all(bool(torch.isfinite(p).all()) for p in net.parameters())
+
+
+def _causal_counts():
+    return (tatt.flash_fwd_causal_launches, tatt.flash_bwd_dq_causal_launches,
+            tatt.flash_bwd_dkv_causal_launches)
+
+
+def _counts():
+    return (tatt.flash_fwd_launches, tatt.flash_bwd_dq_launches,
+            tatt.flash_bwd_dkv_launches) + _causal_counts()
+
+
+# the NMT step's shape (batch 64 x 8 heads, T 64, d 64: one 64 x 64 tile,
+# every tile on the diagonal when causal), and a ragged causal T whose
+# only tile is partial
+@pytest.mark.parametrize("BH,T,causal", [(512, 64, False), (512, 64, True),
+                                         (512, 50, True)])
+def test_flash_kernels_at_nmt_shapes(card, BH, T, causal):
+    q, k, v, do, out, lse = _bwd_inputs(card, BH, T, 64, torch.float32,
+                                        causal)
+    before = _counts()
+    runs = []
+    for _ in range(2):
+        fwd = tatt.flash_attention_fwd(q, k, v, 0.125, causal)
+        dq, delta = tatt.flash_attention_bwd_dq(q, k, v, out, lse, do, 0.125,
+                                                causal)
+        dk, dv = tatt.flash_attention_bwd_dkv(q, k, v, do, lse, delta, 0.125,
+                                              causal)
+        runs.append(fwd + (dq, delta, dk, dv))
+    torch.cuda.synchronize()
+    c = int(causal)
+    assert tuple(a - b for a, b in zip(_counts(), before)) == \
+        (2, 2, 2, 2 * c, 2 * c, 2 * c)
+    # one owner per output element: the same bits over two launches
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+    ref_out, ref_lse = tatt.flash_attention_fwd_plain(q, k, v, 0.125, causal)
+    ref_dq, ref_delta = tatt.flash_attention_bwd_dq_plain(
+        q, k, v, out, lse, do, 0.125, causal)
+    ref_dk, ref_dv = tatt.flash_attention_bwd_dkv_plain(
+        q, k, v, do, lse, delta, 0.125, causal)
+    o, l, dq, delta, dk, dv = runs[0]
+    # f32: the same sums in another order (as the cases above)
+    assert (o - ref_out).abs().max().item() <= 1e-4
+    assert (l - ref_lse).abs().max().item() <= 1e-4
+    assert (delta - ref_delta).abs().max().item() <= \
+        1e-4 * max(ref_delta.abs().max().item(), 1.0)
+    for got, r in ((dq, ref_dq), (dk, ref_dk), (dv, ref_dv)):
+        assert (got - r).abs().max().item() <= 1e-4 * r.abs().max().item()
+
+
+def _nmt_pair(card, **kw):
+    """transformer_nmt_small on the card (random weights from seed 0) and
+    a CPU copy."""
+    tmx.random.seed(0)
+    kw = dict(src_vocab=40, tgt_vocab=40, dropout=0.0, **kw)
+    net = tmx.models.transformer_nmt_small(**kw)
+    assert next(net.parameters()).device == card    # cuda:0 by default
+    cpu = tmx.models.transformer_nmt_small(device="cpu", **kw)
+    cpu.load_state_dict({k: v.cpu() for k, v in net.state_dict().items()})
+    return net, cpu
+
+
+def test_nmt_training_step_through_kernels(card):
+    net, cpu = _nmt_pair(card, output_hidden=True)
+    head = tmx.models.FusedMLMCELoss(40, 64)
+    cpu_head = tmx.models.FusedMLMCELoss(40, 64, device="cpu")
+    cpu_head.load_state_dict({k: v.cpu()
+                              for k, v in head.state_dict().items()})
+    rs = np.random.RandomState(0)
+    src = torch.from_numpy(rs.randint(0, 40, (2, 24)))
+    tgt = torch.from_numpy(rs.randint(0, 40, (2, 20)))
+    y = torch.from_numpy(rs.randint(0, 40, (2, 20)).astype(np.float32))
+    trainer = tmx.gluon.Trainer(
+        {**net.collect_params(), **head.collect_params()}, "adam",
+        {"learning_rate": 1e-4})
+    before = _counts()
+    with tmx.autograd.record():
+        loss = head(net(src.to(card), tgt.to(card)), y.to(card))
+    tmx.autograd.backward(loss)
+    torch.cuda.synchronize()
+    # 2 encoder layers and 2 causal decoder layers, each kernel once each
+    assert tuple(a - b for a, b in zip(_counts(), before)) == \
+        (4, 4, 4, 2, 2, 2)
+    with tmx.autograd.record():
+        ref = cpu_head(cpu(src, tgt), y)
+    tmx.autograd.backward(ref)
+    assert (loss.cpu() - ref.detach()).abs().max().item() <= 1e-4
+    cpu_params = list(cpu.parameters()) + list(cpu_head.parameters())
+    gmax = max(p.grad.abs().max().item() for p in cpu_params)
+    for p, r in zip(list(net.parameters()) + list(head.parameters()),
+                    cpu_params):
+        # 1e-3 of each gradient's scale, floored at 1e-3 of the largest
+        # (the key biases have an exact gradient of 0)
+        err = (p.grad.cpu() - r.grad).abs().max().item()
+        assert err <= 1e-3 * max(r.grad.abs().max().item(), 1e-3 * gmax)
+    trainer.step(2)
+    assert all(bool(torch.isfinite(p).all()) for p in net.parameters())
+
+
+def test_nmt_decode_steps_on_card(card):
+    net, cpu = _nmt_pair(card)
+    rs = np.random.RandomState(1)
+    src = torch.from_numpy(rs.randint(0, 40, (3, 10)))
+    tgt = torch.from_numpy(rs.randint(0, 40, (3, 6)))
+    valid = torch.tensor([10.0, 7.0, 3.0])
+    before = _counts()
+    with torch.inference_mode():
+        cache = net.init_cache(src.to(card), valid.to(card), max_len=6,
+                               mem_len=16)
+        ref_cache = cpu.init_cache(src, valid, max_len=6, mem_len=16)
+        forced = net(src.to(card), tgt.to(card),
+                     src_valid_length=valid.to(card))
+        after_forward = _counts()
+        for i in range(6):
+            pos = torch.full((3,), i)
+            out, cache = net.decode_step(tgt[:, i].to(card), pos.to(card),
+                                         cache)
+            ref, ref_cache = cpu.decode_step(tgt[:, i], pos, ref_cache)
+            # f32 logits of size ~1, card against the CPU copy and
+            # against the teacher-forced forward on the card
+            assert (out.cpu() - ref).abs().max().item() <= 1e-4
+            assert (out - forced[:, i]).abs().max().item() <= 1e-4
+    torch.cuda.synchronize()
+    # the decode step attends with torch.bmm: no kernel launched.  The
+    # masked forward launched the forward kernel once per decoder layer,
+    # causal; its encoder took the masked, unfused path
+    assert _counts() == after_forward
+    assert tuple(a - b for a, b in zip(after_forward, before)) == \
+        (2, 0, 0, 2, 0, 0)
 
 
 def _conv_inputs(card, N, C, HW, O, dtype, seed=2):

@@ -58,6 +58,14 @@ def test_import_loads_no_jax_and_needs_no_nvcc(tmp_path):
             "resnet50_v1b; mx.optimizer.SGD, mx.gluon.nn.Conv2D, "
             "mx.gluon.nn.BatchNorm, mx.gluon.nn.GlobalAvgPool2D, "
             "mx.autograd.train_mode, mx.ops.nn.pooling; "
+            "mx.models.TransformerNMT, mx.models.transformer_nmt_base, "
+            "mx.models.transformer_nmt_small, mx.models.CrossAttention, "
+            "mx.models.TransformerDecoder; "
+            "assert a.flash_fwd_causal_launches == "
+            "a.flash_bwd_dq_causal_launches == "
+            "a.flash_bwd_dkv_causal_launches == 0; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'incubator_mxnet_tpu')]; assert not bad, bad; "
             "print('ok')")
     out = subprocess.run([sys.executable, "-c", code], cwd=str(tmp_path),
                          env=env, capture_output=True, text=True,
