@@ -10,8 +10,9 @@ Drives incubator_mxnet_tpu_torch only (never JAX or the JAX package):
              sources (one nvcc per source, all started together), with
              ptxas's registers and spill stores per kernel instance.
 3. kernel  — each kernel against its plain PyTorch version on the card, at
-             the serving shapes and at edge cases, timed with CUDA events
-             beside the plain version and one PyTorch library call, and by
+             the serving, NMT and bf16 training shapes and at edge cases,
+             timed with CUDA events beside the plain version and one
+             PyTorch library call, and by
              the device time of its kernels (torch.profiler) beside the
              library call's.
 4. serve   — BERT-base at full width (random weights from seed 0, f32)
@@ -40,7 +41,20 @@ Drives incubator_mxnet_tpu_torch only (never JAX or the JAX package):
              loss finite); each step launches each of the three kernels
              12 times.
    train_profile — device time by kernel over one training step.
-7. kernel_conv — the fused 1x1-conv + BatchNorm-statistics kernel at the
+7. train_bf16 — BERT-base as bench.py's run_bert trains it: bert_base and
+             FusedMLMCELoss cast to bf16 (Block.cast), Adam lr 1e-4,
+             batch 16 x 512 from RandomState(0): a batch-1 step's loss and
+             worst gradient against an f32 CPU copy holding the same
+             bf16-valued weights, by the kernels and by the plain route
+             (every flash kernel's plain version on the card), the
+             kernels held to twice the plain route's errors; 2 warm-up and
+             10 timed steps (step ms by CUDA events, tokens/s, peak
+             memory, every loss finite), each launching each kernel 12
+             times, every launch a bf16 instance; the vocab projection's
+             two routes (cuBLAS bf16 GEMMs with f32 output, and the
+             operands upcast to f32) timed at the step's shape.
+   train_bf16_profile — device time by kernel over one such step.
+8. kernel_conv — the fused 1x1-conv + BatchNorm-statistics kernel at the
              12 shapes of a ResNet-50 step (bf16, batch 128), the tool's 5
              shapes in f32 and ragged shapes, each with the kernel
              instance it takes (every step shape must take the tensor
@@ -49,7 +63,7 @@ Drives incubator_mxnet_tpu_torch only (never JAX or the JAX package):
              exact product; timed beside the plain version, the library
              route (cuDNN's 1x1 convolution, then the two f32 sums) and
              cuDNN's 1x1 convolution alone.
-8. train_resnet — resnet50_v1b (1000 classes, random weights from seed 0)
+9. train_resnet — resnet50_v1b (1000 classes, random weights from seed 0)
              + SoftmaxCrossEntropyLoss + SGD (lr 0.1, momentum 0.9, wd
              1e-4), as bench.py's run_cachedop: one batch-2 f32 step's
              loss, 161 gradients and running statistics against a CPU
@@ -60,7 +74,7 @@ Drives incubator_mxnet_tpu_torch only (never JAX or the JAX package):
              CUDA events, images/s, peak memory, every loss finite); each
              step launches the conv kernel 33 times.
    train_resnet_profile — device time by kernel over one such step.
-9. train_nmt — transformer_nmt_base (6 + 6 layers, 512 units, 8 heads,
+10. train_nmt — transformer_nmt_base (6 + 6 layers, 512 units, 8 heads,
              vocab 32000, dropout 0, output_hidden + FusedMLMCELoss, Adam
              lr 1e-4, f32) as bench.py's run_transformer_nmt (config 4b):
              one batch-1 step's loss and every gradient against a CPU
@@ -70,7 +84,7 @@ Drives incubator_mxnet_tpu_torch only (never JAX or the JAX package):
              each step launches each flash kernel 12 times, 6 of them
              causal (the decoder's self-attention).
    train_nmt_profile — device time by kernel over one such step.
-10. decode_nmt — the same model with its vocab projection: init_cache for
+11. decode_nmt — the same model with its vocab projection: init_cache for
              8 of those source rows at differing valid lengths with the
              memory padded past the source, then 16 greedy decode_steps
              on cuda:0 (ms per step); each step's logits against the
@@ -79,7 +93,7 @@ Drives incubator_mxnet_tpu_torch only (never JAX or the JAX package):
              with torch.bmm: no flash kernel may launch.
    decode_nmt_profile — device time by kernel over one prefill and its
              greedy steps.
-11. kernels — one JSON line per the port's kernel table (4 rows), then the
+12. kernels — one JSON line per the port's kernel table (4 rows), then the
              card's name and power limit, then the final {"ok": true, ...}
              line.
 
@@ -109,14 +123,18 @@ import numpy as np
 # carry the CUDA-core bound beside it as bound_cuda_core_ms (the kernels line
 # carries bound_ms only).  bf16 runs on the tensor
 # cores at 989 TFLOP/s.
-PEAK_FLOPS = {"float32": 495e12 / 3, "bfloat16": 989e12}
+PEAK_FLOPS = {"float32": 495e12 / 3, "bfloat16": 989e12, "float16": 989e12}
 PEAK_FLOPS_F32_CUDA_CORES = 67e12
 PEAK_BYTES_S = 3.35e12
 SERVE_BUCKETS = (1, 2, 4, 8)
 SEQ = 512
 # flash forward against its plain version: f32 out and lse (from f32
-# scores in both dtypes) differ by the same sums in another order
+# scores in every dtype) differ by the same sums in another order
 TOL = 1e-4
+# unit roundoff of the 16-bit dtypes (half their spacing at 1): a 16-bit
+# kernel output is held to 4 u (|ref| + rms(ref)) of its plain version
+# (`_low_tolerance`)
+ROUNDOFF = {"bfloat16": 2.0 ** -8, "float16": 2.0 ** -11}
 # CPU vs card on the served logits, both f32: cuBLAS and the CPU BLAS sum
 # in other orders and the kernel's tiled online softmax differs from the
 # plain softmax in rounding; through 12 layers of LayerNorm-ed residuals
@@ -139,13 +157,38 @@ TRAIN_TOL = 1e-3
 TRAIN_BATCH = 8
 TRAIN_WARMUP = 2
 TRAIN_STEPS = 10
+# bench.py's run_bert: BERT-base cast to bf16 at batch 16 x 512.  A bf16
+# step cannot be held to the f32 TRAIN_TOL.  Its batch-1 step is read
+# against an f32 CPU copy holding the same bf16-valued weights, by the
+# kernels and by the plain route (the card's step with every flash kernel
+# replaced by its plain version), and each tensor X (the final hidden
+# states and every gradient) is held on its own:
+#     e_kernels(X) <= 2 e_plain(X) + ulp(X),
+# e the max-abs error against the CPU copy over X's scale (its max-abs
+# value, floored at 1e-3 of the largest gradient), ulp(X) one bf16 ulp of
+# that scale over the scale.  The two routes round at the same points
+# (the plain versions round P, dS and the outputs to bf16 where the
+# kernels do) and differ only in the order of f32 sums, which tips a
+# rounding here and there by one ulp; those flips travel through the same
+# computation as the bf16 roundings that make e_plain, so the routes'
+# distance is at most about e_plain, and e_kernels <= e_plain + that
+# distance <= 2 e_plain; where e_plain is below X's own rounding, one ulp
+# of X's scale is the floor.  A fault in a tile, mask, scale or delta
+# moves the hidden states or the well-conditioned gradients (the value
+# and output projections, the FFNs, every layer below the fault) by O(1)
+# of their scale.  The batch-1 loss (f32 from bf16 hidden states) is held
+# to twice the plain route's error plus 1e-6; at random init it hardly
+# depends on the network, so the hidden states carry the forward's check.
+BF16_BATCH = 16
+BF16_ROUTE_FACTOR = 2.0
+BF16_LOSS_FLOOR = 1e-6
 # fused 1x1 conv + statistics.  f32 y against the plain version: the
-# same f32 sums over C in another order, 1e-4 of the largest |y|.  bf16
-# y, the kernel's and the plain version's alike, against the exact (f64)
-# product e: within conv_stats.conv1x1_y_bound, 2**-8 |e| + 1.01 C 2**-23
-# sum_c |w x|, what an f32 sum over C in any order and any rounding of
-# its adds, then rounded to bf16, can miss e by (its docstring derives
-# it).  The sums of N·HW f32 terms in another order: Σy within
+# same f32 sums over C in another order, 1e-4 of the largest |y|.  A
+# 16-bit y, the kernel's and the plain version's alike, against the exact
+# (f64) product e: within conv_stats.conv1x1_y_bound, u |e| (+ 2**-25 in
+# f16) + 1.01 C 2**-23 sum_c |w x|, u = 2**-8 in bf16 and 2**-11 in f16,
+# what an f32 sum over C in any order and any rounding of its adds, then
+# rounded to y's dtype, can miss e by (its docstring derives it).  The sums of N·HW f32 terms in another order: Σy within
 # CONV_SUM_TOL of sqrt(N·HW·Σy²) (which is at least Σ|y|), Σy² within
 # CONV_SUM_TOL of itself.  A wrong tile or mask moves a sum by O(1) of
 # it, a dropped input channel Σy² by about 1/C of it (4.9e-4 at C 2048).
@@ -225,16 +268,23 @@ def _time_ms(torch, fn, reps=20, rounds=5):
     return statistics.median(times)
 
 
+def _low_tolerance(ref, dt):
+    """4 u (|ref| + rms(ref)) for the 16-bit dtype `dt` of unit roundoff u
+    (`ROUNDOFF`): 2**-6 in bf16, 2**-9 in f16.  4 u |ref| is at least 2
+    ulps of each element (an ulp is at most 2 u of it), and 4 u rms(ref)
+    covers the elements near zero."""
+    return 4.0 * ROUNDOFF[dt] * (ref.abs() + ref.pow(2).mean().sqrt())
+
+
 def _out_tolerance(torch, ref, dt):
-    """Elementwise bound on |out - ref| of the flash forward.  bf16: both
-    outputs are rounded to bf16, and the kernel rounds P against the
-    running max where the plain version uses the final max; 2**-6 |ref| is
-    at least 2 bf16 ulps of each element and 2**-6 rms(ref) covers the
-    elements near zero.  A fault that scales out by 3 % or more, or mixes
-    up rows of V, exceeds it."""
+    """Elementwise bound on |out - ref| of the flash forward.  16-bit: both
+    outputs are rounded to the dtype, and the kernel rounds P against the
+    running max where the plain version uses the final max; within
+    `_low_tolerance`.  A fault that scales out by 4 u or more (3 % in
+    bf16), or mixes up rows of V, exceeds it."""
     if dt == "float32":
         return torch.full_like(ref, TOL)
-    return 2.0 ** -6 * (ref.abs() + ref.pow(2).mean().sqrt())
+    return _low_tolerance(ref, dt)
 
 
 def _roofline(flops, nbytes, dtype, prefix=""):
@@ -290,17 +340,21 @@ def _dkv_bound(BH, T, d, dtype, causal):
 # kernel cases (BH, T, d, dtype, causal): the BERT serving and training
 # shape first, then causal, bf16, ragged T and the other head dims, then
 # the NMT step's shape (64 x 8 heads, T 64: one tile, every tile on the
-# diagonal when causal) both ways and a ragged causal T of one partial
-# tile
+# diagonal when causal) both ways, a ragged causal T of one partial tile,
+# the bf16 BERT step's shape, and the f16 instances (amp.init("float16"),
+# a float16 cast) at the BERT shape and a ragged causal T
 BERT_CASE = (96, SEQ, 64, "float32", False)
 NMT_CASES = ((NMT_BATCH * 8, NMT_SEQ, 64, "float32", False),
              (NMT_BATCH * 8, NMT_SEQ, 64, "float32", True))
+# the bf16 BERT step's shape (batch 16 x 12 heads)
+BF16_CASES = ((BF16_BATCH * 12, SEQ, 64, "bfloat16", False),)
 CASES = [BERT_CASE, (96, SEQ, 64, "float32", True),
          (96, SEQ, 64, "bfloat16", False), (96, SEQ, 64, "bfloat16", True),
          (8, 200, 64, "float32", False), (8, 200, 64, "bfloat16", True),
          (96, SEQ, 32, "float32", False), (96, SEQ, 128, "float32", False),
          (8, 200, 16, "float32", True)] + list(NMT_CASES) + [
-         (NMT_BATCH * 8, 50, 64, "float32", True)]
+         (NMT_BATCH * 8, 50, 64, "float32", True)] + list(BF16_CASES) + [
+         (96, SEQ, 64, "float16", False), (8, 200, 64, "float16", True)]
 
 
 def phase_kernel(torch, att):
@@ -437,14 +491,12 @@ def phase_profile(torch, net, x, forwards=3):
 
 def _grad_tolerance(torch, ref, dt):
     """Elementwise bound on a flash gradient against its plain version.
-    f32: BWD_TOL of the largest |ref|.  bf16: both round P and dS at the
-    same points and round the outputs to bf16, and sums in another f32
-    order can tip a rounding by one ulp; 2**-6 (|ref| + rms(ref)) is at
-    least 2 bf16 ulps of each element, and rms(ref) covers the elements
-    near zero."""
+    f32: BWD_TOL of the largest |ref|.  16-bit: both round P and dS at the
+    same points and round the outputs to the dtype, and sums in another
+    f32 order can tip a rounding by one ulp; within `_low_tolerance`."""
     if dt == "float32":
         return torch.full_like(ref, BWD_TOL * ref.abs().max().item())
-    return 2.0 ** -6 * (ref.abs() + ref.pow(2).mean().sqrt())
+    return _low_tolerance(ref, dt)
 
 
 def phase_kernel_bwd(torch, att):
@@ -553,16 +605,44 @@ def _tf32(torch, x, nearest=True):
 
 
 @contextlib.contextmanager
-def _plain_backward(att, matmul):
-    """The attention backward taken by its plain version on the card, its
-    products through `matmul`; the kernels again on exit."""
-    bwd, mm = att.flash_attention_bwd, att._matmul
+def _plain_backward(att, matmul, forward=False):
+    """The attention backward (with `forward`, the forward too) taken by
+    its plain version on the card, its products through `matmul`; the
+    kernels again on exit."""
+    saved = att.flash_attention_fwd, att.flash_attention_bwd, att._matmul
     att.flash_attention_bwd, att._matmul = att.flash_attention_bwd_plain, \
         matmul
+    if forward:
+        att.flash_attention_fwd = att.flash_attention_fwd_plain
     try:
         yield
     finally:
-        att.flash_attention_bwd, att._matmul = bwd, mm
+        att.flash_attention_fwd, att.flash_attention_bwd, att._matmul = \
+            saved
+
+
+@contextlib.contextmanager
+def _launch_dtypes(att):
+    """Yields a list that gets (kernel, operand dtype) for each flash
+    kernel launch inside the block: the wrappers' CUDA entries are
+    wrapped, their launch counters untouched."""
+    log = []
+    names = ("_flash_fwd_cuda", "_flash_bwd_dq_cuda", "_flash_bwd_dkv_cuda")
+    saved = [getattr(att, n) for n in names]
+
+    def logged(name, fn):
+        def call(q, *args):
+            log.append((name, str(q.dtype)))
+            return fn(q, *args)
+        return call
+
+    for name, fn in zip(names, saved):
+        setattr(att, name, logged(name, fn))
+    try:
+        yield log
+    finally:
+        for name, fn in zip(names, saved):
+            setattr(att, name, fn)
 
 
 # the three kernels' launch counters, then the causal ones among them
@@ -697,24 +777,226 @@ def phase_train(torch, mx, att):
     return dict(zip(("fwd", "dq", "dkv"), launches))
 
 
+@contextlib.contextmanager
+def _upcast_vocab_route(mx):
+    """The fused CE's vocab GEMMs with bf16 operands upcast to f32 on the
+    card (the CPU's route) in place of cuBLAS's bf16 GEMM with an f32
+    output; the card route again on exit."""
+    nn = mx.ops.nn
+    route = nn._low_precision_card
+    nn._low_precision_card = lambda a, b: False
+    try:
+        yield
+    finally:
+        nn._low_precision_card = route
+
+
+def _vocab_routes(torch, mx, head, y):
+    """One forward and backward of the fused vocab CE at the step's shape
+    (BF16_BATCH x SEQ rows of bf16 hidden states, random from seed 0)
+    by each route: CUDA-event ms (tens of ms a call, so the host's share
+    is small), and the routes' largest loss and dh differences."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    h = torch.randn(y.numel(), head.weight.shape[1], device="cuda",
+                    generator=gen).to(torch.bfloat16).requires_grad_()
+    w, b, lab = head.weight, head.bias, y.reshape(-1)
+
+    def fwd_bwd():
+        loss = mx.ops.nn.fused_linear_softmax_ce(h, w, b, lab)
+        return (loss,) + torch.autograd.grad(loss.sum(), (h, w, b))
+
+    out = {}
+    for route in ("bf16_f32_out", "upcast_f32"):
+        ctx = _upcast_vocab_route(mx) if route == "upcast_f32" \
+            else contextlib.nullcontext()
+        with ctx:
+            res = fwd_bwd()
+            ms = _time_ms(torch, fwd_bwd, reps=3, rounds=3)
+        out[route] = dict(ms=ms, res=res)
+    a, c = out["bf16_f32_out"].pop("res"), out["upcast_f32"].pop("res")
+    out["loss_max_abs_diff"] = (a[0] - c[0]).abs().max().item()
+    out["dh_max_abs_diff"] = (a[1].float() - c[1].float()).abs().max().item()
+    out["flops"] = 3 * 2.0 * y.numel() * w.shape[0] * w.shape[1]
+    return out
+
+
+def phase_train_bf16(torch, mx, att):
+    """BERT-base MLM training in bf16 through the port's entry points, as
+    bench.py's run_bert (net.cast and loss.cast to bf16, Adam lr 1e-4,
+    batch 16 x 512); returns the launches of each kernel over the timed
+    steps."""
+    rs = np.random.RandomState(0)
+    tokens = rs.randint(0, 30522, (BF16_BATCH, SEQ)).astype(np.int32)
+    labels = rs.randint(0, 30522, (BF16_BATCH, SEQ)).astype(np.float32)
+    mx.random.seed(0)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    net = mx.models.bert_base(dropout=0.0, output_hidden=True,
+                              device="cuda:0").cast("bfloat16")
+    head = mx.models.FusedMLMCELoss(30522, 768, device="cuda:0") \
+        .cast("bfloat16")
+    layers = len(net.encoder.layers)
+    params = dict(net.collect_params())
+    params.update({"loss." + n: p for n, p in head.collect_params().items()})
+    trainer = mx.gluon.Trainer(params, "adam", {"learning_rate": 1e-4})
+
+    # parity: a batch-1 step against an f32 CPU copy holding the same
+    # bf16-valued weights (bf16 is exact in f32), by the kernels and by
+    # the plain route (every flash kernel's plain version on the card)
+    cpu_net = mx.models.bert_base(dropout=0.0, output_hidden=True,
+                                  device="cpu")
+    cpu_net.load_state_dict({k: v.float().cpu()
+                             for k, v in net.state_dict().items()})
+    cpu_head = mx.models.FusedMLMCELoss(30522, 768, device="cpu")
+    cpu_head.load_state_dict({k: v.float().cpu()
+                              for k, v in head.state_dict().items()})
+    x1, y1 = torch.from_numpy(tokens[:1]), torch.from_numpy(labels[:1])
+    with mx.autograd.record():
+        ref_hidden = cpu_net(x1)
+        ref_loss = cpu_head(ref_hidden, y1)
+    mx.autograd.backward(ref_loss)
+    ref_hidden = ref_hidden.detach()
+    ref_grads = {n: p.grad for n, p in cpu_net.collect_params().items()}
+    ref_grads.update({"loss." + n: p.grad
+                      for n, p in cpu_head.collect_params().items()})
+    top = max(r.abs().max().item() for r in ref_grads.values())
+    scales = {n: max(r.abs().max().item(), 1e-3 * top)
+              for n, r in ref_grads.items()}
+    scales["hidden"] = ref_hidden.abs().max().item()
+
+    def route_errors(loss, hidden):
+        err = _scaled_err({n: p.grad for n, p in params.items()}, ref_grads)
+        err["hidden"] = (hidden.float().cpu() - ref_hidden).abs().max() \
+            .item() / scales["hidden"]
+        worst = max((n for n in err if n != "hidden"), key=err.get)
+        return err, dict(loss_max_abs_err=(loss.float().cpu()
+                                           - ref_loss.detach()).abs().max()
+                         .item(),
+                         hidden_err_over_scale=err["hidden"],
+                         worst_grad_err_over_scale=err[worst],
+                         worst_grad=worst)
+
+    def keep_hidden(h, y):
+        hidden.append(h.detach())
+        return head(h, y)
+
+    hidden = []
+    with _plain_backward(att, torch.matmul, forward=True):
+        with mx.autograd.record():
+            loss = keep_hidden(net(x1.cuda()), y1.cuda())
+        mx.autograd.backward(loss)
+    plain_err, plain = route_errors(loss, hidden.pop())
+    loss1 = _train_step(mx, net, keep_hidden, trainer, (x1.cuda(),),
+                        y1.cuda())
+    kern_err, kern = route_errors(loss1, hidden.pop())
+    # each tensor's kernel-route error over its gate (ok <= 1)
+    over = {n: kern_err[n] / (BF16_ROUTE_FACTOR * plain_err[n]
+                              + _bf16_ulp_share(scales[n]))
+            for n in kern_err}
+    worst_over = max(over, key=over.get)
+    del cpu_net, cpu_head, ref_grads, ref_loss, ref_hidden
+
+    x = torch.from_numpy(tokens).cuda()
+    y = torch.from_numpy(labels).cuda()
+    for _ in range(TRAIN_WARMUP):
+        _train_step(mx, net, head, trainer, (x,), y)
+    torch.cuda.synchronize()
+    _reset_counts(att)                  # the main path starts here
+    events = [torch.cuda.Event(enable_timing=True)
+              for _ in range(TRAIN_STEPS + 1)]
+    losses, per_step = [], []
+    with _launch_dtypes(att) as dtypes:
+        t0 = time.perf_counter()
+        events[0].record()
+        for i in range(TRAIN_STEPS):
+            before = _all_counts(att)
+            losses.append(_train_step(mx, net, head, trainer, (x,), y)
+                          .mean())
+            events[i + 1].record()
+            per_step.append(tuple(a - b for a, b in
+                                  zip(_all_counts(att), before)))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = dict(zip(_COUNT_KEYS, _all_counts(att)))  # the path ends here
+    step_ms = [events[i].elapsed_time(events[i + 1])
+               for i in range(TRAIN_STEPS)]
+    losses = [v.item() for v in losses]
+    peak = torch.cuda.max_memory_allocated()
+    vocab = _vocab_routes(torch, mx, head, y)
+    per_step_want = (layers,) * 3 + (0,) * 3
+    launch_dtypes = sorted(set(dtypes))
+    _emit(dict(phase="train_bf16", model="bert_base", dtype="bfloat16",
+               batch=BF16_BATCH, seq=SEQ, optimizer="adam", lr=1e-4,
+               parity=dict(batch=1, kernels=kern, plain_route=plain,
+                           route_factor=BF16_ROUTE_FACTOR,
+                           loss_floor=BF16_LOSS_FLOOR,
+                           loss_mean=loss1.mean().item(),
+                           tensors=len(over),
+                           worst_over_gate=over[worst_over],
+                           worst_over_gate_tensor=worst_over,
+                           # [tensor, e_kernels / gate, e_kernels, e_plain]
+                           over_gate_top=[
+                               [n, over[n], kern_err[n], plain_err[n]]
+                               for n in sorted(over, key=over.get)[-6:]]),
+               warmup_steps=TRAIN_WARMUP, steps=TRAIN_STEPS,
+               step_ms=step_ms, step_ms_median=statistics.median(step_ms),
+               wall_s=wall,
+               tokens_per_s=TRAIN_STEPS * BF16_BATCH * SEQ / wall,
+               losses=losses, max_memory_allocated=peak,
+               launches=launches, launch_dtypes=launch_dtypes,
+               launches_per_step=[dict(zip(_COUNT_KEYS, c))
+                                  for c in sorted(set(per_step))],
+               vocab_projection=vocab))
+    _check(kern["loss_max_abs_err"] <= BF16_ROUTE_FACTOR
+           * plain["loss_max_abs_err"] + BF16_LOSS_FLOOR,
+           "bf16 batch-1 loss by the kernels differs from the CPU copy by "
+           "%g, more than %g x the plain route's %g + %g"
+           % (kern["loss_max_abs_err"], BF16_ROUTE_FACTOR,
+              plain["loss_max_abs_err"], BF16_LOSS_FLOOR))
+    _check(over[worst_over] <= 1.0,
+           "bf16 %s by the kernels differs from the CPU copy by %g of its "
+           "scale, more than %g x the plain route's %g + one bf16 ulp"
+           % (worst_over, kern_err[worst_over], BF16_ROUTE_FACTOR,
+              plain_err[worst_over]))
+    _check(all(math.isfinite(v) for v in losses),
+           "non-finite bf16 training loss: %r" % (losses,))
+    _check(all(c == per_step_want for c in per_step),
+           "a bf16 training step launched %r (%s), not %r"
+           % (per_step, ", ".join(_COUNT_KEYS), per_step_want))
+    _check({dt for _, dt in launch_dtypes} == {"torch.bfloat16"},
+           "the bf16 step launched kernel instances %r" % (launch_dtypes,))
+    # the loss is a forward quantity: the two routes held as served logits
+    _check(vocab["loss_max_abs_diff"] <= SERVE_TOL, "the vocab projection's "
+           "routes disagree on the loss by %g" % vocab["loss_max_abs_diff"])
+    _profile(torch, lambda: _train_step(mx, net, head, trainer, (x,), y), 1,
+             top=16, phase="train_bf16_profile", batch=[BF16_BATCH, SEQ],
+             steps=1)
+    return launches
+
+
 def conv_cases(cs):
     """kernel_conv cases (N, C, HW, O, dtype): the step's shapes in bf16
     (`cs.RESNET_CONV_SHAPES`), the tool's five shapes in f32, ragged
-    shapes in both dtypes."""
+    shapes in both dtypes, and the f16 instances at three step shapes
+    (rows, and both slab tilings) and a ragged one."""
     return ([(RESNET_BATCH, C, HW, O, "bfloat16")
              for C, HW, O, _ in cs.RESNET_CONV_SHAPES]
             + [(RESNET_BATCH, C, HW, O, "float32") for C, HW, O in (
                 (64, 3136, 256), (128, 784, 512), (256, 196, 1024),
                 (512, 49, 2048), (256, 3136, 64))]
             + [(3, 72, 49, 80, "bfloat16"), (3, 72, 49, 80, "float32"),
-               (5, 17, 33, 65, "bfloat16"), (1, 1, 1, 1, "float32")])
+               (5, 17, 33, 65, "bfloat16"), (1, 1, 1, 1, "float32")]
+            + [(RESNET_BATCH, C, HW, O, "float16") for C, HW, O in (
+                (64, 3136, 256), (1024, 196, 256), (512, 49, 2048))]
+            + [(5, 17, 33, 65, "float16")])
 
 
 def conv_y_errors(torch, cs, x, w, y, ref_y):
     """The largest error of y over its elementwise tolerance (ok <= 1).
     f32 {kernel}: |y - plain| against 1e-4 of the largest |plain|.  bf16
-    {kernel, plain}: |y - e| of the kernel's y and of the plain version's
-    against `cs.conv1x1_y_bound`."""
+    and f16 {kernel, plain}: |y - e| of the kernel's y and of the plain
+    version's against `cs.conv1x1_y_bound`."""
     if x.dtype == torch.float32:
         tol = 1e-4 * ref_y.abs().max().item()
         return dict(kernel=(y - ref_y).abs().max().item() / max(tol, 1e-30))
@@ -843,6 +1125,11 @@ def _small_resnet_parity(torch, mx, loss_fn):
                 loss_max_abs_err=(loss - ref_loss).abs().max().item(),
                 worst_grad_err_over_scale=err[worst], worst_grad=worst,
                 grad_tol=TRAIN_TOL)
+
+
+def _bf16_ulp_share(scale):
+    """One bf16 ulp at `scale` (8 significant bits) over `scale`."""
+    return 2.0 ** (math.floor(math.log2(scale)) - 7) / scale
 
 
 def _scaled_err(got, ref):
@@ -1305,13 +1592,13 @@ def phase_decode_nmt(torch, mx, att):
            "kernels: %r" % (launches,))
 
 
-def _nmt_shape_rows(fwd_rows, bwd_rows, kernel):
-    """One kernel's times at the NMT step's shape, non-causal and causal:
-    {ms, device_ms, plain_ms, bound_ms, bound_by, library_ms} with
-    library_ms the device time of SDPA (forward) or of its backward alone
-    (the dQ and dK/dV kernels together)."""
+def _shape_rows(fwd_rows, bwd_rows, kernel, cases):
+    """One kernel's times at a path's shapes `cases`, by "non_causal" and
+    "causal": {ms, device_ms, plain_ms, bound_ms, bound_by, library_ms}
+    with library_ms the device time of SDPA (forward) or of its backward
+    alone (the dQ and dK/dV kernels together)."""
     out = {}
-    for case in NMT_CASES:
+    for case in cases:
         if kernel == "fwd":
             r, pre = fwd_rows[case], ""
             library_ms = r["library_device_ms"]
@@ -1326,8 +1613,8 @@ def _nmt_shape_rows(fwd_rows, bwd_rows, kernel):
 
 
 # template arguments of a mangled kernel name: float, bf16, int, bool
-_PTX_ARG = {"f": "f32", "13__nv_bfloat16": "bf16", "Lb0E": "false",
-            "Lb1E": "true"}
+_PTX_ARG = {"f": "f32", "13__nv_bfloat16": "bf16", "6__half": "f16",
+            "Lb0E": "false", "Lb1E": "true"}
 
 
 def _ptxas(reports):
@@ -1340,11 +1627,13 @@ def _ptxas(reports):
         for line in log.splitlines():
             m = re.search(r"(flash_[a-z_]+_kernel|conv1x1_stats(?:_tc)?_kernel"
                           r"|stats_reduce_kernel)"
-                          r"((?:I(?:f|13__nv_bfloat16|Li\d+E|Lb[01]E)+E)?)",
+                          r"((?:I(?:f|13__nv_bfloat16|6__half|Li\d+E"
+                          r"|Lb[01]E)+E)?)",
                           line)
             if "Compiling entry function" in line and m:
                 args = [_PTX_ARG.get(a, a[2:-1]) for a in re.findall(
-                    r"13__nv_bfloat16|Li\d+E|Lb[01]E|f", m.group(2))]
+                    r"13__nv_bfloat16|6__half|Li\d+E|Lb[01]E|f",
+                    m.group(2))]
                 name = m.group(1) + ("<%s>" % ", ".join(args) if args
                                      else "")
                 out[name] = {}
@@ -1397,16 +1686,22 @@ def main():
     bwd_rows = phase_kernel_bwd(torch, att)
     bwd_row = bwd_rows[BERT_CASE]
     train_launches = phase_train(torch, mx, att)
+    bf16_launches = phase_train_bf16(torch, mx, att)
     conv_step = phase_kernel_conv(torch, cs)
     conv_launches = phase_train_resnet(torch, mx, cs)
     nmt_launches = phase_train_nmt(torch, mx, att)
     phase_decode_nmt(torch, mx, att)
 
     def nmt(kernel):
-        """A flash row's NMT-path launches and NMT-shape times."""
+        """A flash row's NMT-path and bf16-path launches and their shapes'
+        times."""
         return dict(nmt_launches=dict(total=nmt_launches[kernel],
                                       causal=nmt_launches[kernel + "_causal"]),
-                    nmt_shape=_nmt_shape_rows(fwd_rows, bwd_rows, kernel))
+                    nmt_shape=_shape_rows(fwd_rows, bwd_rows, kernel,
+                                          NMT_CASES),
+                    bf16_launches=bf16_launches[kernel],
+                    bf16_shape=_shape_rows(fwd_rows, bwd_rows, kernel,
+                                           BF16_CASES)["non_causal"])
     shape = dict(shape=[main_row["BH"], main_row["T"], main_row["d"]],
                  dtype=main_row["dtype"])
     bwd_src = "incubator_mxnet_tpu_torch/ops/csrc/flash_attention_bwd.cu"

@@ -23,6 +23,7 @@ from . import ops
 from . import autograd
 from . import optimizer
 from . import gluon
+from . import contrib
 from . import models
 from . import serving
 from .serving import InferenceEngine

@@ -7,6 +7,10 @@ built, on the layer's device, from that device's generator
 the JAX package's `_collect_params_with_prefix()` does
 (`encoder.layers.0.attn.query.weight`), which is also their
 `named_parameters()` name.
+
+`cast(dtype)` converts every parameter of the tree in place, keeping
+each `nn.Parameter` object, so a `Trainer` built before or after the
+cast updates the cast tensors.
 """
 from __future__ import annotations
 
@@ -21,7 +25,7 @@ from .. import random as _rnd
 from ..base import torch_dtype
 from ..context import resolve_device
 
-__all__ = ["Block", "HybridBlock", "new_parameter"]
+__all__ = ["Block", "HybridBlock", "new_parameter", "cast_parameter"]
 
 
 def new_parameter(name, shape, init, device, dtype):
@@ -31,6 +35,17 @@ def new_parameter(name, shape, init, device, dtype):
     data = torch.empty(tuple(shape), device=dev, dtype=torch_dtype(dtype))
     init_mod.create(init)(name, data, _rnd.generator(dev))
     return nn.Parameter(data)
+
+
+@torch.no_grad()
+def cast_parameter(param, dtype):
+    """Cast `param` in place to `dtype`, keeping the `nn.Parameter`
+    object: its data is replaced and its gradient dropped (ref:
+    Parameter.cast)."""
+    dt = torch_dtype(dtype)
+    if param.dtype != dt:
+        param.data = param.data.to(dt)
+        param.grad = None
 
 
 class Block(nn.Module):
@@ -50,6 +65,17 @@ class Block(nn.Module):
                   backward_bulk_size=None, remat=False, remat_policy=None):
         """Takes the JAX package's arguments and stays eager: capturing
         a CUDA graph per shape is later work."""
+
+    def cast(self, dtype):
+        """Cast every parameter of the tree to `dtype` ("bfloat16",
+        "float16", "float32" or a torch dtype), BatchNorm's running
+        statistics included, as the JAX `Block.cast` does (only
+        `contrib.amp.convert_hybrid_block` keeps norm parameters f32).
+        Each `nn.Parameter` keeps its identity; its data is replaced and
+        its gradient dropped.  Returns the block."""
+        for p in self.parameters():
+            cast_parameter(p, dtype)
+        return self
 
     def to_device(self, device=None):
         """Move the parameters to `device` (default `cuda:0`)."""

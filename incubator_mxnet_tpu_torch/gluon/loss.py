@@ -6,8 +6,6 @@ A loss returns one value per example: the mean over every axis but
 """
 from __future__ import annotations
 
-import torch
-
 from ..ops import nn as ops
 from .block import HybridBlock
 
@@ -55,7 +53,7 @@ class SoftmaxCrossEntropyLoss(Loss):
             loss = ops.fused_softmax_ce(pred, label, axis=ax).unsqueeze(ax)
         else:
             if not self._from_logits:
-                pred = torch.log_softmax(pred, dim=ax)
+                pred = ops.log_softmax(pred, axis=ax)
             if self._sparse_label:
                 idx = label.long().clamp(0, pred.shape[ax] - 1).unsqueeze(ax)
                 loss = -pred.gather(ax, idx)

@@ -9,10 +9,14 @@ Dropout and BatchNorm follow `autograd.is_training()` (on inside
 `autograd.record()`), as the JAX ops do, not `Module.train()`.
 
 `HybridSequential` runs a pointwise `Conv2D` followed by a `BatchNorm`
-that takes batch statistics as one fused step: `ops.conv_stats`' kernel
-computes the product and the sums Σy, Σy² in one pass, and the
-BatchNorm normalizes with statistics from those sums instead of reading
-y again.  The children and their parameter names stay as they are.
+that takes batch statistics as one fused step: `ops.conv1x1_bn_stats`
+(`ops.conv_stats`' kernel) computes the product and the sums Σy, Σy² in
+one pass, and the BatchNorm normalizes with statistics from those sums
+instead of reading y again.  The children and their parameter names stay
+as they are.  The product is called through the ops module, as every
+layer calls its ops, so `contrib.amp` casts it as a Convolution.  The
+pair fuses for the dtypes the kernel has instances for (f32, bf16, f16;
+under amp the op casts only between these).
 """
 from __future__ import annotations
 
@@ -31,22 +35,20 @@ __all__ = ["HybridSequential", "Dense", "Dropout", "Embedding", "LayerNorm",
            "BatchNorm", "Flatten"]
 
 
-def _fuses(block, nxt):
+def _fuses(block, nxt, x):
     """A pointwise Conv2D whose BatchNorm takes batch statistics in the
-    one-pass form the kernel's sums give."""
+    one-pass form the kernel's sums give, over an activation `x` of a
+    dtype the kernel has an instance for."""
     return (isinstance(block, Conv2D) and block.pointwise
             and isinstance(nxt, BatchNorm) and nxt.batch_stats
-            and nxt._axis == 1 and not _config.get("MXNET_BN_STABLE_VAR"))
+            and nxt._axis == 1 and not _config.get("MXNET_BN_STABLE_VAR")
+            and x.dtype in _conv_stats.KERNEL_DTYPES)
 
 
 def _conv1x1_bn(conv, bn, x):
-    N, C, H, W = x.shape
-    w = conv.weight.reshape(conv.weight.shape[0], C)
-    if w.dtype != x.dtype:              # amp: follow activation dtype
-        w = w.to(x.dtype)
-    y, s1, s2 = _conv_stats.conv1x1_stats(
-        x.contiguous().reshape(N, C, H * W), w)
-    return bn(y.reshape(N, -1, H, W), sums=(s1, s2, N * H * W))
+    N, _, H, W = x.shape
+    y, s1, s2 = ops.conv1x1_bn_stats(x, conv.weight)
+    return bn(y, sums=(s1, s2, N * H * W))
 
 
 class HybridSequential(HybridBlock):
@@ -63,7 +65,7 @@ class HybridSequential(HybridBlock):
         i = 0
         while i < len(blocks):
             nxt = blocks[i + 1] if i + 1 < len(blocks) else None
-            if _fuses(blocks[i], nxt):
+            if _fuses(blocks[i], nxt, x):
                 x = _conv1x1_bn(blocks[i], nxt, x)
                 i += 2
             else:

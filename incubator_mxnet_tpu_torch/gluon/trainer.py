@@ -9,7 +9,10 @@ A parameter without gradient (`requires_grad=False`: grad_req 'null' in
 the JAX package, such as BatchNorm's running statistics) is kept in the
 list and never updated.  An aggregatable optimizer (SGD) updates all the
 parameters in one `update_multi` call, as the JAX Trainer's aggregated
-path does.  With one device there is no kvstore; parameters on several
+path does, unless it keeps master weights (`multi_precision`): then each
+parameter takes `update_multi_precision`.  `contrib.amp.scale_loss`
+sets `_scale` to the loss scale's inverse, which `update` folds into
+`rescale_grad`.  With one device there is no kvstore; parameters on several
 devices, or a `dist` kvstore, raise "not yet ported".
 """
 from __future__ import annotations
@@ -99,16 +102,17 @@ class Trainer:
                     % (i, tuple(p.shape)))
             live.append(i)
         updater = self._updater
-        if not self._optimizer.aggregatable:
+        opt = self._optimizer
+        if not opt.aggregatable or opt.multi_precision:
             for i in live:
                 updater(i, self._params[i].grad, self._params[i].data)
             return
         for i in live:
             if i not in updater.states:
-                updater.states[i] = self._optimizer.create_state(
+                updater.states[i] = opt.create_state_multi_precision(
                     i, self._params[i].data)
         if live:
-            self._optimizer.update_multi(
+            opt.update_multi(
                 live, [self._params[i].data for i in live],
                 [self._params[i].grad for i in live],
                 [updater.states[i] for i in live])

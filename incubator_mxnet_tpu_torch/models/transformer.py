@@ -79,13 +79,14 @@ def _scaled_dot_attention(q, k, v, scale, num_heads, mask=None,
     """softmax(q kᵀ · scale [+ mask]) v over (B·H, T, d) q and (B·H, S, d)
     k, v: the one unfused attention body of MultiHeadAttention's masked
     path, CrossAttention and the cached decode step.  `mask` is additive
-    and broadcasts over the (B, H, T, S) scores; `dropout` acts on the
+    and broadcasts over the (B, H, T, S) scores, in their dtype (an f32
+    mask does not promote bf16 scores); `dropout` acts on the
     probabilities."""
     scores = torch.bmm(q, k.transpose(1, 2)) * scale
     if mask is not None:
         BH, T, S = scores.shape
         scores = (scores.reshape(BH // num_heads, num_heads, T, S)
-                  + mask).reshape(BH, T, S)
+                  + mask.to(scores.dtype)).reshape(BH, T, S)
     attn = torch.softmax(scores, dim=-1)
     if dropout is not None:
         attn = dropout(attn)

@@ -24,8 +24,11 @@ For each of them:
 together: its forward is `flash_attention_fwd` and saves (q, k, v, out,
 lse); its backward is `flash_attention_bwd`.  `flash_attention` and
 `_contrib_flash_attention` go through it on both devices for the head
-dims the kernels take (`KERNEL_HEAD_DIMS`), and through
-`naive_attention` for the others.
+dims the kernels take (`KERNEL_HEAD_DIMS`), as the JAX package's
+`_pallas_enabled` dispatches by tile shape, and through `naive_attention`
+for the others.  Every float dtype of the JAX kernels has an instance
+(`KERNEL_DTYPES`: f32, bf16, f16); any other dtype reaches the wrappers
+and raises on the card.
 
 `flash_fwd_launches`, `flash_bwd_dq_launches` and `flash_bwd_dkv_launches`
 count kernel launches, so a run can show that its attention went through
@@ -45,13 +48,15 @@ __all__ = ["naive_attention", "flash_attention_fwd",
            "flash_attention_bwd_plain", "flash_attention_bwd_dq",
            "flash_attention_bwd_dq_plain", "flash_attention_bwd_dkv",
            "flash_attention_bwd_dkv_plain", "flash_attention",
-           "_contrib_flash_attention", "KERNEL_HEAD_DIMS"]
+           "_contrib_flash_attention", "KERNEL_HEAD_DIMS", "KERNEL_DTYPES"]
 
 _NEG_INF = -1e30
 
 #: head dims the CUDA kernels have template instances for
 KERNEL_HEAD_DIMS = (16, 32, 64, 128)
-_KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: operand dtypes the CUDA kernels have template instances for
+KERNEL_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+_KERNEL_DTYPES = {dt: i for i, dt in enumerate(KERNEL_DTYPES)}
 
 #: the product of the plain versions; a test swaps in an emulation of the
 #: f32 kernels' 3xTF32 split to hold its accuracy
@@ -159,8 +164,8 @@ def _check_kernel_operands(q, k, v, *more, name="flash_attention_fwd"):
                          % (name, ", ".join(str(t.device) for t in ops)))
     if q.dtype not in _KERNEL_DTYPES or any(t.dtype != q.dtype for t in ops):
         raise ValueError(
-            "%s kernel takes float32 or bfloat16 operands of one dtype, "
-            "got %s" % (name, ", ".join(str(t.dtype) for t in ops)))
+            "%s kernel takes float32, bfloat16 or float16 operands of one "
+            "dtype, got %s" % (name, ", ".join(str(t.dtype) for t in ops)))
     if q.ndim != 3 or any(t.shape != q.shape for t in ops):
         raise ValueError("%s needs operands of one shape (BH, T, d), got %s"
                          % (name, ", ".join(str(tuple(t.shape))

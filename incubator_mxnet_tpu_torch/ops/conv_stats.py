@@ -3,7 +3,7 @@
 tools/conv_stats_pallas_experiment.py, the JAX package's Pallas kernel).
 
 `fused_conv1x1_stats(x, w) -> (y, s1, s2)` takes x (N, C, HW) and
-w (O, C) of one dtype (float32 or bfloat16) and returns y = w·x
+w (O, C) of one dtype (float32, bfloat16 or float16) and returns y = w·x
 (N, O, HW) in x's dtype and the per-channel sums s1 = Σ y and s2 = Σ y²
 over (n, hw), each (1, O) float32, taken of the f32 accumulator before y
 is rounded, as the Pallas kernel sums them.
@@ -20,10 +20,10 @@ the gradient, s1 and s2 are non-differentiable.  The JAX package has no
 backward kernel for it, so the backward is two plain GEMMs
 (dx = wᵀ·dy, dw = Σₙ dy·xᵀ) in dy's dtype.  `conv1x1_stats_launches`
 counts kernel launches.  The kernel library picks one of its instances
-by shape (`conv1x1_stats_path` names it): bf16 with C a multiple of 32
-takes the tensor cores, the rest scalar FMAs on the CUDA cores.
+by shape (`conv1x1_stats_path` names it): bf16 and f16 with C a multiple
+of 32 take the tensor cores, the rest scalar FMAs on the CUDA cores.
 
-`conv1x1_y_bound(x, w)` is the elementwise bound that a bf16 y is held
+`conv1x1_y_bound(x, w)` is the elementwise bound that a 16-bit y is held
 to, the kernel's and the plain version's alike; `RESNET_CONV_SHAPES`
 lists the pointwise convolutions of a resnet50_v1b step.
 """
@@ -35,9 +35,11 @@ from . import _kernels
 
 __all__ = ["fused_conv1x1_stats", "fused_conv1x1_stats_plain",
            "conv1x1_stats", "conv1x1_stats_path", "conv1x1_y_bound",
-           "PATHS", "RESNET_CONV_SHAPES"]
+           "PATHS", "RESNET_CONV_SHAPES", "KERNEL_DTYPES"]
 
-_KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: operand dtypes the kernel has instances for
+KERNEL_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+_KERNEL_DTYPES = {dt: i for i, dt in enumerate(KERNEL_DTYPES)}
 
 #: the kernel library's instances, by the number its
 #: `mxt_conv1x1_stats_path` returns
@@ -55,24 +57,33 @@ RESNET_CONV_SHAPES = [
 conv1x1_stats_launches = 0
 
 
+#: unit roundoff of a 16-bit y (half its spacing at 1), and half the
+#: spacing of its subnormals (0 where f32's range is kept)
+_ROUNDOFF = {torch.bfloat16: (2.0 ** -8, 0.0),
+             torch.float16: (2.0 ** -11, 2.0 ** -25)}
+
+
 def conv1x1_y_bound(x, w):
     """(e, bound): the exact product e = w·x (N, O, HW) in float64 and the
-    elementwise bound on |y - e| of a bf16 y = w·x summed in f32 in any
-    order, with any rounding of the adds:
+    elementwise bound on |y - e| of a bf16 or f16 y = w·x summed in f32 in
+    any order, with any rounding of the adds:
 
-        |y - e| <= 2**-8 |e| + 1.01 C 2**-23 sum_c |w_oc| |x_cp|
+        |y - e| <= u |e| + a + 1.01 C 2**-23 sum_c |w_oc| |x_cp|
 
     The f32 sum s of C products meets |s - e| <= gamma_C sum_c |w x|,
-    gamma_C = C u / (1 - C u), where u = 2**-23 covers the tensor cores'
-    rounding toward zero (round to nearest needs only 2**-24); rounding s
-    to bf16 adds at most 2**-8 |s|; and 1.01 covers (1 + 2**-8) /
-    (1 - C 2**-23) up to C = 2048.  e is exact for bf16 operands up to
+    gamma_C = C u32 / (1 - C u32), where u32 = 2**-23 covers the tensor
+    cores' rounding toward zero (round to nearest needs only 2**-24);
+    rounding s to y's type adds at most u |s| (u = 2**-8 in bf16, 2**-11
+    in f16) and, for an f16 y below 2**-14, an absolute a = 2**-25 (half
+    the spacing of its subnormals); and 1.01 covers (1 + u) /
+    (1 - C 2**-23) up to C = 2048.  e is exact for 16-bit operands up to
     the f64 sums' rounding.  A wrong tile, row or mask moves y by O(|y|)
     and breaks the bound."""
     C = x.shape[1]
+    u, a = _ROUNDOFF[x.dtype]
     x64, w64 = x.double(), w.double()
     exact = torch.matmul(w64, x64)
-    bound = 2.0 ** -8 * exact.abs() + 1.01 * C * 2.0 ** -23 * torch.matmul(
+    bound = u * exact.abs() + a + 1.01 * C * 2.0 ** -23 * torch.matmul(
         w64.abs(), x64.abs())
     return exact, bound
 
@@ -93,8 +104,8 @@ def _check_operands(x, w):
         raise ValueError("%s operands lie on different devices: %s, %s"
                          % (name, x.device, w.device))
     if x.dtype not in _KERNEL_DTYPES or w.dtype != x.dtype:
-        raise ValueError("%s kernel takes float32 or bfloat16 operands of "
-                         "one dtype, got %s, %s" % (name, x.dtype, w.dtype))
+        raise ValueError("%s kernel takes float32, bfloat16 or float16 "
+                         "operands of one dtype, got %s, %s" % (name, x.dtype, w.dtype))
     if x.ndim != 3 or w.ndim != 2 or w.shape[1] != x.shape[1]:
         raise ValueError("%s needs x (N, C, HW) and w (O, C), got %s and %s"
                          % (name, tuple(x.shape), tuple(w.shape)))

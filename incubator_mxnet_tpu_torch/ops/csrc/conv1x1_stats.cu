@@ -20,16 +20,16 @@
 //
 // Three instances, one chosen per shape by conv_path (mxt_conv1x1_stats_path
 // reports it):
-//   * kTensorRows (bf16, C % 32 == 0, HW % 8 == 0): the (n, hw) columns are
+//   * kTensorRows (bf16 or f16, C % 32 == 0, HW % 8 == 0): the (n, hw) columns are
 //     flattened and cut into tiles of 128; a block of 8 warps owns 128
 //     output channels x 128 columns, 64 x 32 per warp.  x comes in 16-byte
 //     cp.async pieces of 8 columns (never across two images, since HW % 8
 //     == 0), w in 16-byte pieces of its rows, through a ring of kStages
-//     stages of 32 input channels.  Products: mma.sync m16n8k16 bf16 with
+//     stages of 32 input channels.  Products: mma.sync m16n8k16 bf16 (f16) with
 //     f32 accumulators; w (row-major, k = c contiguous) is the A operand by
 //     ldmatrix, x (stored [c][p], n contiguous) the B operand by
 //     ldmatrix.trans.
-//   * kTensorSlabs (bf16, C % 32 == 0, O % 8 == 0, HW <= 224, HW % 8 != 0:
+//   * kTensorSlabs (bf16 or f16, C % 32 == 0, O % 8 == 0, HW <= 224, HW % 8 != 0:
 //     the HW 196 and 49 shapes, whose rows are 392 and 98 bytes and so not
 //     16-byte aligned): one image's run of 32 channels is one contiguous
 //     range of 32 HW elements that starts on a 16-byte boundary (C % 32 ==
@@ -42,7 +42,7 @@
 //     columns per image (slab_nt): 208 holds one image at HW 196, 224 four
 //     at HW 49.  Its y rows, 128 HW elements from (n O + o0) HW, are again
 //     one 16-byte aligned range (O % 8 == 0).
-//   * kCudaCores (f32, and bf16 shapes the two above do not take): scalar
+//   * kCudaCores (f32, and 16-bit shapes the two above do not take): scalar
 //     f32 FMAs on the CUDA cores, 64 x 64 output tiles, x and w widened to
 //     f32 in shared memory.  It beats cuDNN's f32 convolution at the tool's
 //     five f32 shapes (PERF.md) and serves the ragged shapes.
@@ -57,7 +57,7 @@
 //     Folding each stage's sum into the accumulator with rounding adds
 //     would keep Sum y^2 closer to exact, at a cost in time that no check
 //     needs (PERF.md).
-//   * y is rounded to bf16 and staged through shared memory, so that it
+//   * y is rounded to bf16 (f16) and staged through shared memory, so that it
 //     leaves in 16-byte stores of whole rows.
 //   * s1 and s2 are summed from the accumulator fragments in registers: a
 //     shuffle over the four lanes of a row, then across the warps of the
@@ -79,6 +79,7 @@
 namespace {
 
 using bf16 = __nv_bfloat16;
+using f16 = __half;
 
 // instance numbers, as mxt_conv1x1_stats_path returns them
 constexpr int kCudaCores = 0;
@@ -96,11 +97,13 @@ constexpr int kRedThreads = 256;
 
 __device__ __forceinline__ float load_f32(const float* p) { return *p; }
 __device__ __forceinline__ float load_f32(const bf16* p) { return __bfloat162float(*p); }
+__device__ __forceinline__ float load_f32(const f16* p) { return __half2float(*p); }
 
 __device__ __forceinline__ void store_t(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store_t(bf16* p, float v) {
   *p = __float2bfloat16(v);  // round to nearest even, as torch's cast
 }
+__device__ __forceinline__ void store_t(f16* p, float v) { *p = __float2half_rn(v); }
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
@@ -206,7 +209,7 @@ conv1x1_stats_kernel(const T* __restrict__ x, const T* __restrict__ w,
   }
 }
 
-// ---- tensor-core instances (bf16) --------------------------------------------
+// ---- tensor-core instances (bf16, f16) ---------------------------------------
 
 constexpr int kTcO = 128;       // output channels per block: 2 warps of 64 rows
 constexpr int kChunk = 32;      // input channels per stage: two k16 steps
@@ -226,7 +229,7 @@ constexpr int kSlab2Cols = 8 * kSlab2NT * kSlab2WP;
 // and tile columns wp*8*NT .. +8*NT-1, TP = 8*NT*WP columns in all.  Shared memory: the ring of w stages
 // (kTcO x kWLD each); the ring of x stages, [c][p] tiles of stride x_ld
 // (rows) or the staged slabs (slabs, kChunk x TP elements each); and the
-// cross-warp partial sums.  After the loop the front of it holds the bf16 y
+// cross-warp partial sums.  After the loop the front of it holds the 16-bit y
 // tile (kTcO x x_ld).
 template <int TP> __host__ __device__ constexpr int x_ld() { return TP + 8; }
 
@@ -250,9 +253,9 @@ static_assert(sizeof(bf16) * kTcO * x_ld<kSlab2Cols>() + sizeof(float) * 2 * kSl
                   tc_smem_bytes<kSlab2WP, kSlab2NT, true>(), "y tile of the slab instance");
 
 // rows o0 .. o0 + kTcO of w, channels c0 .. c0 + kChunk, zeros past O
-template <int kThreadsTc>
-__device__ __forceinline__ void load_w(bf16* dst, const bf16* __restrict__ w, int o0, int c0,
-                                       int C, int O) {
+template <int kThreadsTc, typename H>
+__device__ __forceinline__ void load_w(H* dst, const H* __restrict__ w, int o0, int c0, int C,
+                                       int O) {
   for (int i = threadIdx.x; i < kTcO * (kChunk / 8); i += kThreadsTc) {
     const int r = i / (kChunk / 8), q = (i % (kChunk / 8)) * 8;
     const bool ok = o0 + r < O;
@@ -262,8 +265,8 @@ __device__ __forceinline__ void load_w(bf16* dst, const bf16* __restrict__ w, in
 
 // B fragments [k16 step][n8 tile][b0, b1] of this warp's 32 columns for one
 // stage, from a [c][p] tile of stride XLD by ldmatrix.trans
-template <int XLD, int NT>
-__device__ __forceinline__ void b_frags(uint32_t (&b)[2][NT][2], const bf16* xt, int wp) {
+template <int XLD, int NT, typename H>
+__device__ __forceinline__ void b_frags(uint32_t (&b)[2][NT][2], const H* xt, int wp) {
   const int lane = threadIdx.x & 31, lr = lane & 7, lm = lane >> 3;
 #pragma unroll
   for (int k = 0; k < 2; ++k)
@@ -300,8 +303,8 @@ __device__ __forceinline__ void b_frags(uint32_t (&b)[2][NT][2], const unsigned 
 
 // acc (64 x 8 NT of this warp) += w x for one stage, w from the stage's
 // tile, x as B fragments: two k16 steps per (m16, n8) tile.
-template <int NT>
-__device__ __forceinline__ void stage_product(float (&acc)[4][NT][4], const bf16* wt,
+template <int NT, typename H>
+__device__ __forceinline__ void stage_product(float (&acc)[4][NT][4], const H* wt,
                                               const uint32_t (&b)[2][NT][2], int wo) {
   const int lane = threadIdx.x & 31, lr = lane & 7, lm = lane >> 3;
 #pragma unroll
@@ -313,29 +316,29 @@ __device__ __forceinline__ void stage_product(float (&acc)[4][NT][4], const bf16
                             (lm >> 1) * 8);
 #pragma unroll
     for (int j = 0; j < NT; ++j) {
-      mma_bf16(acc[i][j], a[0], b[0][j][0], b[0][j][1]);
-      mma_bf16(acc[i][j], a[1], b[1][j][0], b[1][j][1]);
+      mma16(acc[i][j], a[0], b[0][j][0], b[0][j][1], H());
+      mma16(acc[i][j], a[1], b[1][j][0], b[1][j][1], H());
     }
   }
 }
 
 // kSlab false: tile = flattened columns tile*TP .. + TP (HW % 8 == 0).
 // kSlab true: tile = images tile*imgs .. + imgs, each padded to hwp columns.
-template <int WP, int NT, bool kSlab>
+template <typename H, int WP, int NT, bool kSlab>
 __global__ void __launch_bounds__(64 * WP)
-conv1x1_stats_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
-                        bf16* __restrict__ y, float* __restrict__ part, int N, int C, int HW,
-                        int O, int o_tiles, int tiles, int hwp, int imgs) {
+conv1x1_stats_tc_kernel(const H* __restrict__ x, const H* __restrict__ w, H* __restrict__ y,
+                        float* __restrict__ part, int N, int C, int HW, int O, int o_tiles,
+                        int tiles, int hwp, int imgs) {
   constexpr int kThreadsTc = 64 * WP;
   constexpr int TP = 8 * NT * WP;  // tile columns
   constexpr int XLD = x_ld<TP>();
   constexpr int kPieces = TP / 8;  // 16-byte pieces of a tile row
   extern __shared__ __align__(16) unsigned char smem[];
   constexpr int XS = x_stage<TP, kSlab>();
-  bf16* ws = reinterpret_cast<bf16*>(smem);                        // kStages x kTcO x kWLD
-  bf16* xs = ws + kStages * kTcO * kWLD;                           // kStages x XS
+  H* ws = reinterpret_cast<H*>(smem);                              // kStages x kTcO x kWLD
+  H* xs = ws + kStages * kTcO * kWLD;                              // kStages x XS
   float* red = reinterpret_cast<float*>(xs + kStages * XS);        // 2 x WP x kTcO
-  bf16* ys = ws;                                                   // after the loop: kTcO x XLD
+  H* ys = ws;                                                      // after the loop: kTcO x XLD
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int wo = warp & 1, wp = warp >> 1;
@@ -372,16 +375,16 @@ conv1x1_stats_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
     const int c0 = kc * kChunk;
     load_w<kThreadsTc>(ws + s * kTcO * kWLD, w, o0, c0, C, O);
     if (!kSlab) {
-      bf16* dst = xs + s * XS + piece * 8;
+      H* dst = xs + s * XS + piece * 8;
 #pragma unroll
       for (int r = prow; r < kChunk; r += kThreadsTc / kPieces)
         cp_async16(dst + r * XLD, x + (pcol_ok ? xoff + (long long)(c0 + r) * HW : 0), pcol_ok);
     } else {
       // one image's kChunk channels: kChunk*HW contiguous elements from
       // (n C + c0) HW, a multiple of 8, so 16-byte pieces
-      bf16* dst = xs + s * XS;
+      H* dst = xs + s * XS;
       for (int g = 0; g < imgs && n0 + g < N; ++g) {
-        const bf16* src = x + ((long long)(n0 + g) * C + c0) * HW;
+        const H* src = x + ((long long)(n0 + g) * C + c0) * HW;
         for (int i = tid; i < kChunk * HW / 8; i += kThreadsTc)
           cp_async16(dst + g * kChunk * HW + i * 8, src + i * 8, true);
       }
@@ -441,14 +444,14 @@ conv1x1_stats_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
         red[(WP + wp) * kTcO + ol] = p2;
       }
     }
-  // y rounded to bf16 into the y tile, two columns per 32-bit store
+  // y rounded to H into the y tile, two columns per 32-bit store
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
     for (int j = 0; j < NT; ++j) {
       const int r = wo * 64 + i * 16 + g8, c = wp * 8 * NT + j * 8 + 2 * t4;
-      *reinterpret_cast<uint32_t*>(ys + r * XLD + c) = pack_bf16(acc[i][j][0], acc[i][j][1]);
-      *reinterpret_cast<uint32_t*>(ys + (r + 8) * XLD + c) = pack_bf16(acc[i][j][2], acc[i][j][3]);
+      *reinterpret_cast<uint32_t*>(ys + r * XLD + c) = pack16(acc[i][j][0], acc[i][j][1], H());
+      *reinterpret_cast<uint32_t*>(ys + (r + 8) * XLD + c) = pack16(acc[i][j][2], acc[i][j][3], H());
     }
   __syncthreads();
 
@@ -469,7 +472,7 @@ conv1x1_stats_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
     // is fixed (threads are a multiple of kPieces), so is its y offset
     if (pcol_ok) {
       const long long n = pcol / HW;
-      bf16* yrow = y + n * O * HW + (pcol - n * HW);
+      H* yrow = y + n * O * HW + (pcol - n * HW);
       for (int r = prow; r < kTcO && o0 + r < O; r += kThreadsTc / kPieces)
         *reinterpret_cast<uint4*>(yrow + (long long)(o0 + r) * HW) =
             *reinterpret_cast<const uint4*>(ys + r * XLD + piece * 8);
@@ -518,7 +521,7 @@ stats_reduce_kernel(const float* __restrict__ part, float* __restrict__ s1,
 }
 
 int conv_path(int C, int HW, int O, int dtype) {
-  if (dtype != 1 || C % kChunk) return kCudaCores;
+  if (dtype == 0 || C % kChunk) return kCudaCores;
   if (HW % 8 == 0) return kTensorRows;
   if (O % 8 == 0 && HW <= kSlabCols) return kTensorSlabs;
   return kCudaCores;
@@ -549,11 +552,11 @@ long long conv_tiles(int N, int C, int HW, int O, int dtype) {
   }
 }
 
-template <int WP, int NT, bool kSlab>
+template <typename H, int WP, int NT, bool kSlab>
 int launch_tc(const void* x, const void* w, void* y, float* part, int N, int C, int HW, int O,
               int o_tiles, int tiles, cudaStream_t st) {
   constexpr size_t smem = tc_smem_bytes<WP, NT, kSlab>();
-  auto kernel = conv1x1_stats_tc_kernel<WP, NT, kSlab>;
+  auto kernel = conv1x1_stats_tc_kernel<H, WP, NT, kSlab>;
   if (smem > 48 * 1024) {
     const int err =
         (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -561,9 +564,20 @@ int launch_tc(const void* x, const void* w, void* y, float* part, int N, int C, 
   }
   const unsigned blocks = (unsigned)tiles * (unsigned)o_tiles;
   kernel<<<blocks, 64 * WP, smem, st>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(w), static_cast<bf16*>(y), part, N, C,
-      HW, O, o_tiles, tiles, kSlab ? slab_hwp(HW) : 0, kSlab ? slab_imgs(HW) : 0);
+      static_cast<const H*>(x), static_cast<const H*>(w), static_cast<H*>(y), part, N, C, HW, O,
+      o_tiles, tiles, kSlab ? slab_hwp(HW) : 0, kSlab ? slab_imgs(HW) : 0);
   return (int)cudaGetLastError();
+}
+
+// the tensor-core instance `path` (kTensorRows or kTensorSlabs) in operand type H
+template <typename H>
+int launch_tc_path(int path, const void* x, const void* w, void* y, float* part, int N, int C,
+                   int HW, int O, int o_tiles, int tiles, cudaStream_t st) {
+  if (path == kTensorRows)
+    return launch_tc<H, kRowsWP, kRowsNT, false>(x, w, y, part, N, C, HW, O, o_tiles, tiles, st);
+  if (slab_nt(HW) == kSlab2NT)
+    return launch_tc<H, kSlab2WP, kSlab2NT, true>(x, w, y, part, N, C, HW, O, o_tiles, tiles, st);
+  return launch_tc<H, kSlabWP, kSlabNT, true>(x, w, y, part, N, C, HW, O, o_tiles, tiles, st);
 }
 
 template <typename T>
@@ -594,15 +608,15 @@ long long mxt_conv1x1_stats_scratch(int N, int C, int HW, int O, int dtype) {
   return 2LL * O * conv_tiles(N, C, HW, O, dtype);
 }
 
-// x (N, C, HW), w (O, C), y (N, O, HW) in float32 (dtype 0) or bfloat16
-// (dtype 1), all contiguous and starting on 16-byte boundaries; scratch of
-// mxt_conv1x1_stats_scratch floats; s1, s2 (O,) float32.  Launches on
+// x (N, C, HW), w (O, C), y (N, O, HW) in float32 (dtype 0), bfloat16
+// (dtype 1) or float16 (dtype 2), all contiguous and starting on 16-byte
+// boundaries; scratch of mxt_conv1x1_stats_scratch floats; s1, s2 (O,) float32.  Launches on
 // `stream`; returns the CUDA error of the launches (0 when both were
 // accepted).
 int mxt_conv1x1_stats(const void* x, const void* w, void* y, void* scratch,
                       void* s1, void* s2, int N, int C, int HW, int O,
                       int dtype, void* stream) {
-  if (N <= 0 || C <= 0 || HW <= 0 || O <= 0 || (dtype != 0 && dtype != 1))
+  if (N <= 0 || C <= 0 || HW <= 0 || O <= 0 || dtype < 0 || dtype > 2)
     return (int)cudaErrorInvalidValue;
   const long long tiles = conv_tiles(N, C, HW, O, dtype);
   const int path = conv_path(C, HW, O, dtype);
@@ -612,19 +626,16 @@ int mxt_conv1x1_stats(const void* x, const void* w, void* y, void* scratch,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* part = static_cast<float*>(scratch);
   int err;
-  if (path == kTensorRows)
-    err = launch_tc<kRowsWP, kRowsNT, false>(x, w, y, part, N, C, HW, O, o_tiles, (int)tiles,
-                                             st);
-  else if (path == kTensorSlabs && slab_nt(HW) == kSlab2NT)
-    err = launch_tc<kSlab2WP, kSlab2NT, true>(x, w, y, part, N, C, HW, O, o_tiles, (int)tiles,
-                                              st);
-  else if (path == kTensorSlabs)
-    err = launch_tc<kSlabWP, kSlabNT, true>(x, w, y, part, N, C, HW, O, o_tiles, (int)tiles,
-                                            st);
+  if (path != kCudaCores && dtype == 1)
+    err = launch_tc_path<bf16>(path, x, w, y, part, N, C, HW, O, o_tiles, (int)tiles, st);
+  else if (path != kCudaCores)
+    err = launch_tc_path<f16>(path, x, w, y, part, N, C, HW, O, o_tiles, (int)tiles, st);
   else if (dtype == 0)
     err = launch_cuda_cores<float>(x, w, y, part, N, C, HW, O, o_tiles, tiles, st);
-  else
+  else if (dtype == 1)
     err = launch_cuda_cores<bf16>(x, w, y, part, N, C, HW, O, o_tiles, tiles, st);
+  else
+    err = launch_cuda_cores<f16>(x, w, y, part, N, C, HW, O, o_tiles, tiles, st);
   if (err != 0) return err;
   dim3 grid(O, 2);
   stats_reduce_kernel<<<grid, kRedThreads, 0, st>>>(

@@ -9,9 +9,9 @@
 //   D  = rowsum(dO * O)                         per query row, f32
 //   dP = dO V^T,   dS = P * (dP - D) * scale
 //   dQ = dS K,     dK = dS^T Q,     dV = P^T dO
-// for q, k, v, out, dO of shape (BH, T, d), row-major and contiguous, in f32 or
-// bf16.  Scores, P, dP, dS and the accumulators are f32.  In bf16 the kernels
-// round where the TPU kernels cast: P to dO's dtype before dV, dS to k's dtype
+// for q, k, v, out, dO of shape (BH, T, d), row-major and contiguous, in f32,
+// bf16 or f16.  Scores, P, dP, dS and the accumulators are f32.  In bf16 and
+// f16 the kernels round where the TPU kernels cast: P to dO's dtype before dV, dS to k's dtype
 // before dQ and to q's dtype before dK.
 //
 // Bounds at the BERT-base training shape (BH = 8*12, T = 512, d = 64): the dQ
@@ -42,8 +42,8 @@
 //     stream, so D is not recomputed per tile as the TPU kernel does).
 //   * Every output element has one owner: no atomics, and the result is the
 //     same bits from launch to launch.
-//   * Products: mma.sync on the tensor cores.  bf16 runs m16n8k16 with bf16
-//     operands and f32 accumulators; tiles stay bf16 in shared memory and
+//   * Products: mma.sync on the tensor cores.  bf16 (f16) runs m16n8k16 with
+//     bf16 (f16) operands and f32 accumulators; tiles stay 16-bit in shared memory and
 //     fragments load with ldmatrix (.trans for the row-major B operands K, dO
 //     and Q of dQ, dV and dK).  f32 runs the 3xTF32 split on m16n8k8.tf32:
 //     a = big + small with big = a rounded to tf32 and small = a - big, read
@@ -63,12 +63,12 @@
 //     load with 32-bit shared loads (ldmatrix moves 16-bit elements).  The
 //     accumulator of S^T or dS (rows lane/4 and lane/4 + 8, columns
 //     2*(lane%4) + {0, 1} of each 8-wide tile) becomes the A operand of the
-//     next product in place: in bf16 two tiles pack into one k16 step; in
+//     next product in place: in 16 bits two tiles pack into one k16 step; in
 //     tf32 each tile is one k8 step whose k positions t and t + 4 are the
 //     columns 2t and 2t + 1, and the B operand is read in that order.
 //   * Loads: cp.async, 16 bytes per thread, with the next K/V tile (dQ) or
 //     Q/dO tile (dK/dV) in flight during the current tile's products (two
-//     buffers).  Rows are padded (4 floats, 8 bf16) so that fragment loads
+//     buffers).  Rows are padded (4 floats, 8 16-bit values) so that fragment loads
 //     hit distinct banks.  Shared memory per block: dQ 104 KB (f32) / 55 KB
 //     (bf16) at d = 64, so at least 2 blocks per SM at d <= 64; 203 KB for
 //     f32 dQ at d = 128, above the 48 KB default and so opted into.
@@ -369,7 +369,7 @@ int dispatch_dkv(int d, const void* q, const void* k, const void* v, const void*
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  Each returns 0 or the CUDA error code of
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16.  Each returns 0 or the CUDA error code of
 // the launch (cudaErrorInvalidValue for a head dim or dtype without an
 // instance).  The dQ kernel writes D = rowsum(dO * O) to `delta` (BH, T) f32;
 // the dK/dV kernel reads it, so it must run after the dQ kernel on its stream.
@@ -383,6 +383,8 @@ extern "C" int mxt_flash_attention_bwd_dq(const void* q, const void* k, const vo
     return dispatch_dq<float>(d, q, k, v, out, dout, lse, dq, delta, bh, seq, scale, causal, s);
   if (dtype == 1)
     return dispatch_dq<bf16>(d, q, k, v, out, dout, lse, dq, delta, bh, seq, scale, causal, s);
+  if (dtype == 2)
+    return dispatch_dq<f16>(d, q, k, v, out, dout, lse, dq, delta, bh, seq, scale, causal, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -396,5 +398,7 @@ extern "C" int mxt_flash_attention_bwd_dkv(const void* q, const void* k, const v
     return dispatch_dkv<float>(d, q, k, v, dout, lse, delta, dk, dv, bh, seq, scale, causal, s);
   if (dtype == 1)
     return dispatch_dkv<bf16>(d, q, k, v, dout, lse, delta, dk, dv, bh, seq, scale, causal, s);
+  if (dtype == 2)
+    return dispatch_dkv<f16>(d, q, k, v, dout, lse, delta, dk, dv, bh, seq, scale, causal, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -5,7 +5,8 @@
 // incubator_mxnet_tpu/ops/attention.py.  It computes the same function:
 //   out = softmax(q k^T * scale [causal mask]) v      in the operand dtype
 //   lse = m + log(l)                                   per query row, f32
-// for q, k, v of shape (BH, T, d), row-major and contiguous, in f32 or bf16.
+// for q, k, v of shape (BH, T, d), row-major and contiguous, in f32, bf16 or
+// f16.
 // Scores and the online-softmax state (m, l, acc) are f32; P is rounded to
 // the operand dtype before P.V, as the TPU kernel casts it before its second
 // matmul.
@@ -25,14 +26,14 @@
 //     every tile's S product, so that at d = 128 in f32 the 16 x 128
 //     accumulator, S and the small terms' accumulator stay in registers
 //     (255 of them there, with 4 bytes of spill stores; 169 at d = 64).
-//   * S = Q K^T on mma.sync: bf16 m16n8k16 with ldmatrix; f32 as 3xTF32 on
+//   * S = Q K^T on mma.sync: bf16 and f16 m16n8k16 with ldmatrix; f32 as 3xTF32 on
 //     m16n8k8 with the small terms in an accumulator of their own (the mma
 //     rounds its sums toward zero; product_nt).
 //   * The online softmax runs in f32 registers on S's accumulator fragments:
 //     a row's values sit in the 4 lanes of a quad, so the row max and row sum
 //     are two shuffles each.
 //   * O += P V, with P's accumulator fragment used in place as the A operand
-//     (product_cn): in bf16 P is rounded to bf16 there, in f32 it is split
+//     (product_cn): in bf16 and f16 P is rounded to that type there, in f32 it is split
 //     for 3xTF32 in registers, and each k8 step's sum is added to O with an
 //     f32 add that rounds to nearest, so that the mma's rounding toward zero
 //     does not shrink O one way (product_cn's kFold).
@@ -211,7 +212,7 @@ int dispatch_d(int d, const void* q, const void* k, const void* v, void* out, fl
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  Returns 0 or the CUDA error code of the
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16.  Returns 0 or the CUDA error code of the
 // launch (cudaErrorInvalidValue for a head dim or dtype without an instance).
 // The (BH, T, d) operands must start on 16-byte boundaries (cp.async).
 extern "C" int mxt_flash_attention_fwd(const void* q, const void* k, const void* v,
@@ -220,5 +221,6 @@ extern "C" int mxt_flash_attention_fwd(const void* q, const void* k, const void*
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return dispatch_d<float>(d, q, k, v, out, lse, bh, seq, scale, causal, s);
   if (dtype == 1) return dispatch_d<bf16>(d, q, k, v, out, lse, bh, seq, scale, causal, s);
+  if (dtype == 2) return dispatch_d<f16>(d, q, k, v, out, lse, bh, seq, scale, causal, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -3,13 +3,13 @@
 //
 // A block of kWarps warps owns kRows rows of one (BH, T, d) operand, 16 per
 // warp, and steps over tiles of another in shared memory.  Products:
-//   * bf16: mma.sync m16n8k16, bf16 tiles in shared memory, fragments by
-//     ldmatrix (.trans for a row-major B operand);
+//   * bf16 and f16: mma.sync m16n8k16, 16-bit tiles in shared memory,
+//     fragments by ldmatrix (.trans for a row-major B operand);
 //   * f32: the 3xTF32 split (mma_sm90.cuh) on m16n8k8; tf32 fragments load
 //     with 32-bit shared loads (ldmatrix moves 16-bit elements).
 // The accumulator of a 16 x N product (rows lane/4 and lane/4 + 8, columns
 // 2*(lane%4) + {0, 1} of each 8-wide tile) becomes the A operand of the next
-// product in place (product_cn): in bf16 two tiles pack into one k16 step;
+// product in place (product_cn): in 16 bits two tiles pack into one k16 step;
 // in tf32 each tile is one k8 step whose k positions t and t + 4 are the
 // columns 2t and 2t + 1, and the B operand is read in that order.
 #pragma once
@@ -18,6 +18,7 @@
 namespace {
 
 using bf16 = __nv_bfloat16;
+using f16 = __half;
 
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
@@ -54,14 +55,13 @@ __device__ __forceinline__ void load_rows(float* dst, const float* __restrict__ 
   }
 }
 
-// ---- bf16 ----------------------------------------------------------------------
+// ---- bf16 and f16 ---------------------------------------------------------------
 
 // acc (16 x N) += A B^T: A the warp's 16 rows of a (., D) tile, B the N rows
-// of another; the pattern of S = Q K^T
-template <int D, int N>
-__device__ __forceinline__ void product_nt(float (&acc)[N / 8][4], const bf16* a,
-                                           const bf16* b) {
-  constexpr int LD = row_stride<bf16, D>();
+// of another; the pattern of S = Q K^T.  H is bf16 or f16.
+template <int D, int N, typename H>
+__device__ __forceinline__ void product_nt16(float (&acc)[N / 8][4], const H* a, const H* b) {
+  constexpr int LD = row_stride<H, D>();
   const int lane = threadIdx.x & 31, lr = lane & 7, lm = lane >> 3;
 #pragma unroll
   for (int k0 = 0; k0 < D; k0 += 16) {
@@ -71,36 +71,59 @@ __device__ __forceinline__ void product_nt(float (&acc)[N / 8][4], const bf16* a
     for (int n0 = 0; n0 < N; n0 += 16) {
       uint32_t bf[4];  // rows n0 / n0 + 8 x cols k0 / k0 + 8: b0, b1 of two n tiles
       ldmatrix_x4(bf, b + (n0 + (lm >> 1) * 8 + lr) * LD + k0 + (lm & 1) * 8);
-      mma_bf16(acc[n0 / 8], af, bf[0], bf[1]);
-      mma_bf16(acc[n0 / 8 + 1], af, bf[2], bf[3]);
+      mma16(acc[n0 / 8], af, bf[0], bf[1], H());
+      mma16(acc[n0 / 8 + 1], af, bf[2], bf[3], H());
     }
   }
 }
 
-// out (16 x D) += P B: P (16 x N) in accumulator layout, rounded to bf16 here;
-// B the N rows of a (., D) tile; the pattern of dQ = dS K and O = P V.
-// kFold is the f32 overload's (below); in bf16 one accumulator takes every
-// k step, whose drift stays far below the bf16 rounding of the outputs.
-template <int D, int N, bool kFold = false>
-__device__ __forceinline__ void product_cn(float (&out)[D / 8][4], const float (&p)[N / 8][4],
+template <int D, int N>
+__device__ __forceinline__ void product_nt(float (&acc)[N / 8][4], const bf16* a,
                                            const bf16* b) {
-  constexpr int LD = row_stride<bf16, D>();
+  product_nt16<D, N>(acc, a, b);
+}
+
+template <int D, int N>
+__device__ __forceinline__ void product_nt(float (&acc)[N / 8][4], const f16* a, const f16* b) {
+  product_nt16<D, N>(acc, a, b);
+}
+
+// out (16 x D) += P B: P (16 x N) in accumulator layout, rounded to H here;
+// B the N rows of a (., D) tile; the pattern of dQ = dS K and O = P V.
+// kFold is the f32 overload's (below); in 16 bits one accumulator takes
+// every k step, whose drift stays far below the rounding of the outputs.
+template <int D, int N, typename H>
+__device__ __forceinline__ void product_cn16(float (&out)[D / 8][4], const float (&p)[N / 8][4],
+                                             const H* b) {
+  constexpr int LD = row_stride<H, D>();
   const int lane = threadIdx.x & 31, lr = lane & 7, lm = lane >> 3;
 #pragma unroll
   for (int kk = 0; kk < N / 16; ++kk) {
     uint32_t af[4];
-    af[0] = pack_bf16(p[2 * kk][0], p[2 * kk][1]);
-    af[1] = pack_bf16(p[2 * kk][2], p[2 * kk][3]);
-    af[2] = pack_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1]);
-    af[3] = pack_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3]);
+    af[0] = pack16(p[2 * kk][0], p[2 * kk][1], H());
+    af[1] = pack16(p[2 * kk][2], p[2 * kk][3], H());
+    af[2] = pack16(p[2 * kk + 1][0], p[2 * kk + 1][1], H());
+    af[3] = pack16(p[2 * kk + 1][2], p[2 * kk + 1][3], H());
 #pragma unroll
     for (int n0 = 0; n0 < D; n0 += 16) {
       uint32_t bf[4];  // rows kk*16 / + 8 x cols n0 / n0 + 8, transposed
       ldmatrix_x4_trans(bf, b + (kk * 16 + (lm & 1) * 8 + lr) * LD + n0 + (lm >> 1) * 8);
-      mma_bf16(out[n0 / 8], af, bf[0], bf[1]);
-      mma_bf16(out[n0 / 8 + 1], af, bf[2], bf[3]);
+      mma16(out[n0 / 8], af, bf[0], bf[1], H());
+      mma16(out[n0 / 8 + 1], af, bf[2], bf[3], H());
     }
   }
+}
+
+template <int D, int N, bool kFold = false>
+__device__ __forceinline__ void product_cn(float (&out)[D / 8][4], const float (&p)[N / 8][4],
+                                           const bf16* b) {
+  product_cn16<D, N>(out, p, b);
+}
+
+template <int D, int N, bool kFold = false>
+__device__ __forceinline__ void product_cn(float (&out)[D / 8][4], const float (&p)[N / 8][4],
+                                           const f16* b) {
+  product_cn16<D, N>(out, p, b);
 }
 
 // ---- f32: 3xTF32 -----------------------------------------------------------------
@@ -190,10 +213,11 @@ __device__ __forceinline__ void product_cn(float (&out)[D / 8][4], const float (
   }
 }
 
-// ---- both dtypes ------------------------------------------------------------
+// ---- every dtype -------------------------------------------------------------
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f32(f16 x) { return __half2float(x); }
 
 // (x, y) to two adjacent elements
 __device__ __forceinline__ void store_pair(float* p, float x, float y) {
@@ -201,6 +225,9 @@ __device__ __forceinline__ void store_pair(float* p, float x, float y) {
 }
 __device__ __forceinline__ void store_pair(bf16* p, float x, float y) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
+}
+__device__ __forceinline__ void store_pair(f16* p, float x, float y) {
+  *reinterpret_cast<__half2*>(p) = __floats2half2_rn(x, y);
 }
 
 // rows r and r + 8 of a (16 x D) accumulator to a (seq, D) matrix

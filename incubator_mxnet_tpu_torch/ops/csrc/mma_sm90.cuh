@@ -5,7 +5,9 @@
 //   * cp.async: 16 or 4 bytes global -> shared, zero-filled when !valid, and
 //     the group waits of a ring of stages;
 //   * ldmatrix(.trans): four 8x8 16-bit matrices into mma fragments;
-//   * mma.sync m16n8k16 bf16 and m16n8k8 tf32, f32 accumulators;
+//   * mma.sync m16n8k16 bf16 and f16 and m16n8k8 tf32, f32 accumulators, and
+//     mma16 / pack16, which pick the bf16 or the f16 form by a 16-bit
+//     operand type's tag;
 //   * split: the integer 3xTF32 split of an f32 operand.
 //
 // The tensor cores round each mma's f32 sum toward zero (9 sums in 10 for
@@ -14,6 +16,7 @@
 #pragma once
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <stdint.h>
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -43,7 +46,7 @@ template <int N> __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// ---- bf16: mma.sync m16n8k16, fragments by ldmatrix ------------------------
+// ---- bf16 and f16: mma.sync m16n8k16, fragments by ldmatrix ----------------
 
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
@@ -70,6 +73,35 @@ __device__ __forceinline__ uint32_t pack_bf16(float x, float y) {
   __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
   return *reinterpret_cast<uint32_t*>(&h);
 }
+
+__device__ __forceinline__ void mma_f16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                        uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// (x, y) rounded to f16 (nearest even, as astype does), x in the low half
+__device__ __forceinline__ uint32_t pack_f16(float x, float y) {
+  __half2 h = __floats2half2_rn(x, y);
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+
+// the m16n8k16 product and the pair rounding of a 16-bit operand type,
+// chosen by a value of that type (its tag)
+__device__ __forceinline__ void mma16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                      uint32_t b1, __nv_bfloat16) {
+  mma_bf16(c, a, b0, b1);
+}
+__device__ __forceinline__ void mma16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                      uint32_t b1, __half) {
+  mma_f16(c, a, b0, b1);
+}
+__device__ __forceinline__ uint32_t pack16(float x, float y, __nv_bfloat16) {
+  return pack_bf16(x, y);
+}
+__device__ __forceinline__ uint32_t pack16(float x, float y, __half) { return pack_f16(x, y); }
 
 // ---- f32: 3xTF32 on mma.sync m16n8k8 ---------------------------------------
 

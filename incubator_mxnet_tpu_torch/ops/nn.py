@@ -11,7 +11,8 @@ The training BatchNorm is a `torch.autograd.Function` too: it saves only
 x, gamma and the per-channel mean and 1/std, as the JAX package's custom
 vjp does, and takes its statistics either from x (one pass, or two with
 `MXNET_BN_STABLE_VAR`) or from sums computed elsewhere: the fused 1x1
-convolution (`ops.conv_stats`) hands over Σy and Σy².
+convolution (`conv1x1_bn_stats`, through `ops.conv_stats`' kernel) hands
+over Σy and Σy².
 
 `convolution` and `fully_connected` cast the weight to the activation's
 dtype (the JAX package's amp rule), so bf16 activations run against f32
@@ -24,11 +25,15 @@ import warnings
 import torch
 import torch.nn.functional as F
 
+from . import conv_stats as _conv_stats
 from .. import config as _config
+from ..base import torch_dtype as _torch_dtype
 
-__all__ = ["fully_connected", "convolution", "pooling", "activation",
+__all__ = ["fully_connected", "convolution", "conv1x1_bn_stats",
+           "pooling", "activation",
            "flatten", "batch_norm", "layer_norm", "embedding", "leaky_relu",
-           "dropout", "fused_softmax_ce", "fused_linear_softmax_ce"]
+           "dropout", "softmax", "log_softmax", "fused_softmax_ce",
+           "fused_linear_softmax_ce"]
 
 
 def fully_connected(data, weight, bias=None, num_hidden=0, no_bias=False,
@@ -64,6 +69,22 @@ def convolution(data, weight, bias=None, kernel=(), stride=(), dilate=(),
     if not no_bias and bias is not None:
         out = out + bias.to(out.dtype).reshape(1, -1, 1, 1)
     return out
+
+
+def conv1x1_bn_stats(data, weight):
+    """The pointwise convolution (1x1, stride 1, no padding, no bias) of
+    NCHW `data` by weight (O, C, 1, 1), with the per-channel sums that a
+    training BatchNorm after it takes, from one pass of `ops.conv_stats`'
+    kernel: y (N, O, H, W) and Σy, Σy² over (n, h, w), each (1, O) f32.
+    The weight follows the activation's dtype, as in `convolution`; under
+    `contrib.amp` this op is a Convolution."""
+    N, C, H, W = data.shape
+    w = weight.reshape(weight.shape[0], C)
+    if w.dtype != data.dtype:           # amp: follow activation dtype
+        w = w.to(data.dtype)
+    y, s1, s2 = _conv_stats.conv1x1_stats(
+        data.contiguous().reshape(N, C, H * W), w)
+    return y.reshape(N, -1, H, W), s1, s2
 
 
 def pooling(data, kernel=(), pool_type="max", global_pool=False,
@@ -225,11 +246,14 @@ def batch_norm(data, gamma, beta, moving_mean, moving_var, eps=1e-3,
 
 def layer_norm(data, gamma, beta, axis=-1, eps=1e-5):
     """Normalize over the last axis with the biased variance, then scale
-    and shift."""
+    and shift.  The result takes the promoted dtype of data and gamma, as
+    the JAX op's arithmetic does (bf16 data with f32 gamma gives f32)."""
     if axis % data.ndim != data.ndim - 1:
         raise NotImplementedError("layer_norm over axis %d is not yet "
                                   "ported (last axis only)" % axis)
-    return F.layer_norm(data, (data.shape[-1],), gamma, beta, eps)
+    dt = torch.promote_types(data.dtype, gamma.dtype)
+    return F.layer_norm(data.to(dt), (data.shape[-1],), gamma.to(dt),
+                        beta.to(dt), eps)
 
 
 def embedding(data, weight):
@@ -257,6 +281,30 @@ def dropout(data, p=0.5, training=False, generator=None):
     mask = torch.rand(data.shape, generator=generator, device=data.device,
                       dtype=torch.float32) < keep
     return data * mask.to(data.dtype) / keep
+
+
+def _softmax_input(data, axis, temperature, use_length):
+    if use_length:
+        raise NotImplementedError("softmax use_length is not yet ported")
+    if temperature is not None and temperature != 1.0:
+        data = data / temperature
+    return data, axis % data.ndim
+
+
+def softmax(data, axis=-1, temperature=None, length=None, use_length=False,
+            dtype=None):
+    """softmax along `axis` in data's dtype, over data / temperature; the
+    result cast to `dtype` if given."""
+    data, ax = _softmax_input(data, axis, temperature, use_length)
+    out = torch.softmax(data, dim=ax)
+    return out if dtype is None else out.to(_torch_dtype(dtype))
+
+
+def log_softmax(data, axis=-1, temperature=None, dtype=None):
+    """log softmax along `axis`, as `softmax`."""
+    data, ax = _softmax_input(data, axis, temperature, False)
+    out = torch.log_softmax(data, dim=ax)
+    return out if dtype is None else out.to(_torch_dtype(dtype))
 
 
 class _SoftmaxCE(torch.autograd.Function):
@@ -296,9 +344,22 @@ def fused_softmax_ce(pred, label, axis=-1):
     return _SoftmaxCE.apply(pred, label)
 
 
+def _low_precision_card(a, b):
+    """bf16 or f16 operands of one dtype on the card, which cuBLAS
+    multiplies as they are into an f32 output (`out_dtype`)."""
+    return (a.is_cuda and a.dtype == b.dtype
+            and a.dtype in (torch.bfloat16, torch.float16))
+
+
 def _chunk_logits(hc, weight, bias):
     """f32 logits of one row chunk: products of the operands' values summed
-    in f32, as the JAX package's preferred_element_type=f32 dot."""
+    in f32, as the JAX package's preferred_element_type=f32 dot.  bf16 and
+    f16 operands on the card go to cuBLAS as they are, with an f32
+    output; elsewhere both are upcast, the same function since their
+    products are exact in f32."""
+    if _low_precision_card(hc, weight):
+        return torch.addmm(bias.float(), hc, weight.t(),
+                           out_dtype=torch.float32)
     return torch.addmm(bias.float(), hc.float(), weight.float().t())
 
 
@@ -325,7 +386,8 @@ class _LinearSoftmaxCE(torch.autograd.Function):
     def backward(ctx, dy):
         hidden, weight, bias, lab, lse = ctx.saved_tensors
         nchunk = ctx.nchunk
-        w32 = weight.float()
+        low = _low_precision_card(hidden, weight)
+        w32 = None if low else weight.float()
         dw = torch.zeros(weight.shape, dtype=torch.float32,
                          device=weight.device)
         db = torch.zeros(bias.shape, dtype=torch.float32, device=bias.device)
@@ -340,7 +402,13 @@ class _LinearSoftmaxCE(torch.autograd.Function):
                 (lc.shape[0], 1), -1.0, device=dlogits.device))
             dlogits.mul_(dyc[:, None])
             db += dlogits.sum(0)
-            dl = dlogits.to(hidden.dtype).float()
+            dl = dlogits.to(hidden.dtype)
+            if low:                     # as _chunk_logits: f32 outputs
+                dh.append(torch.mm(dl, weight, out_dtype=torch.float32)
+                          .to(hidden.dtype))
+                torch.addmm(dw, dl.t(), hc, out_dtype=torch.float32, out=dw)
+                continue
+            dl = dl.float()
             dh.append(torch.matmul(dl, w32).to(hidden.dtype))
             dw.addmm_(dl.t(), hc.float())
         return (torch.cat(dh), dw.to(weight.dtype), db.to(bias.dtype), None,

@@ -4,7 +4,11 @@ its registry, `SGD`, `Adam`, and the `Updater` that keeps per-index
 state.
 
 Weights, gradients and states are torch tensors; an update writes the
-weight and its state in place (`ops.optimizer`).  An optimizer with
+weight and its state in place (`ops.optimizer`), in the weight's and
+the state's own dtype.  With `multi_precision=True` a float16 weight is
+updated through an f32 master copy kept in its state, exactly as the
+JAX condition `weight.dtype == float16` says; any other dtype (bf16
+included) takes the plain update.  An optimizer with
 `aggregatable = True` (SGD) also has `update_multi`, which the Trainer
 calls once for all its parameters.  The other optimizers of the JAX
 package are not yet ported.
@@ -44,7 +48,7 @@ class Optimizer:
 
     def __init__(self, rescale_grad=1.0, param_idx2name=None, wd=0.0,
                  clip_gradient=None, learning_rate=0.01, begin_num_update=0,
-                 param_dict=None):
+                 multi_precision=False, param_dict=None):
         self.rescale_grad = rescale_grad
         self.lr = learning_rate
         self.wd = wd
@@ -54,6 +58,7 @@ class Optimizer:
         self.num_update = begin_num_update
         self._index_update_count = {}
         self.clip_gradient = clip_gradient
+        self.multi_precision = multi_precision
         self.idx2name = dict(param_idx2name or {})
         self.param_dict = dict(param_dict or {})
 
@@ -100,8 +105,30 @@ class Optimizer:
     def create_state(self, index, weight):
         return None
 
+    def _master_copy(self, weight):
+        """Whether `weight` is updated through an f32 master copy."""
+        return self.multi_precision and weight.dtype == torch.float16
+
+    def create_state_multi_precision(self, index, weight):
+        """`create_state`, or for a master-copied weight
+        (create_state(f32 copy), f32 copy)."""
+        if self._master_copy(weight):
+            w32 = weight.float()
+            return self.create_state(index, w32), w32
+        return self.create_state(index, weight)
+
     def update(self, index, weight, grad, state):
         raise NotImplementedError
+
+    def update_multi_precision(self, index, weight, grad, state):
+        """`update`, or for a master-copied weight the update of its f32
+        copy from the f32 gradient, rounded into `weight`."""
+        if self._master_copy(weight):
+            inner, w32 = state
+            self.update(index, w32, grad.float(), inner)
+            weight.copy_(w32)
+        else:
+            self.update(index, weight, grad, state)
 
     #: whether `update_multi` updates a list of parameters at once
     aggregatable = False
@@ -123,16 +150,34 @@ class SGD(Optimizer):
             return None
         return torch.zeros_like(weight)
 
-    def update(self, index, weight, grad, state):
+    def _step_kwargs(self, index):
+        """Counts an update of `index` and returns its op arguments."""
         self._update_count(index)
-        kw = dict(lr=self._get_lr(index), wd=self._get_wd(index),
-                  rescale_grad=self.rescale_grad,
-                  clip_gradient=self.clip_gradient)
+        return dict(lr=self._get_lr(index), wd=self._get_wd(index),
+                    rescale_grad=self.rescale_grad,
+                    clip_gradient=self.clip_gradient)
+
+    def update(self, index, weight, grad, state):
+        kw = self._step_kwargs(index)
         if state is None:
             _ops.sgd_update(weight, grad, **kw)
         else:
             _ops.sgd_mom_update(weight, grad, state, momentum=self.momentum,
                                 **kw)
+
+    def update_multi_precision(self, index, weight, grad, state):
+        """`update`, or for a master-copied weight mp_sgd_update /
+        mp_sgd_mom_update: the same update of the f32 copy, rounded into
+        `weight`."""
+        if not self._master_copy(weight):
+            return self.update(index, weight, grad, state)
+        mom, w32 = state
+        kw = self._step_kwargs(index)
+        if mom is None:
+            _ops.mp_sgd_update(weight, grad, w32, **kw)
+        else:
+            _ops.mp_sgd_mom_update(weight, grad, mom, w32,
+                                   momentum=self.momentum, **kw)
 
     aggregatable = True
 
@@ -187,8 +232,10 @@ class Updater:
 
     def __call__(self, index, grad, weight):
         if index not in self.states:
-            self.states[index] = self.optimizer.create_state(index, weight)
-        self.optimizer.update(index, weight, grad, self.states[index])
+            self.states[index] = \
+                self.optimizer.create_state_multi_precision(index, weight)
+        self.optimizer.update_multi_precision(index, weight, grad,
+                                              self.states[index])
 
 
 def get_updater(optimizer: Optimizer) -> Updater:

@@ -72,6 +72,27 @@ inline __nv_bfloat162 __floats2bfloat162_rn(float a, float b) {
   return {__float2bfloat16(a), __float2bfloat16(b)};
 }
 
+struct __half { uint16_t x; };
+struct __half2 { __half x, y; };
+inline __half __float2half_rn(float f) {  // nearest even; past 65504 to inf
+  const uint32_t u = __float_as_uint(f), sign = (u >> 16) & 0x8000u, a = u & 0x7fffffffu;
+  if (a >= 0x7f800000u) return {static_cast<uint16_t>(sign | (a > 0x7f800000u ? 0x7e00u : 0x7c00u))};
+  if (a >= 0x477ff000u) return {static_cast<uint16_t>(sign | 0x7c00u)};
+  if (a < 0x38800000u)  // below 2**-14: a multiple of 2**-24, exact in f32 after scaling
+    return {static_cast<uint16_t>(sign | (uint32_t)std::nearbyint(__uint_as_float(a) * 16777216.f))};
+  uint32_t h = ((a >> 23) - 112) << 10 | (a & 0x7fffffu) >> 13;
+  const uint32_t rest = a & 0x1fffu;
+  h += rest > 0x1000u || (rest == 0x1000u && (h & 1u));
+  return {static_cast<uint16_t>(sign | h)};
+}
+inline float __half2float(__half h) {
+  const uint32_t sign = (uint32_t)(h.x & 0x8000u) << 16, e = (h.x >> 10) & 0x1fu, m = h.x & 0x3ffu;
+  if (e == 0) return __uint_as_float(sign | __float_as_uint(m * 5.9604644775390625e-8f));
+  if (e == 31) return __uint_as_float(sign | 0x7f800000u | m << 13);
+  return __uint_as_float(sign | (e + 112) << 23 | m << 13);
+}
+inline __half2 __floats2half2_rn(float a, float b) { return {__float2half_rn(a), __float2half_rn(b)}; }
+
 namespace emu {
 constexpr int kMaxThreads = 1024;
 constexpr size_t kSmemBytes = 232448;
@@ -144,6 +165,8 @@ inline void launch(dim3 grid, int threads, size_t smem_bytes, const std::functio
 
 inline float bf16_lo(uint32_t u) { return __uint_as_float(u << 16); }
 inline float bf16_hi(uint32_t u) { return __uint_as_float(u & 0xffff0000u); }
+inline float f16_lo(uint32_t u) { return __half2float({static_cast<uint16_t>(u)}); }
+inline float f16_hi(uint32_t u) { return __half2float({static_cast<uint16_t>(u >> 16)}); }
 inline float tf32(uint32_t u) { return __uint_as_float(u & 0xffffe000u); }
 
 // d = a.b + c for this lane's four accumulator elements (rows lane/4 and
@@ -207,8 +230,10 @@ inline void ldmatrix(uint32_t (&r)[4], const void* p, bool trans) {
 inline void ldmatrix_x4(uint32_t (&r)[4], const void* p) { ldmatrix(r, p, false); }
 inline void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) { ldmatrix(r, p, true); }
 
-// mma.sync.m16n8k16.row.col.f32.bf16.bf16.f32
-inline void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+// mma.sync.m16n8k16.row.col.f32.{bf16,f16}: `lo` and `hi` read the two
+// 16-bit values of a 32-bit register
+template <float (*lo)(uint32_t), float (*hi)(uint32_t)>
+inline void mma_m16n8k16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
   const int w = emu::warp();
   emu::Slot& mine = emu::slot[w][emu::lane()];
   std::copy(a, a + 4, mine.a);
@@ -220,16 +245,22 @@ inline void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0, uint32_
     const emu::Slot& o = emu::slot[w][L];
     const int g = L / 4, t = L % 4;
     for (int h = 0; h < 2; ++h) {  // a0..a3: (g, 2t), (g+8, 2t), (g, 2t+8), (g+8, 2t+8)
-      A[g + 8 * h][2 * t] = emu::bf16_lo(o.a[h]);
-      A[g + 8 * h][2 * t + 1] = emu::bf16_hi(o.a[h]);
-      A[g + 8 * h][2 * t + 8] = emu::bf16_lo(o.a[2 + h]);
-      A[g + 8 * h][2 * t + 9] = emu::bf16_hi(o.a[2 + h]);
-      B[2 * t + 8 * h][g] = emu::bf16_lo(o.b[h]);  // b0, b1: rows 2t(+8), 2t+1(+8)
-      B[2 * t + 8 * h + 1][g] = emu::bf16_hi(o.b[h]);
+      A[g + 8 * h][2 * t] = lo(o.a[h]);
+      A[g + 8 * h][2 * t + 1] = hi(o.a[h]);
+      A[g + 8 * h][2 * t + 8] = lo(o.a[2 + h]);
+      A[g + 8 * h][2 * t + 9] = hi(o.a[2 + h]);
+      B[2 * t + 8 * h][g] = lo(o.b[h]);  // b0, b1: rows 2t(+8), 2t+1(+8)
+      B[2 * t + 8 * h + 1][g] = hi(o.b[h]);
     }
   }
   emu::warp_sync();
   emu::mma_lane<16>(c, A, B);
+}
+inline void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  mma_m16n8k16<emu::bf16_lo, emu::bf16_hi>(c, a, b0, b1);
+}
+inline void mma_f16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
+  mma_m16n8k16<emu::f16_lo, emu::f16_hi>(c, a, b0, b1);
 }
 
 // mma.sync.m16n8k8.row.col.f32.tf32.tf32.f32

@@ -104,6 +104,21 @@ def test_bf16_plain_matches_jax_naive():
                                rtol=2e-2, atol=2e-2)
 
 
+def test_f16_plain_matches_jax_naive():
+    # f16 rounds P at another point than the naive path, as bf16 does
+    # above, with 3 more bits: 2e-2 / 8
+    q, k, v = _arrays(2, 128, 64, seed=11)
+    tq, tk, tv = (t.half() for t in _torch(q, k, v))
+    jq, jk, jv = (jnp.asarray(t.float().numpy(), jnp.float16)
+                  for t in (tq, tk, tv))
+    ref = jatt.naive_attention(jq, jk, jv, 0.125)
+    out, lse = tatt.flash_attention_fwd(tq, tk, tv, 0.125)
+    assert out.dtype == torch.float16 and lse.dtype == torch.float32
+    np.testing.assert_allclose(out.float().numpy(),
+                               np.asarray(ref.astype(jnp.float32)),
+                               rtol=2.5e-3, atol=2.5e-3)
+
+
 def test_flash_attention_with_bias_matches_jax():
     q, k, v = _arrays(2, 2, 64, 16, seed=13)
     bias = _arrays(64, 64, n=1, seed=14)[0]
@@ -133,7 +148,7 @@ def test_kernel_operand_checks_raise(case):
     q = torch.zeros((2, 16, 64))
     k = v = q
     if case == "dtype":
-        q = k = v = q.half()
+        q = k = v = q.double()
     elif case == "head_dim":
         q = k = v = torch.zeros((2, 16, 48))
     elif case == "layout":

@@ -120,28 +120,38 @@ def test_bwd_3xtf32_products_stay_within_f32_tolerance(monkeypatch, d,
     assert err(_matmul_1xtf32) > BWD_TOL
 
 
-def test_bwd_plain_bf16_matches_pallas_kernels(pallas_interpret):
-    # bf16: both round P to dO's dtype before dV and dS to k's/q's dtype
-    # before dQ/dK, and round the outputs.  Sums in another f32 order can
-    # tip a rounding by one bf16 ulp (2**-8 relative), so each element is
-    # held to 2**-6 (|ref| + rms(ref)): at least 2 ulps of itself, and
-    # rms(ref) covers the elements near zero
+def _low_precision_bwd_matches_pallas(jdt, tdt, u):
+    """The plain backward in a 16-bit dtype (JAX `jdt`, torch `tdt`, unit
+    roundoff `u`) against the Pallas dq/dkv kernels in interpret mode:
+    both round P to dO's dtype before dV and dS to k's/q's dtype before
+    dQ/dK, and round the outputs.  Sums in another f32 order can tip a
+    rounding by one ulp (2 u relative), so each element is held to
+    4 u (|ref| + rms(ref)): at least 2 ulps of itself, and rms(ref)
+    covers the elements near zero."""
     BH, T, d = 2, 256, 32
-    arrays = [jnp.asarray(a, jnp.bfloat16) for a in _arrays(BH, T, d,
-                                                              seed=9)]
+    arrays = [jnp.asarray(a, jdt) for a in _arrays(BH, T, d, seed=9)]
     scale = 1.0 / np.sqrt(d)
     out, lse, ref = _pallas_bwd(*arrays, scale, True)
     tq, tk, tv, tdo, tout = (torch.from_numpy(np.array(a, np.float32))
-                             .to(torch.bfloat16)
-                             for a in (*arrays, out))
+                             .to(tdt) for a in (*arrays, out))
     got = tatt.flash_attention_bwd(tq, tk, tv, tout,
                                    torch.from_numpy(np.array(lse)), tdo,
                                    scale, True)
     for g, r in zip(got, ref):
-        assert g.dtype == torch.bfloat16
+        assert g.dtype == tdt
         r = np.asarray(r.astype(jnp.float32))
-        bound = 2.0 ** -6 * (np.abs(r) + np.sqrt(np.mean(r ** 2)))
+        bound = 4 * u * (np.abs(r) + np.sqrt(np.mean(r ** 2)))
         assert (np.abs(g.float().numpy() - r) <= bound).all()
+
+
+def test_bwd_plain_bf16_matches_pallas_kernels(pallas_interpret):
+    # bf16: 2**-6 (|ref| + rms(ref))
+    _low_precision_bwd_matches_pallas(jnp.bfloat16, torch.bfloat16, 2.0 ** -8)
+
+
+def test_bwd_plain_f16_matches_pallas_kernels(pallas_interpret):
+    # f16, the kernels' third instance: 2**-9 (|ref| + rms(ref))
+    _low_precision_bwd_matches_pallas(jnp.float16, torch.float16, 2.0 ** -11)
 
 
 @pytest.mark.parametrize("causal", [False, True])
@@ -229,7 +239,7 @@ def test_bwd_operand_checks_raise(case):
     k = v = out = do = q
     lse = delta = torch.zeros((2, 16))
     if case == "dtype":
-        q = k = v = out = do = q.half()
+        q = k = v = out = do = q.double()
     elif case == "head_dim":
         q = k = v = out = do = torch.zeros((2, 16, 48))
     elif case == "out_shape":

@@ -37,6 +37,7 @@ import torch
 
 from incubator_mxnet_tpu_torch.ops import _kernels
 from incubator_mxnet_tpu_torch.ops import attention as tatt
+from chip_smoke import _low_tolerance
 
 pytestmark = pytest.mark.torch_port
 
@@ -89,6 +90,7 @@ def _emulated_source(path):
     src = src.replace("#include <cuda_runtime.h>",
                       '#include "%s"' % HEADER.name)
     src = src.replace("#include <cuda_bf16.h>", "")
+    src = src.replace("#include <cuda_fp16.h>", "")
     for pattern, repl, marker, what in (
             (r"extern __shared__[^;]*\bsmem\[\];",
              "unsigned char* smem = emu::smem;", "extern __shared__",
@@ -136,17 +138,19 @@ def emulated(tmp_path_factory):
 
 
 def _tolerance(ref, dtype):
-    """chip_smoke.py's: f32 within 1e-4 of the largest |ref|; bf16 within
-    2**-6 (|ref| + rms(ref)), at least 2 bf16 ulps of each element."""
+    """chip_smoke.py's `_grad_tolerance`: f32 within 1e-4 of the largest
+    |ref|; bf16 and f16 within 4 u (|ref| + rms(ref)), u their unit
+    roundoff, at least 2 ulps of each element."""
     if dtype == torch.float32:
         return torch.full_like(ref, 1e-4 * ref.abs().max().item())
-    return 2.0 ** -6 * (ref.abs() + ref.pow(2).mean().sqrt())
+    return _low_tolerance(ref, str(dtype).replace("torch.", ""))
 
 
 # T = 77: two key tiles and two query tiles of 64 (three of 32 for dK/dV
 # at d = 128), the last one ragged
 @pytest.mark.parametrize("d", tatt.KERNEL_HEAD_DIMS)
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
 @pytest.mark.parametrize("causal", [False, True])
 def test_emulated_bwd_kernels_match_plain_version(emulated, d, dtype,
                                                   causal):
@@ -183,7 +187,7 @@ def test_emulated_bwd_kernels_refuse_what_they_do_not_take(emulated):
     # a head dim or dtype without an instance: cudaErrorInvalidValue, and
     # nothing written
     x = torch.zeros(1, 16, 48)
-    for d, code in ((48, 0), (64, 2)):
+    for d, code in ((48, 0), (64, 3)):
         assert emulated.mxt_flash_attention_bwd_dq(
             *(x.data_ptr(),) * 8, 1, 16, d, 0.1, 0, code, None) == 1
         assert emulated.mxt_flash_attention_bwd_dkv(

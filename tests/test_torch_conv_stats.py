@@ -74,7 +74,7 @@ def _f32(a):
 KERNEL_CASES = [(2, 8, 16, 32, 16), (2, 16, 64, 48, 32), (3, 24, 32, 64, 16)]
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 @pytest.mark.parametrize("N,C,HW,O,thw", KERNEL_CASES)
 def test_plain_version_matches_pallas_kernel(tool, N, C, HW, O, thw, dtype):
     kernel, _ = tool
@@ -92,10 +92,13 @@ def test_plain_version_matches_pallas_kernel(tool, N, C, HW, O, thw, dtype):
         # the same f32 sums over C in another order
         np.testing.assert_allclose(ty.numpy(), ref, rtol=0, atol=1e-5)
     else:
-        # both round the f32 accumulator to bf16; another summation order
-        # can tip a rounding by one bf16 ulp (at most 2**-7 of |y|)
+        # both round the f32 accumulator to the dtype; another summation
+        # order can tip a rounding by one ulp (at most 2**-7 of |y| in
+        # bf16, 2**-10 in f16, and 2**-24 among f16's subnormals)
+        rel, low = {"bfloat16": (2.0 ** -7, 0.0),
+                    "float16": (2.0 ** -10, 2.0 ** -24)}[dtype]
         err = np.abs(ty.float().numpy() - ref)
-        assert (err <= 2.0 ** -7 * np.abs(ref)).all()
+        assert (err <= rel * np.abs(ref) + low).all()
     # both sum the f32 accumulator, before its rounding: f32 sums of
     # N·HW terms in another order
     np.testing.assert_allclose(ts1.numpy(), _f32(s1), rtol=1e-5, atol=1e-5)
@@ -145,8 +148,8 @@ def test_kernel_wrapper_checks_and_cpu_route():
     with pytest.raises(ValueError, match="CUDA or CPU"):
         tcs.fused_conv1x1_stats(x.to("meta"), w.to("meta"))
     check = tcs._check_operands
-    with pytest.raises(ValueError, match="float32 or bfloat16"):
-        check(x.half(), w.half())
+    with pytest.raises(ValueError, match="float32, bfloat16 or float16"):
+        check(x.double(), w.double())
     with pytest.raises(ValueError, match="one dtype"):
         check(x, w.bfloat16())
     with pytest.raises(ValueError, match=r"\(N, C, HW\) and w \(O, C\)"):

@@ -1,6 +1,7 @@
 """PyTorch port on the card: the CUDA kernels against their plain versions,
-and the serving and training paths (BERT, ResNet, Transformer NMT and its
-cached decode step) through them.
+and the serving and training paths (BERT in f32 and bf16, ResNet,
+Transformer NMT and its cached decode step) through them, and float16
+through the kernels' f16 instances.
 
 Marked `cuda`; each test skips without a CUDA device.  This file imports
 neither JAX nor the JAX package, so on a machine with the card (and no
@@ -15,8 +16,15 @@ import torch
 import incubator_mxnet_tpu_torch as tmx
 from incubator_mxnet_tpu_torch.ops import attention as tatt
 from incubator_mxnet_tpu_torch.ops import conv_stats as tcs
+from incubator_mxnet_tpu_torch.ops import nn as tnn
+from chip_smoke import _low_tolerance
 
 pytestmark = [pytest.mark.torch_port, pytest.mark.cuda]
+
+
+def _name(dtype):
+    """'bfloat16' for torch.bfloat16, and so on."""
+    return str(dtype).replace("torch.", "")
 
 
 @pytest.fixture
@@ -42,6 +50,9 @@ def card():
     (8, 200, 128, torch.float32, True),
     (4, 333, 128, torch.float32, False),
     (4, 333, 128, torch.bfloat16, True),
+    (8, 512, 64, torch.float16, False),
+    (8, 200, 64, torch.float16, True),
+    (4, 333, 128, torch.float16, False),
 ])
 def test_flash_kernel_matches_plain_version(card, BH, T, d, dtype, causal):
     gen = torch.Generator(device=card)
@@ -59,17 +70,19 @@ def test_flash_kernel_matches_plain_version(card, BH, T, d, dtype, causal):
     if dtype == torch.float32:
         tol = 1e-4      # the same sums in another order
     else:
-        # both outputs rounded to bf16, and P rounded against the running
-        # max in the kernel but the final max in the plain version:
-        # 2**-6 |ref| is at least 2 bf16 ulps of each element, and
-        # 2**-6 rms(ref) covers the elements near zero
-        tol = 2.0 ** -6 * (ref.abs() + ref.pow(2).mean().sqrt())
+        # both outputs rounded to the dtype, and P rounded against the
+        # running max in the kernel but the final max in the plain
+        # version: 4 u (|ref| + rms(ref)), u the unit roundoff (2**-6 ...
+        # in bf16, 2**-9 ... in f16), is at least 2 ulps of each element,
+        # and the rms covers the elements near zero
+        tol = _low_tolerance(ref, _name(dtype))
     assert bool(((out.float() - ref).abs() <= tol).all())
     # lse comes from f32 scores in both dtypes
     assert (lse - ref_lse).abs().max().item() <= 1e-4
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
 def test_flash_kernel_is_deterministic(card, dtype):
     # one owner per output element: two launches on the same inputs give
     # the same bits in out and lse
@@ -116,8 +129,8 @@ def test_flash_kernel_raises_on_what_it_does_not_take(card):
     before = tatt.flash_fwd_launches
     with pytest.raises(ValueError, match="head dim"):
         tatt.flash_attention_fwd(q, q, q, 0.1)
-    h = torch.zeros((2, 16, 64), device=card, dtype=torch.float16)
-    with pytest.raises(ValueError, match="float32 or bfloat16"):
+    h = torch.zeros((2, 16, 64), device=card, dtype=torch.float64)
+    with pytest.raises(ValueError, match="float32, bfloat16 or float16"):
         tatt.flash_attention_fwd(h, h, h, 0.1)
     k = torch.zeros((2, 16, 64), device=card)
     with pytest.raises(ValueError, match="16-byte"):
@@ -176,7 +189,9 @@ def _bwd_inputs(card, BH, T, d, dtype, causal, seed=1):
 ] + [(3, T, d, dtype, causal) for T in (77, 256)
      for d in tatt.KERNEL_HEAD_DIMS
      for dtype in (torch.float32, torch.bfloat16)
-     for causal in (False, True)])
+     for causal in (False, True)]
+    + [(3, T, d, torch.float16, causal) for T in (77, 256) for d in (64, 128)
+       for causal in (False, True)])
 def test_flash_bwd_kernels_match_plain_version(card, BH, T, d, dtype,
                                                causal):
     q, k, v, do, out, lse = _bwd_inputs(card, BH, T, d, dtype, causal)
@@ -196,13 +211,14 @@ def test_flash_bwd_kernels_match_plain_version(card, BH, T, d, dtype,
             # the same sums in another order
             tol = 1e-4 * r.abs().max()
         else:
-            # P and dS rounded at the same points, outputs rounded to
-            # bf16: 2**-6 (|ref| + rms(ref)) is at least 2 bf16 ulps
-            tol = 2.0 ** -6 * (r.abs() + r.pow(2).mean().sqrt())
+            # P and dS rounded at the same points, outputs rounded to the
+            # dtype: 4 u (|ref| + rms(ref)) is at least 2 ulps
+            tol = _low_tolerance(r, _name(dtype))
         assert bool(((got.float() - r).abs() <= tol).all())
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
 def test_flash_bwd_kernels_are_deterministic(card, dtype):
     # one owner per output element, no atomics: two launches on the same
     # inputs give the same bits in dq, dk, dv and D
@@ -416,7 +432,7 @@ def _conv_inputs(card, N, C, HW, O, dtype, seed=2):
     return x, w
 
 
-# with the instance bf16 takes (f32 always takes the CUDA cores): ragged
+# with the instance bf16 and f16 take (f32 always takes the CUDA cores): ragged
 # shapes; whole-image slabs at HW 49 and 196 (C 512 and 2048, O not a
 # multiple of 128); 16-byte rows, with a ragged column tile at HW 784
 @pytest.mark.parametrize("N,C,HW,O,bf16_path", [
@@ -428,10 +444,11 @@ def _conv_inputs(card, N, C, HW, O, dtype, seed=2):
     (3, 512, 196, 1024, "tensor_cores_slabs"),
     (2, 2048, 196, 72, "tensor_cores_slabs"),
     (3, 256, 784, 200, "tensor_cores_rows")])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
 def test_conv1x1_stats_kernel_matches_plain_version(card, N, C, HW, O,
                                                     bf16_path, dtype):
-    path = bf16_path if dtype == torch.bfloat16 else "cuda_cores"
+    path = bf16_path if dtype != torch.float32 else "cuda_cores"
     assert tcs.conv1x1_stats_path(N, C, HW, O, dtype) == path
     x, w = _conv_inputs(card, N, C, HW, O, dtype)
     before = tcs.conv1x1_stats_launches
@@ -446,8 +463,8 @@ def test_conv1x1_stats_kernel_matches_plain_version(card, N, C, HW, O,
         assert bool(((y - ref_y).abs() <= 1e-4 * ref_y.abs().max()).all())
     else:
         # the kernel's y and the plain version's, each against the exact
-        # product: what an f32 sum over C in any order, rounded to bf16,
-        # can miss it by
+        # product: what an f32 sum over C in any order, rounded to y's
+        # dtype, can miss it by
         exact, bound = tcs.conv1x1_y_bound(x, w)
         for got in (y, ref_y):
             assert bool(((got.double() - exact).abs() <= bound).all())
@@ -475,8 +492,8 @@ def test_conv1x1_stats_kernel_raises_on_what_it_does_not_take(card):
     x = torch.zeros(2, 8, 10, device=card)
     w = torch.zeros(4, 8, device=card)
     before = tcs.conv1x1_stats_launches
-    with pytest.raises(ValueError, match="float32 or bfloat16"):
-        tcs.fused_conv1x1_stats(x.half(), w.half())
+    with pytest.raises(ValueError, match="float32, bfloat16 or float16"):
+        tcs.fused_conv1x1_stats(x.double(), w.double())
     with pytest.raises(ValueError, match="contiguous"):
         tcs.fused_conv1x1_stats(x.transpose(0, 1).contiguous()
                                 .transpose(0, 1), w)
@@ -528,3 +545,196 @@ def test_resnet_training_step_through_kernel(card):
             assert err.item() <= 1e-4 * r.abs().max().item(), name
     trainer.step(4)
     assert all(bool(torch.isfinite(p).all()) for p in net.parameters())
+
+
+# --- bf16 training and float16 dispatch ------------------------------------
+
+def _bf16_ulp(x):
+    """The spacing of bf16 values at |x| (f32 tensor; 7 explicit mantissa
+    bits), floored at the spacing at bf16's smallest normal."""
+    return 2.0 ** (torch.floor(torch.log2(x.abs().clamp_min(2.0 ** -126)))
+                   - 7)
+
+
+def _scaled_errs(got, ref):
+    """{name: max-abs error over scale} and {name: scale}, a scale being
+    the max-abs value floored at 1e-3 of the largest among `ref`."""
+    top = max(r.abs().max().item() for r in ref.values())
+    scale = {n: max(r.abs().max().item(), 1e-3 * top) for n, r in ref.items()}
+    return {n: (got[n].float().cpu() - r).abs().max().item() / scale[n]
+            for n, r in ref.items()}, scale
+
+
+def test_bert_bf16_training_step_through_kernels(card):
+    """bert_small + FusedMLMCELoss cast to bf16 on the card: one step's
+    loss, final hidden states and gradients against an f32 CPU copy
+    holding the same bf16-valued weights, by the kernels (each launched
+    once per layer, a bf16 instance) and by the plain route (every flash
+    kernel's plain version on the card).  As chip_smoke.py's train_bf16
+    holds them: the loss within twice the plain route's error plus 1e-6,
+    and each tensor X (the hidden states, every gradient) within
+    2 e_plain(X) + one bf16 ulp of X's scale.  Then an Adam step keeps
+    every parameter bf16 and finite."""
+    from chip_smoke import BF16_ROUTE_FACTOR, _bf16_ulp_share
+    tmx.random.seed(0)
+    kw = dict(vocab_size=100, max_length=64, dropout=0.0,
+              output_hidden=True)
+    net = tmx.models.bert_small(**kw).cast("bfloat16")
+    head = tmx.models.FusedMLMCELoss(100, 64).cast("bfloat16")
+    cpu = tmx.models.bert_small(device="cpu", **kw)
+    cpu.load_state_dict({k: v.float().cpu()
+                         for k, v in net.state_dict().items()})
+    cpu_head = tmx.models.FusedMLMCELoss(100, 64, device="cpu")
+    cpu_head.load_state_dict({k: v.float().cpu()
+                              for k, v in head.state_dict().items()})
+    rs = np.random.RandomState(0)
+    x = torch.from_numpy(rs.randint(0, 100, (2, 64)))
+    y = torch.from_numpy(rs.randint(0, 100, (2, 64)).astype(np.float32))
+    params = {**net.collect_params(),
+              **{"loss." + n: p for n, p in head.collect_params().items()}}
+    with tmx.autograd.record():
+        ref_hidden = cpu(x)
+        ref = cpu_head(ref_hidden, y)
+    tmx.autograd.backward(ref)
+    ref_grads = {**{n: p.grad for n, p in cpu.collect_params().items()},
+                 **{"loss." + n: p.grad
+                    for n, p in cpu_head.collect_params().items()},
+                 "hidden": ref_hidden.detach()}
+
+    def step():
+        with tmx.autograd.record():
+            hidden = net(x.to(card))
+            loss = head(hidden, y.to(card))
+        tmx.autograd.backward(loss)
+        torch.cuda.synchronize()
+        got = {n: p.grad for n, p in params.items()}
+        got["hidden"] = hidden.detach()
+        return (loss.cpu() - ref.detach()).abs().max().item(), \
+            _scaled_errs(got, ref_grads)
+
+    saved = tatt.flash_attention_fwd, tatt.flash_attention_bwd
+    tatt.flash_attention_fwd = tatt.flash_attention_fwd_plain
+    tatt.flash_attention_bwd = tatt.flash_attention_bwd_plain
+    try:
+        before = _counts()
+        plain_loss, (plain, _) = step()
+        assert _counts() == before
+    finally:
+        tatt.flash_attention_fwd, tatt.flash_attention_bwd = saved
+    before = _counts()
+    kern_loss, (kern, scale) = step()
+    assert tuple(a - b for a, b in zip(_counts(), before)) == \
+        (2, 2, 2, 0, 0, 0)
+    assert kern_loss <= 2.0 * plain_loss + 1e-6, (kern_loss, plain_loss)
+    over = {n: kern[n] / (BF16_ROUTE_FACTOR * plain[n]
+                          + _bf16_ulp_share(scale[n])) for n in kern}
+    worst = max(over, key=over.get)
+    assert over[worst] <= 1.0, (worst, kern[worst], plain[worst])
+    trainer = tmx.gluon.Trainer(params, "adam", {"learning_rate": 1e-4})
+    trainer.step(2)
+    for p in params.values():
+        assert p.dtype == torch.bfloat16 and bool(torch.isfinite(p).all())
+
+
+def test_float16_runs_through_the_kernels_on_card(card):
+    """float16 activations (amp.init("float16"), a float16 cast): the
+    flash kernels' and the conv kernel's f16 instances launch, once each
+    per call, and agree with the f32 routes within f16 rounding; the
+    wrappers raise on a dtype without an instance (float64)."""
+    q, k, v = (torch.randn(2, 4, 64, 64, device=card).half()
+               for _ in range(3))
+    for t in (q, k, v):
+        t.requires_grad_()
+    before = _counts()
+    out = tatt.flash_attention(q, k, v)
+    out.float().sum().backward()
+    torch.cuda.synchronize()
+    assert tuple(a - b for a, b in zip(_counts(), before)) == \
+        (1, 1, 1, 0, 0, 0)
+    ref_qkv = [t.detach().float().requires_grad_() for t in (q, k, v)]
+    ref = tatt.naive_attention(*ref_qkv, 1.0 / 8.0)
+    ref.sum().backward()
+    assert out.dtype == torch.float16
+    # f16 rounding of q, k, v, P and the outputs: a few 2**-11 of scale
+    assert (out.float() - ref).abs().max().item() <= \
+        2.0 ** -7 * ref.abs().max().item()
+    for t, r in zip((q, k, v), ref_qkv):
+        assert t.grad.dtype == torch.float16
+        assert (t.grad.float() - r.grad).abs().max().item() <= \
+            2.0 ** -7 * r.grad.abs().max().item()
+    tmx.random.seed(0)
+    net = tmx.gluon.nn.HybridSequential()
+    net.add(tmx.gluon.nn.Conv2D(32, 1, use_bias=False, in_channels=32),
+            tmx.gluon.nn.BatchNorm(in_channels=32))
+    cpu = tmx.gluon.nn.HybridSequential()
+    cpu.add(tmx.gluon.nn.Conv2D(32, 1, use_bias=False, in_channels=32,
+                                device="cpu"),
+            tmx.gluon.nn.BatchNorm(in_channels=32, device="cpu"))
+    net.cast("float16")
+    cpu.load_state_dict({n: t.float().cpu()
+                         for n, t in net.state_dict().items()})
+    xb = torch.randn(2, 32, 8, 8, device=card).half()
+    before = tcs.conv1x1_stats_launches
+    with tmx.autograd.record():
+        yb = net(xb)
+        yc = cpu(xb.float().cpu())
+    torch.cuda.synchronize()
+    assert tcs.conv1x1_stats_launches == before + 1
+    assert yb.dtype == torch.float16
+    assert (yb.float().cpu() - yc).abs().max().item() <= \
+        2.0 ** -7 * yc.abs().max().item()
+    with pytest.raises(ValueError, match="float32, bfloat16 or float16"):
+        tatt.flash_attention_fwd(*(t.detach().double().reshape(8, 64, 64)
+                                   for t in (q, k, v)), 0.125)
+    with pytest.raises(ValueError, match="float32, bfloat16 or float16"):
+        tcs.fused_conv1x1_stats(torch.zeros(2, 16, 64, device=card).double(),
+                                torch.zeros(32, 16, device=card).double())
+
+
+def test_adam_bf16_on_card_matches_cpu(card):
+    """One Adam step on bf16 tensors on the card against the same step on
+    the CPU: both compute in f32 and round once, so they agree but where
+    the card's fused multiply-adds tip a rounding (at most one bf16 ulp)."""
+    from incubator_mxnet_tpu_torch.ops import optimizer as topt
+    rs = np.random.RandomState(0)
+    w, g, m = (torch.from_numpy(rs.randn(1 << 16).astype(np.float32))
+               .bfloat16() for _ in range(3))
+    v = torch.from_numpy(rs.rand(1 << 16).astype(np.float32) * 0.01) \
+        .bfloat16()
+    kw = dict(lr=1e-3, wd=1e-4, rescale_grad=0.125)
+    cpu = [t.clone() for t in (w, g, m, v)]
+    dev = [t.to(card) for t in (w, g, m, v)]
+    topt.adam_update(*cpu, **kw)
+    topt.adam_update(*dev, **kw)
+    for a, b in zip(dev, cpu):
+        assert a.dtype == torch.bfloat16
+        a, b = a.cpu().float(), b.float()
+        assert bool(((a - b).abs() <= _bf16_ulp(b)).all())
+
+
+def test_fused_linear_ce_bf16_on_card_matches_cpu(card):
+    """The fused vocab CE on bf16 operands: the card's route (cuBLAS bf16
+    GEMMs with f32 output) against the CPU's (operands upcast to f32),
+    the same function summed in other orders.  The f32 loss within 1e-5
+    of its size; dh, dW and db, rounded to bf16 on both, within one bf16
+    ulp of their scale plus 1e-4 of each tensor's largest value."""
+    rs = np.random.RandomState(7)
+    h = torch.from_numpy(rs.randn(512, 64).astype(np.float32)).bfloat16()
+    w = torch.from_numpy(rs.randn(1000, 64).astype(np.float32) * 0.1) \
+        .bfloat16()
+    b = torch.from_numpy(rs.randn(1000).astype(np.float32)).bfloat16()
+    lab = torch.from_numpy(rs.randint(0, 1000, 512).astype(np.float32))
+    res = []
+    for dev in (card, torch.device("cpu")):
+        ts = [t.to(dev).requires_grad_() for t in (h, w, b)]
+        loss = tnn.fused_linear_softmax_ce(*ts, lab.to(dev), num_chunks=2)
+        loss.sum().backward()
+        res.append([loss.detach().cpu()] + [t.grad.cpu() for t in ts])
+    (loss_c, *grads_c), (loss_h, *grads_h) = res
+    assert loss_c.dtype == torch.float32
+    assert (loss_c - loss_h).abs().max().item() <= 1e-5 * loss_h.abs().max()
+    for a, r in zip(grads_c, grads_h):
+        assert a.dtype == torch.bfloat16
+        a, r = a.float(), r.float()
+        assert bool(((a - r).abs()
+                     <= _bf16_ulp(r) + 1e-4 * r.abs().max()).all())

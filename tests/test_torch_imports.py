@@ -61,6 +61,12 @@ def test_import_loads_no_jax_and_needs_no_nvcc(tmp_path):
             "mx.models.TransformerNMT, mx.models.transformer_nmt_base, "
             "mx.models.transformer_nmt_small, mx.models.CrossAttention, "
             "mx.models.TransformerDecoder; "
+            "import incubator_mxnet_tpu_torch.contrib.amp as amp; "
+            "import incubator_mxnet_tpu_torch.contrib.amp.lists; "
+            "import incubator_mxnet_tpu_torch.contrib.amp.loss_scaler; "
+            "amp.init, amp.LossScaler, amp.lists.FP32_OPS, mx.contrib.amp, "
+            "mx.gluon.Block.cast, mx.ops.optimizer.mp_sgd_update; "
+            "assert amp.current_target() is None; "
             "assert a.flash_fwd_causal_launches == "
             "a.flash_bwd_dq_causal_launches == "
             "a.flash_bwd_dkv_causal_launches == 0; "

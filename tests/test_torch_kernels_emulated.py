@@ -2,7 +2,7 @@
 flash-attention forward kernel's CUDA sources run on the CPU, under the
 emulation of tests/cuda_emulation.h (built as in
 test_torch_bwd_kernels_emulated.py), and held against their plain versions
-(and a bf16 y, as the plain version's, against the exact product) with the
+(and a 16-bit y, as the plain version's, against the exact product) with the
 tolerances chip_smoke.py holds the kernels to on the card.
 
 As there, this checks the kernels' logic (tiles, fragment layouts, masks,
@@ -57,7 +57,7 @@ def _conv_emulated(lib, x, w):
 def _conv_errors(x, w, y, s1, s2):
     """({kernel[, plain]}: largest y error over its tolerance, relative s1
     and s2 errors against the plain version), as chip_smoke.py measures
-    them: f32 y within 1e-4 of the largest |plain|; bf16 y, the kernel's
+    them: f32 y within 1e-4 of the largest |plain|; a 16-bit y, the kernel's
     and the plain version's, within `conv1x1_y_bound` of the exact
     product; s1 relative to sqrt(N·HW·Σy²), s2 to itself."""
     N, _, HW = x.shape
@@ -71,18 +71,20 @@ def _conv_errors(x, w, y, s1, s2):
 
 def test_every_resnet_step_shape_takes_the_tensor_cores(conv_lib):
     for C, HW, O, _ in tcs.RESNET_CONV_SHAPES:
-        path = conv_lib.mxt_conv1x1_stats_path(128, C, HW, O, 1)
-        assert tcs.PATHS[path] in ("tensor_cores_rows",
-                                   "tensor_cores_slabs"), (C, HW, O)
-    # f32, and bf16 with C not a multiple of 32: the CUDA cores
+        for code in (1, 2):             # bf16, f16
+            path = conv_lib.mxt_conv1x1_stats_path(128, C, HW, O, code)
+            assert tcs.PATHS[path] in ("tensor_cores_rows",
+                                       "tensor_cores_slabs"), (C, HW, O)
+    # f32, and bf16 or f16 with C not a multiple of 32: the CUDA cores
     assert conv_lib.mxt_conv1x1_stats_path(128, 64, 3136, 256, 0) == 0
     assert conv_lib.mxt_conv1x1_stats_path(3, 72, 49, 80, 1) == 0
+    assert conv_lib.mxt_conv1x1_stats_path(3, 72, 49, 80, 2) == 0
 
 
 # (N, C, HW, O, dtype, instance): HW 49 and 196 (rows not 16-byte
 # aligned: whole-image slabs; 3 images of 49 leave a tile of 4 part
 # empty), aligned rows with a ragged last column tile and O tile, ragged
-# C on the CUDA cores, and f32
+# C on the CUDA cores, f32, and f16 on each instance
 CONV_CASES = [
     (2, 64, 49, 64, torch.bfloat16, "tensor_cores_slabs"),
     (3, 64, 49, 128, torch.bfloat16, "tensor_cores_slabs"),
@@ -91,6 +93,10 @@ CONV_CASES = [
     (3, 72, 49, 80, torch.bfloat16, "cuda_cores"),
     (5, 17, 33, 65, torch.bfloat16, "cuda_cores"),
     (2, 24, 10, 9, torch.float32, "cuda_cores"),
+    (2, 64, 49, 64, torch.float16, "tensor_cores_slabs"),
+    (2, 64, 196, 128, torch.float16, "tensor_cores_slabs"),
+    (3, 64, 40, 136, torch.float16, "tensor_cores_rows"),
+    (5, 17, 33, 65, torch.float16, "cuda_cores"),
 ]
 
 
@@ -143,7 +149,8 @@ def fwd_lib(tmp_path_factory):
 
 # T = 77: two key tiles and two query tiles of 64, the last one ragged
 @pytest.mark.parametrize("d", [16, 64, 128])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
 @pytest.mark.parametrize("causal", [False, True])
 def test_emulated_fwd_kernel_matches_plain_version(fwd_lib, d, dtype,
                                                    causal):
@@ -160,13 +167,11 @@ def test_emulated_fwd_kernel_matches_plain_version(fwd_lib, d, dtype,
         tatt._KERNEL_DTYPES[dtype], None) == 0
     ref_out, ref_lse = tatt.flash_attention_fwd_plain(q, k, v, scale, causal)
     ref = ref_out.float()
-    if dtype == torch.float32:
-        tol = torch.full_like(ref, TOL)
-    else:
-        # chip_smoke.py's: both outputs rounded to bf16, P rounded against
-        # the running max in the kernel and the final max in the plain
-        # version; 2**-6 (|ref| + rms(ref)) is at least 2 bf16 ulps
-        tol = 2.0 ** -6 * (ref.abs() + ref.pow(2).mean().sqrt())
+    # chip_smoke.py's: f32 within TOL; in 16 bits both outputs rounded,
+    # P rounded against the running max in the kernel and the final max
+    # in the plain version: 4 u (|ref| + rms(ref)), at least 2 ulps
+    tol = chip_smoke._out_tolerance(torch, ref,
+                                    str(dtype).replace("torch.", ""))
     assert bool(((out.float() - ref).abs() <= tol).all())
     assert (lse - ref_lse).abs().max().item() <= TOL
 
@@ -175,7 +180,7 @@ def test_emulated_fwd_kernel_refuses_what_it_does_not_take(fwd_lib):
     # a head dim or dtype without an instance: cudaErrorInvalidValue, and
     # nothing written
     x = torch.zeros(1, 16, 48)
-    for d, code in ((48, 0), (64, 2)):
+    for d, code in ((48, 0), (64, 3)):
         assert fwd_lib.mxt_flash_attention_fwd(
             *(x.data_ptr(),) * 5, 1, 16, d, 0.1, 0, code, None) == 1
     assert bool((x == 0).all())
