@@ -74,6 +74,24 @@ Drives incubator_mxnet_tpu_torch only (never JAX or the JAX package):
              CUDA events, images/s, peak memory, every loss finite); each
              step launches the conv kernel 33 times.
    train_resnet_profile — device time by kernel over one such step.
+   train_resnet_gluon — the same model and batch trained as a Gluon user
+             writes the loop: get_model with the widths deferred,
+             initialize(MSRAPrelu, ctx=gpu(0)), no weight decay on beta,
+             gamma and bias (collect_params(...).setattr), NAG (lr 0.1,
+             momentum 0.9, wd 1e-4) under a warmup-cosine scheduler,
+             Accuracy and TopKAccuracy(5) updated with the card's sync
+             debug mode set to "error", a Speedometer; 2 warm-up and 10
+             timed steps, each launching the conv kernel 33 times; every
+             parameter materialised by the first forward with the names
+             and shapes of train_resnet's; the lr of every step the
+             warmup-cosine's; one extra step with every gradient and
+             momentum zeroed moving each decayed weight by its weight
+             decay alone and nothing else; save_parameters/save_states
+             after timed step 5 loaded into fresh objects bit for bit
+             (and a bf16 cast of it through a file), whose steps 6-10
+             stay within the loss spread of two uninterrupted runs.
+   train_resnet_gluon_profile — device time by kernel over one such
+             step.
 10. train_nmt — transformer_nmt_base (6 + 6 layers, 512 units, 8 heads,
              vocab 32000, dropout 0, output_hidden + FusedMLMCELoss, Adam
              lr 1e-4, f32) as bench.py's run_transformer_nmt (config 4b):
@@ -101,13 +119,17 @@ Every phase prints one JSON line; the first failure raises and exits
 nonzero with its traceback.  Without a CUDA device it exits 1 and prints
 nothing on standard output.
 """
+import collections
 import contextlib
 import json
+import logging
 import math
+import os
 import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 from collections import deque
@@ -212,6 +234,21 @@ RUNNING_TOL = 1e-4
 # their scale.  The small ResNet below, free of such flips, is held to
 # TRAIN_TOL per tensor.
 RESNET_SPREAD_FACTOR = 3.0
+# the Gluon loop (train_resnet_gluon): GluonCV's ImageNet recipe
+# (scripts/classification/imagenet/train_imagenet.py): MSRAPrelu, no
+# weight decay on beta, gamma and bias, NAG with a linear warmup into a
+# cosine.  max_update spans twice the phase's updates, so the lr stays
+# above 0 through the weight-decay step that follows them.
+GLUON_NAG = {"learning_rate": 0.1, "momentum": 0.9, "wd": 1e-4}
+GLUON_LR = dict(base_lr=0.1, final_lr=0.0, warmup_steps=2,
+                warmup_begin_lr=0.01)
+GLUON_MAX_UPDATE = 2 * (TRAIN_WARMUP + TRAIN_STEPS)
+GLUON_NO_WD = ".*beta|.*gamma|.*bias"
+GLUON_SAVE_AT = 5           # the timed step after which the run is saved
+BUILD = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+_BatchEnd = collections.namedtuple("BatchEndParam",
+                                   ["epoch", "nbatch", "eval_metric",
+                                    "locals"])
 SMALL_RESNET = dict(layers=[1, 1, 1, 1], channels=[8, 16, 32, 64, 128],
                     classes=10, thumbnail=True, stride_on_3x3=True)
 # sustained serving window: closed-loop clients, each keeping INFLIGHT
@@ -1113,10 +1150,10 @@ def _small_resnet_parity(torch, mx, loss_fn):
     args = (resnet.BottleneckV1, kw.pop("layers"), kw.pop("channels"))
     net = resnet.ResNetV1(*args, device="cuda:0", **kw)
     cpu = resnet.ResNetV1(*args, device="cpu", **kw)
-    cpu.load_state_dict({k: v.cpu() for k, v in net.state_dict().items()})
     rs = np.random.RandomState(1)
     x = torch.from_numpy(rs.randn(4, 3, 32, 32).astype(np.float32))
     y = torch.from_numpy(rs.randint(0, 10, 4).astype(np.float32))
+    _copy_to_cpu(mx, net, cpu, x[:1])
     loss, grads, _ = _resnet_grads(mx, net, loss_fn, x.cuda(), y.cuda())
     ref_loss, ref_grads, _ = _resnet_grads(mx, cpu, loss_fn, x, y)
     err = _scaled_err(grads, ref_grads)
@@ -1125,6 +1162,17 @@ def _small_resnet_parity(torch, mx, loss_fn):
                 loss_max_abs_err=(loss - ref_loss).abs().max().item(),
                 worst_grad_err_over_scale=err[worst], worst_grad=worst,
                 grad_tol=TRAIN_TOL)
+
+
+def _copy_to_cpu(mx, net, cpu_net, x):
+    """Give `cpu_net` the parameters of `net` (on the card).  Both stems
+    take their input width from the first forward's images, as in the
+    JAX package, so one inference forward of `x` on each completes
+    them first; in inference the running statistics stay as they are."""
+    with mx.autograd.pause():
+        net(x.to(next(net.parameters()).device))
+        cpu_net(x)
+    cpu_net.load_state_dict({k: v.cpu() for k, v in net.state_dict().items()})
 
 
 def _bf16_ulp_share(scale):
@@ -1143,7 +1191,8 @@ def _scaled_err(got, ref):
 def phase_train_resnet(torch, mx, cs):
     """resnet50_v1b training through the port's entry points, as
     bench.py's run_cachedop; returns the conv kernel's launches over the
-    timed steps."""
+    timed steps, the step median, images/s and peak memory, and the
+    parameters' {name: shape}."""
     from incubator_mxnet_tpu_torch.gluon.model_zoo.vision import \
         resnet50_v1b
     rs = np.random.RandomState(0)
@@ -1160,9 +1209,10 @@ def phase_train_resnet(torch, mx, cs):
 
     # parity: one batch-2 f32 step against a CPU copy (TF32 is off)
     cpu_net = resnet50_v1b(classes=1000, device="cpu")
-    cpu_net.load_state_dict({k: v.cpu() for k, v in net.state_dict().items()})
     x2 = torch.from_numpy(images[:RESNET_PARITY_BATCH])
     y2 = torch.from_numpy(labels[:RESNET_PARITY_BATCH])
+    _copy_to_cpu(mx, net, cpu_net, x2[:1])
+    shapes = {n: list(p.shape) for n, p in params.items()}
     loss2, grads, running = _resnet_grads(mx, net, loss_fn, x2.cuda(),
                                           y2.cuda())
     trainer.step(RESNET_PARITY_BATCH)
@@ -1205,6 +1255,9 @@ def phase_train_resnet(torch, mx, cs):
     step_ms = [events[i].elapsed_time(events[i + 1])
                for i in range(TRAIN_STEPS)]
     losses = [v.item() for v in losses]
+    summary = dict(step_ms_median=statistics.median(step_ms),
+                   images_per_s=TRAIN_STEPS * RESNET_BATCH / wall,
+                   max_memory_allocated=torch.cuda.max_memory_allocated())
     _emit(dict(phase="train_resnet", model="resnet50_v1b", classes=1000,
                dtype="bfloat16", batch=RESNET_BATCH, image=[3, 224, 224],
                optimizer="sgd", lr=0.1, momentum=0.9, wd=1e-4,
@@ -1223,11 +1276,7 @@ def phase_train_resnet(torch, mx, cs):
                            running_tensors=len(run_err),
                            small_resnet=small),
                warmup_steps=TRAIN_WARMUP, steps=TRAIN_STEPS,
-               step_ms=step_ms, step_ms_median=statistics.median(step_ms),
-               wall_s=wall,
-               images_per_s=TRAIN_STEPS * RESNET_BATCH / wall,
-               losses=losses,
-               max_memory_allocated=torch.cuda.max_memory_allocated(),
+               step_ms=step_ms, **summary, wall_s=wall, losses=losses,
                conv1x1_stats_launches=launches,
                launches_per_step=sorted(set(per_step))))
     _check(loss_err <= SERVE_TOL, "batch-2 loss differs from the CPU copy "
@@ -1253,6 +1302,360 @@ def phase_train_resnet(torch, mx, cs):
            % (per_step, RESNET_SITES))
     _profile(torch, lambda: _train_step(mx, net, loss_fn, trainer, (x,), y),
              1, top=16, phase="train_resnet_profile",
+             batch=[RESNET_BATCH, 3, 224, 224], steps=1)
+    return dict(summary, launches=launches, shapes=shapes)
+
+
+def _cosine_lr(k):
+    """The lr of the k-th update under GLUON_LR's warmup and cosine,
+    written out here apart from `lr_scheduler`."""
+    base, final = GLUON_LR["base_lr"], GLUON_LR["final_lr"]
+    warm, begin = GLUON_LR["warmup_steps"], GLUON_LR["warmup_begin_lr"]
+    if k < warm:
+        return begin + (base - begin) * k / warm
+    return final + (base - final) * (1 + math.cos(
+        math.pi * (k - warm) / (GLUON_MAX_UPDATE - warm))) / 2
+
+
+def _resnet_batch(torch):
+    """train_resnet's batch: 128 images from RandomState(0), cast to
+    bf16 as bench.py casts them, and their labels, on the card."""
+    rs = np.random.RandomState(0)
+    images = rs.randn(RESNET_BATCH, 3, 224, 224).astype(np.float32)
+    labels = rs.randint(0, 1000, RESNET_BATCH).astype(np.float32)
+    return (torch.from_numpy(images).cuda().to(torch.bfloat16),
+            torch.from_numpy(labels).cuda())
+
+
+def _gluon_trainer(mx, net):
+    """No weight decay on beta, gamma and bias; NAG with a fresh
+    warmup-cosine scheduler."""
+    net.collect_params(GLUON_NO_WD).setattr("wd_mult", 0.0)
+    sched = mx.lr_scheduler.CosineScheduler(max_update=GLUON_MAX_UPDATE,
+                                            **GLUON_LR)
+    return mx.gluon.Trainer(net.collect_params(), "nag",
+                            dict(GLUON_NAG, lr_scheduler=sched))
+
+
+def _gluon_net(mx, seen=None):
+    """resnet50_v1b as a Gluon user builds it: `get_model` with every
+    parameter waiting for `initialize`, then MSRAPrelu on the card (the
+    stem's width waits for the first forward).  `seen` gets the names
+    of the parameters without data before and after `initialize`."""
+    from incubator_mxnet_tpu_torch.gluon.model_zoo.vision import get_model
+    from incubator_mxnet_tpu_torch.gluon.parameter import is_deferred
+
+    def waiting():
+        return [n for n, p in net.collect_params().items()
+                if is_deferred(p)]
+    mx.random.seed(0)
+    net = get_model("resnet50_v1b", classes=1000)
+    before = waiting()
+    net.initialize(mx.init.MSRAPrelu(), ctx=mx.gpu(0))
+    if seen is not None:
+        seen.update(before_initialize=before, after_initialize=waiting())
+    net.hybridize(static_alloc=True, static_shape=True)
+    return net
+
+
+def _gluon_step(mx, net, trainer, loss_fn, x, y):
+    """record → loss → autograd.backward → trainer.step; (out, the
+    batch's mean loss on the card)."""
+    with mx.autograd.record():
+        out = net(x)
+        loss = loss_fn(out, y)
+    mx.autograd.backward(loss)
+    trainer.step(x.shape[0])
+    return out, loss.detach().mean()
+
+
+def _raw(torch, t):
+    """A tensor's bits as integers (-0.0 and NaNs compare by bits)."""
+    return t.detach().contiguous().view(
+        {1: torch.uint8, 2: torch.int16, 4: torch.int32,
+         8: torch.int64}[t.element_size()])
+
+
+def _same_bits(torch, a, b):
+    """Whether two tensors, or optimizer states (tensors, None or
+    tuples of them), hold the same bits in the same dtype and shape."""
+    if isinstance(a, (tuple, list)):
+        return len(a) == len(b) and all(_same_bits(torch, u, v)
+                                        for u, v in zip(a, b))
+    if a is None or b is None:
+        return a is b
+    return (a.dtype == b.dtype and a.shape == b.shape
+            and torch.equal(_raw(torch, a.cpu()), _raw(torch, b.cpu())))
+
+
+def _cpu_state(state):
+    if isinstance(state, (tuple, list)):
+        return type(state)(_cpu_state(s) for s in state)
+    return None if state is None else state.detach().cpu().clone()
+
+
+def _wd_check(torch, trainer, scratch):
+    """One extra NAG step with every gradient and momentum zeroed: a
+    wd_mult 0 parameter (and each running statistic) stays bit for bit,
+    a wd_mult 1 weight w moves by its weight decay alone, which NAG's
+    look-ahead applies as lr wd (1 + momentum) w, within one f32 ulp of
+    w.  Parameters and states are restored after it."""
+    keep = [p.detach().clone() for p in trainer._params]
+    path = os.path.join(scratch, "wd.states")
+    trainer.save_states(path)
+    k = trainer.optimizer.num_update + 1
+    for p in trainer._params:
+        if p.grad is not None:
+            p.grad.zero_()
+    for state in trainer._updater.states.values():
+        state.zero_()
+    trainer.step(RESNET_BATCH)
+    lr = trainer.learning_rate          # the scheduler's at update k
+    wd, mom = GLUON_NAG["wd"], GLUON_NAG["momentum"]
+    still = moved = 0
+    worst = 0.0
+    for p, w0 in zip(trainer._params, keep):
+        if not p.requires_grad or p.wd_mult == 0:
+            _check(torch.equal(_raw(torch, p), _raw(torch, w0)),
+                   "a parameter without weight decay moved in the "
+                   "weight-decay step")
+            still += 1
+            continue
+        w = w0.double()
+        want = w - lr * wd * (1 + mom) * w
+        ulp = torch.pow(2.0, torch.floor(torch.log2(
+            w.abs().clamp_min(2.0 ** -126))) - 23)
+        worst = max(worst, ((p.detach().double() - want).abs() / ulp)
+                    .max().item())
+        moved += 1
+    with torch.no_grad():
+        for p, w0 in zip(trainer._params, keep):
+            p.copy_(w0)
+    trainer.load_states(path)
+    return dict(update=k, lr=lr, lr_expected=_cosine_lr(k),
+                unchanged=still, decayed=moved, worst_err_over_ulp=worst,
+                restored_num_update=trainer.optimizer.num_update)
+
+
+class _LogLines(logging.Handler):
+    """Collects the messages logged at INFO and above while installed."""
+
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.lines = []
+
+    def emit(self, record):
+        self.lines.append(record.getMessage())
+
+    def __enter__(self):
+        root = logging.getLogger()
+        self._level = root.level
+        root.setLevel(logging.INFO)
+        root.addHandler(self)
+        return self
+
+    def __exit__(self, *exc):
+        root = logging.getLogger()
+        root.removeHandler(self)
+        root.setLevel(self._level)
+
+
+def phase_train_resnet_gluon(torch, mx, cs, resnet_row):
+    """resnet50_v1b trained through the Gluon core surface as a user
+    writes the loop; returns the conv kernel's launches over the timed
+    steps.  Run A: 2 warm-up and 10 timed steps, saved after timed step
+    GLUON_SAVE_AT; its weight-decay step after them.  Run R: A's save
+    loaded into fresh objects, timed steps 6-10 again.  Run B: A again
+    from the same seed, for the spread of the card's own losses."""
+    from incubator_mxnet_tpu_torch.gluon.model_zoo.vision import get_model
+    from incubator_mxnet_tpu_torch.gluon.parameter import is_deferred
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    x, y = _resnet_batch(torch)
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    os.makedirs(BUILD, exist_ok=True)
+    scratch = tempfile.TemporaryDirectory(dir=BUILD)
+    p_file, s_file, b_file = (os.path.join(scratch.name, f)
+                              for f in ("a.params", "a.states", "b.params"))
+
+    # run A
+    seen = {}
+    net = _gluon_net(mx, seen)
+    params = net.collect_params()
+    trainer = _gluon_trainer(mx, net)
+    metric = mx.metric.CompositeEvalMetric([mx.metric.Accuracy(),
+                                            mx.metric.TopKAccuracy(5)])
+    speed = mx.callback.Speedometer(RESNET_BATCH, frequent=5)
+    _gluon_step(mx, net, trainer, loss_fn, x, y)
+    still_waiting = [n for n, p in params.items() if is_deferred(p)]
+    shapes = {n: list(p.shape) for n, p in params.items()}
+    for _ in range(TRAIN_WARMUP - 1):
+        _gluon_step(mx, net, trainer, loss_fn, x, y)
+    torch.cuda.synchronize()
+    speed(_BatchEnd(0, 0, metric, None))    # the first interval starts
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True))
+              for _ in range(TRAIN_STEPS)]
+    losses, per_step, lrs = [], [], []
+    save_s = 0.0
+    cs.conv1x1_stats_launches = 0       # the main path starts here
+    t0 = time.perf_counter()
+    with _LogLines() as log:
+        for k in range(1, TRAIN_STEPS + 1):
+            before = cs.conv1x1_stats_launches
+            events[k - 1][0].record()
+            out, loss = _gluon_step(mx, net, trainer, loss_fn, x, y)
+            events[k - 1][1].record()
+            per_step.append(cs.conv1x1_stats_launches - before)
+            losses.append(loss)
+            lrs.append(dict(num_update=trainer.optimizer.num_update,
+                            lr=trainer.learning_rate))
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                metric.update([y], [out])
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            speed(_BatchEnd(0, k, metric, None))
+            if k == GLUON_SAVE_AT:
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                net.save_parameters(p_file)
+                trainer.save_states(s_file)
+                opt = trainer.optimizer
+                snap = dict(params={n: p.detach().cpu().clone()
+                                    for n, p in params.items()},
+                            states={i: _cpu_state(s) for i, s in
+                                    trainer._updater.states.items()},
+                            num_update=opt.num_update,
+                            counts=dict(opt._index_update_count),
+                            sched=dict(vars(opt.lr_scheduler)))
+                save_s += time.perf_counter() - t
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0 - save_s
+    launches = cs.conv1x1_stats_launches    # the main path ends here
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = [s.elapsed_time(e) for s, e in events]
+    losses = [v.item() for v in losses]
+    wd = _wd_check(torch, trainer, scratch.name)
+
+    # save and resume: the file and the states, bit for bit
+    net2 = get_model("resnet50_v1b", classes=1000)
+    net2.load_parameters(p_file, ctx=mx.gpu(0))
+    got = net2.collect_params()
+    same_params = sum(_same_bits(torch, got[n], t)
+                      for n, t in snap["params"].items() if n in got)
+    trainer2 = _gluon_trainer(mx, net2)
+    trainer2.load_states(s_file)
+    opt2 = trainer2.optimizer
+    states2 = trainer2._updater.states
+    same_states = sum(i in states2 and _same_bits(torch, states2[i], t)
+                      for i, t in snap["states"].items())
+    restored = dict(num_update=opt2.num_update == snap["num_update"],
+                    counts=opt2._index_update_count == snap["counts"],
+                    scheduler=vars(opt2.lr_scheduler) == snap["sched"],
+                    states_on_parameter_devices=all(
+                        s.device == trainer2._params[i].device
+                        for i, s in states2.items()))
+    # bf16: net2 cast, saved, loaded into a fresh bf16 net
+    net2_bf16 = get_model("resnet50_v1b", classes=1000)
+    net2_bf16.load_parameters(p_file, ctx=mx.gpu(0))
+    net2_bf16.cast("bfloat16")
+    net2_bf16.save_parameters(b_file)
+    net3 = get_model("resnet50_v1b", classes=1000)
+    net3.cast("bfloat16")
+    net3.load_parameters(b_file, ctx=mx.gpu(0))
+    ref_bf16 = net2_bf16.collect_params()
+    same_bf16 = sum(_same_bits(torch, p, ref_bf16[n])
+                    and p.dtype == torch.bfloat16
+                    for n, p in net3.collect_params().items())
+    del net2_bf16, net3, ref_bf16
+
+    # run R: timed steps GLUON_SAVE_AT + 1 .. TRAIN_STEPS from the save
+    resumed = [_gluon_step(mx, net2, trainer2, loss_fn, x, y)[1]
+               for _ in range(TRAIN_STEPS - GLUON_SAVE_AT)]
+    resumed = [v.item() for v in resumed]
+    del net2, trainer2, states2
+    # run B: A again, uninterrupted
+    net_b = _gluon_net(mx)
+    trainer_b = _gluon_trainer(mx, net_b)
+    rerun = [_gluon_step(mx, net_b, trainer_b, loss_fn, x, y)[1]
+             for _ in range(TRAIN_WARMUP + TRAIN_STEPS)]
+    rerun = [v.item() for v in rerun[TRAIN_WARMUP:]]
+    del net_b, trainer_b
+    scratch.cleanup()
+    tail = slice(GLUON_SAVE_AT, TRAIN_STEPS)
+    spread = max(abs(a - b) for a, b in zip(losses[tail], rerun[tail]))
+    resume_err = max(abs(a - r) for a, r in zip(losses[tail], resumed))
+
+    want_lrs = [dict(num_update=TRAIN_WARMUP + k,
+                     lr=_cosine_lr(TRAIN_WARMUP + k))
+                for k in range(1, TRAIN_STEPS + 1)]
+    lr_err = max(abs(g["lr"] - w["lr"]) / w["lr"]
+                 for g, w in zip(lrs, want_lrs))
+    summary = dict(step_ms_median=statistics.median(step_ms),
+                   images_per_s=TRAIN_STEPS * RESNET_BATCH / wall,
+                   max_memory_allocated=peak)
+    _emit(dict(phase="train_resnet_gluon", model="resnet50_v1b",
+               classes=1000, dtype="bfloat16", batch=RESNET_BATCH,
+               image=[3, 224, 224], init="MSRAPrelu", no_wd=GLUON_NO_WD,
+               optimizer="nag", **GLUON_NAG,
+               lr_scheduler=dict(GLUON_LR, kind="CosineScheduler",
+                                 max_update=GLUON_MAX_UPDATE),
+               warmup_steps=TRAIN_WARMUP, steps=TRAIN_STEPS,
+               step_ms=step_ms, **summary, wall_s=wall, save_s=save_s,
+               train_resnet=dict((k, resnet_row[k]) for k in summary),
+               losses=losses, conv1x1_stats_launches=launches,
+               launches_per_step=sorted(set(per_step)),
+               deferred_before_initialize=len(seen["before_initialize"]),
+               deferred_after_initialize=seen["after_initialize"],
+               deferred_after_forward=len(still_waiting),
+               parameters=len(shapes), lrs=lrs, lr_max_rel_err=lr_err,
+               speedometer=log.lines, wd_check=wd,
+               save_after_step=GLUON_SAVE_AT,
+               params_bit_equal=[same_params, len(snap["params"])],
+               states_bit_equal=[same_states, len(snap["states"])],
+               bf16_params_bit_equal=same_bf16, restored=restored,
+               resumed_losses=resumed, rerun_losses=rerun[tail],
+               rerun_spread=spread, resume_err=resume_err))
+    _check(all(c == RESNET_SITES for c in per_step),
+           "a Gluon-loop step launched the conv kernel %r times, not %d"
+           % (per_step, RESNET_SITES))
+    _check(len(seen["before_initialize"]) == len(shapes)
+           and seen["after_initialize"] == ["features.0.weight"]
+           and not still_waiting,
+           "parameters without data: %d of %d before initialize, %r "
+           "after it, %r after the first forward"
+           % (len(seen["before_initialize"]), len(shapes),
+              seen["after_initialize"], still_waiting))
+    _check(shapes == resnet_row["shapes"], "the Gluon loop's parameters "
+           "differ from resnet50_v1b(classes=1000, device='cuda:0')'s in "
+           "names or shapes")
+    _check([g["num_update"] for g in lrs] ==
+           [w["num_update"] for w in want_lrs] and lr_err <= 1e-12,
+           "lr sequence %r, not %r" % (lrs, want_lrs))
+    _check(wd["decayed"] == 54 and wd["unchanged"] == 267 - 54
+           and wd["worst_err_over_ulp"] <= 1.0
+           and abs(wd["lr"] - wd["lr_expected"]) <= 1e-12 * wd["lr"]
+           and wd["restored_num_update"] == wd["update"] - 1,
+           "weight decay per parameter: %r" % (wd,))
+    _check(same_params == len(snap["params"]) == len(shapes),
+           "load_parameters gave back %d of %d tensors bit for bit"
+           % (same_params, len(snap["params"])))
+    _check(same_bf16 == len(shapes), "the bf16 round trip gave back %d "
+           "of %d tensors bit for bit" % (same_bf16, len(shapes)))
+    _check(same_states == len(snap["states"]) == 161
+           and all(restored.values()),
+           "load_states: %d of %d states bit for bit, %r"
+           % (same_states, len(snap["states"]), restored))
+    _check(all(math.isfinite(v) for v in losses + resumed + rerun),
+           "non-finite loss in the Gluon loop")
+    _check(resume_err <= spread, "the resumed losses differ from the "
+           "uninterrupted run's by %g, more than the spread %g of two "
+           "uninterrupted runs" % (resume_err, spread))
+    _check(len(log.lines) == TRAIN_STEPS // 5, "Speedometer logged %r"
+           % (log.lines,))
+    _profile(torch, lambda: _gluon_step(mx, net, trainer, loss_fn, x, y), 1,
+             top=16, phase="train_resnet_gluon_profile",
              batch=[RESNET_BATCH, 3, 224, 224], steps=1)
     return launches
 
@@ -1688,7 +2091,9 @@ def main():
     train_launches = phase_train(torch, mx, att)
     bf16_launches = phase_train_bf16(torch, mx, att)
     conv_step = phase_kernel_conv(torch, cs)
-    conv_launches = phase_train_resnet(torch, mx, cs)
+    resnet_row = phase_train_resnet(torch, mx, cs)
+    conv_launches = resnet_row["launches"]
+    gluon_launches = phase_train_resnet_gluon(torch, mx, cs, resnet_row)
     nmt_launches = phase_train_nmt(torch, mx, att)
     phase_decode_nmt(torch, mx, att)
 
@@ -1744,7 +2149,8 @@ def main():
         dict(name="conv1x1_stats", route="cuda",
              source="incubator_mxnet_tpu_torch/ops/csrc/conv1x1_stats.cu",
              replaces="tools/conv_stats_pallas_experiment.py:9",
-             launches=conv_launches, parity="ok",
+             launches=conv_launches, gluon_launches=gluon_launches,
+             parity="ok",
              max_abs_err=conv_step["max_abs_err"], ms=conv_step["ms"],
              plain_ms=conv_step["plain_ms"], bound_ms=conv_step["bound_ms"],
              bound_by=conv_step["bound_by"],

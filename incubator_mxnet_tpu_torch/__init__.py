@@ -15,13 +15,19 @@ __version__ = "0.1.0"
 
 from . import config
 from .base import MXNetError
-from .context import cpu, gpu, current_device, resolve_device
+from .context import (cpu, gpu, current_device, current_context, num_gpus,
+                      resolve_device)
 from . import random
 from . import initializer
 from . import initializer as init   # alias namespace, as in the JAX package
+from . import ndarray
+from . import ndarray as nd         # the file format; NDArray is not ported
 from . import ops
 from . import autograd
+from . import lr_scheduler
 from . import optimizer
+from . import metric
+from . import callback
 from . import gluon
 from . import contrib
 from . import models

@@ -16,7 +16,8 @@ incubator_mxnet_tpu/autograd.py) on top of torch's own autograd.
 * `grad_req='write'` (MXNet's default): a backward overwrites each
   parameter's gradient instead of adding to it, as torch would.  Before
   running torch's backward, `backward` clears `.grad` of every leaf that
-  the heads reach.
+  the heads reach, except a `gluon.Parameter` with grad_req 'add', whose
+  gradient sums over backwards until its `zero_grad()`.
 """
 from __future__ import annotations
 
@@ -118,8 +119,9 @@ def _reachable_leaves(heads):
 
 def backward(heads, head_grads=None, retain_graph=False):
     """Gradients of `heads` into the `.grad` of the leaves they reach,
-    overwriting what was there (grad_req='write').  A head without a
-    `head_grads` entry is seeded with ones of its own shape."""
+    overwriting what was there (grad_req='write'), or adding to it for a
+    parameter with grad_req 'add'.  A head without a `head_grads` entry
+    is seeded with ones of its own shape."""
     if isinstance(heads, torch.Tensor):
         heads = [heads]
     if head_grads is None:
@@ -137,5 +139,6 @@ def backward(heads, head_grads=None, retain_graph=False):
     grads = [torch.ones_like(h) if g is None else g
              for h, g in zip(heads, head_grads)]
     for leaf in _reachable_leaves(heads):
-        leaf.grad = None
+        if getattr(leaf, "grad_req", "write") == "write":
+            leaf.grad = None
     torch.autograd.backward(heads, grads, retain_graph=retain_graph)

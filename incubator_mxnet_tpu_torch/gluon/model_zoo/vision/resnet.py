@@ -2,13 +2,17 @@
 incubator_mxnet_tpu/gluon/model_zoo/vision/resnet.py).
 
 The structure and the parameter names are the JAX package's
-(`features.5.0.body.0.weight`, `features.1.running_mean`, ...).  Where
-the JAX layers defer an input width to the first forward, the port
-computes it when the block is built; the images have 3 channels.  Every
-block takes `device` (default `cuda:0`) and `dtype` and builds its
-parameters there.  Inside each bottleneck the 1x1 convolutions that a
-BatchNorm follows run through the fused 1x1-conv + statistics kernel
-while training (`HybridSequential`); resnet50_v1b has 33 such pairs.
+(`features.5.0.body.0.weight`, `features.1.running_mean`, ...).  The
+stem convolution takes its input channels from the first forward's
+images, as the JAX stem does; every other width follows from the
+network's channels and is known when the block is built.  Every block
+takes `device` and `dtype`: with a device its parameters are
+initialized there at once (the stem's at the first forward), without
+one they wait for `initialize(init, ctx)` (`get_resnet(ctx=...)` passes
+its `ctx` as the device).  Inside each bottleneck the 1x1 convolutions
+that a BatchNorm follows run through the fused 1x1-conv + statistics
+kernel while training (`HybridSequential`); resnet50_v1b has 33 such
+pairs.
 
 The v2 networks are not yet ported.
 """
@@ -17,7 +21,6 @@ from __future__ import annotations
 import torch
 
 from ....base import MXNetError
-from ....context import resolve_device
 from ...block import HybridBlock
 from ...nn import (HybridSequential, Conv2D, BatchNorm, Activation, Dense,
                    MaxPool2D, GlobalAvgPool2D, Flatten)
@@ -26,9 +29,6 @@ __all__ = ["ResNetV1", "BasicBlockV1", "BottleneckV1", "get_resnet",
            "resnet18_v1", "resnet34_v1", "resnet50_v1", "resnet101_v1",
            "resnet152_v1", "resnet18_v1b", "resnet34_v1b", "resnet50_v1b",
            "resnet101_v1b", "resnet152_v1b"]
-
-_IMAGE_CHANNELS = 3
-
 
 def _conv3x3(channels, stride, in_channels, **kw):
     return Conv2D(channels, kernel_size=3, strides=stride, padding=1,
@@ -39,7 +39,7 @@ class BasicBlockV1(HybridBlock):
     def __init__(self, channels, stride, downsample=False, in_channels=0,
                  device=None, dtype="float32"):
         super().__init__()
-        kw = dict(device=resolve_device(device), dtype=dtype)
+        kw = dict(device=device, dtype=dtype)
         self.body = HybridSequential()
         self.body.add(_conv3x3(channels, stride, in_channels, **kw))
         self.body.add(BatchNorm(in_channels=channels, **kw))
@@ -66,7 +66,7 @@ class BottleneckV1(HybridBlock):
     def __init__(self, channels, stride, downsample=False, in_channels=0,
                  stride_on_3x3=False, device=None, dtype="float32"):
         super().__init__()
-        kw = dict(device=resolve_device(device), dtype=dtype)
+        kw = dict(device=device, dtype=dtype)
         s1, s3 = (1, stride) if stride_on_3x3 else (stride, 1)
         mid = channels // 4
         self.body = HybridSequential()
@@ -103,14 +103,13 @@ class ResNetV1(HybridBlock):
             raise ValueError("ResNetV1 needs one more width than stages, "
                              "got %d stages and %d widths"
                              % (len(layers), len(channels)))
-        kw = dict(device=resolve_device(device), dtype=dtype)
+        kw = dict(device=device, dtype=dtype)
         self.features = HybridSequential()
         if thumbnail:
-            self.features.add(_conv3x3(channels[0], 1, _IMAGE_CHANNELS,
-                                       **kw))
+            self.features.add(_conv3x3(channels[0], 1, 0, **kw))
         else:
             self.features.add(Conv2D(channels[0], 7, 2, 3, use_bias=False,
-                                     in_channels=_IMAGE_CHANNELS, **kw))
+                                     **kw))
             self.features.add(BatchNorm(in_channels=channels[0], **kw))
             self.features.add(Activation("relu"))
             self.features.add(MaxPool2D(3, 2, 1))
@@ -153,7 +152,8 @@ def get_resnet(version, num_layers, pretrained=False, ctx=None, root=None,
                use_v1b=False, **kwargs):
     """ResNet `version` 1 of `num_layers` layers; `use_v1b` puts the
     stride on the 3x3 convolution.  Keyword arguments go to ResNetV1
-    (classes, thumbnail, device, dtype)."""
+    (classes, thumbnail, device, dtype); `ctx` initializes the network
+    there, as `device` does."""
     if num_layers not in _resnet_spec:
         raise MXNetError("invalid resnet depth %d" % num_layers)
     if version == 2:

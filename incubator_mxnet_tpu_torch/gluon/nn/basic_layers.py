@@ -1,9 +1,11 @@
 """Gluon basic layers of the PyTorch port (counterpart of
 incubator_mxnet_tpu/gluon/nn/basic_layers.py).
 
-The JAX layers defer input widths to the first forward; here a layer
-with parameters takes its input width (`in_units`, `in_channels`) when
-it is built, so its parameters exist and are initialized at once.
+As in the JAX package, an input width a layer is not given (`in_units`,
+`in_channels` 0) is taken from the first forward's input: the layer
+materialises its parameters there (`block.materialize`) on the device
+`initialize` named.  A layer built with `device=` is initialized there
+at once (`block.new_parameter`); without it, `initialize` does it.
 
 Dropout and BatchNorm follow `autograd.is_training()` (on inside
 `autograd.record()`), as the JAX ops do, not `Module.train()`.
@@ -13,21 +15,23 @@ that takes batch statistics as one fused step: `ops.conv1x1_bn_stats`
 (`ops.conv_stats`' kernel) computes the product and the sums Σy, Σy² in
 one pass, and the BatchNorm normalizes with statistics from those sums
 instead of reading y again.  The children and their parameter names stay
-as they are.  The product is called through the ops module, as every
-layer calls its ops, so `contrib.amp` casts it as a Convolution.  The
-pair fuses for the dtypes the kernel has instances for (f32, bf16, f16;
-under amp the op casts only between these).
+as they are.  A deferred width of either layer is materialised from `x`
+before the kernel reads the weight.  The product is called through the
+ops module, as every layer calls its ops, so `contrib.amp` casts it as a
+Convolution.  The pair fuses for the dtypes the kernel has instances for
+(f32, bf16, f16; under amp the op casts only between these).
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
-from ..block import HybridBlock, new_parameter
+from ..block import HybridBlock, materialize, new_parameter
 from .conv_layers import Conv2D
 from ... import autograd as _ag
 from ... import config as _config
 from ... import random as _rnd
-from ...context import resolve_device
 from ...ops import conv_stats as _conv_stats
 from ...ops import nn as ops
 
@@ -47,6 +51,8 @@ def _fuses(block, nxt, x):
 
 def _conv1x1_bn(conv, bn, x):
     N, _, H, W = x.shape
+    conv.infer_shape(x)
+    bn.infer_channels(conv.channels)
     y, s1, s2 = ops.conv1x1_bn_stats(x, conv.weight)
     return bn(y, sums=(s1, s2, N * H * W))
 
@@ -84,32 +90,36 @@ class HybridSequential(HybridBlock):
 
 
 class Dense(HybridBlock):
-    """ref: nn.Dense → FullyConnected.  weight (units, in_units), bias
-    zeros."""
+    """ref: nn.Dense → FullyConnected, then `activation` if given.
+    weight (units, in_units), bias zeros; `in_units=0` takes the input's
+    width (its last axis without `flatten`, else all but the first)."""
 
     def __init__(self, units, activation=None, use_bias=True, flatten=True,
                  dtype="float32", weight_initializer=None,
                  bias_initializer="zeros", in_units=0, device=None):
         super().__init__()
-        if in_units <= 0:
-            raise ValueError("Dense in the PyTorch port needs in_units > 0 "
-                             "(widths are not deferred)")
-        if activation is not None:
-            raise NotImplementedError("Dense(activation=%r) is not yet "
-                                      "ported" % (activation,))
         self._units = units
         self._flatten = flatten
-        dev = resolve_device(device)
+        self.act = activation
         self.weight = new_parameter("weight", (units, in_units),
-                                    weight_initializer, dev, dtype)
-        self.bias = new_parameter("bias", (units,), bias_initializer, dev,
-                                  dtype) if use_bias else None
+                                    weight_initializer, device, dtype)
+        self.bias = new_parameter("bias", (units,), bias_initializer,
+                                  device, dtype) if use_bias else None
+
+    def infer_shape(self, x):
+        in_units = x.shape[-1] if not self._flatten else \
+            int(math.prod(x.shape[1:]))
+        materialize(self.weight, (self._units, in_units))
 
     def forward(self, x):
-        return ops.fully_connected(x, self.weight, self.bias,
-                                   num_hidden=self._units,
-                                   no_bias=self.bias is None,
-                                   flatten=self._flatten)
+        self.infer_shape(x)
+        out = ops.fully_connected(x, self.weight, self.bias,
+                                  num_hidden=self._units,
+                                  no_bias=self.bias is None,
+                                  flatten=self._flatten)
+        if self.act is not None:
+            out = ops.activation(out, act_type=self.act)
+        return out
 
 
 class Dropout(HybridBlock):
@@ -143,24 +153,25 @@ class Embedding(HybridBlock):
 
 
 class LayerNorm(HybridBlock):
+    """ref: nn.LayerNorm over `axis`; `in_channels=0` takes the input's
+    width on that axis."""
+
     def __init__(self, axis=-1, epsilon=1e-5, center=True, scale=True,
                  beta_initializer="zeros", gamma_initializer="ones",
                  in_channels=0, device=None, dtype="float32"):
         super().__init__()
-        if in_channels <= 0:
-            raise ValueError("LayerNorm in the PyTorch port needs "
-                             "in_channels > 0 (widths are not deferred)")
         self._axis = axis
         self._epsilon = epsilon
-        dev = resolve_device(device)
         self.gamma = new_parameter("gamma", (in_channels,),
-                                   gamma_initializer, dev, dtype)
+                                   gamma_initializer, device, dtype,
+                                   grad_req="write" if scale else "null")
         self.beta = new_parameter("beta", (in_channels,), beta_initializer,
-                                  dev, dtype)
-        self.gamma.requires_grad_(bool(scale))
-        self.beta.requires_grad_(bool(center))
+                                  device, dtype,
+                                  grad_req="write" if center else "null")
 
     def forward(self, x):
+        for p in (self.gamma, self.beta):
+            materialize(p, (x.shape[self._axis],))
         return ops.layer_norm(x, self.gamma, self.beta, axis=self._axis,
                               eps=self._epsilon)
 
@@ -181,28 +192,30 @@ class BatchNorm(HybridBlock):
                  running_variance_initializer="ones", in_channels=0,
                  device=None, dtype="float32"):
         super().__init__()
-        if in_channels <= 0:
-            raise ValueError("BatchNorm in the PyTorch port needs "
-                             "in_channels > 0 (widths are not deferred)")
         self._axis = axis
         self._momentum = momentum
         self._epsilon = epsilon
         self._scale = scale
         self._use_global_stats = use_global_stats
-        dev = resolve_device(device)
         shape = (in_channels,)
-        self.gamma = new_parameter("gamma", shape, gamma_initializer, dev,
-                                   dtype)
-        self.beta = new_parameter("beta", shape, beta_initializer, dev,
-                                  dtype)
+        self.gamma = new_parameter("gamma", shape, gamma_initializer,
+                                   device, dtype,
+                                   grad_req="write" if scale else "null")
+        self.beta = new_parameter("beta", shape, beta_initializer, device,
+                                  dtype,
+                                  grad_req="write" if center else "null")
         self.running_mean = new_parameter(
-            "running_mean", shape, running_mean_initializer, dev, dtype)
+            "running_mean", shape, running_mean_initializer, device, dtype,
+            grad_req="null")
         self.running_var = new_parameter(
-            "running_var", shape, running_variance_initializer, dev, dtype)
-        self.gamma.requires_grad_(bool(scale))
-        self.beta.requires_grad_(bool(center))
-        self.running_mean.requires_grad_(False)
-        self.running_var.requires_grad_(False)
+            "running_var", shape, running_variance_initializer, device,
+            dtype, grad_req="null")
+
+    def infer_channels(self, channels):
+        """Materialise deferred parameters for `channels` channels."""
+        for p in (self.gamma, self.beta, self.running_mean,
+                  self.running_var):
+            materialize(p, (channels,))
 
     @property
     def batch_stats(self):
@@ -213,6 +226,7 @@ class BatchNorm(HybridBlock):
         """`sums` = (Σx, Σx², n) per channel, computed elsewhere (the
         fused pointwise convolution), stands in for reading x for the
         batch statistics."""
+        self.infer_channels(x.shape[self._axis])
         batch = self.batch_stats
         out, mean, var = ops.batch_norm(
             x, self.gamma, self.beta, self.running_mean, self.running_var,

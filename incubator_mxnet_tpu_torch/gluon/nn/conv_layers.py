@@ -2,14 +2,12 @@
 incubator_mxnet_tpu/gluon/nn/conv_layers.py): `Conv2D` and the 2-D
 pooling layers.
 
-As the port's other layers, `Conv2D` takes its input width
-(`in_channels`) when it is built, where the JAX layer may defer it to
-the first forward.
+As in the JAX package, `Conv2D(in_channels=0)` takes its input width
+from the first forward's input (`infer_shape`).
 """
 from __future__ import annotations
 
-from ..block import HybridBlock, new_parameter
-from ...context import resolve_device
+from ..block import HybridBlock, materialize, new_parameter
 from ...ops import nn as ops
 
 __all__ = ["Conv2D", "MaxPool2D", "AvgPool2D", "GlobalMaxPool2D",
@@ -24,7 +22,8 @@ def _to_tuple(v, n):
 
 class Conv2D(HybridBlock):
     """ref: nn.Conv2D → Convolution.  weight (channels,
-    in_channels / groups, kh, kw), bias zeros."""
+    in_channels / groups, kh, kw), bias zeros; `in_channels=0` takes the
+    input's channels."""
 
     def __init__(self, channels, kernel_size, strides=(1, 1),
                  padding=(0, 0), dilation=(1, 1), groups=1, layout="NCHW",
@@ -32,9 +31,6 @@ class Conv2D(HybridBlock):
                  weight_initializer=None, bias_initializer="zeros",
                  device=None, dtype="float32"):
         super().__init__()
-        if in_channels <= 0:
-            raise ValueError("Conv2D in the PyTorch port needs "
-                             "in_channels > 0 (widths are not deferred)")
         if layout != "NCHW":
             raise NotImplementedError("Conv2D(layout=%r) is not yet ported"
                                       % (layout,))
@@ -45,12 +41,19 @@ class Conv2D(HybridBlock):
                             num_group=groups, no_bias=not use_bias,
                             layout=layout)
         self.act = activation
-        dev = resolve_device(device)
+        self.channels = channels
         self.weight = new_parameter(
             "weight", (channels, in_channels // groups) + kernel,
-            weight_initializer, dev, dtype)
+            weight_initializer, device, dtype)
         self.bias = new_parameter("bias", (channels,), bias_initializer,
-                                  dev, dtype) if use_bias else None
+                                  device, dtype) if use_bias else None
+
+    def infer_shape(self, x):
+        """Materialise a deferred weight from `x`'s channels (NCHW)."""
+        kw = self._kwargs
+        materialize(self.weight, (self.channels,
+                                  x.shape[1] // kw["num_group"])
+                    + kw["kernel"])
 
     @property
     def pointwise(self):
@@ -63,6 +66,7 @@ class Conv2D(HybridBlock):
                 and self.act is None)
 
     def forward(self, x):
+        self.infer_shape(x)
         out = ops.convolution(x, self.weight, self.bias, **self._kwargs)
         if self.act is not None:
             out = ops.activation(out, act_type=self.act)

@@ -1,0 +1,481 @@
+"""`Parameter`, `Constant` and `ParameterDict` of the PyTorch port
+(counterpart of incubator_mxnet_tpu/gluon/parameter.py).
+
+A `Parameter` is a `torch.nn.Parameter` that also carries the JAX
+package's attributes: `name`, `grad_req`, `lr_mult`, `wd_mult`, `init`,
+and the methods `initialize`, `set_data`, `list_data`, `list_grad`,
+`list_ctx`, `zero_grad`, `reset_ctx` and `cast`.  Torch code sees an
+ordinary parameter (`p.grad`, `p.dtype`, `p.detach()`, optimizers,
+`state_dict`).
+
+One name collides: MXNet's `param.data()` and `param.grad()` are methods,
+torch's `.data` and `.grad` are attributes.  The port keeps torch's;
+MXNet's meaning is `list_data()[0]` and `list_grad()[0]` (the latter
+after a backward: torch allocates a gradient at the first backward).
+
+Life cycle, as in the JAX package:
+
+* Created, a parameter holds no data (torch's lazy-parameter mechanism,
+  `UninitializedTensorMixin`): using it raises, `MXNetError` before
+  `initialize` and `DeferredInitializationError` after it while its
+  shape is unknown.  A shape may contain 0 for a width taken from the
+  first input (`Dense(in_units=0)`).
+* `initialize(init, ctx)` with a known shape allocates the tensor on
+  `ctx` (default `cuda:0`) and fills it; with an unknown shape it records
+  the initializer and the device, and the layer's first forward
+  completes it (`_finish_deferred_init`).  The object keeps its
+  identity throughout, so a `Trainer` built before the first forward
+  updates the tensor the forward materialises.
+* `cast(dtype)` before materialisation records the dtype to allocate.
+
+`grad_req`: 'write' (the default) has each `autograd.backward` overwrite
+the gradient; 'add' keeps adding to it until `zero_grad()`; 'null' is
+`requires_grad=False`, and the Trainer neither updates it nor creates
+optimizer state for it.
+"""
+from __future__ import annotations
+
+import copy
+import warnings
+from collections import OrderedDict
+
+import numpy as np
+import torch
+from torch import nn
+from torch.nn.parameter import UninitializedTensorMixin
+
+from .. import initializer as init_mod
+from .. import random as _rnd
+from ..base import MXNetError, torch_dtype
+from ..context import current_device, resolve_device
+
+__all__ = ["Parameter", "Constant", "ParameterDict",
+           "DeferredInitializationError", "is_deferred", "cast_parameter"]
+
+_GRAD_REQS = ("write", "add", "null")
+
+
+class DeferredInitializationError(MXNetError):
+    """A parameter was used before its (deferred) shape became known."""
+
+
+def is_deferred(param):
+    """Whether `param` holds no data yet (not initialized, or waiting for
+    its shape)."""
+    return isinstance(param, _DeferredParameter)
+
+
+@torch.no_grad()
+def cast_parameter(param, dtype):
+    """Cast `param` (any `nn.Parameter`) in place to `dtype`, keeping the
+    object: its data is replaced and its gradient dropped (ref:
+    Parameter.cast)."""
+    dt = torch_dtype(dtype)
+    if param.dtype != dt:
+        param.data = param.data.to(dt)
+        param.grad = None
+
+
+def _one_device(ctx):
+    """The single device of `ctx` (a device, its name, or a list of one);
+    None means `current_device()`."""
+    if ctx is None:
+        return current_device()
+    if isinstance(ctx, (list, tuple)):
+        if len(ctx) != 1:
+            raise NotImplementedError(
+                "parameters on %d devices need a kvstore, which is not yet "
+                "ported" % len(ctx))
+        ctx = ctx[0]
+    return resolve_device(ctx)
+
+
+class Parameter(nn.Parameter):
+    """ref: gluon.Parameter (module doc).  `Parameter(name, grad_req,
+    shape, dtype, lr_mult, wd_mult, init, allow_deferred_init,
+    differentiable)` makes a parameter without data."""
+
+    def __new__(cls, name="", grad_req="write", shape=None,
+                dtype="float32", lr_mult=1.0, wd_mult=1.0, init=None,
+                allow_deferred_init=False, differentiable=True):
+        req = grad_req if differentiable else "null"
+        if req not in _GRAD_REQS:
+            raise ValueError("grad_req must be one of %s, got %r"
+                             % (_GRAD_REQS, grad_req))
+        if isinstance(shape, int):
+            shape = (shape,)
+        obj = torch.Tensor._make_subclass(
+            _DeferredParameter, torch.empty(0, dtype=torch_dtype(dtype)),
+            req != "null")
+        obj.__dict__.update(
+            _name=name, _grad_req=req, lr_mult=lr_mult, wd_mult=wd_mult,
+            init=init, allow_deferred_init=allow_deferred_init,
+            _shape=tuple(shape) if shape is not None else None,
+            _deferred_init=None, _final_cls=cls)
+        return obj
+
+    def __init__(self, *args, **kwargs):
+        """Everything is set in `__new__`."""
+
+    # torch's Tensor has a read-only `name`; the port's parameter has
+    # the JAX package's writable one
+    @property
+    def name(self):
+        return self.__dict__.get("_name", "")
+
+    @name.setter
+    def name(self, value):
+        self.__dict__["_name"] = value
+
+    @property
+    def grad_req(self):
+        return self.__dict__.get("_grad_req", "write")
+
+    @grad_req.setter
+    def grad_req(self, req):
+        if req not in _GRAD_REQS:
+            raise ValueError("grad_req must be one of %s, got %r"
+                             % (_GRAD_REQS, req))
+        self.__dict__["_grad_req"] = req
+        if req == "null":
+            self.grad = None
+        self.requires_grad = req != "null"
+
+    def _shape_known(self):
+        shape = self.__dict__.get("_shape")
+        return shape is not None and all(s > 0 for s in shape)
+
+    def _set_shape(self, shape):
+        """Fill the unknown (0) entries of the shape; a known entry must
+        agree."""
+        shape = tuple(int(s) for s in shape)
+        old = self.__dict__.get("_shape")
+        if old is not None and (len(old) != len(shape) or any(
+                a not in (0, -1, b) for a, b in zip(old, shape))):
+            raise MXNetError("cannot reset shape of parameter %s from %s "
+                             "to %s" % (self.name, old, shape))
+        self.__dict__["_shape"] = shape
+
+    # -- initialization ----------------------------------------------------
+    def initialize(self, init=None, ctx=None, default_init=None,
+                   force_reinit=False):
+        """Allocate on `ctx` (default `cuda:0`) and fill with `init`, else
+        the parameter's own `init`, else `default_init` (default
+        `Uniform()`).  With an unknown shape the fill waits for the first
+        forward.  An initialized parameter warns and keeps its data
+        unless `force_reinit`."""
+        default_init = default_init or init_mod.Uniform()
+        dev = _one_device(ctx)
+        if not is_deferred(self):
+            if not force_reinit:
+                warnings.warn("parameter %s is already initialized, "
+                              "ignoring; set force_reinit=True to "
+                              "re-initialize" % self.name, stacklevel=2)
+                return
+            if self.device != dev:
+                self.data = self.data.to(dev)
+                self.grad = None
+            self._fill(init, default_init)
+            return
+        if not self._shape_known():
+            if not self.allow_deferred_init:
+                raise MXNetError(
+                    "cannot initialize parameter %s: shape %s is unknown "
+                    "and deferred initialization is not allowed"
+                    % (self.name, self._shape))
+            # the placeholder's device is where the forward allocates
+            self.__dict__["_deferred_init"] = (init, default_init)
+            self.data = torch.empty(0, device=dev, dtype=self.dtype)
+            return
+        self._materialize(dev)
+        self._fill(init, default_init)
+
+    def _materialize(self, dev):
+        """Allocate the tensor (uninitialized values) on `dev` and become
+        the final class."""
+        self.data = torch.empty(self._shape, device=dev, dtype=self.dtype)
+        self.__dict__["_deferred_init"] = None
+        self.__class__ = self.__dict__["_final_cls"]
+        self.requires_grad_(self.grad_req != "null")
+
+    @torch.no_grad()
+    def _fill(self, init, default_init):
+        chosen = init or self.init or default_init
+        if not callable(chosen):
+            chosen = init_mod.create(chosen)
+        chosen(self.name, self.data, _rnd.generator(self.device))
+
+    def _finish_deferred_init(self):
+        """Complete a deferred `initialize` once the shape is known."""
+        if not is_deferred(self):
+            return
+        self._check_initialized()
+        if not self._shape_known():
+            raise DeferredInitializationError(
+                "parameter %s has unknown shape %s"
+                % (self.name, self._shape))
+        init, default_init = self._deferred_init
+        self._materialize(self.data.device)
+        self._fill(init, default_init)
+
+    def _check_initialized(self):
+        if not is_deferred(self):
+            return
+        if self.__dict__.get("_deferred_init") is not None:
+            if self._shape_known():
+                return
+            raise DeferredInitializationError(
+                "parameter %s has not been initialized yet: its shape %s "
+                "is taken from the first forward's input"
+                % (self.name, self._shape))
+        raise MXNetError("parameter %s has not been initialized; call "
+                         "initialize() first" % self.name)
+
+    # -- data --------------------------------------------------------------
+    def list_data(self):
+        """[the tensor] (MXNet's `data()`; torch's `.data` is kept)."""
+        self._check_initialized()
+        return [self]
+
+    def list_grad(self):
+        """[the gradient], or [] for grad_req 'null' or before the first
+        backward (MXNet's `grad()`; torch's `.grad` is kept)."""
+        self._check_initialized()
+        return [] if self.grad is None else [self.grad]
+
+    def list_ctx(self):
+        if is_deferred(self) and self._deferred_init is not None:
+            return [self.data.device]
+        self._check_initialized()
+        return [self.device]
+
+    def zero_grad(self):
+        if self.grad is not None:
+            self.grad.zero_()
+
+    @torch.no_grad()
+    def set_data(self, data):
+        """Copy `data` (a tensor or an array) in, in the parameter's dtype;
+        completes a deferred initialization from its shape."""
+        data = torch.as_tensor(np.asarray(data)) \
+            if not isinstance(data, torch.Tensor) else data
+        self._set_shape(data.shape)
+        if is_deferred(self):
+            if self._deferred_init is None:
+                raise MXNetError("parameter %s has not been initialized"
+                                 % self.name)
+            self._materialize(self.data.device)
+        self.data.copy_(data)
+
+    def _load_and_set(self, data, ctx=None):
+        """Set from a loaded tensor; a parameter without data takes its
+        shape and is allocated on `ctx`, else on its initialize()
+        device, else `cuda:0` (ref: parameter.py _load_and_set)."""
+        if is_deferred(self):
+            self._set_shape(data.shape)
+            if ctx is not None:
+                dev = _one_device(ctx)
+            elif self._deferred_init is not None:
+                dev = self.data.device
+            else:
+                dev = current_device()
+            self._materialize(dev)
+        self.set_data(data)
+
+    def reset_ctx(self, ctx):
+        """Move the data (or the recorded device of a deferred one) to
+        `ctx`."""
+        dev = _one_device(ctx)
+        if is_deferred(self) and self._deferred_init is None:
+            self._check_initialized()
+        self.data = self.data.to(dev)
+        self.grad = None
+
+    def cast(self, dtype):
+        """Cast in place to `dtype`, keeping the object; its gradient is
+        dropped.  Before materialisation, the dtype to allocate."""
+        cast_parameter(self, dtype)
+
+    def __deepcopy__(self, memo):
+        if id(self) in memo:
+            return memo[id(self)]
+        result = torch.Tensor._make_subclass(
+            type(self), self.data.clone(memory_format=torch.preserve_format),
+            self.requires_grad)
+        memo[id(self)] = result
+        result.__dict__.update(copy.deepcopy(self.__dict__, memo))
+        return result
+
+    def __repr__(self):
+        shape = self._shape if is_deferred(self) else tuple(self.shape)
+        return "Parameter %s (shape=%s, dtype=%s)" % (
+            self.name, shape, str(self.dtype).replace("torch.", ""))
+
+
+class _DeferredParameter(UninitializedTensorMixin, Parameter):
+    """A `Parameter` without data; it becomes its final class when it is
+    materialised (module doc)."""
+
+    @property
+    def shape(self):
+        """The JAX package's view: the known widths, 0 for a deferred
+        one."""
+        return self.__dict__.get("_shape")
+
+    __repr__ = Parameter.__repr__
+
+    @classmethod
+    def __torch_function__(cls, func, types, args=(), kwargs=None):
+        if func in cls._allowed_methods or \
+                func.__class__.__name__ == "method-wrapper":
+            return super().__torch_function__(func, types, args, kwargs)
+        for a in list(args) + list((kwargs or {}).values()):
+            if isinstance(a, _DeferredParameter):
+                a._check_initialized()
+                raise DeferredInitializationError(
+                    "parameter %s has no data yet; run a forward to "
+                    "complete its deferred initialization" % a.name)
+        raise DeferredInitializationError("a parameter has no data yet")
+
+
+class Constant(Parameter):
+    """ref: gluon.Constant: a parameter with grad_req 'null' that
+    initializes to `value`."""
+
+    def __new__(cls, name, value):
+        value = value.detach().cpu() if isinstance(value, torch.Tensor) \
+            else torch.as_tensor(np.asarray(value))
+        if value.dtype == torch.float64:     # the JAX package's default
+            value = value.float()
+        obj = super().__new__(cls, name, grad_req="null",
+                              shape=tuple(value.shape),
+                              dtype=str(value.dtype).replace("torch.", ""),
+                              init=_ValueInit(value))
+        obj.__dict__["value"] = value
+        return obj
+
+
+class _ValueInit(init_mod.Initializer):
+    """Fills with a fixed value, whatever the parameter's name."""
+
+    def __init__(self, value):
+        super().__init__()
+        self.value = value
+
+    @torch.no_grad()
+    def __call__(self, name, tensor, generator=None):
+        tensor.copy_(self.value)
+
+
+class ParameterDict(OrderedDict):
+    """ref: gluon.ParameterDict: an ordered {name: Parameter} mapping,
+    which `Block.collect_params()` returns keyed by structural names.
+    It is a dict, so `dict(net.collect_params())` and `.values()` work as
+    on any dict."""
+
+    def __init__(self, prefix="", shared=None):
+        super().__init__()
+        self._prefix = prefix
+        self._shared = shared
+
+    @property
+    def prefix(self):
+        return self._prefix
+
+    def get(self, name, **kwargs):
+        """The parameter `prefix + name`, created with `kwargs` if it does
+        not exist; an existing one takes a given shape or dtype."""
+        name = self._prefix + name
+        param = self._get_impl(name)
+        if param is None:
+            param = Parameter(name, **kwargs)
+            OrderedDict.__setitem__(self, name, param)
+            return param
+        for k, v in kwargs.items():
+            if k == "shape" and v is not None:
+                param._set_shape((v,) if isinstance(v, int) else v)
+            elif k == "dtype" and v is not None:
+                param.cast(v)
+        return param
+
+    def get_constant(self, name, value=None):
+        name = self._prefix + name
+        param = self._get_impl(name)
+        if param is None:
+            if value is None:
+                raise MXNetError("constant %s not found" % name)
+            param = Constant(name, value)
+            OrderedDict.__setitem__(self, name, param)
+        return param
+
+    def _get_impl(self, name):
+        if name in self:
+            return self[name]
+        if self._shared is not None and name in self._shared:
+            OrderedDict.__setitem__(self, name, self._shared[name])
+            return self[name]
+        return None
+
+    def update(self, other):
+        """Add `other`'s entries; a name bound to another parameter
+        raises."""
+        for k, v in other.items():
+            if k in self and self[k] is not v:
+                raise MXNetError("duplicate parameter name %s" % k)
+            OrderedDict.__setitem__(self, k, v)
+
+    def initialize(self, init=None, ctx=None, verbose=False,
+                   force_reinit=False):
+        """`initialize` every parameter, with `init` as the default
+        initializer (each parameter's own `init` comes first)."""
+        for param in self.values():
+            param.initialize(None, ctx, default_init=init,
+                             force_reinit=force_reinit)
+
+    def zero_grad(self):
+        for param in self.values():
+            param.zero_grad()
+
+    def reset_ctx(self, ctx):
+        for param in self.values():
+            param.reset_ctx(ctx)
+
+    def setattr(self, name, value):
+        """Set attribute `name` (lr_mult, wd_mult, grad_req, ...) of every
+        parameter."""
+        for param in self.values():
+            setattr(param, name, value)
+
+    def save(self, fname, strip_prefix=""):
+        """Save the materialised parameters under their keys, less
+        `strip_prefix`, in the JAX package's file format."""
+        from .. import ndarray as nd
+        out = OrderedDict()
+        for name, param in self.items():
+            if is_deferred(param):
+                continue
+            if strip_prefix and name.startswith(strip_prefix):
+                name = name[len(strip_prefix):]
+            out[name] = param
+        nd.save(fname, out)
+
+    def load(self, fname, ctx=None, allow_missing=False,
+             ignore_extra=False, restore_prefix=""):
+        from .. import ndarray as nd
+        loaded = nd.load(fname, ctx="cpu")
+        if restore_prefix:
+            loaded = {restore_prefix + k: v for k, v in loaded.items()}
+        if not allow_missing:
+            for name in self:
+                if name not in loaded:
+                    raise MXNetError("parameter %s missing in file" % name)
+        if not ignore_extra:
+            extra = set(loaded) - set(self.keys())
+            if extra:
+                raise MXNetError("extra parameters in file: %s" % extra)
+        for name, param in self.items():
+            if name in loaded:
+                param._load_and_set(loaded[name], ctx)
+
+    def __repr__(self):
+        return "ParameterDict(%s)" % ", ".join(self.keys())

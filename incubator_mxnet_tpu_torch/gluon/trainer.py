@@ -1,19 +1,28 @@
 """Gluon `Trainer` of the PyTorch port (counterpart of
 incubator_mxnet_tpu/gluon/trainer.py).
 
-`Trainer(params, optimizer, optimizer_params)` takes a dict or a list of
-`nn.Parameter`s on one device.  `step(batch_size)` sets the optimizer's
-`rescale_grad` to `1 / batch_size` and updates, in place, every
-parameter that requires grad from the gradient the last backward wrote.
-A parameter without gradient (`requires_grad=False`: grad_req 'null' in
-the JAX package, such as BatchNorm's running statistics) is kept in the
-list and never updated.  An aggregatable optimizer (SGD) updates all the
+`Trainer(params, optimizer, optimizer_params)` takes a `ParameterDict`
+(`net.collect_params()`), a dict or a list of parameters on one device.
+`step(batch_size)` sets the optimizer's `rescale_grad` to
+`1 / batch_size` and updates, in place, every parameter that requires
+grad from the gradient the last backward wrote.  A parameter with
+grad_req 'null' (`requires_grad=False`, such as BatchNorm's running
+statistics) is kept in the list and never updated, and gets no
+optimizer state; so is a deferred parameter the first forward has not
+materialised yet, which a Trainer built before that forward updates
+from then on.  The optimizer reads each parameter's `lr_mult` and
+`wd_mult` through `param_dict` (`collect_params(...).setattr("wd_mult",
+0.0)`).  An aggregatable optimizer (SGD) updates all the
 parameters in one `update_multi` call, as the JAX Trainer's aggregated
 path does, unless it keeps master weights (`multi_precision`): then each
 parameter takes `update_multi_precision`.  `contrib.amp.scale_loss`
 sets `_scale` to the loss scale's inverse, which `update` folds into
-`rescale_grad`.  With one device there is no kvstore; parameters on several
-devices, or a `dist` kvstore, raise "not yet ported".
+`rescale_grad`.  `save_states`/`load_states` write and read the
+optimizer's states with the optimizer itself (scheduler and update
+counts included), as the JAX Trainer does; after `load_states`,
+`trainer.optimizer` is the loaded one.  With one device there is no
+kvstore; parameters on several devices, or a `dist` kvstore, raise
+"not yet ported".
 """
 from __future__ import annotations
 
@@ -21,6 +30,8 @@ from torch import nn
 
 from .. import optimizer as opt_mod
 from ..base import MXNetError
+from ..optimizer.optimizer import _map_state
+from .parameter import Parameter, is_deferred
 
 __all__ = ["Trainer"]
 
@@ -37,7 +48,9 @@ class Trainer:
             if not isinstance(p, nn.Parameter):
                 raise MXNetError("invalid parameter %r" % (p,))
         self._params = list(params)
-        devices = {p.device for p in self._params}
+        devices = {d for p in self._params
+                   for d in (p.list_ctx() if isinstance(p, Parameter)
+                             else [p.device])}
         if len(devices) > 1:
             raise NotImplementedError(
                 "Trainer over parameters on several devices (%s) needs a "
@@ -91,7 +104,7 @@ class Trainer:
         self._optimizer.rescale_grad = self._scale / batch_size
         live = []
         for i, p in enumerate(self._params):
-            if not p.requires_grad:
+            if not p.requires_grad or is_deferred(p):
                 continue
             if p.grad is None:
                 if ignore_stale_grad:
@@ -116,3 +129,22 @@ class Trainer:
                 live, [self._params[i].data for i in live],
                 [self._params[i].grad for i in live],
                 [updater.states[i] for i in live])
+
+    def save_states(self, fname):
+        """Write the optimizer's states and the optimizer to `fname`."""
+        with open(fname, "wb") as f:
+            f.write(self._updater.get_states(dump_optimizer=True))
+
+    def load_states(self, fname):
+        """Read a `save_states` file: the states go to their parameters'
+        devices, bit for bit in their saved dtypes, and the loaded
+        optimizer (its scheduler and update counts) replaces this one,
+        bound to this Trainer's parameters."""
+        with open(fname, "rb") as f:
+            self._updater.set_states(f.read())
+        self._optimizer = self._updater.optimizer
+        self._optimizer.param_dict = dict(enumerate(self._params))
+        states = self._updater.states
+        for i in states:
+            dev = self._params[i].device
+            states[i] = _map_state(lambda t, dev=dev: t.to(dev), states[i])

@@ -1,0 +1,90 @@
+"""Gluon utilities of the PyTorch port (counterpart of
+incubator_mxnet_tpu/gluon/utils.py): `split_data`, `split_and_load` (one
+device), `clip_global_norm` and `check_sha1`.  `download` is not yet
+ported: the port runs without network access, so files are placed by
+hand and loaded from disk.
+"""
+from __future__ import annotations
+
+import hashlib
+import warnings
+
+import numpy as np
+import torch
+
+from ..base import MXNetError
+from ..context import resolve_device
+
+__all__ = ["split_data", "split_and_load", "clip_global_norm",
+           "check_sha1", "download"]
+
+
+def split_data(data, num_slice, batch_axis=0, even_split=True):
+    """`num_slice` slices of `data` along `batch_axis`; the last takes
+    the remainder unless `even_split` requires none."""
+    size = data.shape[batch_axis]
+    if even_split and size % num_slice != 0:
+        raise MXNetError(
+            "data size %d cannot be evenly split into %d slices"
+            % (size, num_slice))
+    step = size // num_slice
+    slices = []
+    for i in range(num_slice):
+        begin = i * step
+        end = (i + 1) * step if i < num_slice - 1 else size
+        slices.append(data.narrow(batch_axis, begin, end - begin))
+    return slices
+
+
+def split_and_load(data, ctx_list, batch_axis=0, even_split=True):
+    """`data` (a tensor or an array) on the device of `ctx_list`, as a
+    list of one.  Several devices need the kvstore, which is not yet
+    ported."""
+    if not isinstance(ctx_list, (list, tuple)):
+        ctx_list = [ctx_list]
+    if len(ctx_list) != 1:
+        raise NotImplementedError("split_and_load over %d devices is not "
+                                  "yet ported" % len(ctx_list))
+    if not isinstance(data, torch.Tensor):
+        data = torch.as_tensor(np.asarray(data))
+    return [data.to(resolve_device(ctx_list[0]))]
+
+
+@torch.no_grad()
+def clip_global_norm(arrays, max_norm, check_isfinite=True):
+    """Scale `arrays` in place so that their joint 2-norm is at most
+    `max_norm`; returns the norm before scaling (a host float, so it
+    reads the device)."""
+    if not arrays:
+        raise MXNetError("arrays must be non-empty")
+    total = torch.sqrt(sum(torch.sum(torch.square(a.float()))
+                           for a in arrays))
+    total_f = float(total)
+    if check_isfinite and not np.isfinite(total_f):
+        warnings.warn("nan or inf found in gradients")
+        return total_f
+    scale = max_norm / (total_f + 1e-8)
+    if scale < 1.0:
+        for a in arrays:
+            a.mul_(scale)
+    return total_f
+
+
+def check_sha1(filename, sha1_hash):
+    """Whether the file's SHA-1 is `sha1_hash`."""
+    sha1 = hashlib.sha1()
+    with open(filename, "rb") as f:
+        while True:
+            data = f.read(1 << 20)
+            if not data:
+                break
+            sha1.update(data)
+    return sha1.hexdigest() == sha1_hash
+
+
+def download(url, path=None, overwrite=False, sha1_hash=None, retries=5,
+             verify_ssl=True):
+    """Not yet ported: the port fetches nothing from the network."""
+    raise NotImplementedError(
+        "gluon.utils.download is not yet ported; place the file on disk "
+        "and load it from there")

@@ -1,6 +1,7 @@
 """Optimizer update ops of the PyTorch port (counterpart of
 incubator_mxnet_tpu/ops/optimizer.py): SGD, SGD with momentum, their
-multi-tensor forms, their f32-master-weight forms (`mp_*`), and Adam.
+multi-tensor forms, their f32-master-weight forms (`mp_*`), NAG's
+momentum update, and Adam.
 
 The JAX ops are pure functions that return the new state; here the
 update runs in place on the weight and state tensors, which saves a copy
@@ -23,7 +24,7 @@ import torch
 
 __all__ = ["sgd_update", "sgd_mom_update", "multi_sgd_update",
            "multi_sgd_mom_update", "mp_sgd_update", "mp_sgd_mom_update",
-           "adam_update"]
+           "nag_mom_update", "adam_update"]
 
 
 def _f32(t):
@@ -121,6 +122,19 @@ def multi_sgd_mom_update(weights, grads, moms, lrs, wds, momentum=0.0,
     torch._foreach_sub_(ms, torch._foreach_mul(g, list(lrs)))
     torch._foreach_add_(ws, ms)
     _write_back(zip(list(weights) + list(moms), ws + ms))
+
+
+@torch.no_grad()
+def nag_mom_update(weight, grad, mom, lr=0.01, momentum=0.0, wd=0.0,
+                   rescale_grad=1.0, clip_gradient=-1.0):
+    """Nesterov momentum, in place: g = the prepared gradient + wd w,
+    mom = momentum mom + g,  w -= lr (g + momentum mom)."""
+    w, m = _f32(weight), _f32(mom)
+    g = _prep_grad(grad, rescale_grad, clip_gradient)
+    g.add_(w, alpha=wd)
+    m.mul_(momentum).add_(g)
+    w.sub_(g.add_(m, alpha=momentum).mul_(lr))
+    _write_back(((weight, w), (mom, m)))
 
 
 @torch.no_grad()

@@ -1,7 +1,11 @@
 """Optimizers of the PyTorch port (counterpart of
 incubator_mxnet_tpu/optimizer/optimizer.py): the `Optimizer` base with
-its registry, `SGD`, `Adam`, and the `Updater` that keeps per-index
-state.
+its registry, `SGD`, `NAG`, `Adam`, and the `Updater` that keeps
+per-index state and saves and restores it with the optimizer.
+
+With an `lr_scheduler`, the learning rate is the scheduler's at the
+optimizer's `num_update` (counted before an update reads it, so the
+k-th update takes `lr_scheduler(k)`), and `set_learning_rate` raises.
 
 Weights, gradients and states are torch tensors; an update writes the
 weight and its state in place (`ops.optimizer`), in the weight's and
@@ -16,14 +20,15 @@ package are not yet ported.
 from __future__ import annotations
 
 import math
+import pickle
 
 import torch
 
 from ..base import MXNetError
 from ..ops import optimizer as _ops
 
-__all__ = ["Optimizer", "SGD", "Adam", "register", "create", "get_updater",
-           "Updater"]
+__all__ = ["Optimizer", "SGD", "NAG", "Adam", "register", "create",
+           "get_updater", "Updater"]
 
 _OPT_REGISTRY = {}
 
@@ -47,10 +52,14 @@ class Optimizer:
     """ref: mx.optimizer.Optimizer."""
 
     def __init__(self, rescale_grad=1.0, param_idx2name=None, wd=0.0,
-                 clip_gradient=None, learning_rate=0.01, begin_num_update=0,
-                 multi_precision=False, param_dict=None):
+                 clip_gradient=None, learning_rate=0.01, lr_scheduler=None,
+                 begin_num_update=0, multi_precision=False,
+                 param_dict=None):
         self.rescale_grad = rescale_grad
         self.lr = learning_rate
+        self.lr_scheduler = lr_scheduler
+        if lr_scheduler is not None:
+            lr_scheduler.base_lr = learning_rate
         self.wd = wd
         self.lr_mult = {}
         self.wd_mult = {}
@@ -64,10 +73,22 @@ class Optimizer:
 
     @property
     def learning_rate(self):
+        if self.lr_scheduler is not None:
+            return self.lr_scheduler(self.num_update)
         return self.lr
 
     def set_learning_rate(self, lr):
+        if self.lr_scheduler is not None:
+            raise MXNetError("an lr_scheduler is set; the learning rate "
+                             "cannot be set directly")
         self.lr = lr
+
+    def __getstate__(self):
+        """Pickled without `param_dict`, which holds the parameters: the
+        Trainer that loads the state binds its own."""
+        state = self.__dict__.copy()
+        state["param_dict"] = {}
+        return state
 
     def set_lr_mult(self, args_lr_mult):
         self.lr_mult = dict(args_lr_mult)
@@ -197,6 +218,32 @@ class SGD(Optimizer):
 
 
 @register
+class NAG(Optimizer):
+    """ref: optimizer.NAG → nag_mom_update (Nesterov momentum), or
+    sgd_update without momentum."""
+
+    def __init__(self, momentum=0.0, **kwargs):
+        super().__init__(**kwargs)
+        self.momentum = momentum
+
+    def create_state(self, index, weight):
+        if self.momentum == 0.0:
+            return None
+        return torch.zeros_like(weight)
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        kw = dict(lr=self._get_lr(index), wd=self._get_wd(index),
+                  rescale_grad=self.rescale_grad,
+                  clip_gradient=self.clip_gradient)
+        if state is None:
+            _ops.sgd_update(weight, grad, **kw)
+        else:
+            _ops.nag_mom_update(weight, grad, state, momentum=self.momentum,
+                                **kw)
+
+
+@register
 class Adam(Optimizer):
     """ref: optimizer.Adam → adam_update, with the bias correction folded
     into the learning rate from each index's own update count t."""
@@ -222,6 +269,14 @@ class Adam(Optimizer):
                          clip_gradient=self.clip_gradient)
 
 
+def _map_state(fn, state):
+    """`state` (a tensor, None, or tuples of them) with `fn` applied to
+    each tensor."""
+    if isinstance(state, (tuple, list)):
+        return type(state)(_map_state(fn, s) for s in state)
+    return None if state is None else fn(state)
+
+
 class Updater:
     """Per-index optimizer state, created at an index's first update
     (ref: optimizer.get_updater)."""
@@ -236,6 +291,26 @@ class Updater:
                 self.optimizer.create_state_multi_precision(index, weight)
         self.optimizer.update_multi_precision(index, weight, grad,
                                               self.states[index])
+
+    def get_states(self, dump_optimizer=False):
+        """The states (and the optimizer, its scheduler and update counts
+        included) pickled, every tensor as a CPU tensor of its own
+        dtype."""
+        states = {i: _map_state(lambda t: t.detach().cpu(), s)
+                  for i, s in self.states.items()}
+        return pickle.dumps((states, self.optimizer) if dump_optimizer
+                            else states)
+
+    def set_states(self, states):
+        """Restore what `get_states` pickled (only the port's own files:
+        the JAX package's pickle JAX arrays).  The tensors stay on the
+        CPU; `Trainer.load_states` moves each to its parameter's
+        device."""
+        obj = pickle.loads(states)
+        if isinstance(obj, tuple):
+            self.states, self.optimizer = obj
+        else:
+            self.states = obj
 
 
 def get_updater(optimizer: Optimizer) -> Updater:

@@ -15,6 +15,7 @@ import torch
 
 from .base import MXNetError
 from .context import resolve_device
+from .gluon.parameter import Parameter, is_deferred
 
 __all__ = ["load_reference_params"]
 
@@ -22,10 +23,14 @@ __all__ = ["load_reference_params"]
 def load_reference_params(module, params, device=None):
     """Copy `params` ({structural name: numpy array}) into `module`'s
     parameters, after moving the module to `device` when one is given.
+    A parameter without data (a deferred width, or a block built without
+    a device) takes its shape from the array and is allocated on
+    `device`, else on its `initialize` device, else on `cuda:0`.
     Raises MXNetError on a missing or extra name or a shape mismatch,
     before any parameter is written.  Returns the module."""
     if device is not None:
-        module.to(resolve_device(device))
+        device = resolve_device(device)
+        module.to(device)
     own = module.collect_params()
     missing = sorted(set(own) - set(params))
     extra = sorted(set(params) - set(own))
@@ -35,14 +40,27 @@ def load_reference_params(module, params, device=None):
     arrays = {}
     for name, p in own.items():
         arr = np.asarray(params[name])
-        if tuple(arr.shape) != tuple(p.shape):
+        if not _fits(p, arr.shape):
             raise MXNetError("parameter %s: reference shape %s != module "
                              "shape %s" % (name, tuple(arr.shape),
-                                           tuple(p.shape)))
+                                           tuple(p.shape or ())))
         # through float32: numpy has no bfloat16, and every parameter of
         # the ported layers is floating point
         arrays[name] = torch.from_numpy(np.array(arr, dtype=np.float32))
     with torch.no_grad():
         for name, p in own.items():
-            p.copy_(arrays[name].to(device=p.device, dtype=p.dtype))
+            if isinstance(p, Parameter):
+                p._load_and_set(arrays[name], device)
+            else:
+                p.copy_(arrays[name])
     return module
+
+
+def _fits(param, shape):
+    """Whether an array of `shape` fits `param`: equal shapes, or for a
+    parameter without data its known widths (a deferred one is 0)."""
+    own = param.shape
+    if not is_deferred(param):
+        return tuple(own) == tuple(shape)
+    return own is None or (len(own) == len(shape) and all(
+        s in (0, a) for s, a in zip(own, shape)))

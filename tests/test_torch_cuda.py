@@ -510,12 +510,15 @@ def test_resnet_training_step_through_kernel(card):
     kw = dict(classes=10, thumbnail=True, stride_on_3x3=True)
     args = (resnet.BottleneckV1, [1, 1, 1, 1], [8, 16, 32, 64, 128])
     tmx.random.seed(0)
-    net = resnet.ResNetV1(*args, **kw)
+    net = resnet.ResNetV1(*args, device=card, **kw)
     cpu = resnet.ResNetV1(*args, device="cpu", **kw)
-    cpu.load_state_dict({k: v.cpu() for k, v in net.state_dict().items()})
     rs = np.random.RandomState(0)
     x = torch.from_numpy(rs.randn(4, 3, 16, 16).astype(np.float32))
     y = torch.from_numpy(rs.randint(0, 10, 4).astype(np.float32))
+    with tmx.autograd.pause():          # the stems take their width
+        net(x[:1].to(card))
+        cpu(x[:1])
+    cpu.load_state_dict({k: v.cpu() for k, v in net.state_dict().items()})
     loss_fn = tmx.gluon.loss.SoftmaxCrossEntropyLoss()
     trainer = tmx.gluon.Trainer(net.collect_params(), "sgd",
                                 {"learning_rate": 0.1, "momentum": 0.9,
@@ -664,8 +667,9 @@ def test_float16_runs_through_the_kernels_on_card(card):
             2.0 ** -7 * r.grad.abs().max().item()
     tmx.random.seed(0)
     net = tmx.gluon.nn.HybridSequential()
-    net.add(tmx.gluon.nn.Conv2D(32, 1, use_bias=False, in_channels=32),
-            tmx.gluon.nn.BatchNorm(in_channels=32))
+    net.add(tmx.gluon.nn.Conv2D(32, 1, use_bias=False, in_channels=32,
+                                device=card),
+            tmx.gluon.nn.BatchNorm(in_channels=32, device=card))
     cpu = tmx.gluon.nn.HybridSequential()
     cpu.add(tmx.gluon.nn.Conv2D(32, 1, use_bias=False, in_channels=32,
                                 device="cpu"),
@@ -738,3 +742,75 @@ def test_fused_linear_ce_bf16_on_card_matches_cpu(card):
         a, r = a.float(), r.float()
         assert bool(((a - r).abs()
                      <= _bf16_ulp(r) + 1e-4 * r.abs().max()).all())
+
+
+# --- the Gluon core surface on the card -------------------------------------
+
+def _small_cnn():
+    nn = tmx.gluon.nn
+    net = nn.HybridSequential()
+    net.add(nn.Conv2D(8, 3, padding=1, activation="relu"),
+            nn.Conv2D(16, 1, use_bias=False), nn.BatchNorm(),
+            nn.Activation("relu"), nn.GlobalAvgPool2D(), nn.Dense(10))
+    return net
+
+
+def test_deferred_init_onto_the_card_runs_the_fused_pair(card):
+    from incubator_mxnet_tpu_torch.gluon.parameter import is_deferred
+    net = _small_cnn()
+    net.initialize(tmx.init.MSRAPrelu(), ctx=tmx.gpu(0))
+    params = net.collect_params()
+    assert all(is_deferred(p) for n, p in params.items()
+               if "weight" in n)
+    trainer = tmx.gluon.Trainer(params, "nag", {
+        "learning_rate": 0.05, "momentum": 0.9, "wd": 1e-4})
+    rs = np.random.RandomState(0)
+    x = torch.from_numpy(rs.randn(4, 3, 16, 16).astype(np.float32))
+    y = torch.from_numpy(rs.randint(0, 10, 4).astype(np.float32))
+    before = tcs.conv1x1_stats_launches
+    with tmx.autograd.record():
+        loss = tmx.gluon.loss.SoftmaxCrossEntropyLoss()(net(x.to(card)),
+                                                        y.to(card))
+    tmx.autograd.backward(loss)
+    torch.cuda.synchronize()
+    assert tcs.conv1x1_stats_launches - before == 1
+    assert not any(is_deferred(p) for p in params.values())
+    assert {p.device for p in params.values()} == {card}
+    w = params["1.weight"].detach().clone()
+    trainer.step(4)
+    assert not torch.equal(w, params["1.weight"].detach())
+    assert all(s.device == card for s in trainer._updater.states.values())
+
+
+def test_bf16_save_load_round_trip_on_card(card, tmp_path):
+    net = _small_cnn()
+    net.initialize(ctx=card)
+    with tmx.autograd.pause():
+        net(torch.zeros(1, 3, 16, 16, device=card))
+    net.cast("bfloat16")
+    path = str(tmp_path / "bf16.params")
+    net.save_parameters(path)
+    back = _small_cnn()
+    back.cast("bfloat16")
+    back.load_parameters(path, ctx=tmx.gpu(0))
+    got = back.collect_params()
+    for n, p in net.collect_params().items():
+        assert got[n].dtype == torch.bfloat16 and got[n].device == card
+        assert torch.equal(got[n].view(torch.int16), p.view(torch.int16))
+
+
+def test_metric_update_does_not_sync(card):
+    acc, top = tmx.metric.Accuracy(), tmx.metric.TopKAccuracy(5)
+    rs = np.random.RandomState(1)
+    pred = torch.from_numpy(rs.randn(64, 100).astype(np.float32)).to(card)
+    label = torch.from_numpy(rs.randint(0, 100, 64).astype(np.float32))
+    label = label.to(card)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for m in (acc, top):
+            m.update([label], [pred.bfloat16()])
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    want = (pred.bfloat16().argmax(1) == label.long()).float().mean()
+    assert acc.get()[1] == pytest.approx(want.item())

@@ -70,6 +70,19 @@ def test_import_loads_no_jax_and_needs_no_nvcc(tmp_path):
             "assert a.flash_fwd_causal_launches == "
             "a.flash_bwd_dq_causal_launches == "
             "a.flash_bwd_dkv_causal_launches == 0; "
+            "import incubator_mxnet_tpu_torch.gluon.parameter as gp; "
+            "import incubator_mxnet_tpu_torch.gluon.utils as gu; "
+            "gp.Parameter, gp.ParameterDict, gp.Constant, "
+            "gp.DeferredInitializationError, gu.split_and_load, "
+            "gu.clip_global_norm, mx.gluon.ParameterDict, mx.optimizer.NAG, "
+            "mx.ops.optimizer.nag_mom_update, mx.init.MSRAPrelu, "
+            "mx.init.Xavier, mx.init.Orthogonal, mx.init.Mixed, "
+            "mx.lr_scheduler.CosineScheduler, mx.lr_scheduler.PolyScheduler, "
+            "mx.metric.Accuracy, mx.metric.TopKAccuracy, mx.metric.create, "
+            "mx.callback.Speedometer, mx.nd.save, mx.nd.load, "
+            "mx.gluon.model_zoo.vision.get_model, mx.current_context, "
+            "mx.gluon.Block.initialize, mx.gluon.Block.save_parameters, "
+            "mx.gluon.Trainer.load_states, mx.num_gpus(); "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'incubator_mxnet_tpu')]; assert not bad, bad; "
             "print('ok')")
