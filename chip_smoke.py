@@ -80,8 +80,10 @@ Drives incubator_mxnet_tpu_torch only (never JAX or the JAX package):
              gamma and bias (collect_params(...).setattr), NAG (lr 0.1,
              momentum 0.9, wd 1e-4) under a warmup-cosine scheduler,
              Accuracy and TopKAccuracy(5) updated with the card's sync
-             debug mode set to "error", a Speedometer; 2 warm-up and 10
-             timed steps, each launching the conv kernel 33 times; every
+             debug mode set to "error", a Speedometer; hybridized, its
+             2 warm-up steps (eager, then the capture) each issuing the
+             conv kernel's 33 launches and its 10 timed steps replaying
+             them, 33 a step by the profiler's kernel names; every
              parameter materialised by the first forward with the names
              and shapes of train_resnet's; the lr of every step the
              warmup-cosine's; one extra step with every gradient and
@@ -90,8 +92,8 @@ Drives incubator_mxnet_tpu_torch only (never JAX or the JAX package):
              after timed step 5 loaded into fresh objects bit for bit
              (and a bf16 cast of it through a file), whose steps 6-10
              stay within the loss spread of two uninterrupted runs.
-   train_resnet_gluon_profile — device time by kernel over one such
-             step.
+   train_resnet_gluon_profile — device time and launches by kernel
+             over one such step.
 10. train_nmt — transformer_nmt_base (6 + 6 layers, 512 units, 8 heads,
              vocab 32000, dropout 0, output_hidden + FusedMLMCELoss, Adam
              lr 1e-4, f32) as bench.py's run_transformer_nmt (config 4b):
@@ -111,7 +113,30 @@ Drives incubator_mxnet_tpu_torch only (never JAX or the JAX package):
              with torch.bmm: no flash kernel may launch.
    decode_nmt_profile — device time by kernel over one prefill and its
              greedy steps.
-12. kernels — one JSON line per the port's kernel table (4 rows), then the
+12. hybridize — train_bf16, train_nmt and train_resnet_gluon (the same
+             models, batches, data and optimizers) each run twice from
+             seed 0: eager, and hybridized as bench.py hybridizes them
+             (the net with static_alloc and static_shape, the loss block
+             plain), so that forward and backward replay captured CUDA
+             graphs and the Trainer replays its captured update.  For
+             each mode: 2 warm-up and 10 timed steps (step ms by CUDA
+             events, tokens/s or images/s, peak memory), 2 profiled steps
+             (busy share, each of the port's kernels' launches per step
+             by name), the launch counters of every warm-up and timed
+             step, the captures, replays and eager updates during the
+             warm-up and the timed steps.  A profiled step of either mode
+             must launch each kernel as often as an eager step's counters
+             say (12/12/12 flash, 33 conv); the counters of the warm-up
+             step that captured must say the same (6 causal in NMT: what
+             its graphs hold), and those of the hybridized timed steps,
+             which only replay, nothing.  One eager bf16 and NMT
+             step's host time by op (torch.profiler, top 15).  The 10
+             losses and the final parameters must be equal bit for bit, or
+             else within a third (eager) run's own distance from the first;
+             the kernel names only one mode ran are printed.  The save and
+             resume round of train_resnet_gluon above already runs
+             hybridized (its nets and loss block are).
+13. kernels — one JSON line per the port's kernel table (4 rows), then the
              card's name and power limit, then the final {"ok": true, ...}
              line.
 
@@ -179,6 +204,7 @@ TRAIN_TOL = 1e-3
 TRAIN_BATCH = 8
 TRAIN_WARMUP = 2
 TRAIN_STEPS = 10
+PROFILE_STEPS = 2   # profiled steps of each eager and hybridized run
 # bench.py's run_bert: BERT-base cast to bf16 at batch 16 x 512.  A bf16
 # step cannot be held to the f32 TRAIN_TOL.  Its batch-1 step is read
 # against an f32 CPU copy holding the same bf16-valued weights, by the
@@ -447,15 +473,25 @@ def phase_kernel(torch, att):
     return rows
 
 
+# spin kernels (`torch.cuda._sleep`) that open every profiled window: the
+# profiler drops the first few device records of a window (seen on the
+# card: the first kernels of a training step, the first of 20 launches of
+# a kernel), so those records are the primer's
+PRIMER = 8
+
+
 def _device_kernels(torch, fn, reps, tries=3):
     """[(device us, kernel name, calls)] of the CUDA kernels that `reps`
     back-to-back calls of `fn` (after one unprofiled call) launch, largest
-    first, from torch.profiler, and the host wall of that window (us).
-    Every call launches the same kernels, so a trace in which a kernel's
-    count is not a multiple of `reps`, or that holds no kernel, lost
-    records (seen once on the card: no launch of a 20-call window, and
-    part of the next call's): the window is profiled again, and after
-    `tries` such traces the run fails."""
+    first, from torch.profiler, and the host wall of those calls (us).
+    The window opens with PRIMER spin kernels, which are not counted.
+    Only kernels, copies and fills count: a device-side row that bears
+    the name of a host row (a `record_function` span, `ProfilerStep*`)
+    is an annotation, whose time spans kernels already counted.  Every
+    call launches the same kernels, so a trace in which a kernel's count
+    is not a multiple of `reps`, or that holds no kernel, lost records:
+    the window is profiled again, and after `tries` such traces the run
+    fails."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -463,17 +499,24 @@ def _device_kernels(torch, fn, reps, tries=3):
     for _ in range(tries):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            for _ in range(PRIMER):
+                torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
             t0 = time.perf_counter()
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
         # kernels only: the aten op that launched a kernel carries the
-        # same device time again
+        # same device time again, and an annotation spans them
+        events = prof.key_averages()
+        host = {ev.key for ev in events if ev.device_type != DeviceType.CUDA}
         rows = [(ev.self_device_time_total, ev.key, ev.count)
-                for ev in prof.key_averages()
+                for ev in events
                 if ev.device_type == DeviceType.CUDA
-                and ev.self_device_time_total > 0]
+                and ev.self_device_time_total > 0 and ev.key not in host
+                and not ev.key.startswith("ProfilerStep")
+                and "::spin_kernel(" not in ev.key]
         if rows and all(n % reps == 0 for _, _, n in rows):
             rows.sort(reverse=True)
             return rows, wall_us
@@ -503,7 +546,7 @@ def _profile(torch, fn, reps, top=8, **row):
     is that time over the host wall of the profiled window (profiler
     overhead included).  Emits `row` with the breakdown: the `top`
     kernels, and every kernel of the port's own (`port_kernels`) with
-    their sum and share."""
+    their sum and share.  Returns {port kernel: launches per call}."""
     rows, wall_us = _device_kernels(torch, fn, reps)
     device_us = sum(r[0] for r in rows)
     port = [dict(kernel=k[:100], us=us, calls=n) for us, k, n in rows
@@ -517,6 +560,7 @@ def _profile(torch, fn, reps, top=8, **row):
                port_kernels=port, port_kernels_us=port_us,
                port_kernels_share=port_us / device_us if device_us
                else None))
+    return _port_kernel_calls(rows, reps)
 
 
 def phase_profile(torch, net, x, forwards=3):
@@ -631,6 +675,231 @@ def _train_step(mx, net, loss_fn, trainer, inputs, y):
     mx.autograd.backward(loss)
     trainer.step(inputs[0].shape[0])
     return loss.detach()
+
+
+def _port_kernel_calls(rows, reps=1):
+    """{port kernel: launches per call} among profiler rows [(us, name,
+    calls)] of `reps` calls."""
+    calls = collections.Counter()
+    for _, k, n in rows:
+        m = _PORT_KERNEL.search(k)
+        if m:
+            calls[m.group(1)] += n
+    return {k: n // reps for k, n in calls.items()}
+
+
+def _profiled_counts(kernels):
+    """A step's launches of (fwd, dq, dkv, conv) among the profiler's
+    kernel names (`_port_kernel_calls`); the names do not tell a causal
+    launch."""
+    conv = kernels.get("conv1x1_stats_tc_kernel", 0) \
+        + kernels.get("conv1x1_stats_kernel", 0)
+    return tuple(kernels.get(k, 0) for k in (
+        "flash_fwd_kernel", "flash_bwd_dq_kernel",
+        "flash_bwd_dkv_kernel")) + (conv,)
+
+
+def _host_trace(torch, fn, top=15):
+    """Host time by op over one call of `fn` (torch.profiler, CPU
+    activity only): self CPU time of the `top` ops and the total."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    rows = sorted(prof.key_averages(), key=lambda e: e.self_cpu_time_total,
+                  reverse=True)
+    return dict(wall_us=wall_us,
+                self_cpu_us=sum(e.self_cpu_time_total for e in rows),
+                top=[dict(op=e.key[:80], self_cpu_us=e.self_cpu_time_total,
+                          calls=e.count) for e in rows[:top]])
+
+
+def _graph_counts(blocks, trainer):
+    """What the hybridized blocks' cached programs and the Trainer did."""
+    graphs = [b._cached_graph for b in blocks
+              if b.__dict__.get("_cached_graph") is not None]
+    return dict(captures=sum(g.captures for g in graphs) + trainer.captures,
+                replays=sum(g.replays for g in graphs) + trainer.replays,
+                eager_calls=sum(g.eager_calls for g in graphs),
+                eager_updates=trainer.eager_updates)
+
+
+def _mode_run(torch, mx, att, cs, build, step, hybrid, units, trace=False):
+    """TRAIN_WARMUP + TRAIN_STEPS steps of a fresh `build()` = (net, loss
+    block, trainer), eager or hybridized as bench.py hybridizes (the net
+    with static_alloc and static_shape, the loss plain): step ms (CUDA
+    events), `units` per s, peak memory, the losses and final
+    parameters, what the captured programs did, and PROFILE_STEPS
+    profiled steps (busy share, each port kernel's launches per step,
+    the 8 costliest kernels, every kernel's name); with `trace` one
+    step's host time by op.  The launch counters count what the wrappers
+    issue: over the whole run (`launches`), per warm-up step and per
+    timed step.  A hybridized step launches through its graphs, which no
+    wrapper sees, so its launches per step are the profiler's."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    net, head, trainer = build()
+    if hybrid:
+        net.hybridize(static_alloc=True, static_shape=True)
+        head.hybridize()
+    else:
+        net.hybridize(active=False)
+    run = lambda: step(net, head, trainer)      # noqa: E731
+    _reset_counts(att)                  # the path starts here
+    cs.conv1x1_stats_launches = 0
+    counts = lambda: _all_counts(att) + (cs.conv1x1_stats_launches,)  # noqa
+
+    def counted():
+        before, programs = counts(), _graph_counts((net, head), trainer)
+        out = run()
+        after = _graph_counts((net, head), trainer)
+        return out, tuple(a - b for a, b in zip(counts(), before)), {
+            k: after[k] - programs[k] for k in after}
+    warmup = [counted()[1:] for _ in range(TRAIN_WARMUP)]
+    torch.cuda.synchronize()
+    warm = _graph_counts((net, head), trainer)
+    events = [torch.cuda.Event(enable_timing=True)
+              for _ in range(TRAIN_STEPS + 1)]
+    losses, per_step = [], []
+    t0 = time.perf_counter()
+    events[0].record()
+    for i in range(TRAIN_STEPS):
+        loss, launched, _ = counted()
+        losses.append(loss)
+        events[i + 1].record()
+        per_step.append(launched)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    timed = _graph_counts((net, head), trainer)
+    peak = torch.cuda.max_memory_allocated()
+    params = [p.detach().cpu().clone() for p in trainer._params]
+    rows, wall_us = _device_kernels(torch, run, PROFILE_STEPS)
+    keys = _COUNT_KEYS + ("conv",)
+    launches = dict(zip(keys, counts()))    # the path ends here
+    device_us = sum(r[0] for r in rows)
+    kernels = _port_kernel_calls(rows, PROFILE_STEPS)
+    out = dict(
+        mode="hybridized" if hybrid else "eager",
+        step_ms=[events[i].elapsed_time(events[i + 1])
+                 for i in range(TRAIN_STEPS)],
+        units_per_s=TRAIN_STEPS * units / wall, wall_s=wall,
+        max_memory_allocated=peak,
+        losses=[v.item() for v in losses], launches=launches,
+        warmup_steps=[dict(launches=dict(zip(keys, c)), programs=g)
+                      for c, g in warmup],
+        launches_per_step=[dict(zip(keys, c)) for c in sorted(set(per_step))],
+        profiled_launches_per_step=dict(
+            zip(("fwd", "dq", "dkv", "conv"), _profiled_counts(kernels))),
+        profile=dict(steps=PROFILE_STEPS, wall_us=wall_us,
+                     device_us=device_us, busy_share=device_us / wall_us,
+                     port_kernels=kernels,
+                     top=[dict(kernel=k[:80], us=us, calls=n)
+                          for us, k, n in rows[:8]]),
+        programs=dict(after_warmup=warm, during_timed_steps={
+            k: timed[k] - warm[k] for k in timed}))
+    out["step_ms_median"] = statistics.median(out["step_ms"])
+    out["kernel_names"] = sorted({k[:100] for _, k, _ in rows})
+    if trace:
+        out["host_trace"] = _host_trace(torch, run)
+    return out, params, (per_step, warmup)
+
+
+def _ab_compare(torch, eager, hyb, rerun):
+    """Hybridized against eager on the same weights and data: bit for bit,
+    or else within the eager rerun's own spread (`rerun()` gives its
+    losses and parameters).  Returns the row and whether it holds."""
+    (e, e_params), (h, h_params) = eager, hyb
+    same_losses = e["losses"] == h["losses"]
+    same_params = all(_same_bits(torch, a, b)
+                      for a, b in zip(e_params, h_params))
+    row = dict(losses_bit_equal=same_losses, params_bit_equal=same_params,
+               kernels_only_eager=sorted(set(e["kernel_names"])
+                                         - set(h["kernel_names"])),
+               kernels_only_hybridized=sorted(set(h["kernel_names"])
+                                              - set(e["kernel_names"])))
+    if same_losses and same_params:
+        return row, True
+
+    def dist(a, b):
+        return (max(abs(x - y) for x, y in zip(a[0]["losses"],
+                                               b[0]["losses"])),
+                max((x.float() - y.float()).abs().max().item()
+                    for x, y in zip(a[1], b[1])))
+    r = rerun()
+    row.update(hybridized_vs_eager=dist(hyb, eager),
+               eager_rerun_spread=dist(r, eager))
+    ok = all(a <= b for a, b in zip(row["hybridized_vs_eager"],
+                                     row["eager_rerun_spread"]))
+    return row, ok
+
+
+def _summary(run):
+    return {k: run[k] for k in ("step_ms_median", "units_per_s",
+                                "max_memory_allocated")} | dict(
+        busy_share=run["profile"]["busy_share"])
+
+
+def phase_hybridize(torch, mx, att, cs, name, build, step, units,
+                    per_step_want, trace=False):
+    """`name` eager and hybridized in one process, from the same weights
+    and data (`_mode_run`), held against each other (`_ab_compare`).
+    Each kernel's launches a step must be `per_step_want` (in the order
+    of `_COUNT_KEYS` + ("conv",)): in the profiler's names over the
+    profiled steps, in both modes; by the counters in every eager timed
+    step and in the hybridized warm-up step that captured, whose
+    wrappers issued the launches its graphs hold (the causal ones too,
+    which the profiler's names do not tell); and by the counters, in no
+    hybridized timed step, which only replay.  Returns the hybridized
+    run."""
+    eager = _mode_run(torch, mx, att, cs, build, step, False, units, trace)
+    hyb = _mode_run(torch, mx, att, cs, build, step, True, units)
+    row, ok = _ab_compare(
+        torch, eager[:2], hyb[:2],
+        lambda: _mode_run(torch, mx, att, cs, build, step, False, units)[:2])
+    _emit(dict(phase=name + "_hybridize", eager=eager[0],
+               hybridized=hyb[0], compare=row,
+               speedup=eager[0]["step_ms_median"] / hyb[0]["step_ms_median"],
+               memory_ratio=hyb[0]["max_memory_allocated"]
+               / eager[0]["max_memory_allocated"]))
+    _check(ok, "%s: the hybridized run differs from the eager one by more "
+           "than the eager rerun's spread: %r" % (name, row))
+    want = tuple(per_step_want)
+    totals = want[:3] + want[-1:]
+    for run in (eager[0], hyb[0]):
+        measured = tuple(run["profiled_launches_per_step"].values())
+        _check(measured == totals,
+               "%s (%s): a profiled step launched %r (fwd, dq, dkv, conv), "
+               "not %r" % (name, run["mode"], measured, totals))
+        _check(all(n > 0 for n, w in zip(run["launches"].values(), want)
+                   if w),
+               "%s (%s): a kernel of the path was not launched: %r"
+               % (name, run["mode"], run["launches"]))
+        _check(all(math.isfinite(v) for v in run["losses"]),
+               "%s (%s): non-finite loss" % (name, run["mode"]))
+    per_step, _ = eager[2]
+    _check(all(c == want for c in per_step),
+           "%s (eager) launched %r a step (%s, conv), not %r"
+           % (name, sorted(set(per_step)), ", ".join(_COUNT_KEYS), want))
+    per_step, warmup = hyb[2]
+    zero = (0,) * len(want)
+    _check(all(c == zero for c in per_step),
+           "%s (hybridized): a timed step ran a kernel wrapper: %r"
+           % (name, sorted(set(per_step))))
+    captured = [c for c, g in warmup
+                if g["captures"] and not g["eager_calls"]]
+    _check(captured == [want],
+           "%s (hybridized): the capturing warm-up steps issued %r, not "
+           "one step of %r" % (name, captured, want))
+    timed = hyb[0]["programs"]["during_timed_steps"]
+    _check(timed["captures"] == 0 and timed["eager_updates"] == 0
+           and timed["eager_calls"] == 0 and timed["replays"] > 0,
+           "%s: the hybridized timed steps did not only replay: %r"
+           % (name, timed))
+    return hyb[0]
 
 
 def _tf32(torch, x, nearest=True):
@@ -1369,6 +1638,15 @@ def _gluon_step(mx, net, trainer, loss_fn, x, y):
     return out, loss.detach().mean()
 
 
+def _gluon_build(mx):
+    """The Gluon loop's (net, loss, trainer), fresh from seed 0."""
+    def build():
+        net = _gluon_net(mx)
+        return net, mx.gluon.loss.SoftmaxCrossEntropyLoss(), \
+            _gluon_trainer(mx, net)
+    return build
+
+
 def _raw(torch, t):
     """A tensor's bits as integers (-0.0 and NaNs compare by bits)."""
     return t.detach().contiguous().view(
@@ -1462,17 +1740,21 @@ class _LogLines(logging.Handler):
 
 def phase_train_resnet_gluon(torch, mx, cs, resnet_row):
     """resnet50_v1b trained through the Gluon core surface as a user
-    writes the loop; returns the conv kernel's launches over the timed
-    steps.  Run A: 2 warm-up and 10 timed steps, saved after timed step
+    writes the loop, hybridized; returns the conv kernel's launches over
+    run A.  Run A: 2 warm-up and 10 timed steps, saved after timed step
     GLUON_SAVE_AT; its weight-decay step after them.  Run R: A's save
     loaded into fresh objects, timed steps 6-10 again.  Run B: A again
-    from the same seed, for the spread of the card's own losses."""
+    from the same seed, for the spread of the card's own losses.  The
+    first warm-up step runs eagerly and the second captures, so the
+    counters see 33 launches in each and none in the timed steps, which
+    replay; the profiled step's kernel names must show the 33."""
     from incubator_mxnet_tpu_torch.gluon.model_zoo.vision import get_model
     from incubator_mxnet_tpu_torch.gluon.parameter import is_deferred
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     x, y = _resnet_batch(torch)
     loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    loss_fn.hybridize()
     os.makedirs(BUILD, exist_ok=True)
     scratch = tempfile.TemporaryDirectory(dir=BUILD)
     p_file, s_file, b_file = (os.path.join(scratch.name, f)
@@ -1486,11 +1768,15 @@ def phase_train_resnet_gluon(torch, mx, cs, resnet_row):
     metric = mx.metric.CompositeEvalMetric([mx.metric.Accuracy(),
                                             mx.metric.TopKAccuracy(5)])
     speed = mx.callback.Speedometer(RESNET_BATCH, frequent=5)
+    cs.conv1x1_stats_launches = 0       # the main path starts here
     _gluon_step(mx, net, trainer, loss_fn, x, y)
+    warm_steps = [cs.conv1x1_stats_launches]
     still_waiting = [n for n, p in params.items() if is_deferred(p)]
     shapes = {n: list(p.shape) for n, p in params.items()}
     for _ in range(TRAIN_WARMUP - 1):
+        before = cs.conv1x1_stats_launches
         _gluon_step(mx, net, trainer, loss_fn, x, y)
+        warm_steps.append(cs.conv1x1_stats_launches - before)
     torch.cuda.synchronize()
     speed(_BatchEnd(0, 0, metric, None))    # the first interval starts
     events = [(torch.cuda.Event(enable_timing=True),
@@ -1498,7 +1784,6 @@ def phase_train_resnet_gluon(torch, mx, cs, resnet_row):
               for _ in range(TRAIN_STEPS)]
     losses, per_step, lrs = [], [], []
     save_s = 0.0
-    cs.conv1x1_stats_launches = 0       # the main path starts here
     t0 = time.perf_counter()
     with _LogLines() as log:
         for k in range(1, TRAIN_STEPS + 1):
@@ -1571,6 +1856,7 @@ def phase_train_resnet_gluon(torch, mx, cs, resnet_row):
     del net2_bf16, net3, ref_bf16
 
     # run R: timed steps GLUON_SAVE_AT + 1 .. TRAIN_STEPS from the save
+    net2.hybridize(static_alloc=True, static_shape=True)
     resumed = [_gluon_step(mx, net2, trainer2, loss_fn, x, y)[1]
                for _ in range(TRAIN_STEPS - GLUON_SAVE_AT)]
     resumed = [v.item() for v in resumed]
@@ -1605,6 +1891,7 @@ def phase_train_resnet_gluon(torch, mx, cs, resnet_row):
                step_ms=step_ms, **summary, wall_s=wall, save_s=save_s,
                train_resnet=dict((k, resnet_row[k]) for k in summary),
                losses=losses, conv1x1_stats_launches=launches,
+               warmup_launches=warm_steps,
                launches_per_step=sorted(set(per_step)),
                deferred_before_initialize=len(seen["before_initialize"]),
                deferred_after_initialize=seen["after_initialize"],
@@ -1617,9 +1904,12 @@ def phase_train_resnet_gluon(torch, mx, cs, resnet_row):
                bf16_params_bit_equal=same_bf16, restored=restored,
                resumed_losses=resumed, rerun_losses=rerun[tail],
                rerun_spread=spread, resume_err=resume_err))
-    _check(all(c == RESNET_SITES for c in per_step),
-           "a Gluon-loop step launched the conv kernel %r times, not %d"
-           % (per_step, RESNET_SITES))
+    _check(warm_steps == [RESNET_SITES] * TRAIN_WARMUP
+           and not any(per_step),
+           "the Gluon loop's wrappers launched the conv kernel %r times in "
+           "the warm-up steps (eager, then the capture), not %d each, and "
+           "%r times in the replayed timed steps, not 0"
+           % (warm_steps, RESNET_SITES, sorted(set(per_step))))
     _check(len(seen["before_initialize"]) == len(shapes)
            and seen["after_initialize"] == ["features.0.weight"]
            and not still_waiting,
@@ -1654,9 +1944,13 @@ def phase_train_resnet_gluon(torch, mx, cs, resnet_row):
            "uninterrupted runs" % (resume_err, spread))
     _check(len(log.lines) == TRAIN_STEPS // 5, "Speedometer logged %r"
            % (log.lines,))
-    _profile(torch, lambda: _gluon_step(mx, net, trainer, loss_fn, x, y), 1,
-             top=16, phase="train_resnet_gluon_profile",
-             batch=[RESNET_BATCH, 3, 224, 224], steps=1)
+    kernels = _profile(
+        torch, lambda: _gluon_step(mx, net, trainer, loss_fn, x, y), 1,
+        top=16, phase="train_resnet_gluon_profile",
+        batch=[RESNET_BATCH, 3, 224, 224], steps=1)
+    _check(_profiled_counts(kernels) == (0, 0, 0, RESNET_SITES),
+           "a replayed Gluon-loop step launched %r of the port's kernels, "
+           "not %d conv" % (kernels, RESNET_SITES))
     return launches
 
 
@@ -1908,6 +2202,57 @@ def phase_train_nmt(torch, mx, att):
     return launches
 
 
+def _mlm_build(mx, net_fn, vocab, units, dtype=None):
+    """(net, FusedMLMCELoss, Adam lr 1e-4) fresh from seed 0, cast to
+    `dtype` where given, as the training phases build them."""
+    def build():
+        mx.random.seed(0)
+        net, head = net_fn(), mx.models.FusedMLMCELoss(vocab, units,
+                                                       device="cuda:0")
+        if dtype is not None:
+            net.cast(dtype)
+            head.cast(dtype)
+        params = dict(net.collect_params())
+        params.update({"loss." + n: p
+                       for n, p in head.collect_params().items()})
+        return net, head, mx.gluon.Trainer(params, "adam",
+                                           {"learning_rate": 1e-4})
+    return build
+
+
+def phase_hybridize_all(torch, mx, att, cs):
+    """train_bf16, train_nmt and train_resnet_gluon, each eager and
+    hybridized as bench.py hybridizes them (`phase_hybridize`), with the
+    host trace of one eager bf16 and NMT step; returns the hybridized
+    runs by path."""
+    rs = np.random.RandomState(0)
+    tokens = rs.randint(0, 30522, (BF16_BATCH, SEQ)).astype(np.int32)
+    labels = rs.randint(0, 30522, (BF16_BATCH, SEQ)).astype(np.float32)
+    x, y = torch.from_numpy(tokens).cuda(), torch.from_numpy(labels).cuda()
+    out = {}
+    flash = lambda causal: (12,) * 3 + (causal,) * 3 + (0,)   # noqa: E731
+    out["train_bf16"] = phase_hybridize(
+        torch, mx, att, cs, "train_bf16",
+        _mlm_build(mx, lambda: mx.models.bert_base(
+            dropout=0.0, output_hidden=True, device="cuda:0"), 30522, 768,
+            "bfloat16"),
+        lambda n, h, t: _train_step(mx, n, h, t, (x,), y).mean(),
+        BF16_BATCH * SEQ, flash(0), trace=True)
+    src, tgt, lab = (torch.from_numpy(a).cuda() for a in _nmt_data())
+    out["train_nmt"] = phase_hybridize(
+        torch, mx, att, cs, "train_nmt",
+        _mlm_build(mx, lambda: _nmt_model(mx, "cuda:0", output_hidden=True),
+                   NMT_VOCAB, NMT_UNITS),
+        lambda n, h, t: _train_step(mx, n, h, t, (src, tgt), lab).mean(),
+        NMT_BATCH * NMT_SEQ, flash(NMT_LAYERS), trace=True)
+    img, ilab = _resnet_batch(torch)
+    out["train_resnet_gluon"] = phase_hybridize(
+        torch, mx, att, cs, "train_resnet_gluon", _gluon_build(mx),
+        lambda n, h, t: _gluon_step(mx, n, t, h, img, ilab)[1],
+        RESNET_BATCH, (0,) * 6 + (RESNET_SITES,))
+    return out
+
+
 def phase_decode_nmt(torch, mx, att):
     """transformer_nmt_base's cached decode on cuda:0: init_cache, then
     NMT_DECODE_STEPS greedy decode_steps, each step's logits held against
@@ -2096,6 +2441,7 @@ def main():
     gluon_launches = phase_train_resnet_gluon(torch, mx, cs, resnet_row)
     nmt_launches = phase_train_nmt(torch, mx, att)
     phase_decode_nmt(torch, mx, att)
+    hyb = phase_hybridize_all(torch, mx, att, cs)
 
     def nmt(kernel):
         """A flash row's NMT-path and bf16-path launches and their shapes'
@@ -2106,7 +2452,10 @@ def main():
                                           NMT_CASES),
                     bf16_launches=bf16_launches[kernel],
                     bf16_shape=_shape_rows(fwd_rows, bwd_rows, kernel,
-                                           BF16_CASES)["non_causal"])
+                                           BF16_CASES)["non_causal"],
+                    hybridized_launches_per_step={
+                        p: hyb[p]["profiled_launches_per_step"][kernel]
+                        for p in ("train_bf16", "train_nmt")})
     shape = dict(shape=[main_row["BH"], main_row["T"], main_row["d"]],
                  dtype=main_row["dtype"])
     bwd_src = "incubator_mxnet_tpu_torch/ops/csrc/flash_attention_bwd.cu"
@@ -2150,6 +2499,9 @@ def main():
              source="incubator_mxnet_tpu_torch/ops/csrc/conv1x1_stats.cu",
              replaces="tools/conv_stats_pallas_experiment.py:9",
              launches=conv_launches, gluon_launches=gluon_launches,
+             hybridized_launches_per_step=dict(
+                 train_resnet_gluon=hyb["train_resnet_gluon"]
+                 ["profiled_launches_per_step"]["conv"]),
              parity="ok",
              max_abs_err=conv_step["max_abs_err"], ms=conv_step["ms"],
              plain_ms=conv_step["plain_ms"], bound_ms=conv_step["bound_ms"],

@@ -18,12 +18,24 @@ incubator_mxnet_tpu/autograd.py) on top of torch's own autograd.
   running torch's backward, `backward` clears `.grad` of every leaf that
   the heads reach, except a `gluon.Parameter` with grad_req 'add', whose
   gradient sums over backwards until its `zero_grad()`.
+* A hybridized block's backward is a captured program
+  (`gluon.block`, `graph_capture`) that `GraphedCall`, a
+  `torch.autograd.Function`, replays.  It writes its parameters'
+  gradients into one buffer per parameter that persists across steps
+  (`grad_buffer`), overwriting it for 'write' and adding to it for 'add',
+  and that buffer is the parameter's `.grad`, so a captured update reads
+  the same storage every step.  Several contributions to one parameter
+  within one backward pass (from two calls of a block, or from a block
+  and eager code) sum, as in eager torch: a contribution already made in
+  this pass is kept aside and added back after the replay overwrites the
+  buffer.
 """
 from __future__ import annotations
 
 import threading
 
 import torch
+from torch.utils.weak import WeakIdKeyDictionary
 
 from .base import MXNetError
 
@@ -142,3 +154,116 @@ def backward(heads, head_grads=None, retain_graph=False):
         if getattr(leaf, "grad_req", "write") == "write":
             leaf.grad = None
     torch.autograd.backward(heads, grads, retain_graph=retain_graph)
+
+
+# -- gradients of captured backwards ---------------------------------------
+
+#: parameter -> its persistent gradient buffer
+_GRAD_BUFFERS = WeakIdKeyDictionary()
+#: parameter -> the id of the last backward pass that gave it a gradient
+_GRAD_PASS = WeakIdKeyDictionary()
+
+
+def _mark_pass(param):
+    """Post-accumulate hook: an eager backward gave `param` a gradient."""
+    _GRAD_PASS[param] = torch._C._current_graph_task_id()
+
+
+def grad_buffer(param):
+    """The gradient buffer of `param` that captured backwards write: made
+    once (zeros) per shape, dtype and device, and kept across steps."""
+    buf = _GRAD_BUFFERS.get(param)
+    if (buf is None or buf.shape != param.shape
+            or buf.dtype != param.dtype or buf.device != param.device):
+        if param not in _GRAD_PASS:
+            param.register_post_accumulate_grad_hook(_mark_pass)
+            _GRAD_PASS[param] = None
+        buf = torch.zeros_like(param, requires_grad=False)
+        _GRAD_BUFFERS[param] = buf
+    return buf
+
+
+def has_stable_grad(param):
+    """Whether `param.grad` is its persistent buffer."""
+    grad = param.grad
+    return grad is not None and grad is _GRAD_BUFFERS.get(param)
+
+
+@torch.no_grad()
+def _deliver_begin(deliveries, task):
+    """Before a captured backward writes [(param, buffer, grad_req)]: an
+    'add' parameter's gradient moves into its buffer; a 'write'
+    parameter that already has a gradient from this pass keeps it aside
+    (returned) to be added back."""
+    kept = []
+    for p, buf, req in deliveries:
+        grad = p.grad
+        if req == "add":
+            if grad is not buf:
+                buf.zero_() if grad is None else buf.copy_(grad)
+                p.grad = buf
+        elif grad is not None and _GRAD_PASS.get(p) == task:
+            kept.append((buf, grad.clone() if grad is buf else grad))
+    return kept
+
+
+@torch.no_grad()
+def _deliver_end(deliveries, kept, task):
+    for buf, grad in kept:
+        buf.add_(grad)
+    for p, buf, _ in deliveries:
+        if p.grad is not buf:
+            p.grad = buf
+        _GRAD_PASS[p] = task
+
+
+def deliver(deliveries, grads):
+    """Inside a captured backward: write each gradient into its buffer,
+    overwriting ('write') or adding ('add')."""
+    for (_, buf, req), g in zip(deliveries, grads):
+        if req == "add":
+            buf.add_(g)
+        else:
+            buf.copy_(g)
+
+
+class _Release:
+    """Frees a captured program for another forward once the autograd
+    node of its forward is gone."""
+
+    def __init__(self, program):
+        self.program, self.generation = program, program.generation
+
+    def __del__(self):
+        if self.program.generation == self.generation:
+            self.program.busy = False
+
+
+class GraphedCall(torch.autograd.Function):
+    """A hybridized block's call under `record()`: the forward replays
+    `program` (which copies `inputs` into its static inputs and returns
+    clones of its static outputs), the backward replays its captured
+    backward.  `anchor` is a tensor that requires grad and gets none."""
+
+    @staticmethod
+    def forward(ctx, program, anchor, *inputs):
+        outs = program.forward(inputs)
+        ctx.program = program
+        ctx.release = _Release(program)
+        ctx.mark_non_differentiable(
+            *(o for o, req in zip(outs, program.out_requires_grad)
+              if not req))
+        return tuple(outs)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, *grads):
+        program = ctx.program
+        if program.generation != ctx.release.generation:
+            raise MXNetError(
+                "a hybridized block was called again before the backward "
+                "of an earlier call: its captured program keeps one "
+                "call's activations; run backward first, or "
+                "hybridize(active=False)")
+        task = torch._C._current_graph_task_id()
+        return (None, None) + tuple(program.backward(grads, task))

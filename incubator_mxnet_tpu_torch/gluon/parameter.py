@@ -32,6 +32,11 @@ Life cycle, as in the JAX package:
 the gradient; 'add' keeps adding to it until `zero_grad()`; 'null' is
 `requires_grad=False`, and the Trainer neither updates it nor creates
 optimizer state for it.
+
+`set_data`, `cast`, `reset_ctx`, materialisation and a forced
+re-initialization mark the parameter (`touch`), so that the captured
+programs that read it (`HybridBlock.hybridize`, `Trainer`) are captured
+again.
 """
 from __future__ import annotations
 
@@ -65,6 +70,14 @@ def is_deferred(param):
     return isinstance(param, _DeferredParameter)
 
 
+def touch(param):
+    """Mark `param`'s data as replaced or rewritten outside training: a
+    hybridized block's and a Trainer's captured programs that read it are
+    captured again (`gluon.block`, `gluon.trainer`)."""
+    param.__dict__["_graph_version"] = \
+        param.__dict__.get("_graph_version", 0) + 1
+
+
 @torch.no_grad()
 def cast_parameter(param, dtype):
     """Cast `param` (any `nn.Parameter`) in place to `dtype`, keeping the
@@ -74,6 +87,7 @@ def cast_parameter(param, dtype):
     if param.dtype != dt:
         param.data = param.data.to(dt)
         param.grad = None
+        touch(param)
 
 
 def _one_device(ctx):
@@ -176,6 +190,7 @@ class Parameter(nn.Parameter):
                 self.data = self.data.to(dev)
                 self.grad = None
             self._fill(init, default_init)
+            touch(self)
             return
         if not self._shape_known():
             if not self.allow_deferred_init:
@@ -194,6 +209,7 @@ class Parameter(nn.Parameter):
         """Allocate the tensor (uninitialized values) on `dev` and become
         the final class."""
         self.data = torch.empty(self._shape, device=dev, dtype=self.dtype)
+        touch(self)
         self.__dict__["_deferred_init"] = None
         self.__class__ = self.__dict__["_final_cls"]
         self.requires_grad_(self.grad_req != "null")
@@ -266,6 +282,7 @@ class Parameter(nn.Parameter):
                                  % self.name)
             self._materialize(self.data.device)
         self.data.copy_(data)
+        touch(self)
 
     def _load_and_set(self, data, ctx=None):
         """Set from a loaded tensor; a parameter without data takes its
@@ -290,6 +307,7 @@ class Parameter(nn.Parameter):
             self._check_initialized()
         self.data = self.data.to(dev)
         self.grad = None
+        touch(self)
 
     def cast(self, dtype):
         """Cast in place to `dtype`, keeping the object; its gradient is

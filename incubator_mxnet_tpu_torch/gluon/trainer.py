@@ -23,14 +23,37 @@ counts included), as the JAX Trainer does; after `load_states`,
 `trainer.optimizer` is the loaded one.  With one device there is no
 kvstore; parameters on several devices, or a `dist` kvstore, raise
 "not yet ported".
+
+Each `step` runs the optimizer's host bookkeeping (`Optimizer._hypers`:
+update counts, the scheduler's lr, the multipliers, Adam's bias
+correction) and writes the lr and wd and the `rescale_grad` into one
+static f32 vector on the device (`optimizer.Hypers`), one slot per
+distinct (lr, wd) pair, from which the device update reads them.
+When every live parameter's gradient is in its persistent buffer (a
+hybridized block's backward put it there, `autograd.grad_buffer`), the
+device update is one captured program (`graph_capture`, a CUDA graph on
+the card), keyed by the live parameters, the storage and dtypes of
+their weights, gradients and states, and the optimizer's constants: it
+is captured once an eager update has run with the same key but the
+gradients' storage (which loaded its kernels), and replayed from then
+on, so that an lr a scheduler or `set_learning_rate` changes, and
+Adam's bias correction, reach every replay with no capture.  Otherwise
+the update runs eagerly, the same code on the same hyper vector: with
+gradients a backward left in new storage, under `contrib.amp`'s loss
+scaler (whose overflow check reads the device on the host), and for an
+optimizer with only `update`.
+`captures`, `replays` and `eager_updates` count the three.
+`load_states` drops the captured update.
 """
 from __future__ import annotations
 
 from torch import nn
 
+from .. import autograd as _ag
+from .. import graph_capture as _capture
 from .. import optimizer as opt_mod
 from ..base import MXNetError
-from ..optimizer.optimizer import _map_state
+from ..optimizer.optimizer import Hypers, _map_state
 from .parameter import Parameter, is_deferred
 
 __all__ = ["Trainer"]
@@ -73,6 +96,10 @@ class Trainer:
             self._optimizer = opt_mod.create(optimizer, **optimizer_params)
         self._optimizer.param_dict = dict(enumerate(self._params))
         self._updater = opt_mod.get_updater(self._optimizer)
+        self._hypers = Hypers()
+        self._program = None        # (key, captured update)
+        self._warm_key = None
+        self.captures = self.replays = self.eager_updates = 0
 
     @property
     def learning_rate(self):
@@ -114,21 +141,65 @@ class Trainer:
                     "or pass ignore_stale_grad=True"
                     % (i, tuple(p.shape)))
             live.append(i)
-        updater = self._updater
-        opt = self._optimizer
-        if not opt.aggregatable or opt.multi_precision:
-            for i in live:
-                updater(i, self._params[i].grad, self._params[i].data)
+        if not live:
             return
+        opt = self._optimizer
+        params = self._params
+        if opt._device_one is None:
+            self.eager_updates += 1
+            for i in live:
+                self._updater(i, params[i].grad, params[i].data)
+            return
+        states = self._updater.states
         for i in live:
-            if i not in updater.states:
-                updater.states[i] = opt.create_state_multi_precision(
-                    i, self._params[i].data)
-        if live:
-            opt.update_multi(
-                live, [self._params[i].data for i in live],
-                [self._params[i].grad for i in live],
-                [updater.states[i] for i in live])
+            if i not in states:
+                states[i] = opt.create_state_multi_precision(
+                    i, params[i].data)
+        lrs, wds = opt._hypers(live)
+        weights = [params[i].data for i in live]
+        grads = [params[i].grad for i in live]
+        sts = [states[i] for i in live]
+        hypers = self._hypers.write(lrs, wds, opt.rescale_grad,
+                                    weights[0].device)
+
+        def run():
+            opt._device_update(live, weights, grads, sts, hypers)
+
+        warm = self._update_key(live, weights, sts, hypers)
+        if (getattr(self, "_amp_loss_scaler", None) is not None
+                or not all(_ag.has_stable_grad(params[i]) for i in live)
+                or self._warm_key != warm):
+            if self._warm_key != warm:
+                self._program = None
+            self.eager_updates += 1
+            self._warm_key = warm
+            run()
+            return
+        key = (warm, tuple(g.data_ptr() for g in grads))
+        if self._program is not None and self._program[0] == key:
+            self._program[1].replay()
+            self.replays += 1
+            return
+        program, _ = _capture.capture(run, weights[0].device)
+        self._program = (key, program)
+        self.captures += 1
+        if not program.ran:
+            program.replay()
+
+    def _update_key(self, live, weights, states, hypers):
+        """What a captured update depends on, but the gradients' storage:
+        an eager update with the same key loads every kernel that its
+        capture launches."""
+        flat = []
+        for s in states:
+            _map_state(lambda t: flat.append((t.data_ptr(), t.dtype)), s)
+        params = self._params
+        return (tuple(live), hypers.layout, hypers.vec.data_ptr(),
+                self._optimizer._static_key(),
+                tuple((w.data_ptr(), w.dtype,
+                       params[i].__dict__.get("_graph_version", 0))
+                      for i, w in zip(live, weights)),
+                tuple(flat))
 
     def save_states(self, fname):
         """Write the optimizer's states and the optimizer to `fname`."""
@@ -142,6 +213,7 @@ class Trainer:
         bound to this Trainer's parameters."""
         with open(fname, "rb") as f:
             self._updater.set_states(f.read())
+        self._program = self._warm_key = None
         self._optimizer = self._updater.optimizer
         self._optimizer.param_dict = dict(enumerate(self._params))
         states = self._updater.states

@@ -27,6 +27,7 @@ import torch.nn.functional as F
 
 from . import conv_stats as _conv_stats
 from .. import config as _config
+from .. import random as _rnd
 from ..base import torch_dtype as _torch_dtype
 
 __all__ = ["fully_connected", "convolution", "conv1x1_bn_stats",
@@ -274,12 +275,14 @@ def leaky_relu(data, act_type):
 
 def dropout(data, p=0.5, training=False, generator=None):
     """Inverted dropout drawn from `generator`; the identity unless
-    `training` and p > 0."""
+    `training` and p > 0.  Inside a checkpointed forward's recompute the
+    forward's mask is used again (`random.remat_mask`)."""
     if not training or p <= 0.0:
         return data
     keep = 1.0 - p
-    mask = torch.rand(data.shape, generator=generator, device=data.device,
-                      dtype=torch.float32) < keep
+    mask = _rnd.remat_mask(lambda: torch.rand(
+        data.shape, generator=generator, device=data.device,
+        dtype=torch.float32) < keep)
     return data * mask.to(data.dtype) / keep
 
 

@@ -17,6 +17,20 @@ are cast back to each buffer's dtype once (`_fused`, `_update_one`): a
 weight or state that is not f32 is updated through an f32 copy that is
 written back once, so a bf16 step rounds once and not after every op.
 f32 tensors are updated in place as they are.
+
+`lr`, `wd` and `rescale_grad` are Python numbers or 0-dim f32 tensors on
+the weight's device.  The optimizers pass tensors (`optimizer.Optimizer`
+writes each step's values into them), so that an update captured in a
+CUDA graph reads each replay's values instead of the ones frozen at
+capture; a tensor `wd` is always applied, with no branch on its value.
+Numbers stay, as the JAX ops take them: a direct caller of these ops
+gets the arithmetic they always had, which the JAX parity tests hold:
+`g + wd w` as one `add` with alpha (one rounding where the kernel fuses
+it) and Adam's step as one `addcdiv`.  With tensors `wd w` and Adam's
+`m / d` are rounded on their own, the same arithmetic whether captured
+or not.  The multi-tensor forms take a list of numbers per pair, or one
+tensor lr and one tensor wd for the whole list (the optimizers call them
+once per group of parameters that share both).
 """
 from __future__ import annotations
 
@@ -40,6 +54,14 @@ def _write_back(pairs):
             dst.copy_(src)
 
 
+def _add_wd_(g, w, wd):
+    """g += wd w in place: one `add` with alpha for a number, a product
+    and a sum for a tensor."""
+    if isinstance(wd, torch.Tensor):
+        return g.add_(w * wd)
+    return g.add_(w, alpha=wd)
+
+
 def _prep_grad(grad, rescale_grad, clip_gradient):
     g = _f32(grad) * rescale_grad
     if clip_gradient is not None and clip_gradient > 0:
@@ -53,7 +75,7 @@ def sgd_update(weight, grad, lr=0.01, wd=0.0, rescale_grad=1.0,
     """w -= lr (g + wd w), in place, with g the prepared gradient."""
     w = _f32(weight)
     g = _prep_grad(grad, rescale_grad, clip_gradient)
-    g.add_(w, alpha=wd)
+    _add_wd_(g, w, wd)
     w.sub_(g.mul_(lr))
     _write_back(((weight, w),))
 
@@ -64,7 +86,7 @@ def sgd_mom_update(weight, grad, mom, lr=0.01, momentum=0.0, wd=0.0,
     """mom = momentum mom - lr (g + wd w);  w += mom, both in place."""
     w, m = _f32(weight), _f32(mom)
     g = _prep_grad(grad, rescale_grad, clip_gradient)
-    g.add_(w, alpha=wd)
+    _add_wd_(g, w, wd)
     m.mul_(momentum).sub_(g.mul_(lr))
     w.add_(m)
     _write_back(((weight, w), (mom, m)))
@@ -97,31 +119,41 @@ def _multi_prep(weights, grads, wds, rescale_grad, clip_gradient):
     if clip_gradient is not None and clip_gradient > 0:
         torch._foreach_clamp_min_(g, -clip_gradient)
         torch._foreach_clamp_max_(g, clip_gradient)
-    torch._foreach_add_(g, torch._foreach_mul(weights, list(wds)))
+    torch._foreach_add_(g, torch._foreach_mul(weights, wds))
     return g
+
+
+def _one_or_list(h):
+    return h if isinstance(h, torch.Tensor) else list(h)
 
 
 @torch.no_grad()
 def multi_sgd_update(weights, grads, lrs, wds, rescale_grad=1.0,
-                     clip_gradient=-1.0):
-    """`sgd_update` of every (weight, grad) pair, lr and wd per pair."""
+                     clip_gradient=-1.0, moms=None, momentum=0.0):
+    """`sgd_update` (with `moms`, `sgd_mom_update`) of every (weight,
+    grad): `lrs` and `wds` are lists of numbers, one per pair, or one
+    0-dim tensor each for all the pairs, whose `_foreach_*` products
+    round as the per-tensor ops' do."""
+    lrs, wds = _one_or_list(lrs), _one_or_list(wds)
     ws = [_f32(w) for w in weights]
     g = _multi_prep(ws, grads, wds, rescale_grad, clip_gradient)
-    torch._foreach_sub_(ws, torch._foreach_mul(g, list(lrs)))
-    _write_back(zip(weights, ws))
-
-
-@torch.no_grad()
-def multi_sgd_mom_update(weights, grads, moms, lrs, wds, momentum=0.0,
-                         rescale_grad=1.0, clip_gradient=-1.0):
-    """`sgd_mom_update` of every (weight, grad, mom), lr and wd per
-    triple."""
-    ws, ms = [_f32(w) for w in weights], [_f32(m) for m in moms]
-    g = _multi_prep(ws, grads, wds, rescale_grad, clip_gradient)
+    if moms is None:
+        torch._foreach_sub_(ws, torch._foreach_mul(g, lrs))
+        _write_back(zip(weights, ws))
+        return
+    ms = [_f32(m) for m in moms]
     torch._foreach_mul_(ms, momentum)
-    torch._foreach_sub_(ms, torch._foreach_mul(g, list(lrs)))
+    torch._foreach_sub_(ms, torch._foreach_mul(g, lrs))
     torch._foreach_add_(ws, ms)
     _write_back(zip(list(weights) + list(moms), ws + ms))
+
+
+def multi_sgd_mom_update(weights, grads, moms, lrs, wds, momentum=0.0,
+                         rescale_grad=1.0, clip_gradient=-1.0):
+    """`sgd_mom_update` of every (weight, grad, mom); `lrs` and `wds` as
+    in `multi_sgd_update`."""
+    multi_sgd_update(weights, grads, lrs, wds, rescale_grad, clip_gradient,
+                     moms=moms, momentum=momentum)
 
 
 @torch.no_grad()
@@ -131,7 +163,7 @@ def nag_mom_update(weight, grad, mom, lr=0.01, momentum=0.0, wd=0.0,
     mom = momentum mom + g,  w -= lr (g + momentum mom)."""
     w, m = _f32(weight), _f32(mom)
     g = _prep_grad(grad, rescale_grad, clip_gradient)
-    g.add_(w, alpha=wd)
+    _add_wd_(g, w, wd)
     m.mul_(momentum).add_(g)
     w.sub_(g.add_(m, alpha=momentum).mul_(lr))
     _write_back(((weight, w), (mom, m)))
@@ -146,9 +178,13 @@ def adam_update(weight, grad, mean, var, lr=0.001, beta1=0.9, beta2=0.999,
     wd * weight.  `lr` carries any bias correction."""
     w, m, v = _f32(weight), _f32(mean), _f32(var)
     g = _prep_grad(grad, rescale_grad, clip_gradient)
-    if wd:
-        g.add_(w, alpha=wd)
+    if isinstance(wd, torch.Tensor) or wd:
+        _add_wd_(g, w, wd)
     m.mul_(beta1).add_(g, alpha=1.0 - beta1)
     v.mul_(beta2).addcmul_(g, g, value=1.0 - beta2)
-    w.addcdiv_(m, v.sqrt().add_(epsilon), value=-lr)
+    denom = v.sqrt().add_(epsilon)
+    if isinstance(lr, torch.Tensor):
+        w.sub_(torch.div(m, denom).mul_(lr))
+    else:
+        w.addcdiv_(m, denom, value=-lr)
     _write_back(((weight, w), (mean, m), (var, v)))

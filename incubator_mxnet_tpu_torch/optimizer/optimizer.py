@@ -13,9 +13,27 @@ the state's own dtype.  With `multi_precision=True` a float16 weight is
 updated through an f32 master copy kept in its state, exactly as the
 JAX condition `weight.dtype == float16` says; any other dtype (bf16
 included) takes the plain update.  An optimizer with
-`aggregatable = True` (SGD) also has `update_multi`, which the Trainer
-calls once for all its parameters.  The other optimizers of the JAX
-package are not yet ported.
+`aggregatable = True` (SGD, Adam) also has `update_multi`, which the
+Trainer takes for all its parameters at once, as the JAX Trainer's
+aggregated path does; NAG updates tensor by tensor, as in the JAX
+package.  The other optimizers of the JAX package are not yet ported.
+
+Each update is split in two, so that a `gluon.Trainer` can capture the
+device part once and replay it (`graph_capture`):
+
+* host bookkeeping, `_hypers(indices)`: the update counts, the
+  scheduler's learning rate, the lr and wd multipliers and Adam's bias
+  correction, as Python numbers, every step;
+* the device update, `_device_update(..., hypers)`, which reads the
+  lr, wd and `rescale_grad` as 0-dim f32 tensors and branches on no
+  hyper value.  `Hypers` holds them: one f32 vector on the device
+  (`_hyper_array`, the counterpart of the JAX package's `_hyper_array`,
+  "so schedules don't recompile") with one slot per distinct (lr, wd)
+  pair, and the parameters grouped by slot, which the multi-tensor
+  updates take one group at a time.
+
+`update`, `update_multi_precision` and `update_multi` run both parts,
+with the values put on the weight's device each call.
 """
 from __future__ import annotations
 
@@ -123,6 +141,21 @@ class Optimizer:
     def _get_wd(self, index):
         return self.wd * self._get_mult(index, "wd_mult", self.wd_mult)
 
+    def _index_lr(self, index):
+        """The lr that an update of `index` takes, its count already
+        taken."""
+        return self._get_lr(index)
+
+    def _hypers(self, indices):
+        """Host bookkeeping of one update of each of `indices`, in order:
+        count it, then read its lr and wd.  Returns ([lr], [wd])."""
+        lrs, wds = [], []
+        for i in indices:
+            self._update_count(i)
+            lrs.append(self._index_lr(i))
+            wds.append(self._get_wd(i))
+        return lrs, wds
+
     def create_state(self, index, weight):
         return None
 
@@ -138,21 +171,130 @@ class Optimizer:
             return self.create_state(index, w32), w32
         return self.create_state(index, weight)
 
+    #: the device update of one tensor, (index, weight, grad, state, lr,
+    #: wd, rescale_grad) with 0-dim tensor hypers; None for an optimizer
+    #: that has only `update`
+    _device_one = None
+
+    def _device_one_mp(self, index, weight, grad, state, lr, wd, rescale):
+        """`_device_one`, or for a master-copied weight the update of its
+        f32 copy from the f32 gradient, rounded into `weight`."""
+        if self._master_copy(weight):
+            inner, w32 = state
+            self._device_one(index, w32, grad.float(), inner, lr, wd,
+                             rescale)
+            weight.copy_(w32)
+        else:
+            self._device_one(index, weight, grad, state, lr, wd, rescale)
+
+    def _device_multi(self, indices, weights, grads, states, hypers):
+        """The aggregated device update: tensor by tensor here."""
+        for pos, args in enumerate(zip(indices, weights, grads, states)):
+            self._device_one(*args, *hypers.at(pos))
+
+    def _device_update(self, indices, weights, grads, states, hypers):
+        """The device part of one update of `indices`, with their hypers
+        (`Hypers`, in the same order): the aggregated path for an
+        aggregatable optimizer without master copies, else tensor by
+        tensor."""
+        if self.aggregatable and not self.multi_precision:
+            self._device_multi(indices, weights, grads, states, hypers)
+            return
+        for pos, args in enumerate(zip(indices, weights, grads, states)):
+            self._device_one_mp(*args, *hypers.at(pos))
+
+    def _static_key(self):
+        """The constants that a captured device update holds as numbers:
+        changing one calls for another capture."""
+        return (type(self), self.clip_gradient, self.multi_precision,
+                self.aggregatable) + tuple(
+                    getattr(self, n, None)
+                    for n in ("momentum", "beta1", "beta2", "epsilon"))
+
+    def _run_one(self, device_fn, index, weight, grad, state):
+        """Host bookkeeping of one update of `index`, then `device_fn`
+        with its hypers on the weight's device."""
+        hypers = Hypers().write(*self._hypers([index]), self.rescale_grad,
+                                weight.device)
+        device_fn(index, weight, grad, state, *hypers.at(0))
+
     def update(self, index, weight, grad, state):
-        raise NotImplementedError
+        if self._device_one is None:
+            raise NotImplementedError
+        self._run_one(self._device_one, index, weight, grad, state)
 
     def update_multi_precision(self, index, weight, grad, state):
         """`update`, or for a master-copied weight the update of its f32
         copy from the f32 gradient, rounded into `weight`."""
-        if self._master_copy(weight):
+        if self._device_one is not None:
+            self._run_one(self._device_one_mp, index, weight, grad, state)
+        elif self._master_copy(weight):
             inner, w32 = state
             self.update(index, w32, grad.float(), inner)
             weight.copy_(w32)
         else:
             self.update(index, weight, grad, state)
 
+    def update_multi(self, indices, weights, grads, states):
+        """One aggregated update of the parameters at `indices`."""
+        indices = list(indices)
+        hypers = Hypers().write(*self._hypers(indices), self.rescale_grad,
+                                weights[0].device)
+        self._device_multi(indices, weights, grads, states, hypers)
+
     #: whether `update_multi` updates a list of parameters at once
     aggregatable = False
+
+
+class Hypers:
+    """The lr, wd and `rescale_grad` of one update of a list of
+    parameters, as 0-dim f32 views of one vector on the device: one slot
+    per distinct (lr, wd) pair, in order of first use, then the rescale.
+    `write` puts a step's values in, into the same vector while the
+    layout (the slot of each position) holds, so that an update captured
+    on these views reads each step's values.  `groups` lists (positions,
+    lr, wd) per slot; `at(pos)` gives (lr, wd, rescale) of a position."""
+
+    def __init__(self):
+        self.layout = self.vec = None
+
+    def write(self, lrs, wds, rescale, device):
+        slots = {}
+        layout = tuple(slots.setdefault(h, len(slots))
+                       for h in zip(lrs, wds))
+        values = [lr for lr, _ in slots] + [wd for _, wd in slots] \
+            + [rescale]
+        if (self.vec is not None and layout == self.layout
+                and self.vec.device == torch.device(device)):
+            _hyper_array(values, device, out=self.vec)
+            return self
+        self.layout, self.vec = layout, _hyper_array(values, device)
+        m = len(slots)
+        views = self.vec.unbind()
+        self.lr, self.wd, self.rescale = views[:m], views[m:2 * m], \
+            views[2 * m]
+        self.groups = [([p for p, k in enumerate(layout) if k == slot],
+                        self.lr[slot], self.wd[slot]) for slot in range(m)]
+        return self
+
+    def at(self, pos):
+        slot = self.layout[pos]
+        return self.lr[slot], self.wd[slot], self.rescale
+
+
+def _hyper_array(values, device, out=None):
+    """`values` as one f32 vector on `device` (ref: the JAX package's
+    `_hyper_array`), written into `out` when given: from pinned memory
+    without waiting on a card, whose caching host allocator keeps the
+    pinned block until the copy has run."""
+    host = torch.tensor(values, dtype=torch.float32)
+    if out is None:
+        out = torch.empty_like(host, device=device)
+    if out.is_cuda:
+        out.copy_(host.pin_memory(), non_blocking=True)
+    else:
+        out.copy_(host)
+    return out
 
 
 @register
@@ -171,29 +313,25 @@ class SGD(Optimizer):
             return None
         return torch.zeros_like(weight)
 
-    def _step_kwargs(self, index):
-        """Counts an update of `index` and returns its op arguments."""
-        self._update_count(index)
-        return dict(lr=self._get_lr(index), wd=self._get_wd(index),
-                    rescale_grad=self.rescale_grad,
-                    clip_gradient=self.clip_gradient)
-
-    def update(self, index, weight, grad, state):
-        kw = self._step_kwargs(index)
+    def _device_one(self, index, weight, grad, state, lr, wd, rescale):
+        kw = dict(lr=lr, wd=wd, rescale_grad=rescale,
+                  clip_gradient=self.clip_gradient)
         if state is None:
             _ops.sgd_update(weight, grad, **kw)
         else:
             _ops.sgd_mom_update(weight, grad, state, momentum=self.momentum,
                                 **kw)
 
-    def update_multi_precision(self, index, weight, grad, state):
-        """`update`, or for a master-copied weight mp_sgd_update /
+    def _device_one_mp(self, index, weight, grad, state, lr, wd, rescale):
+        """`_device_one`, or for a master-copied weight mp_sgd_update /
         mp_sgd_mom_update: the same update of the f32 copy, rounded into
         `weight`."""
         if not self._master_copy(weight):
-            return self.update(index, weight, grad, state)
+            return self._device_one(index, weight, grad, state, lr, wd,
+                                    rescale)
         mom, w32 = state
-        kw = self._step_kwargs(index)
+        kw = dict(lr=lr, wd=wd, rescale_grad=rescale,
+                  clip_gradient=self.clip_gradient)
         if mom is None:
             _ops.mp_sgd_update(weight, grad, w32, **kw)
         else:
@@ -202,25 +340,26 @@ class SGD(Optimizer):
 
     aggregatable = True
 
-    def update_multi(self, indices, weights, grads, states):
-        """One multi-tensor update of the parameters at `indices`."""
-        for i in indices:
-            self._update_count(i)
-        lrs = [self._get_lr(i) for i in indices]
-        wds = [self._get_wd(i) for i in indices]
-        kw = dict(rescale_grad=self.rescale_grad,
+    def _device_multi(self, indices, weights, grads, states, hypers):
+        """One multi-tensor update per group of parameters that share an
+        lr and a wd."""
+        kw = dict(rescale_grad=hypers.rescale,
                   clip_gradient=self.clip_gradient)
-        if self.momentum == 0.0:
-            _ops.multi_sgd_update(weights, grads, lrs, wds, **kw)
-        else:
-            _ops.multi_sgd_mom_update(weights, grads, states, lrs, wds,
-                                      momentum=self.momentum, **kw)
+        for pos, lr, wd in hypers.groups:
+            ws, gs = [weights[p] for p in pos], [grads[p] for p in pos]
+            if self.momentum == 0.0:
+                _ops.multi_sgd_update(ws, gs, lr, wd, **kw)
+            else:
+                _ops.multi_sgd_mom_update(ws, gs, [states[p] for p in pos],
+                                          lr, wd, momentum=self.momentum,
+                                          **kw)
 
 
 @register
 class NAG(Optimizer):
     """ref: optimizer.NAG → nag_mom_update (Nesterov momentum), or
-    sgd_update without momentum."""
+    sgd_update without momentum; tensor by tensor, as in the JAX
+    package."""
 
     def __init__(self, momentum=0.0, **kwargs):
         super().__init__(**kwargs)
@@ -231,10 +370,8 @@ class NAG(Optimizer):
             return None
         return torch.zeros_like(weight)
 
-    def update(self, index, weight, grad, state):
-        self._update_count(index)
-        kw = dict(lr=self._get_lr(index), wd=self._get_wd(index),
-                  rescale_grad=self.rescale_grad,
+    def _device_one(self, index, weight, grad, state, lr, wd, rescale):
+        kw = dict(lr=lr, wd=wd, rescale_grad=rescale,
                   clip_gradient=self.clip_gradient)
         if state is None:
             _ops.sgd_update(weight, grad, **kw)
@@ -246,7 +383,10 @@ class NAG(Optimizer):
 @register
 class Adam(Optimizer):
     """ref: optimizer.Adam → adam_update, with the bias correction folded
-    into the learning rate from each index's own update count t."""
+    into the learning rate from each index's own update count t; the
+    aggregated path (`update_multi`) as in the JAX package, whose device
+    part is the same per-tensor update, so that both paths give the same
+    bits."""
 
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
                  epsilon=1e-8, **kwargs):
@@ -256,17 +396,19 @@ class Adam(Optimizer):
     def create_state(self, index, weight):
         return torch.zeros_like(weight), torch.zeros_like(weight)
 
-    def update(self, index, weight, grad, state):
-        self._update_count(index)
+    def _index_lr(self, index):
         t = self._index_update_count[index]
-        lr = self._get_lr(index)
-        lr *= math.sqrt(1.0 - self.beta2 ** t) / (1.0 - self.beta1 ** t)
+        return (self._get_lr(index) * math.sqrt(1.0 - self.beta2 ** t)
+                / (1.0 - self.beta1 ** t))
+
+    def _device_one(self, index, weight, grad, state, lr, wd, rescale):
         mean, var = state
         _ops.adam_update(weight, grad, mean, var, lr=lr, beta1=self.beta1,
-                         beta2=self.beta2, epsilon=self.epsilon,
-                         wd=self._get_wd(index),
-                         rescale_grad=self.rescale_grad,
+                         beta2=self.beta2, epsilon=self.epsilon, wd=wd,
+                         rescale_grad=rescale,
                          clip_gradient=self.clip_gradient)
+
+    aggregatable = True
 
 
 def _map_state(fn, state):

@@ -9,6 +9,8 @@ JAX) it runs without the repository's conftest:
 
     python -m pytest --noconftest -q -m cuda tests/test_torch_cuda.py
 """
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -814,3 +816,178 @@ def test_metric_update_does_not_sync(card):
         torch.cuda.set_sync_debug_mode(0)
     want = (pred.bfloat16().argmax(1) == label.long()).float().mean()
     assert acc.get()[1] == pytest.approx(want.item())
+
+
+# -- hybridize(): captured CUDA graphs ----------------------------------------
+
+def _graphed_run(build, data, hybrid, steps=4):
+    """`steps` training steps of build() = (net, loss, trainer), eager or
+    hybridized; the losses, the final parameters and the objects."""
+    net, loss, trainer = build()
+    if hybrid:
+        net.hybridize(static_alloc=True, static_shape=True)
+        loss.hybridize()
+    *x, y = data
+    losses = []
+    for _ in range(steps):
+        with tmx.autograd.record():
+            lv = loss(net(*x), y)
+        tmx.autograd.backward(lv)
+        trainer.step(x[0].shape[0])
+        losses.append(lv.detach())
+    torch.cuda.synchronize()
+    return losses, [p.detach().clone() for p in trainer._params], \
+        (net, loss, trainer)
+
+
+def _kernel_calls(fn):
+    """{kernel name: launches} of the port's kernels over one call of
+    `fn`, from torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    calls = {}
+    for ev in prof.key_averages():
+        m = re.search(r"::(flash_\w+_kernel|conv1x1_stats\w*_kernel)\b",
+                      ev.key)
+        if m:
+            calls[m.group(1)] = calls.get(m.group(1), 0) + ev.count
+    return calls
+
+
+def _mlm_small(card, dtype, nmt=False):
+    def build():
+        tmx.random.seed(0)
+        if nmt:
+            net = tmx.models.transformer_nmt_small(
+                200, 200, units=128, hidden_size=256, num_heads=2,
+                dropout=0.0, output_hidden=True, device=card)
+        else:
+            net = tmx.models.bert_small(
+                vocab_size=200, units=128, hidden_size=256, num_heads=2,
+                dropout=0.0, output_hidden=True, device=card)
+        head = tmx.models.FusedMLMCELoss(200, 128, device=card)
+        net.cast(dtype)
+        head.cast(dtype)
+        params = dict(net.collect_params())
+        params.update({"l." + n: p for n, p in head.collect_params().items()})
+        return net, head, tmx.gluon.Trainer(params, "adam",
+                                            {"learning_rate": 1e-3})
+    rs = np.random.RandomState(0)
+    ids = [torch.from_numpy(rs.randint(0, 200, (4, 64))).to(card)
+           for _ in range(2 if nmt else 1)]
+    lab = torch.from_numpy(rs.randint(0, 200, (4, 64)).astype(np.float32))
+    return build, (*ids, lab.to(card))
+
+
+@pytest.mark.parametrize("nmt,dtype", [(False, torch.bfloat16),
+                                       (True, torch.float32)],
+                         ids=["bert_bf16", "nmt_f32"])
+def test_captured_step_equals_its_eager_twin(card, nmt, dtype):
+    """Forward, backward and Adam's update replayed from CUDA graphs give
+    the eager step's bits.  The wrappers count the launches of the eager
+    first step and of the capture, none of the replays; a replayed step
+    runs each flash kernel once per attention layer, in the profiler's
+    names."""
+    build, data = _mlm_small(card, dtype, nmt)
+    eager = _graphed_run(build, data, False)
+    before = _counts()
+    hyb = _graphed_run(build, data, True)
+    launched = [a - b for a, b in zip(_counts(), before)]
+    for a, b in zip(eager[0], hyb[0]):
+        assert torch.equal(a, b)
+    for a, b in zip(eager[1], hyb[1]):
+        assert torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+    net, loss, trainer = hyb[2]
+    assert (trainer.captures, trainer.replays) == (1, 2)
+    assert net._cached_graph.replays == 4       # 2 steps x (fwd, bwd)
+    layers = 2 * 2 if nmt else 2
+    want = [2 * layers] * 3 + ([2 * 2] * 3 if nmt else [0] * 3)
+    assert launched == want
+    *x, y = data
+
+    def step():
+        with tmx.autograd.record():
+            lv = loss(net(*x), y)
+        tmx.autograd.backward(lv)
+        trainer.step(x[0].shape[0])
+    before = _counts()
+    assert _kernel_calls(step) == {"flash_fwd_kernel": layers,
+                                   "flash_bwd_dq_kernel": layers,
+                                   "flash_bwd_dkv_kernel": layers}
+    assert _counts() == before
+
+
+def test_dropout_draws_new_masks_on_each_replay(card):
+    tmx.random.seed(0)
+    net = tmx.gluon.nn.HybridSequential()
+    net.add(tmx.gluon.nn.Dense(4096, in_units=64), tmx.gluon.nn.Dropout(0.3))
+    net.initialize(ctx=card)
+    net.hybridize()
+    x = torch.ones(8, 64, device=card, requires_grad=True)
+    masks = []
+    for _ in range(5):
+        with tmx.autograd.record():
+            out = net(x)
+        tmx.autograd.backward(out)
+        masks.append(out != 0)
+    assert net._cached_graph.replays >= 6
+    n = masks[0].numel()
+    for a, b in zip(masks, masks[1:]):
+        assert not torch.equal(a, b)
+    for m in masks:
+        rate = m.float().mean().item()
+        assert abs(rate - 0.7) <= 3 * (0.7 * 0.3 / n) ** 0.5
+
+
+def test_a_replay_runs_the_port_kernels(card):
+    build, data = _mlm_small(card, torch.bfloat16)
+    *_, (net, loss, trainer) = _graphed_run(build, data, True, steps=3)
+    tcs.conv1x1_stats_launches = 0
+    tmx.random.seed(0)
+    cnn = tmx.gluon.nn.HybridSequential()
+    cnn.add(tmx.gluon.nn.Conv2D(64, 1, in_channels=32, use_bias=False),
+            tmx.gluon.nn.BatchNorm(in_channels=64))
+    cnn.initialize(ctx=card)
+    cnn.cast("bfloat16")
+    cnn.hybridize()
+    xb = torch.randn(8, 32, 16, 16, device=card,
+                     generator=torch.Generator(card).manual_seed(0)) \
+        .bfloat16()
+
+    def step():
+        with tmx.autograd.record():
+            lv = loss(net(data[0]), data[1]).sum() + cnn(xb).float().sum()
+        tmx.autograd.backward(lv)
+        trainer.step(4)
+    for _ in range(3):
+        step()
+    # the eager first call and the capture; the replays run no wrapper
+    assert tcs.conv1x1_stats_launches == 2
+    assert _kernel_calls(step) == {"flash_fwd_kernel": 2,
+                                   "flash_bwd_dq_kernel": 2,
+                                   "flash_bwd_dkv_kernel": 2,
+                                   "conv1x1_stats_tc_kernel": 1}
+    assert tcs.conv1x1_stats_launches == 2
+
+
+class _HostReadBlock(tmx.gluon.HybridBlock):
+    def forward(self, x):
+        return x * x.sum().item()
+
+
+def test_a_capture_that_reads_the_device_raises(card):
+    from incubator_mxnet_tpu_torch import graph_capture
+    block = _HostReadBlock()
+    block.hybridize()
+    x = torch.ones(16, device=card)
+    block(x)
+    with pytest.raises(graph_capture.CaptureError,
+                       match="_local_scalar_dense"):
+        block(x)
+    # the generators the capture held draw again
+    torch.rand(4, device=card)
+    tmx.ops.nn.dropout(x, 0.5, training=True,
+                       generator=tmx.random.generator(card))

@@ -191,7 +191,7 @@ def test_sgd_updates_match_jax(momentum):
 def test_sgd_optimizer_and_trainer_surface():
     opt = tmx.optimizer.create("sgd", learning_rate=0.1, momentum=0.9)
     assert isinstance(opt, tmx.optimizer.SGD) and opt.aggregatable
-    assert not tmx.optimizer.create("adam").aggregatable
+    assert tmx.optimizer.create("adam").aggregatable    # as in JAX
     w = torch.nn.Parameter(torch.ones(3))
     frozen = torch.nn.Parameter(torch.ones(3), requires_grad=False)
     tr = tmx.gluon.Trainer([w, frozen], opt)
