@@ -113,7 +113,30 @@ Drives incubator_mxnet_tpu_torch only (never JAX or the JAX package):
              with torch.bmm: no flash kernel may launch.
    decode_nmt_profile — device time by kernel over one prefill and its
              greedy steps.
-12. hybridize — train_bf16, train_nmt and train_resnet_gluon (the same
+12. generate_nmt — the same model behind GenerationEngine on cuda:0 (32
+             slots, max_len 128, prompt buckets 16/32/64/128, lanes hi
+             and lo at quotas 1.0 and 0.5, queue 256): warmup must
+             capture 6 programs (a prefill per bucket, the join, the
+             decode step); 8 requests of prompt lengths 5-128 submitted
+             together must each equal the eager greedy loop for that
+             request alone, and the first 4 steps of 2 of them a CPU
+             copy's, logits within SERVE_TOL (a token may differ only
+             where the reference's top-2 logit gap is within the
+             tolerance; the comparison then stops and prints the gap);
+             the replayed decode step's ms at 32 slots beside the same
+             captured function run eagerly (CUDA events, median of 50);
+             closed-loop capacity for 3 s; then open-loop Poisson traffic
+             at twice it for 5 s (20 % hi, budgets 3-64, deadlines
+             calibrated to the capacity) with continuous and with drain
+             batching: offered and achieved rps, tokens/s, hi-lane TTFT
+             and inter-token p50/p99, shed fraction, 0 captures during
+             traffic; after close() every stream resolved, no unfinished
+             task, every cache leaf on its warmup storage, no donation
+             copy; no port kernel may launch (masked attention and the
+             cached step are unfused).
+   generate_nmt_profile — device time by kernel and busy share over 20
+             replayed decode steps, with the cache write-back copies.
+13. hybridize — train_bf16, train_nmt and train_resnet_gluon (the same
              models, batches, data and optimizers) each run twice from
              seed 0: eager, and hybridized as bench.py hybridizes them
              (the net with static_alloc and static_shape, the loss block
@@ -136,7 +159,7 @@ Drives incubator_mxnet_tpu_torch only (never JAX or the JAX package):
              the kernel names only one mode ran are printed.  The save and
              resume round of train_resnet_gluon above already runs
              hybridized (its nets and loss block are).
-13. kernels — one JSON line per the port's kernel table (4 rows), then the
+14. kernels — one JSON line per the port's kernel table (4 rows), then the
              card's name and power limit, then the final {"ok": true, ...}
              line.
 
@@ -295,6 +318,26 @@ NMT_DECODE_VALID = (64, 61, 55, 48, 40, 31, 17, 6)
 NMT_MEM_LEN = 80
 NMT_DECODE_STEPS = 16
 NMT_BOS = 1
+# generate_nmt: GenerationEngine over transformer_nmt_base
+GEN_EOS = 2
+GEN_SLOTS = 32
+GEN_MAX_LEN = 128
+GEN_BUCKETS = (16, 32, 64, 128)
+GEN_LANES = ("hi", "lo")
+GEN_QUOTAS = (1.0, 0.5)
+GEN_QUEUE_CAP = 256
+# 8 parity requests: prompt lengths on and off the buckets, budgets <= 64
+GEN_PARITY_LENGTHS = (5, 16, 23, 32, 50, 64, 100, 128)
+GEN_PARITY_NEW = (64, 40, 64, 17, 64, 33, 64, 50)
+GEN_CPU_REQUESTS = 2        # of them, the first steps held to a CPU copy
+GEN_CPU_STEPS = 4
+GEN_TIMED_STEPS = 50
+GEN_PROFILED_STEPS = 20
+GEN_MAX_NEW = 64            # the traffic's budgets, uniform in [3, 64]
+GEN_CAPACITY_S = 3.0
+GEN_OPEN_S = 5.0
+GEN_HI_FRAC = 0.2
+GEN_RESULT_TIMEOUT = 300
 
 
 def _emit(obj):
@@ -2340,6 +2383,367 @@ def phase_decode_nmt(torch, mx, att):
            "kernels: %r" % (launches,))
 
 
+def _greedy(torch, net, prompt, steps, device, feed=None):
+    """One request alone through the eager cached decode (init_cache at
+    the engine's max_len and memory length, then decode_steps from
+    NMT_BOS): each step's argmax, logits (on the CPU) and top-2 gap.
+    With `feed`, step i + 1 is fed feed[i] instead of step i's argmax.
+    Stops after an eos argmax."""
+    src = torch.from_numpy(prompt[None]).to(device)
+    cache = net.init_cache(src, torch.tensor([prompt.size], device=device),
+                           max_len=GEN_MAX_LEN, mem_len=max(GEN_BUCKETS))
+    tok = torch.tensor([NMT_BOS], device=device)
+    toks, logits, gaps = [], [], []
+    for i in range(steps):
+        out, cache = net.decode_step(tok, torch.tensor([i], device=device),
+                                     cache)
+        row = out[0].float().cpu()
+        top = row.topk(2).values
+        toks.append(int(row.argmax()))
+        logits.append(row)
+        gaps.append(float(top[0] - top[1]))
+        if toks[-1] == GEN_EOS:
+            break
+        nxt = feed[i] if feed is not None and i < len(feed) else toks[-1]
+        tok = torch.tensor([nxt], device=device)
+    return toks, torch.stack(logits), gaps
+
+
+def _near_tie_compare(got, ref, gaps, tol):
+    """Tokens `got` against the reference's `ref`: equal, or differing
+    first at a step where the reference's top-2 gap is within `tol`, where
+    the comparison stops.  Returns {steps compared, near_tie: None or
+    {step, gap}}; raises on any other difference."""
+    got = [int(t) for t in got]
+    for i, (g, r) in enumerate(zip(got, ref)):
+        if g != r:
+            _check(gaps[i] <= tol, "token %d differs (%d, reference %d) "
+                   "with a top-2 gap of %g > %g" % (i, g, r, gaps[i], tol))
+            return dict(steps=i, near_tie=dict(step=i, gap=gaps[i]))
+    _check(got == ref, "tokens %r differ from the reference's %r"
+           % (got, ref))
+    return dict(steps=len(got), near_tie=None)
+
+
+def _gen_capacity(eng, prompts, seconds, max_new):
+    """Closed-loop generation capacity (requests/s) with 2 x slots
+    outstanding, as bench.py's measure_generate_capacity."""
+    t0 = time.perf_counter()
+    streams, done, i = [], 0, 0
+    depth = max(4, eng.stats()["slots"] * 2)
+    while time.perf_counter() < t0 + seconds:
+        streams.append(eng.submit(prompts[i % len(prompts)],
+                                  max_new_tokens=max_new))
+        i += 1
+        if len(streams) >= depth:
+            streams.pop(0).result(timeout=GEN_RESULT_TIMEOUT)
+            done += 1
+    for s in streams:
+        s.result(timeout=GEN_RESULT_TIMEOUT)
+        done += 1
+    return done / (time.perf_counter() - t0)
+
+
+def _gen_open_loop(eng, prompts, rate, hi_deadline, rs):
+    """Open-loop Poisson traffic at `rate` req/s for GEN_OPEN_S, as
+    bench.py's _generate_overload: GEN_HI_FRAC on lane hi, the rest on
+    lo (deadline twice hi's), budgets uniform in [3, GEN_MAX_NEW].
+    Returns (offered, served, shed by lane, the offer's wall, the wall
+    until every request resolved, streams)."""
+    from incubator_mxnet_tpu_torch.serving import (DeadlineExceeded,
+                                                   QueueFull, Shed)
+    hi, lo = GEN_LANES
+    served, shed, pending = {hi: 0, lo: 0}, {hi: 0, lo: 0}, []
+    t0 = time.perf_counter()
+    next_t, offered = t0, 0
+    while True:
+        now = time.perf_counter()
+        if now >= t0 + GEN_OPEN_S:
+            break
+        if now < next_t:
+            time.sleep(min(next_t - now, 0.002))
+            continue
+        next_t += rs.exponential(1.0 / rate)
+        lane = hi if rs.rand() < GEN_HI_FRAC else lo
+        dl = hi_deadline if lane == hi else 2.0 * hi_deadline
+        mn = int(rs.randint(3, GEN_MAX_NEW + 1))
+        offered += 1
+        try:
+            pending.append((lane, eng.submit(
+                prompts[offered % len(prompts)], max_new_tokens=mn,
+                deadline=dl, lane=lane)))
+        except (Shed, QueueFull, DeadlineExceeded):
+            shed[lane] += 1
+    wall = time.perf_counter() - t0
+    for lane, s in pending:
+        try:
+            s.result(timeout=GEN_RESULT_TIMEOUT)
+            served[lane] += 1
+        except (Shed, QueueFull, DeadlineExceeded):
+            shed[lane] += 1
+    return (offered, served, shed, wall, time.perf_counter() - t0,
+            [s for _, s in pending])
+
+
+def _gen_after_close(torch, eng, streams, ptrs, events):
+    """What close() must leave: every stream resolved, no unfinished
+    task, the cache on its warmup storage, no donation copy."""
+    leaves = eng._state.leaves()
+    out = dict(streams_resolved=all(s.done() for s in streams),
+               unfinished_tasks=eng._q.unfinished_tasks,
+               cache_ptrs_stable={k: t.data_ptr()
+                                  for k, t in leaves.items()} == ptrs,
+               donation_copy=events.get("gen.donation_copy"))
+    _check(out["streams_resolved"], "a stream is unresolved after close()")
+    _check(out["unfinished_tasks"] == 0, "%d unfinished tasks after close()"
+           % out["unfinished_tasks"])
+    _check(out["cache_ptrs_stable"], "a cache leaf moved since warmup")
+    _check(out["donation_copy"] == 0, "gen.donation_copy = %d"
+           % out["donation_copy"])
+    return out
+
+
+def _gen_traffic(torch, eng, mode, prompts, rate, hi_deadline, ptrs,
+                 events, device_ms):
+    """One open-loop run on `eng` and its checks after close(); emits
+    the mode's line.  Rates of tokens and steps are over the wall until
+    the last request resolved.  `device_share_est` is the device time of
+    the programs the run replayed, from their times measured alone
+    (`device_ms`: ms of a decode step, and of a prefill, the traffic's
+    mean over its buckets, plus a join), over that wall."""
+    hi, lo = GEN_LANES
+    _check(events.get("gen.donation_copy") == 0, "gen.donation_copy "
+           "before %s traffic" % mode)
+    events.reset()      # this mode's latency rings and counters only
+    offered, served, shed, wall, total, streams = _gen_open_loop(
+        eng, prompts, rate, hi_deadline, np.random.RandomState(17))
+    captures = events.get("serve.traces")
+    tokens = events.get("gen.tokens")
+    ttft = {r["labels"]["lane"]: r for r in events.labeled_percentiles(
+        "gen.ttft_us", (50, 99))}
+    it = events.percentiles("gen.intertoken_us", (50, 99))
+    step_us = events.percentiles("gen.step_us", (50, 99))
+    prefill_us = events.percentiles("gen.prefill_us", (50, 99))
+    steps = events.get("gen.steps")
+    memory = torch.cuda.memory_allocated()
+    eng.close()
+    closed = _gen_after_close(torch, eng, streams, ptrs, events)
+    row = dict(phase="generate_nmt", part="traffic", mode=mode,
+               offered=offered, offered_rps=offered / wall,
+               target_rps=rate, wall_s=wall, total_wall_s=total,
+               served=served, shed=shed,
+               achieved_rps=sum(served.values()) / total,
+               tokens=tokens, tokens_per_s=tokens / total,
+               ttft_hi_p50_ms=ttft.get(hi, {}).get("p50", 0) / 1e3,
+               ttft_hi_p99_ms=ttft.get(hi, {}).get("p99", 0) / 1e3,
+               ttft_lo_p99_ms=ttft.get(lo, {}).get("p99", 0) / 1e3,
+               intertoken_p50_ms=it.get("p50", 0) / 1e3,
+               intertoken_p99_ms=it.get("p99", 0) / 1e3,
+               shed_fraction=sum(shed.values()) / max(1, offered),
+               steps=steps, slots_live_mean=tokens / max(1, steps),
+               step_wall_ms_p50=step_us.get("p50", 0) / 1e3,
+               step_wall_ms_p99=step_us.get("p99", 0) / 1e3,
+               prefills=events.get("gen.prefills"),
+               prefill_join_ms_p50=prefill_us.get("p50", 0) / 1e3,
+               prefill_join_ms_p99=prefill_us.get("p99", 0) / 1e3,
+               device_share_est=(
+                   steps * device_ms["step"] + events.get("gen.prefills")
+                   * device_ms["prefill_join"]) / (total * 1e3),
+               captures_during_traffic=captures,
+               memory_allocated=memory, **closed)
+    _emit(row)
+    _check(captures == 0, "%d captures during %s traffic" % (captures, mode))
+    _check(tokens > 0, "no token during %s traffic" % mode)
+    return row
+
+
+def phase_generate_nmt(torch, mx, att, cs):
+    """transformer_nmt_base behind GenerationEngine on cuda:0: warmup
+    (the captured program set), parity of 8 requests with the eager
+    greedy loop and, for the first steps of 2, with a CPU copy; the
+    replayed decode step against the same function run eagerly, and its
+    profile; closed-loop capacity; open-loop traffic at twice it,
+    continuous and drain batching; the engine's state after close()."""
+    from incubator_mxnet_tpu_torch.monitor import events
+    from incubator_mxnet_tpu_torch.serving import GenerationEngine
+    mx.random.seed(0)
+    torch.cuda.empty_cache()
+    net = _nmt_model(mx, "cuda:0")
+    _reset_counts(att)                  # the phase's path starts here
+    conv0 = cs.conv1x1_stats_launches
+
+    def engine(continuous):
+        return GenerationEngine(
+            net, bos=NMT_BOS, eos=GEN_EOS, slots=GEN_SLOTS,
+            max_len=GEN_MAX_LEN, prompt_buckets=GEN_BUCKETS,
+            lanes=GEN_LANES, lane_quotas=GEN_QUOTAS,
+            queue_cap=GEN_QUEUE_CAP, continuous=continuous)
+
+    def warm(eng, mode):
+        t0 = events.get("serve.traces")
+        w = eng.warmup()
+        captures = events.get("serve.traces") - t0
+        ptrs = {k: t.data_ptr() for k, t in eng._state.leaves().items()}
+        _emit(dict(phase="generate_nmt", part="warmup", mode=mode,
+                   wall_s=w["wall_s"], bucket_wall_s=w["bucket_wall_s"],
+                   captures=captures, kv_cache_bytes=w["kv_cache"],
+                   memory_allocated=torch.cuda.memory_allocated()))
+        _check(captures == len(GEN_BUCKETS) + 2, "warmup made %d captures, "
+               "want %d" % (captures, len(GEN_BUCKETS) + 2))
+        return ptrs
+
+    eng = engine(True)
+    ptrs = warm(eng, "continuous")
+
+    # parity: 8 requests together against each alone, eager on the card
+    rs = np.random.RandomState(0)
+    prompts = [rs.randint(3, NMT_VOCAB, (n,)).astype(np.int32)
+               for n in GEN_PARITY_LENGTHS]
+    streams = [eng.submit(p, max_new_tokens=m)
+               for p, m in zip(prompts, GEN_PARITY_NEW)]
+    got = [s.result(timeout=GEN_RESULT_TIMEOUT) for s in streams]
+    cpu_net = _nmt_model(mx, "cpu")
+    cpu_net.load_state_dict({k: v.cpu() for k, v in net.state_dict().items()})
+    requests, cpu_rows = [], []
+    with torch.no_grad():
+        for i, (p, m, g) in enumerate(zip(prompts, GEN_PARITY_NEW, got)):
+            ref, logits, gaps = _greedy(torch, net, p, m, "cuda:0")
+            requests.append(dict(prompt_len=int(p.size), max_new=m,
+                                 tokens=len(g), distinct=len(set(g.tolist())),
+                                 **_near_tie_compare(g, ref, gaps,
+                                                     SERVE_TOL)))
+            if i < GEN_CPU_REQUESTS:
+                # both fed the engine's tokens, so that the logits compare
+                feed = [int(t) for t in g]
+                _, card_logits, _ = _greedy(torch, net, p, GEN_CPU_STEPS,
+                                            "cuda:0", feed)
+                cpu_ref, cpu_logits, cpu_gaps = _greedy(
+                    torch, cpu_net, p, GEN_CPU_STEPS, "cpu", feed)
+                err = (card_logits - cpu_logits).abs().max().item()
+                cpu_rows.append(dict(prompt_len=int(p.size),
+                                     logits_max_abs_err=err,
+                                     **_near_tie_compare(
+                                         g[:GEN_CPU_STEPS], cpu_ref,
+                                         cpu_gaps, SERVE_TOL)))
+                _check(err <= SERVE_TOL, "decode logits differ from the CPU "
+                       "copy by %g > %g" % (err, SERVE_TOL))
+    del cpu_net
+    _emit(dict(phase="generate_nmt", part="parity", tol=SERVE_TOL,
+               requests=requests, cpu=cpu_rows,
+               memory_allocated=torch.cuda.memory_allocated()))
+    for g, m in zip(got, GEN_PARITY_NEW):
+        _check(1 <= g.size <= m and (g.size == m or g[-1] == GEN_EOS),
+               "a request of budget %d returned %d tokens" % (m, g.size))
+
+    # the decode step at 32 slots: replayed, and the same function eager
+    with eng._exec_lock, torch.no_grad():
+        prog = eng._programs["decode"]
+
+        def step():                     # the engine's step on the device
+            prog.replay()
+            eng._read_tokens()
+
+        def event_ms(fn):
+            times = []
+            for _ in range(GEN_TIMED_STEPS):
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                e0.record()
+                fn()
+                e1.record()
+                e1.synchronize()
+                times.append(e0.elapsed_time(e1))
+            return statistics.median(times)
+
+        def wall_ms(fn):
+            times = []
+            for _ in range(GEN_TIMED_STEPS):
+                t0 = time.perf_counter()
+                fn()
+                times.append((time.perf_counter() - t0) * 1e3)
+            return statistics.median(times)
+
+        eager_fn = eng._decode_fn()
+        eager_fn()
+        torch.cuda.synchronize()
+        replay_ms, step_wall_ms = event_ms(prog.replay), wall_ms(step)
+        prefill_ms = {b: event_ms(eng._programs[("prefill", b)].replay)
+                      for b in GEN_BUCKETS}
+        join_ms = event_ms(eng._programs["join"].replay)
+        eager_ms = event_ms(eager_fn)
+        eager_wall_ms = wall_ms(lambda: (eager_fn(), eng._read_tokens()))
+        rows, wall_us = _device_kernels(torch, step, GEN_PROFILED_STEPS)
+    device_us = sum(r[0] for r in rows)
+    # the cache write-backs are device-to-device copies ("memcpy128"
+    # kernels in a replay); the token read is the one to the host
+    copies = [dict(kernel=k[:100], us=us / GEN_PROFILED_STEPS,
+                   calls=n / GEN_PROFILED_STEPS)
+              for us, k, n in rows if "memcpy" in k.lower()]
+    _emit(dict(phase="generate_nmt_profile", slots=GEN_SLOTS,
+               max_len=GEN_MAX_LEN, steps=GEN_PROFILED_STEPS,
+               wall_us=wall_us, device_us=device_us,
+               busy_share=device_us / wall_us,
+               device_ms_per_step=device_us / GEN_PROFILED_STEPS / 1e3,
+               kernels_per_step=sum(r[2] for r in rows) / GEN_PROFILED_STEPS,
+               top=[dict(kernel=k[:100], us=us / GEN_PROFILED_STEPS,
+                         calls=n / GEN_PROFILED_STEPS,
+                         share=us / device_us)
+                    for us, k, n in rows[:10]],
+               copies=copies,
+               copies_us_per_step=sum(c["us"] for c in copies)))
+    decode = dict(phase="generate_nmt", part="decode_step",
+                  slots=GEN_SLOTS, max_len=GEN_MAX_LEN,
+                  steps=GEN_TIMED_STEPS, replay_ms=replay_ms,
+                  step_wall_ms=step_wall_ms, eager_ms=eager_ms,
+                  eager_step_wall_ms=eager_wall_ms,
+                  eager_over_replay=eager_ms / replay_ms,
+                  prefill_replay_ms=prefill_ms, join_replay_ms=join_ms,
+                  busy_share=device_us / wall_us)
+    _emit(decode)
+
+    # capacity, then open-loop traffic at twice it, both modes
+    rs = np.random.RandomState(0)
+    traffic = [rs.randint(3, NMT_VOCAB, (int(n),)).astype(np.int32)
+               for n in rs.randint(1, GEN_MAX_LEN + 1, 64)]
+    buckets = [eng._bucket_for(p.size) for p in traffic]
+    device_ms = dict(step=replay_ms, prefill_join=join_ms + sum(
+        prefill_ms[b] for b in buckets) / len(buckets))
+    capacity = _gen_capacity(eng, traffic, GEN_CAPACITY_S, GEN_MAX_NEW)
+    svc = 1.0 / max(capacity / GEN_SLOTS, 1e-6)
+    hi_deadline = max(0.5, 3.5 * svc)
+    _emit(dict(phase="generate_nmt", part="capacity", rps=capacity,
+               seconds=GEN_CAPACITY_S, max_new=GEN_MAX_NEW,
+               hi_deadline_s=hi_deadline, lo_deadline_s=2 * hi_deadline))
+    modes = {"continuous": _gen_traffic(torch, eng, "continuous", traffic,
+                                        2 * capacity, hi_deadline, ptrs,
+                                        events, device_ms)}
+    drain = engine(False)
+    dptrs = warm(drain, "drain")
+    modes["drain"] = _gen_traffic(torch, drain, "drain", traffic,
+                                  2 * capacity, hi_deadline, dptrs, events,
+                                  device_ms)
+    launches = dict(zip(_COUNT_KEYS, _all_counts(att)),
+                    conv=cs.conv1x1_stats_launches - conv0)
+    summary = dict(phase="generate_nmt", part="summary",
+                   model="transformer_nmt_base", dtype="float32",
+                   slots=GEN_SLOTS, max_len=GEN_MAX_LEN,
+                   prompt_buckets=list(GEN_BUCKETS), capacity_rps=capacity,
+                   replay_ms=replay_ms, eager_ms=eager_ms,
+                   busy_share=decode["busy_share"],
+                   ttft_hi_p99_ms={m: r["ttft_hi_p99_ms"]
+                                   for m, r in modes.items()},
+                   continuous_over_drain_ttft_hi_p99=(
+                       modes["continuous"]["ttft_hi_p99_ms"]
+                       / max(modes["drain"]["ttft_hi_p99_ms"], 1e-9)),
+                   tokens_per_s={m: r["tokens_per_s"]
+                                 for m, r in modes.items()},
+                   launches=launches)
+    _emit(summary)
+    _check(not any(launches.values()), "the generation path launched port "
+           "kernels: %r" % (launches,))
+    return summary
+
+
 def _shape_rows(fwd_rows, bwd_rows, kernel, cases):
     """One kernel's times at a path's shapes `cases`, by "non_causal" and
     "causal": {ms, device_ms, plain_ms, bound_ms, bound_by, library_ms}
@@ -2441,6 +2845,7 @@ def main():
     gluon_launches = phase_train_resnet_gluon(torch, mx, cs, resnet_row)
     nmt_launches = phase_train_nmt(torch, mx, att)
     phase_decode_nmt(torch, mx, att)
+    phase_generate_nmt(torch, mx, att, cs)
     hyb = phase_hybridize_all(torch, mx, att, cs)
 
     def nmt(kernel):

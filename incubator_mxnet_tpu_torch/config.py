@@ -16,7 +16,8 @@ import threading
 import warnings
 from typing import Any, Callable, Dict
 
-__all__ = ["register", "get", "set", "unset"]
+__all__ = ["register", "get", "set", "unset", "list_vars",
+           "serve_lane_quota_fractions"]
 
 _LOCK = threading.Lock()
 _REGISTRY: Dict[str, "_Var"] = {}
@@ -103,6 +104,29 @@ def unset(name: str) -> None:
     _OVERRIDES.pop(name, None)
 
 
+def list_vars():
+    return sorted(_REGISTRY)
+
+
+def serve_lane_quota_fractions(spec, n_lanes):
+    """Per-lane queue-occupancy quota fractions from a
+    MXNET_SERVE_LANE_QUOTAS-style spec (a list/tuple of floats or a
+    comma string; empty = the auto ladder 1.0, .75, .5, ... floored at
+    .25; a short list repeats its last value)."""
+    if spec and isinstance(spec, (list, tuple)):
+        fracs = [float(s) for s in spec]
+    elif spec:
+        fracs = [float(s) for s in str(spec).split(",") if s.strip()]
+    else:
+        fracs = [max(0.25, 1.0 - 0.25 * i) for i in range(n_lanes)]
+    if not fracs or any(f <= 0 for f in fracs):
+        raise ValueError("lane quotas must be positive fractions, "
+                         "got %r" % (spec,))
+    while len(fracs) < int(n_lanes):
+        fracs.append(fracs[-1])             # short list: last repeats
+    return fracs[:int(n_lanes)]
+
+
 register("MXNET_SERVE_MAX_BATCH", int, 32,
          "InferenceEngine (serving.engine): largest batch bucket — the "
          "dispatcher coalesces queued requests up to this many examples "
@@ -122,3 +146,86 @@ register("MXNET_BN_STABLE_VAR", bool, False,
          "E[(x-mean)^2] (safe when |mean| >> std), 0 = one-pass "
          "E[x^2]-E[x]^2 clamped at 0 (one read of x; the statistics the "
          "fused 1x1-conv kernel produces, so only 0 fuses)")
+register("MXNET_SERVE_LANES", str, "high,normal,low",
+         "Priority lanes, highest first (comma-separated names).  "
+         "Admission drains lanes in strict priority order, earliest-"
+         "deadline-first within a lane; submits default to the first "
+         "lane")
+register("MXNET_SERVE_LANE_QUOTAS", str, "",
+         "Per-lane queue-occupancy quotas as comma-separated fractions "
+         "of MXNET_SERVE_QUEUE_CAP, positionally matching "
+         "MXNET_SERVE_LANES (short lists repeat the last value). "
+         "Empty = auto: 1.0 for the top lane, then 0.75, 0.5, ... "
+         "floor 0.25.  A submit that would push its lane past quota "
+         "is shed with the typed Shed error")
+register("MXNET_SERVE_TENANT_QUOTA", int, 0,
+         "Max queued requests per tenant (submit tenant=...); a submit "
+         "beyond it is shed (Shed, gen.shed labeled by tenant). 0 = no "
+         "per-tenant bound")
+register("MXNET_SERVE_HBM_TEMP_FACTOR", float, 2.0,
+         "Footprint projection (project_generation_footprint): "
+         "multiplier on the decode step's logits bytes to cover its "
+         "temporaries")
+register("MXNET_GEN_SLOTS", int, 4,
+         "GenerationEngine (serving.generation): decode-batch slot "
+         "count, the fixed sequence capacity of the one captured "
+         "decode step.  Finished sequences free their slot at a step "
+         "boundary and queued requests join at once")
+register("MXNET_GEN_MAX_LEN", int, 64,
+         "GenerationEngine: the per-slot K/V buffer length the decode "
+         "step is captured at; bounds prompt length and emitted tokens "
+         "per request.  Must not exceed the model's positional table")
+register("MXNET_GEN_BUCKETS", str, "",
+         "GenerationEngine: comma-separated prompt-length buckets (one "
+         "captured prefill each; prompts pad up to a bucket).  Empty = "
+         "powers of two from 8 up to MXNET_GEN_MAX_LEN.  After warmup() "
+         "no prompt length captures again")
+register("MXNET_FAULT_PLAN", str, "",
+         "Deterministic fault-injection plan (fault.py): ';'-separated "
+         "'site@step' / 'site#call' entries with optional xN repeat and "
+         "~S stall seconds, e.g. 'serve.infer@3;serve.enqueue#2'. "
+         "Empty = no faults. Armed via fault.reset_from_config()")
+register("MXNET_RETRY_MAX", int, 3,
+         "Retry budget for transient failures (parallel.resilience."
+         "retry_transient; exponential backoff between attempts)")
+register("MXNET_RETRY_BACKOFF", float, 0.05,
+         "Initial backoff seconds for retries (doubles per attempt, "
+         "jittered; see MXNET_RETRY_BACKOFF_MS)")
+register("MXNET_RETRY_BACKOFF_MS", float, 0.0,
+         "Initial retry backoff in milliseconds; when > 0 it overrides "
+         "MXNET_RETRY_BACKOFF.  Each attempt doubles the window and "
+         "sleeps a uniform-jittered interval in [window/2, window]")
+register("MXNET_TELEMETRY", bool, False,
+         "Telemetry spans (telemetry/spans.py) on the profiler's trace "
+         "sink and the flight recorder's ring.  Off = every span is a "
+         "single bool read; the monitor.events counters are always on")
+register("MXNET_BLACKBOX", bool, True,
+         "Flight recorder (telemetry/flightrec.py): always-on bounded "
+         "event ring and black-box JSON dumps on uncaught exceptions, "
+         "SIGUSR2 and engine faults.  0 reduces every hook to a single "
+         "bool read")
+register("MXNET_BLACKBOX_RING", int, 4096,
+         "Flight-recorder ring capacity (events retained for the "
+         "last-N timeline a black-box dump embeds)")
+register("MXNET_BLACKBOX_DIR", str, "",
+         "Directory for black-box dumps (auto-named "
+         "blackbox-<ts>-p<pid>-<seq>-<reason>.json). Empty = the "
+         "system temp directory")
+register("MXNET_REQTRACE", bool, True,
+         "Per-request lifecycle journal (telemetry/reqtrace.py): every "
+         "generation request gets a phase-stamped record; tail outliers "
+         "and terminal failures are promoted to exemplars")
+register("MXNET_REQTRACE_RING", int, 512,
+         "Per-engine request-journal ring size (retired records kept "
+         "for snapshots)")
+register("MXNET_REQTRACE_WINDOW", int, 256,
+         "Per-lane rolling window of completed-request e2e samples the "
+         "promotion threshold (p99) is computed over.  Promotion needs "
+         "at least 20 samples in the lane window first")
+register("MXNET_REQTRACE_EXEMPLARS", int, 32,
+         "Promoted exemplars retained per engine journal (the "
+         "process-wide set keeps the newest 64)")
+register("MXNET_REQTRACE_PIN_P99_US", float, 0.0,
+         "When > 0, replaces the rolling per-lane p99 promotion "
+         "threshold with this fixed e2e value in us (deterministic "
+         "promotion for tests). 0 = rolling threshold")

@@ -21,6 +21,8 @@ raises unless the caller passes `device="cpu"`.
 """
 from __future__ import annotations
 
+import heapq
+import itertools
 import queue
 import threading
 import time
@@ -36,7 +38,7 @@ from ..base import MXNetError
 from ..context import resolve_device
 
 __all__ = ["InferenceEngine", "QueueFull", "DeadlineExceeded",
-           "EngineClosed"]
+           "EngineClosed", "Shed"]
 
 
 class QueueFull(MXNetError):
@@ -50,6 +52,167 @@ class DeadlineExceeded(MXNetError):
 
 class EngineClosed(MXNetError):
     """submit() after drain() or close()."""
+
+
+class Shed(MXNetError):
+    """The request was refused by overload policy: its lane is over
+    quota, its tenant is over quota, or its deadline was already
+    unmeetable.  Unlike `QueueFull` (transient backpressure: retry
+    soon), a shed means the engine is deliberately degrading
+    low-priority intake to protect higher lanes: back off or re-submit
+    on a higher lane."""
+
+
+class _OverQuota(Exception):
+    """Internal: a put would push its lane past quota (the engine
+    translates it into the public typed `Shed`)."""
+
+    def __init__(self, lane, depth, cap):
+        super().__init__(lane, depth, cap)
+        self.lane, self.depth, self.cap = lane, depth, cap
+
+
+class _LaneQueue:
+    """Priority-lane request queue with `queue.Queue`'s accounting
+    surface (the subset the engine uses: put_nowait/get/get_nowait/
+    task_done/qsize/maxsize/unfinished_tasks/all_tasks_done), so the
+    drain()/close() exactly-once contract carries over unchanged.
+
+    `serving.generation.GenerationEngine` admits decode-slot joins
+    through this queue (the port's `InferenceEngine` does not use lanes
+    yet).
+
+    Ordering: strict priority ACROSS lanes (the dispatcher
+    never serves a lower lane while a higher one has work) and
+    earliest-deadline-first WITHIN a lane (no-deadline requests keep
+    FIFO order after every deadlined one — a request that asked for a
+    latency bound outranks one that didn't).  Each lane may carry an
+    occupancy cap (its quota share of `maxsize`): a put beyond it
+    raises `_OverQuota` so over-quota low-priority work is SHED at
+    submit time instead of queueing the whole engine toward uniform
+    deadline collapse."""
+
+    def __init__(self, maxsize, lanes, lane_caps):
+        self.maxsize = int(maxsize)
+        self._lanes = tuple(lanes)
+        self._caps = dict(lane_caps)        # lane -> cap (None = none)
+        self._heaps = {ln: [] for ln in self._lanes}
+        self._seq = itertools.count()       # FIFO tiebreak within EDF
+        self._mutex = threading.Lock()
+        self._not_empty = threading.Condition(self._mutex)
+        self.all_tasks_done = threading.Condition(self._mutex)
+        self.unfinished_tasks = 0
+        self._size = 0
+
+    def put_nowait(self, req):
+        with self._mutex:
+            # lane quota BEFORE global fullness: the engine's
+            # displacement path relies on queue.Full implying the
+            # request's own lane still has quota headroom (so the
+            # post-eviction re-put cannot fail)
+            h = self._heaps[req.lane]
+            cap = self._caps.get(req.lane)
+            if cap is not None and len(h) >= cap:
+                raise _OverQuota(req.lane, len(h), cap)
+            if self._size >= self.maxsize:
+                raise queue.Full
+            key = (req.deadline if req.deadline is not None
+                   else float("inf"), next(self._seq))
+            heapq.heappush(h, (key, req))
+            self._size += 1
+            self.unfinished_tasks += 1
+            self._not_empty.notify()
+
+    def _pop_locked(self):
+        for lane in self._lanes:            # highest priority first
+            h = self._heaps[lane]
+            if h:
+                _, req = heapq.heappop(h)
+                self._size -= 1
+                return req
+        raise queue.Empty
+
+    def get_nowait(self):
+        with self._mutex:
+            return self._pop_locked()
+
+    def evict_lowest(self, below):
+        """Remove and return the LAST-to-run request (latest deadline,
+        newest arrival) of the lowest-priority non-empty lane strictly
+        below `below`, or None when every lower lane is empty.  The
+        engine uses this to DISPLACE low work when a higher-lane
+        submit meets a full queue — without it, lower-lane backlog
+        could hold every slot and the top lane would see QueueFull
+        under exactly the overload the lanes exist for.  The victim
+        stays counted in unfinished_tasks: the caller sheds it through
+        the normal resolve path (task_done fires there)."""
+        try:
+            start = self._lanes.index(below) + 1
+        except ValueError:
+            return None
+        with self._mutex:
+            for lane in reversed(self._lanes[start:]):
+                h = self._heaps[lane]
+                if h:
+                    item = max(h)       # latest deadline, newest seq
+                    h.remove(item)
+                    heapq.heapify(h)
+                    self._size -= 1
+                    return item[1]
+        return None
+
+    def get(self, timeout=None):
+        # single-consumer contract (the dispatcher): one wait then one
+        # pop attempt; a timeout/spurious wakeup surfaces queue.Empty,
+        # which every call site already loops on
+        with self._not_empty:
+            if not self._size:
+                self._not_empty.wait(timeout)
+            return self._pop_locked()
+
+    def task_done(self):
+        with self.all_tasks_done:
+            n = self.unfinished_tasks - 1
+            if n < 0:
+                raise ValueError("task_done() called too many times")
+            self.unfinished_tasks = n
+            if n == 0:
+                self.all_tasks_done.notify_all()
+
+    def qsize(self):
+        with self._mutex:
+            return self._size
+
+    def lane_depths(self):
+        with self._mutex:
+            return {ln: len(h) for ln, h in self._heaps.items()}
+
+
+def _parse_lanes(spec):
+    if spec and isinstance(spec, (list, tuple)):
+        names = [str(s).strip() for s in spec if str(s).strip()]
+    else:
+        names = [s.strip() for s in str(spec or "").split(",")
+                 if s.strip()]
+    out = []
+    for n in names:                         # dedupe, order-preserving
+        if n not in out:
+            out.append(n)
+    if not out:
+        raise ValueError("serve lanes spec is empty: %r" % (spec,))
+    return tuple(out)
+
+
+def _parse_lane_quotas(spec, lanes, cap):
+    """lane -> occupancy cap (requests) from the quota-fraction spec;
+    the top lane defaults to the full queue (None = no lane cap), and
+    an explicit fraction >= 1 also means no extra bound (fractions from
+    `config.serve_lane_quota_fractions`)."""
+    fracs = _cfg.serve_lane_quota_fractions(spec, len(lanes))
+    caps = {}
+    for lane, f in zip(lanes, fracs):
+        caps[lane] = None if f >= 1.0 else max(1, int(f * cap))
+    return caps
 
 
 class _Request:

@@ -91,3 +91,33 @@ def test_import_loads_no_jax_and_needs_no_nvcc(tmp_path):
                          timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+# the modules that generation serving brought in: importing them loads
+# neither JAX nor the JAX package
+GENERATION_MODULES = (
+    "monitor", "fault", "profiler", "telemetry", "telemetry.flightrec",
+    "telemetry.spans", "telemetry.reqtrace", "parallel.resilience",
+    "serving.engine", "serving.generation")
+
+
+def test_generation_modules_load_no_jax(tmp_path):
+    env = dict(os.environ, PATH=str(tmp_path), CUDA_HOME=str(tmp_path),
+               PYTHONPATH=str(ROOT))
+    code = ("import importlib, sys\n"
+            "for n in %r:\n"
+            "    importlib.import_module('incubator_mxnet_tpu_torch.' + n)\n"
+            "from incubator_mxnet_tpu_torch.serving import (\n"
+            "    GenerationEngine, GenerationStream, Shed,\n"
+            "    project_generation_footprint)\n"
+            "from incubator_mxnet_tpu_torch.telemetry import span, current\n"
+            "from incubator_mxnet_tpu_torch.fault import TransientFault\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in\n"
+            "       ('jax', 'jaxlib', 'incubator_mxnet_tpu')]\n"
+            "assert not bad, bad\n"
+            "print('ok')" % (GENERATION_MODULES,))
+    out = subprocess.run([sys.executable, "-c", code], cwd=str(tmp_path),
+                         env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
