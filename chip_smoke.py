@@ -16,13 +16,24 @@ Drives incubator_mxnet_tpu_torch only (never JAX or the JAX package):
              the device time of its kernels (torch.profiler) beside the
              library call's.
 4. serve   — BERT-base at full width (random weights from seed 0, f32)
-             behind InferenceEngine on cuda:0: warmup; a burst of 12
-             singles from 3 threads and one batch of 3, every result
-             checked and one request's logits held against a CPU copy of
-             the model (which takes the plain attention path); then a
-             sustained window of 600 singles from 3 closed-loop clients
-             (8 outstanding each), with rate and e2e tail over the whole
-             window.  The kernel must launch 12 times per batch.
+             behind InferenceEngine on cuda:0, which replays a captured
+             CUDA graph per bucket: warmup must capture 4 programs and
+             traffic none; a burst of 12 singles from 3 threads and one
+             batch of 3, every result checked and one request's logits
+             held against a CPU copy of the model (which takes the plain
+             attention path); then a sustained window of 600 singles
+             from 3 closed-loop clients (8 outstanding each), with rate
+             and e2e tail over the whole window.  The wrappers count 12
+             launches per capture; per bucket, the replayed program
+             against the same forward run eagerly (CUDA events, median
+             of 20) and a whole replayed batch's wall, busy share and 12
+             flash launches by the profiler's kernel names.  A
+             refresh_params_from of a second BERT-base while a client
+             submits (no capture; its logits served after), and two
+             replicas on cuda:0 with retries off and the serve.infer
+             fault at calls 2 and 4: replica 1 marked unhealthy, traffic
+             routed around it, a probe re-admitting it after the
+             cooldown.
    profile — device time by kernel over full-bucket forwards
              (torch.profiler), and the device's busy share of that wall.
 5. kernel_bwd — the flash backward's dQ and dK/dV kernels (tensor cores:
@@ -136,6 +147,24 @@ Drives incubator_mxnet_tpu_torch only (never JAX or the JAX package):
              cached step are unfused).
    generate_nmt_profile — device time by kernel and busy share over 20
              replayed decode steps, with the cache write-back copies.
+12b. serve_registry — BERT-base (as in serve, lanes hi and lo) and the
+             generator (as in generate_nmt) behind one ModelRegistry on
+             cuda:0: 4 + 6 captures at warmup; each model's ledger row
+             (projected, then measured) beside the tensors its engine
+             holds, its programs' pool growth, memwatch's sample and the
+             allocator; a third registration denied under a budget of
+             what is committed plus half its projection, with
+             memory_allocated unchanged; registry BERT bit-equal to a
+             standalone engine at buckets 8 and 1, 4 generations
+             token-equal to the eager loop; a v2 canary at fraction 0.25
+             tainted by the model.bad_version fault (1 s stall a batch)
+             rolled back by the default serving rules' action hook; the
+             breaker opened by two faulted calls and closed by one probe
+             after its cooldown; 5 s of BERT singles (3 closed-loop
+             clients x 8, lanes and tenants alternating) beside Poisson
+             generation at half its closed-loop capacity: p50/p99 per
+             model and lane, TTFT and inter-token p50/p99, tokens/s,
+             sheds, 0 captures.
 13. hybridize — train_bf16, train_nmt and train_resnet_gluon (the same
              models, batches, data and optimizers) each run twice from
              seed 0: eager, and hybridized as bench.py hybridizes them
@@ -169,6 +198,7 @@ nothing on standard output.
 """
 import collections
 import contextlib
+import gc
 import json
 import logging
 import math
@@ -305,6 +335,21 @@ SMALL_RESNET = dict(layers=[1, 1, 1, 1], channels=[8, 16, 32, 64, 128],
 WINDOW_CLIENTS = 3
 WINDOW_PER_CLIENT = 200
 WINDOW_INFLIGHT = 8
+SERVE_TIMED = 20            # single calls timed per bucket, both ways
+SERVE_PROFILED = 5          # replayed batches profiled per bucket
+SERVE_COOLDOWN_S = 3.0      # the replica drill's cooldown
+# a stall queued on the default stream just before the swap source is
+# written there (about 0.1 s of the card's clock): a swap that does not
+# wait for the caller's stream reads the source unwritten
+SWAP_STALL_CYCLES = 200_000_000
+SERVE_DEVICE = "cuda:0"
+REG_LANES = ("hi", "lo")
+REG_QUOTAS = (1.0, 0.5)
+REG_HI_DEADLINE = 0.5       # s: a healthy batch takes ~0.03
+REG_DEGRADE_S = 1.0         # the tainted canary's stall a batch
+REG_CANARY_REQUESTS = 48
+REG_BREAKER_COOLDOWN_S = 2.0
+REG_MIXED_S = 5.0
 # bench.py's config 4b: transformer_nmt_base at batch 64, source and
 # target 64, vocab 32000
 NMT_VOCAB = 32000
@@ -517,17 +562,21 @@ def phase_kernel(torch, att):
 
 
 # spin kernels (`torch.cuda._sleep`) that open every profiled window: the
-# profiler drops the first few device records of a window (seen on the
-# card: the first kernels of a training step, the first of 20 launches of
-# a kernel), so those records are the primer's
-PRIMER = 8
+# profiler drops the first device records of a window (seen on the card:
+# the first kernels of a training step, the first of 20 launches of a
+# kernel), a count of them that grows over a long process (1 early, 7-9
+# late in this script's run, whatever the spins' length), so those
+# records are the primer's: PRIMER spins of PRIMER_CYCLES, about 50 us
+PRIMER = 32
+PRIMER_CYCLES = 100_000
 
 
 def _device_kernels(torch, fn, reps, tries=3):
     """[(device us, kernel name, calls)] of the CUDA kernels that `reps`
     back-to-back calls of `fn` (after one unprofiled call) launch, largest
     first, from torch.profiler, and the host wall of those calls (us).
-    The window opens with PRIMER spin kernels, which are not counted.
+    The window opens with PRIMER spin kernels, which are not counted; a
+    window that lost some of them is printed (`profiler_primer`).
     Only kernels, copies and fills count: a device-side row that bears
     the name of a host row (a `record_function` span, `ProfilerStep*`)
     is an annotation, whose time spans kernels already counted.  Every
@@ -543,13 +592,14 @@ def _device_kernels(torch, fn, reps, tries=3):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(PRIMER):
-                torch.cuda._sleep(1000)
+                torch.cuda._sleep(PRIMER_CYCLES)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
+        _primer_kept(torch, prof)
         # kernels only: the aten op that launched a kernel carries the
         # same device time again, and an annotation spans them
         events = prof.key_averages()
@@ -563,8 +613,54 @@ def _device_kernels(torch, fn, reps, tries=3):
         if rows and all(n % reps == 0 for _, _, n in rows):
             rows.sort(reverse=True)
             return rows, wall_us
+        _emit(dict(phase="profiler_window_rejected", reps=reps,
+                   records=_record_origins(
+                       torch, prof, {k for _, k, n in rows if n % reps})))
     raise RuntimeError("torch.profiler lost kernel records of %d calls in "
                        "%d windows: %r" % (reps, tries, rows))
+
+
+def _primer_kept(torch, prof):
+    """Prints how many of the window's primer spins the profiler kept,
+    when it lost any."""
+    from torch.autograd import DeviceType
+    kept = sum("::spin_kernel(" in ev.key for ev in prof.events()
+               if ev.device_type == DeviceType.CUDA)
+    if kept != PRIMER:
+        _emit(dict(phase="profiler_primer", kept=kept, of=PRIMER))
+
+
+def _record_origins(torch, prof, names):
+    """Where the device records named `names` of a profiled window came
+    from: counts by (stream, the runtime call that issued them, the host
+    thread that made it), and the spread of their start times from the
+    window's first device record (us); what each host thread (the
+    profiler's thread numbers) called; the threads alive by name."""
+    from torch.autograd import DeviceType
+    evs = prof.events()
+    calls = {ev.id: ev for ev in evs if ev.device_type != DeviceType.CUDA}
+    dev = [ev for ev in evs if ev.device_type == DeviceType.CUDA]
+    t0 = min((ev.time_range.start for ev in dev), default=0)
+    groups = {}
+    for ev in dev:
+        if ev.name not in names:
+            continue
+        call = calls.get(getattr(ev, "linked_correlation_id", None)) \
+            or calls.get(ev.id)
+        key = (ev.name[:60], getattr(ev, "device_resource_id", None),
+               call.name if call else None, call.thread if call else None)
+        groups.setdefault(key, []).append(ev.time_range.start - t0)
+    host = {}
+    for ev in calls.values():
+        host.setdefault(ev.thread, collections.Counter())[ev.name] += 1
+    return dict(
+        threads=[t.name for t in threading.enumerate()],
+        host_threads={th: dict(calls=sum(c.values()),
+                               top=[n for n, _ in c.most_common(4)])
+                      for th, c in host.items()},
+        groups=[dict(name=k[0], stream=k[1], call=k[2], host_thread=k[3],
+                     count=len(v), first_us=min(v), last_us=max(v))
+                for k, v in sorted(groups.items(), key=str)])
 
 
 def _device_ms(torch, fn, reps=20):
@@ -2043,15 +2139,196 @@ def _window(eng, rs, vocab):
     return np.asarray(lat), wall
 
 
+def _event_ms(torch, fn, reps=SERVE_TIMED):
+    """Median of `reps` single calls of `fn`, each by CUDA events on the
+    current stream, after one warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        fn()
+        e1.record()
+        e1.synchronize()
+        times.append(e0.elapsed_time(e1))
+    return statistics.median(times)
+
+
+def _serve_buckets(torch, eng, net, rs, vocab, layers):
+    """Each bucket's captured program replayed against the same forward
+    run eagerly (CUDA events, median), a whole replayed batch through the
+    engine's own path (`_run`: stage, replay, copy out, sync) by its host
+    wall, and that batch's profile: busy share and the flash forward's
+    launches by the profiler's kernel names (`layers` a batch)."""
+    rows = {}
+    for b in SERVE_BUCKETS:
+        x_np = rs.randint(0, vocab, size=(b, SEQ)).astype(np.int32)
+        x = torch.from_numpy(x_np).to(SERVE_DEVICE)
+        prog = eng._programs[(0, b)]
+        with torch.inference_mode():
+            eager_ms = _event_ms(torch, lambda: net(x))
+        replay_ms = _event_ms(torch, prog.replay)
+        kernels, wall_us = _device_kernels(
+            torch, lambda: eng._run(0, x_np, []), SERVE_PROFILED)
+        device_us = sum(r[0] for r in kernels)
+        calls = _port_kernel_calls(kernels, SERVE_PROFILED)
+        rows[b] = dict(replayed_ms=replay_ms, eager_ms=eager_ms,
+                       eager_over_replayed=eager_ms / replay_ms,
+                       batch_wall_ms=wall_us / SERVE_PROFILED / 1e3,
+                       device_ms=device_us / SERVE_PROFILED / 1e3,
+                       busy_share=device_us / wall_us,
+                       port_kernels_per_batch=calls)
+        _check(calls == {"flash_fwd_kernel": layers},
+               "a replayed bucket-%d batch launched %r of the port's "
+               "kernels, not %d flash forwards" % (b, calls, layers))
+    return rows
+
+
+def _serve_swap(torch, mx, eng, net, rs, vocab):
+    """`refresh_params_from` a second BERT-base while a client keeps
+    submitting: no capture, and what is served after the swap is the
+    new weights' output.  The new weights are loaded into the source on
+    the default stream behind a stall, with no sync before the swap,
+    which must wait for them."""
+    from incubator_mxnet_tpu_torch.monitor import events
+    mx.random.seed(1)
+    v2 = mx.models.bert_base(device=SERVE_DEVICE).eval()
+    probe = rs.randint(0, vocab, size=(SEQ,)).astype(np.int32)
+    x = torch.from_numpy(probe[None]).to(SERVE_DEVICE)
+    with torch.inference_mode():
+        ref1, ref2 = net(x)[0], v2(x)[0]
+    weights = {k: v.clone() for k, v in v2.state_dict().items()}
+    with torch.no_grad():
+        for t in v2.state_dict().values():
+            t.zero_()
+    torch.cuda.synchronize()
+    before = eng.submit(probe).result(timeout=300)
+    stop, served, errors = threading.Event(), [0], []
+    toks = rs.randint(0, vocab, size=(16, SEQ)).astype(np.int32)
+
+    def client():
+        try:
+            while not stop.is_set():
+                for f in [eng.submit(t) for t in toks[:4]]:
+                    out = f.result(timeout=300)
+                    _check(bool(torch.isfinite(out).all()),
+                           "non-finite logits during the swap")
+                    served[0] += 1
+        except Exception as e:          # noqa: BLE001 — re-raised below
+            errors.append(e)
+
+    traces = events.get("serve.traces")
+    t = threading.Thread(target=client)
+    t.start()
+    time.sleep(0.2)
+    torch.cuda._sleep(SWAP_STALL_CYCLES)
+    v2.load_state_dict(weights)
+    t0 = time.perf_counter()
+    eng.refresh_params_from(v2, version="v2")
+    swap_ms = (time.perf_counter() - t0) * 1e3
+    after = eng.submit(probe).result(timeout=300)
+    time.sleep(0.2)
+    stop.set()
+    t.join(timeout=300)
+    if errors:
+        raise errors[0]
+    captures = events.get("serve.traces") - traces
+    row = dict(swap_ms=swap_ms, captures=captures,
+               served_during=served[0],
+               before_vs_v1=(before - ref1).abs().max().item(),
+               after_vs_v2=(after - ref2).abs().max().item(),
+               after_vs_v1=(after - ref1).abs().max().item())
+    _check(captures == 0, "the swap captured %d programs" % captures)
+    _check(row["before_vs_v1"] <= SERVE_TOL
+           and row["after_vs_v2"] <= SERVE_TOL,
+           "served logits differ from the served weights' forward: %r"
+           % row)
+    _check(row["after_vs_v1"] > 100 * SERVE_TOL,
+           "the swap served v1's logits")
+    del v2
+    return row
+
+
+def _serve_replicas(torch, mx, net, rs, vocab):
+    """Two replicas of one engine on cuda:0, retries off, cooldown
+    SERVE_COOLDOWN_S: the serve.infer fault plan fails calls 2 and 4,
+    which round-robin puts on replica 1; it is marked unhealthy and the
+    traffic that follows routes around it; after the cooldown one probe
+    re-admits it."""
+    from incubator_mxnet_tpu_torch import config as cfg
+    from incubator_mxnet_tpu_torch import fault
+    from incubator_mxnet_tpu_torch.monitor import events
+    cfg.set("MXNET_RETRY_MAX", 0)
+    cfg.set("MXNET_SERVE_REPLICA_FAILS", 2)
+    cfg.set("MXNET_SERVE_REPLICA_COOLDOWN_S", SERVE_COOLDOWN_S)
+    try:
+        eng = mx.serving.InferenceEngine(
+            net, devices=[SERVE_DEVICE] * 2, buckets=SERVE_BUCKETS,
+            example_shape=(SEQ,), wire_dtype="int32",
+            cost_label="serve.infer:bert_base_replicas")
+        traces = events.get("serve.traces")
+        eng.warmup()
+        captures = events.get("serve.traces") - traces
+        toks = rs.randint(0, vocab, size=(48, SEQ)).astype(np.int32)
+        fault.clear()
+        fault.install("serve.infer", at_calls=[2, 4])
+        failed = 0
+        for t in toks[:4]:                  # sequential: r0 r1 r0 r1
+            if eng.submit(t).exception(timeout=300) is not None:
+                failed += 1
+        health = list(eng.stats()["replica_health"])
+        mark = list(eng.stats()["device_batches"])
+        futs = [eng.submit(t) for t in toks[4:36]]
+        outs = [f.result(timeout=300) for f in futs]
+        routed = list(eng.stats()["device_batches"])
+        time.sleep(SERVE_COOLDOWN_S + 0.1)
+        for t in toks[36:]:
+            eng.submit(t).result(timeout=300)
+        fault.clear()
+        final = eng.stats()
+        with torch.inference_mode():
+            ref = net(torch.from_numpy(toks[4:8]).to(SERVE_DEVICE))
+        err = max((o - r).abs().max().item() for o, r in zip(outs, ref))
+        eng.close(timeout=60)
+    finally:
+        for k in ("MXNET_RETRY_MAX", "MXNET_SERVE_REPLICA_FAILS",
+                  "MXNET_SERVE_REPLICA_COOLDOWN_S"):
+            cfg.unset(k)
+    row = dict(captures=captures, failed=failed,
+               health_after_faults=health, batches_at_mark=mark,
+               batches_after_traffic=routed,
+               health_final=final["replica_health"],
+               batches_final=final["device_batches"],
+               recovered=events.get("serve.replica_recovered"),
+               max_abs_err=err)
+    _check(captures == 2 * len(SERVE_BUCKETS), "%d captures for 2 replicas"
+           % captures)
+    _check(failed == 2 and health == ["healthy", "unhealthy"],
+           "the faulted replica was not marked: %r" % row)
+    _check(routed[1] == mark[1] and routed[0] > mark[0],
+           "traffic reached the unhealthy replica: %r" % row)
+    _check(final["replica_health"] == ["healthy", "healthy"]
+           and final["device_batches"][1] > mark[1],
+           "the replica was not re-admitted after its cooldown: %r" % row)
+    _check(err <= SERVE_TOL, "replica outputs differ from the forward by "
+           "%g" % err)
+    return row
+
+
 def phase_serve(torch, mx, att):
+    from incubator_mxnet_tpu_torch.monitor import events
+    from incubator_mxnet_tpu_torch.telemetry import costs
     rs = np.random.RandomState(0)
     mx.random.seed(0)
     torch.cuda.reset_peak_memory_stats()
-    net = mx.models.bert_base(device="cuda:0")
+    net = mx.models.bert_base(device=SERVE_DEVICE)
     vocab = net.decoder.weight.shape[0]
     layers = len(net.encoder.layers)
-    eng = net.inference_engine(buckets=SERVE_BUCKETS, example_shape=(SEQ,),
-                               wire_dtype="int32")
+    eng = net.inference_engine(device=SERVE_DEVICE, buckets=SERVE_BUCKETS,
+                               example_shape=(SEQ,), wire_dtype="int32",
+                               cost_label="serve.infer:bert_base")
     singles = [rs.randint(0, vocab, size=(SEQ,)).astype(np.int32)
                for _ in range(12)]
     batch = rs.randint(0, vocab, size=(3, SEQ)).astype(np.int32)
@@ -2065,7 +2342,10 @@ def phase_serve(torch, mx, att):
                 futures[i] = fut
 
     att.flash_fwd_launches = 0          # the main path starts here
+    traces0 = events.get("serve.traces")
     warm = eng.warmup()
+    warm_captures = events.get("serve.traces") - traces0
+    warm_launches = att.flash_fwd_launches
     # a burst: 12 singles from 3 threads and one batch of 3, every result
     # kept and checked
     threads = [threading.Thread(target=client, args=(range(j, 12, 3),))
@@ -2080,10 +2360,14 @@ def phase_serve(torch, mx, att):
     before = eng.stats()
     lat, wall = _window(eng, rs, vocab)
     launches = att.flash_fwd_launches   # the main path ends here
-    _check(eng.close(timeout=60), "engine dispatcher did not retire")
+    traffic_captures = events.get("serve.traces") - traces0 - warm_captures
     stats = eng.stats()
-    batches = stats["batches"] + stats["warmup_batches"]
+    batches = stats["batches"]
 
+    _check(warm_captures == len(SERVE_BUCKETS), "warmup made %d captures, "
+           "want %d" % (warm_captures, len(SERVE_BUCKETS)))
+    _check(traffic_captures == 0, "%d captures in traffic"
+           % traffic_captures)
     _check(len(results) == 12, "only %d of 12 singles resolved"
            % len(results))
     for out in results.values():
@@ -2096,12 +2380,17 @@ def phase_serve(torch, mx, att):
     n_window = WINDOW_CLIENTS * WINDOW_PER_CLIENT
     _check(stats["requests"] == 13 + n_window, "engine counted %d requests"
            % stats["requests"])
-    _check(launches == layers * batches,
-           "flash kernel launched %d times for %d batches of %d layers"
-           % (launches, batches, layers))
+    # the wrappers count each capture's launches into its graph; a
+    # replayed batch runs no wrapper (its launches are read by name below)
+    _check(launches == warm_launches == layers * warm_captures,
+           "flash kernel launched %d times (warmup %d) for %d captures of "
+           "%d layers" % (launches, warm_launches, warm_captures, layers))
 
-    # one full bucket forward timed on the card
-    x8 = torch.from_numpy(np.stack(singles[:8])).cuda()
+    buckets = _serve_buckets(torch, eng, net, rs, vocab, layers)
+    replayed = {b: r["port_kernels_per_batch"].get("flash_fwd_kernel", 0)
+                for b, r in buckets.items()}
+    # one full bucket forward timed on the card, eager
+    x8 = torch.from_numpy(np.stack(singles[:8])).to(SERVE_DEVICE)
     with torch.inference_mode():
         fwd8_ms = _time_ms(torch, lambda: net(x8), reps=3, rounds=3)
 
@@ -2110,12 +2399,18 @@ def phase_serve(torch, mx, att):
     cpu_net.eval()
     with torch.inference_mode():
         ref = cpu_net(torch.from_numpy(singles[0][None]))[0]
+    del cpu_net
     err = (results[0].cpu() - ref).abs().max().item()
     window_buckets = {b: stats["bucket_batches"][b]
                       - before["bucket_batches"][b] for b in SERVE_BUCKETS}
+    swap = _serve_swap(torch, mx, eng, net, rs, vocab)
+    _check(eng.close(timeout=60), "engine dispatcher did not retire")
+    replicas = _serve_replicas(torch, mx, net, rs, vocab)
     _emit(dict(phase="serve", model="bert_base", dtype="float32",
                seq=SEQ, buckets=list(SERVE_BUCKETS),
                warmup_batches=stats["warmup_batches"],
+               warmup_captures=warm_captures,
+               traffic_captures=traffic_captures,
                burst=dict(requests=13, examples=before["examples"],
                           batches=before["batches"]),
                window=dict(clients=WINDOW_CLIENTS,
@@ -2129,13 +2424,443 @@ def phase_serve(torch, mx, att):
                            e2e_p99_ms=float(np.percentile(lat, 99) * 1e3),
                            e2e_max_ms=float(lat.max() * 1e3)),
                flash_fwd_launches=launches, batches=batches,
+               replayed_batch_flash_launches=replayed,
+               per_bucket=buckets,
                warmup_s=warm["wall_s"], forward_bucket8_ms=fwd8_ms,
+               swap=swap, replicas=replicas,
+               cost_rows=[{k: r[k] for k in (
+                   "label", "invocations", "param_bytes", "argument_bytes",
+                   "output_bytes", "pool_bytes", "compile_wall_s")}
+                   for r in costs.table()
+                   if r["label"].startswith("serve.infer:bert_base[")],
                max_memory_allocated=torch.cuda.max_memory_allocated(),
                cpu_max_abs_err=err, cpu_tol=SERVE_TOL))
     _check(err <= SERVE_TOL, "served logits differ from the CPU copy by "
                              "%g > %g" % (err, SERVE_TOL))
     phase_profile(torch, net, x8)
+    return launches, replayed
+
+
+def _reg_window(reg, rs, vocab, seconds):
+    """BERT singles through the registry for `seconds`: WINDOW_CLIENTS
+    closed-loop clients with WINDOW_INFLIGHT outstanding each, lanes hi
+    and lo and tenants t0 and t1 alternating.  Returns (served, shed,
+    wall)."""
+    from incubator_mxnet_tpu_torch.serving import (DeadlineExceeded,
+                                                   QueueFull, Shed)
+    toks = rs.randint(0, vocab, size=(64, SEQ)).astype(np.int32)
+    stop = time.monotonic() + seconds
+    counts = collections.Counter()
+    lock = threading.Lock()
+
+    def take(fut):
+        try:
+            out = fut.result(timeout=300)
+            _check(tuple(out.shape) == (SEQ, vocab), "registry result "
+                   "shape %s" % (tuple(out.shape),))
+            key = "served"
+        except (Shed, QueueFull, DeadlineExceeded):
+            key = "shed"
+        with lock:
+            counts[key] += 1
+
+    def client(j):
+        pending, i = deque(), 0
+        while time.monotonic() < stop:
+            if len(pending) == WINDOW_INFLIGHT:
+                take(pending.popleft())
+            try:
+                pending.append(reg.submit(
+                    "bert", toks[(i * WINDOW_CLIENTS + j) % len(toks)],
+                    lane=REG_LANES[i % 2], tenant="t%d" % (j % 2)))
+            except (Shed, QueueFull, DeadlineExceeded):
+                with lock:
+                    counts["shed"] += 1
+            i += 1
+        while pending:
+            take(pending.popleft())
+
+    t0 = time.monotonic()
+    with ThreadPoolExecutor(WINDOW_CLIENTS) as pool:
+        for job in [pool.submit(client, j) for j in range(WINDOW_CLIENTS)]:
+            job.result(timeout=600)
+    return counts["served"], counts["shed"], time.monotonic() - t0
+
+
+def _reg_generate(reg, prompts, rate, seconds, rs):
+    """Poisson generation requests through the registry at `rate` req/s
+    for `seconds`, lanes hi (GEN_HI_FRAC) and lo, budgets uniform in
+    [3, GEN_MAX_NEW].  Returns (offered, served, shed)."""
+    from incubator_mxnet_tpu_torch.serving import (DeadlineExceeded,
+                                                   QueueFull, Shed)
+    pending, shed, offered = [], 0, 0
+    t0 = time.perf_counter()
+    next_t = t0
+    while time.perf_counter() < t0 + seconds:
+        now = time.perf_counter()
+        if now < next_t:
+            time.sleep(min(next_t - now, 0.002))
+            continue
+        next_t += rs.exponential(1.0 / rate)
+        lane = GEN_LANES[0] if rs.rand() < GEN_HI_FRAC else GEN_LANES[1]
+        offered += 1
+        try:
+            pending.append(reg.generate(
+                "nmt", prompts[offered % len(prompts)],
+                max_new_tokens=int(rs.randint(3, GEN_MAX_NEW + 1)),
+                lane=lane))
+        except (Shed, QueueFull, DeadlineExceeded):
+            shed += 1
+    served = 0
+    for st in pending:
+        try:
+            st.result(timeout=GEN_RESULT_TIMEOUT)
+            served += 1
+        except (Shed, QueueFull, DeadlineExceeded):
+            shed += 1
+    return offered, served, shed
+
+
+def _pcts(events, name, label=None):
+    """p50/p99 ms of a series (the unlabeled ring, or its lane's)."""
+    if label is None:
+        p = events.percentiles(name, (50, 99))
+    else:
+        p = next((r for r in events.labeled_percentiles(name, (50, 99))
+                  if r["labels"] == {"lane": label}), {})
+    return {k: p[k] / 1e3 for k in ("p50", "p99") if k in p}
+
+
+def phase_serve_registry(torch, mx, att):
+    """BERT-base and the NMT generator behind one ModelRegistry on
+    cuda:0: admission against the card's budget, the ledger against the
+    allocator, a denial that allocates nothing, a degraded canary rolled
+    back by the default serving SLO rule, a circuit breaker's open-close
+    cycle, bit-equal and token-equal parity, and 5 s of mixed traffic.
+    Returns the flash forward's launches (each BERT capture's)."""
+    from incubator_mxnet_tpu_torch import config as cfg
+    from incubator_mxnet_tpu_torch import fault
+    from incubator_mxnet_tpu_torch.monitor import events
+    from incubator_mxnet_tpu_torch.serving import (
+        AdmissionDenied, CircuitOpen, InferenceEngine, ModelRegistry,
+        project_footprint)
+    from incubator_mxnet_tpu_torch.telemetry import costs, memwatch, slo
+    knobs = {"MXNET_SERVE_BREAKER_FAILS": 2,
+             "MXNET_SERVE_BREAKER_COOLDOWN_S": REG_BREAKER_COOLDOWN_S,
+             "MXNET_CTL_DEGRADE_S": REG_DEGRADE_S, "MXNET_RETRY_MAX": 0}
+    for k, v in knobs.items():
+        cfg.set(k, v)
+    torch.cuda.empty_cache()
+    alloc0 = torch.cuda.memory_allocated()
+    rs = np.random.RandomState(0)
+    mx.random.seed(0)
+    bert = mx.models.bert_base(device=SERVE_DEVICE).eval()
+    vocab = bert.decoder.weight.shape[0]
+    layers = len(bert.encoder.layers)
+    mx.random.seed(0)
+    nmt = _nmt_model(mx, SERVE_DEVICE)
+    row = dict(phase="serve_registry", model="bert_base + "
+               "transformer_nmt_base", seq=SEQ, buckets=list(SERVE_BUCKETS),
+               gen=dict(slots=GEN_SLOTS, max_len=GEN_MAX_LEN,
+                        prompt_buckets=list(GEN_BUCKETS)))
+    # the eager reference the rollback is held to, before the path runs
+    probe = rs.randint(0, vocab, size=(SEQ,)).astype(np.int32)
+    with torch.inference_mode():
+        v1_out = bert(torch.from_numpy(probe[None]).to(SERVE_DEVICE))[0]
+    try:
+        att.flash_fwd_launches = 0      # the main path starts here
+        bert_traces = 0                 # captures of BERT programs
+        reg = ModelRegistry(devices=[SERVE_DEVICE])
+        budget = reg._budgets[0]
+        rec_b = reg.register("bert", bert, example_shape=(SEQ,),
+                             wire_dtype="int32", buckets=SERVE_BUCKETS,
+                             lanes=REG_LANES, lane_quotas=REG_QUOTAS)
+        rec_g = reg.register_generator(
+            "nmt", nmt, NMT_BOS, GEN_EOS, slots=GEN_SLOTS,
+            max_len=GEN_MAX_LEN, prompt_buckets=GEN_BUCKETS,
+            lanes=GEN_LANES, lane_quotas=GEN_QUOTAS,
+            queue_cap=GEN_QUEUE_CAP)
+        traces = events.get("serve.traces")
+        reg.warmup()
+        captures = events.get("serve.traces") - traces
+        bert_traces += len(SERVE_BUCKETS)
+        _check(captures == len(SERVE_BUCKETS) + len(GEN_BUCKETS) + 2,
+               "registry warmup made %d captures" % captures)
+        row["admitted"] = dict(budget=budget, bert=rec_b, nmt=rec_g,
+                               warmup_captures=captures)
+
+        # the ledger against the allocator
+        torch.cuda.synchronize()
+        smp = memwatch.sample(tag="registry", force=True)
+        dev_key = memwatch.device_key(SERVE_DEVICE)
+        stats = reg.stats()
+        held = {}
+        for name in ("bert", "nmt"):
+            seen = {t.untyped_storage().data_ptr(): t.untyped_storage()
+                    .nbytes() for t in reg.engine(name).held_tensors()}
+            held[name] = sum(seen.values())
+        pools = {name: sum(r["pool_bytes"] or 0 for r in costs.table()
+                           if r["label"].startswith(
+                               "serve.infer:%s[" % name))
+                 for name in ("bert", "nmt:gen")}
+        pools["nmt"] = pools.pop("nmt:gen")
+        row["ledger"] = dict(
+            models={n: dict(projected=rec["footprint_bytes"],
+                            committed=m["footprint_bytes"],
+                            basis=m["basis"], held_tensor_bytes=held[n],
+                            pool_bytes=pools[n],
+                            held_plus_pool=held[n] + pools[n])
+                    for (n, m), rec in zip(sorted(stats["models"].items()),
+                                           (rec_b, rec_g))},
+            committed=stats["ledger"][0]["committed"],
+            memwatch_used=smp["devices"][dev_key]["used_bytes"],
+            memwatch_source=smp["devices"][dev_key]["source"],
+            attribution=[{k: r.get(k) for k in (
+                "tenant", "committed_bytes", "measured_bytes", "drift")}
+                for r in memwatch.attribution(smp)],
+            memory_allocated=torch.cuda.memory_allocated(),
+            memory_reserved=torch.cuda.memory_reserved(),
+            outside_models=torch.cuda.memory_allocated()
+            - stats["ledger"][0]["committed"])
+        _check(all(m["basis"] == "measured"
+                   for m in stats["models"].values()),
+               "a model's ledger row was not reconciled: %r"
+               % stats["models"])
+        _check(row["ledger"]["memwatch_source"] == "memory_stats",
+               "memwatch did not read the card's allocator: %r"
+               % row["ledger"]["memwatch_source"])
+
+        # a third registration denied under committed + half its
+        # projection, before anything is allocated for it
+        proj, _ = project_footprint(bert, SERVE_BUCKETS, (SEQ,), "int32")
+        committed = reg._committed[0]
+        reg._budgets[0] = committed + proj // 2
+        torch.cuda.synchronize()
+        alloc = torch.cuda.memory_allocated()
+        try:
+            reg.register("bert_b", bert, example_shape=(SEQ,),
+                         wire_dtype="int32", buckets=SERVE_BUCKETS)
+            denied = None
+        except AdmissionDenied as e:
+            denied = str(e)
+        torch.cuda.synchronize()
+        row["denial"] = dict(budget=reg._budgets[0], committed=committed,
+                             projected=proj, message=denied,
+                             allocated_before=alloc,
+                             allocated_after=torch.cuda.memory_allocated())
+        reg._budgets[0] = budget
+        _check(denied is not None and "'bert_b'" in denied,
+               "the third registration was admitted")
+        _check(row["denial"]["allocated_after"] == alloc,
+               "the denied registration allocated %d bytes"
+               % (row["denial"]["allocated_after"] - alloc))
+
+        # parity: the registry's BERT against a standalone engine over
+        # the same weights, bit for bit at buckets 8 and 1
+        solo = InferenceEngine(bert, device=SERVE_DEVICE,
+                               buckets=SERVE_BUCKETS, example_shape=(SEQ,),
+                               wire_dtype="int32")
+        solo.warmup()
+        bert_traces += len(SERVE_BUCKETS)
+        x8 = rs.randint(0, vocab, size=(8, SEQ)).astype(np.int32)
+        same = []
+        for x in (x8, x8[:1]):
+            a = reg.submit_batch("bert", x, lane="hi").result(timeout=300)
+            b = solo.submit_batch(x).result(timeout=300)
+            same.append(bool(torch.equal(a, b)))
+        solo.close(timeout=60)
+        del solo
+        gen_rows = []
+        prompts = [rs.randint(3, NMT_VOCAB, (n,)).astype(np.int32)
+                   for n in GEN_PARITY_LENGTHS[:4]]
+        streams = [reg.generate("nmt", p, max_new_tokens=m)
+                   for p, m in zip(prompts, GEN_PARITY_NEW[:4])]
+        with torch.no_grad():
+            for p, m, st in zip(prompts, GEN_PARITY_NEW[:4], streams):
+                g = st.result(timeout=GEN_RESULT_TIMEOUT)
+                ref, _, gaps = _greedy(torch, nmt, p, m, SERVE_DEVICE)
+                gen_rows.append(dict(prompt_len=int(p.size), tokens=len(g),
+                                     **_near_tie_compare(g, ref, gaps,
+                                                         SERVE_TOL)))
+        row["parity"] = dict(bert_bit_equal=same, generate=gen_rows)
+        _check(all(same), "registry BERT outputs differ from the "
+               "standalone engine's: %r" % same)
+
+        # a degraded canary caught by the default serving rules
+        mx.random.seed(1)
+        v2 = mx.models.bert_base(device=SERVE_DEVICE).eval()
+        fault.clear()
+        fault.install("model.bad_version", at_calls=[1])
+        can = reg.register_version("bert", v2, "v2", fraction=0.25)
+        bert_traces += len(SERVE_BUCKETS)   # the canary's warmup
+        fault.clear()
+        slo.clear_rules()
+        rolled = []
+        slo.register_action(
+            lambda rule, firing, info: firing and rule.startswith("serve-")
+            and rolled.append((rule, reg.rollback_version(
+                "bert", reason=rule))))
+        served, late = _reg_canary_traffic(reg, rs, vocab)
+        rules = reg.install_slo_rules()
+        fired = slo.evaluate()
+        route_after = reg.canary("bert")
+        after = reg.submit("bert", probe, lane="hi").result(timeout=300)
+        row["canary"] = dict(
+            version=can["version"], fraction=can["fraction"],
+            tainted=can["tainted"], degrade_s=REG_DEGRADE_S,
+            hi_deadline_s=REG_HI_DEADLINE, requests=served, late=late,
+            rules=rules, fired=fired,
+            rolled_back=[(r, d["version"] if d else None)
+                         for r, d in rolled],
+            canary_after=route_after, models=sorted(reg.stats()["models"]),
+            v1_after_max_abs_err=(after - v1_out).abs().max().item())
+        slo.clear_rules()
+        del v2
+        _check(can["tainted"], "the bad_version fault did not taint v2")
+        _check(rolled and rolled[0][1] is not None
+               and route_after is None and "bert@v2" not in
+               row["canary"]["models"],
+               "the SLO rule did not roll the canary back: %r"
+               % row["canary"])
+        _check(row["canary"]["v1_after_max_abs_err"] <= SERVE_TOL,
+               "after the rollback the registry does not serve v1")
+
+        # the circuit breaker: two terminal failures open it, its
+        # cooldown lets one probe through, which closes it
+        fault.install("serve.infer", at_calls=[1], times=2)
+        states = []
+        for _ in range(2):
+            exc = reg.submit("bert", probe, lane="hi").exception(timeout=300)
+            states.append(("fail", type(exc).__name__,
+                           reg.stats()["models"]["bert"]["breaker"]))
+        fault.clear()
+        try:
+            reg.submit("bert", probe, lane="hi")
+            states.append(("submit", "admitted", "?"))
+        except CircuitOpen:
+            states.append(("submit", "CircuitOpen",
+                           reg.stats()["models"]["bert"]["breaker"]))
+        time.sleep(REG_BREAKER_COOLDOWN_S + 0.1)
+        reg.submit("bert", probe, lane="hi").result(timeout=300)
+        states.append(("probe", "ok",
+                       reg.stats()["models"]["bert"]["breaker"]))
+        row["breaker"] = dict(cooldown_s=REG_BREAKER_COOLDOWN_S,
+                              transitions=states)
+        _check([s[2] for s in states] == ["closed", "open", "open",
+                                          "closed"],
+               "breaker transitions %r" % states)
+
+        # mixed traffic: BERT closed loop beside Poisson generation at
+        # half the generator's closed-loop capacity, measured here alone
+        gen_prompts = [rs.randint(3, NMT_VOCAB, (n,)).astype(np.int32)
+                       for n in rs.randint(5, max(GEN_BUCKETS) + 1, 64)]
+        cap = _gen_capacity(reg.engine("nmt"), gen_prompts, GEN_CAPACITY_S,
+                            GEN_MAX_NEW)
+        events.reset()
+        box = {}
+        bert_thread = threading.Thread(target=lambda: box.update(
+            bert=_reg_window(reg, rs, vocab, REG_MIXED_S)))
+        t0 = time.perf_counter()
+        bert_thread.start()
+        offered, gserved, gshed = _reg_generate(
+            reg, gen_prompts, 0.5 * cap, REG_MIXED_S,
+            np.random.RandomState(17))
+        bert_thread.join(timeout=600)
+        wall = time.perf_counter() - t0
+        bserved, bshed, bwall = box["bert"]
+        mixed_captures = events.get("serve.traces")
+        row["mixed"] = dict(
+            seconds=REG_MIXED_S, wall_s=wall,
+            gen_capacity_rps=cap, gen_rate_rps=0.5 * cap,
+            bert=dict(served=bserved, shed=bshed,
+                      requests_per_s=bserved / bwall,
+                      tokens_per_s=bserved * SEQ / bwall,
+                      **{ln: _pcts(events, "serve.e2e_us", ln)
+                         for ln in REG_LANES}),
+            gen=dict(offered=offered, served=gserved, shed=gshed,
+                     tokens=events.get("gen.tokens"),
+                     tokens_per_s=events.get("gen.tokens") / wall,
+                     ttft=_pcts(events, "gen.ttft_us"),
+                     intertoken=_pcts(events, "gen.intertoken_us"),
+                     **{ln: _pcts(events, "gen.e2e_us", ln)
+                        for ln in GEN_LANES}),
+            sheds=dict(serve=events.get("serve.shed"),
+                       gen=events.get("gen.shed")),
+            captures=mixed_captures)
+        _check(mixed_captures == 0, "%d captures in mixed traffic"
+               % mixed_captures)
+        _check(bserved > 0 and gserved > 0, "mixed traffic served "
+               "nothing: %r" % row["mixed"])
+        launches = att.flash_fwd_launches   # the main path ends here
+        row["flash_fwd_launches"] = launches
+        row["bert_captures"] = bert_traces
+        reg.close(timeout=120)
+        row["memory_allocated_before"] = alloc0
+        row["memory_allocated_after_close"] = torch.cuda.memory_allocated()
+    finally:
+        fault.clear()
+        slo.clear_rules()
+        for k in knobs:
+            cfg.unset(k)
+    _emit(row)
+    # the wrappers count each BERT capture's launches, one a layer (the
+    # registry's, the standalone engine's and the canary's buckets);
+    # replays, and the generator, launch none through a wrapper
+    _check(launches == layers * bert_traces,
+           "flash kernel launched %d times for %d BERT captures of %d "
+           "layers" % (launches, bert_traces, layers))
     return launches
+
+
+# the threads the serving engines start: none may outlive its phase
+_SERVING_THREADS = ("ServeDispatcher", "ServeReplica", "ServeBuild",
+                    "GenDecodeLoop")
+
+
+def _serving_retired(torch):
+    """After the serving phases: no engine thread is left to put work on
+    the card beside the phases that follow, and what the engines held is
+    freed (the allocator's bytes are printed)."""
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    threads = sorted(t.name for t in threading.enumerate())
+    _emit(dict(phase="serving_retired", threads=threads,
+               memory_allocated=torch.cuda.memory_allocated(),
+               memory_reserved=torch.cuda.memory_reserved()))
+    left = [t for t in threads if t.startswith(_SERVING_THREADS)]
+    _check(not left, "serving threads outlived their phase: %r" % left)
+
+
+def _reg_canary_traffic(reg, rs, vocab):
+    """REG_CANARY_REQUESTS singles on lane hi with deadline
+    REG_HI_DEADLINE from WINDOW_CLIENTS closed-loop clients; a quarter
+    mirror to the degraded canary.  Returns (resolved, past deadline or
+    shed)."""
+    from incubator_mxnet_tpu_torch.serving import DeadlineExceeded, Shed
+    toks = rs.randint(0, vocab, size=(REG_CANARY_REQUESTS, SEQ)) \
+        .astype(np.int32)
+    counts = collections.Counter()
+    lock = threading.Lock()
+
+    def client(rows):
+        for x in rows:
+            t0 = time.monotonic()
+            try:
+                reg.submit("bert", x, lane="hi",
+                           deadline=REG_HI_DEADLINE).result(timeout=300)
+                late = time.monotonic() - t0 > REG_HI_DEADLINE
+            except (DeadlineExceeded, Shed):
+                late = True
+            with lock:
+                counts["resolved"] += 1
+                counts["late"] += late
+
+    with ThreadPoolExecutor(WINDOW_CLIENTS) as pool:
+        for job in [pool.submit(client, toks[j::WINDOW_CLIENTS])
+                    for j in range(WINDOW_CLIENTS)]:
+            job.result(timeout=600)
+    return counts["resolved"], counts["late"]
 
 
 def _nmt_data():
@@ -2834,7 +3559,7 @@ def main():
 
     fwd_rows = phase_kernel(torch, att)
     main_row = fwd_rows[BERT_CASE]
-    launches = phase_serve(torch, mx, att)
+    launches, replayed = phase_serve(torch, mx, att)
     bwd_rows = phase_kernel_bwd(torch, att)
     bwd_row = bwd_rows[BERT_CASE]
     train_launches = phase_train(torch, mx, att)
@@ -2846,6 +3571,8 @@ def main():
     nmt_launches = phase_train_nmt(torch, mx, att)
     phase_decode_nmt(torch, mx, att)
     phase_generate_nmt(torch, mx, att, cs)
+    registry_launches = phase_serve_registry(torch, mx, att)
+    _serving_retired(torch)
     hyb = phase_hybridize_all(torch, mx, att, cs)
 
     def nmt(kernel):
@@ -2870,6 +3597,8 @@ def main():
                     "flash_attention_fwd.cu",
              replaces="incubator_mxnet_tpu/ops/attention.py:131",
              launches=launches, train_launches=train_launches["fwd"],
+             serve_registry_launches=registry_launches,
+             replayed_serving_batch_launches=replayed,
              parity="ok",
              max_abs_err=max(main_row["err_out"], main_row["err_lse"]),
              ms=main_row["ms"], kernel_ms=main_row["ms"],

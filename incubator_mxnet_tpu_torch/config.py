@@ -163,9 +163,11 @@ register("MXNET_SERVE_TENANT_QUOTA", int, 0,
          "beyond it is shed (Shed, gen.shed labeled by tenant). 0 = no "
          "per-tenant bound")
 register("MXNET_SERVE_HBM_TEMP_FACTOR", float, 2.0,
-         "Footprint projection (project_generation_footprint): "
-         "multiplier on the decode step's logits bytes to cover its "
-         "temporaries")
+         "Footprint projection (ModelRegistry, project_footprint, "
+         "project_generation_footprint): multiplier on the largest "
+         "bucket's input + output bytes (the decode step's logits for "
+         "generation) to cover temporaries before a measured footprint "
+         "replaces the projection")
 register("MXNET_GEN_SLOTS", int, 4,
          "GenerationEngine (serving.generation): decode-batch slot "
          "count, the fixed sequence capacity of the one captured "
@@ -229,3 +231,85 @@ register("MXNET_REQTRACE_PIN_P99_US", float, 0.0,
          "When > 0, replaces the rolling per-lane p99 promotion "
          "threshold with this fixed e2e value in us (deterministic "
          "promotion for tests). 0 = rolling threshold")
+register("MXNET_SERVE_HBM_BUDGET", int, 0,
+         "ModelRegistry: per-device memory budget in bytes for serving "
+         "admission control. 0 = auto (the card's total memory from "
+         "torch.cuda.mem_get_info, else unbudgeted); a model whose "
+         "projected footprint does not fit the budget on enough "
+         "devices is refused with AdmissionDenied")
+register("MXNET_SERVE_BREAKER_FAILS", int, 5,
+         "ModelRegistry circuit breaker: consecutive terminal request "
+         "failures on ONE model backend before its breaker OPENS "
+         "(submits fail fast with CircuitOpen)")
+register("MXNET_SERVE_BREAKER_COOLDOWN_S", float, 10.0,
+         "ModelRegistry circuit breaker: seconds an OPEN breaker "
+         "rejects before letting ONE probe request through "
+         "(half-open); probe success re-closes it, failure restarts "
+         "the cooldown")
+register("MXNET_SERVE_REPLICA_FAILS", int, 3,
+         "InferenceEngine: consecutive terminal dispatch failures on "
+         "ONE replica before it is marked unhealthy and routed around "
+         "(serve.replica_unhealthy); a healthy dispatch resets the "
+         "streak")
+register("MXNET_SERVE_REPLICA_COOLDOWN_S", float, 5.0,
+         "InferenceEngine: seconds an unhealthy replica is skipped by "
+         "the round-robin before ONE probe batch is routed back to it "
+         "(success re-admits it, failure restarts the cooldown)")
+register("MXNET_SERVE_BUILD_TIMEOUT_S", float, 120.0,
+         "Bounded engine-build timeout for ModelRegistry.register / "
+         "register_version / resize: a build that wedges past this "
+         "raises RegistrationTimeout and rolls the ledger hold back.  "
+         "0 disables the bound")
+register("MXNET_CTL_CANARY_FRACTION", float, 0.1,
+         "Initial traffic fraction mirrored to a freshly-admitted "
+         "canary version (ModelRegistry.register_version)")
+register("MXNET_CTL_DEGRADE_S", float, 0.05,
+         "Per-batch stall applied to an engine tainted by the "
+         "model.bad_version fault site (outputs are also sign-flipped)")
+register("MXNET_TELEMETRY_EXPORT_PATH", str, "",
+         "MetricsExporter periodic-file path ('.prom'/'.txt' = "
+         "Prometheus text, else JSON). Empty = no file export")
+register("MXNET_TELEMETRY_EXPORT_S", float, 15.0,
+         "Seconds between periodic telemetry file exports")
+register("MXNET_STRAGGLER_SIGMA", float, 4.0,
+         "Robust-sigma multiplier of the SLO anomaly rules: a live "
+         "value above median + max(sigma*1.4826*MAD, 0.5*median) of "
+         "its history baseline fires")
+register("MXNET_HISTORY_DIR", str, "",
+         "Durable telemetry history (telemetry/history.py): directory "
+         "of the per-process append-only shard files "
+         "(history-<ts>-p<pid>.jsonl).  Empty = history off")
+register("MXNET_HISTORY_SHARD_KB", int, 4096,
+         "Size cap in KB per history shard file; a shard past the cap "
+         "is compacted in place (newest half kept, older half "
+         "downsampled 2:1)")
+register("MXNET_SLO_FAST_S", float, 60.0,
+         "SLO burn-rate FAST window in seconds (telemetry/slo.py)")
+register("MXNET_SLO_SLOW_S", float, 300.0,
+         "SLO burn-rate SLOW window in seconds")
+register("MXNET_SLO_SHED_BUDGET", float, 0.02,
+         "Default serving error budget: the allowed shed fraction of "
+         "the TOP lane's burn-rate rule; lower lanes budget max(this, "
+         "1 - lane quota)")
+register("MXNET_MEMWATCH", bool, True,
+         "Sampled per-device memory observatory (telemetry/"
+         "memwatch.py): torch.cuda.memory_stats per card, tenant "
+         "attribution against the serving ledger, per-phase peak "
+         "watermarks.  Sampling rides the exporter tick and "
+         "warmup/deploy transitions, never a request path")
+register("MXNET_MEMWATCH_MIN_S", float, 0.25,
+         "Probe throttle: an unforced memwatch.sample() within this "
+         "many seconds of the previous sample returns it unchanged; "
+         "0 disables the throttle")
+register("MXNET_MEMWATCH_RING", int, 128,
+         "Bounded ring of retained memwatch samples")
+register("MXNET_MEMWATCH_DRIFT_FACTOR", float, 1.5,
+         "slo.MemDriftRule threshold: a tenant whose measured bytes "
+         "contradict its ledger commitment by more than this factor "
+         "(either direction) fires and re-reconciles the ledger row")
+register("MXNET_MEMWATCH_FRESH_S", float, 30.0,
+         "Maximum age in seconds for a memwatch sample to count as "
+         "fresh (registry stats() measured columns, the drift rule)")
+register("MXNET_MEMWATCH_TOP", int, 5,
+         "Top-N consumers carried on a firing mem-drift alert and the "
+         "memwatch block")

@@ -37,7 +37,9 @@ causal ones among them.
 """
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
 
 import torch
 
@@ -292,8 +294,30 @@ def _route(name, q, kernel, plain):
                      % (name, q.device))
 
 
+_SHAPES = threading.local()
+
+
+@contextlib.contextmanager
+def shapes_only():
+    """A shape-only run (the serving registry's footprint projection on
+    the meta device): inside it `flash_attention_fwd` given meta tensors
+    returns meta outputs of the kernel's shapes and runs nothing.
+    Outside it a meta tensor raises, as any device but CUDA or the CPU
+    does."""
+    prev = getattr(_SHAPES, "on", False)
+    _SHAPES.on = True
+    try:
+        yield
+    finally:
+        _SHAPES.on = prev
+
+
 def flash_attention_fwd(q, k, v, scale, causal=False):
     """(BH, T, d) q, k, v → out (BH, T, d), lse (BH, T) f32."""
+    if q.device.type == "meta" and getattr(_SHAPES, "on", False):
+        return (torch.empty_like(q),
+                torch.empty(q.shape[:2], dtype=torch.float32,
+                            device="meta"))
     return _route("flash_attention_fwd", q, _flash_fwd_cuda,
                   flash_attention_fwd_plain)(q, k, v, scale, causal)
 

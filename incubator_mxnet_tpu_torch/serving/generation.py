@@ -58,8 +58,11 @@ stream exactly once.
 **Threads.**  `submit()` touches numpy only.  Every device operation
 (the prompt's copy into its static input, every capture and replay, the
 read of the step's tokens) runs on the decode loop's thread, or on the
-`warmup()` caller under the same lock, so that no other thread launches
-work while a capture is open.  The step's one host sync is the read of
+`warmup()` caller under the same lock, and holds the device's
+`graph_capture.gate` shared, so that no engine on the card launches
+work while another's capture is open.  Each program files a
+`telemetry.costs` row (its parameters, the static state and its pool
+growth) under ``cost_label``.  The step's one host sync is the read of
 its (slots,) tokens through a pinned buffer and an event.
 
 Model contract (`models.TransformerNMT`):
@@ -75,7 +78,6 @@ raises unless the caller passes ``ctx=cpu()``.
 """
 from __future__ import annotations
 
-import contextlib
 import logging
 import queue
 import threading
@@ -92,16 +94,17 @@ from .. import config as _cfg
 from .. import fault
 from .. import graph_capture as _gc
 from ..context import resolve_device
-from ..gluon.block import _ProgramScope
 from ..gluon.parameter import is_deferred
 from ..monitor import events
 from ..parallel.resilience import retry_transient
+from ..telemetry import costs as _costs
 from ..telemetry import flightrec as _bb
 from ..telemetry import reqtrace as _reqtrace
 from ..telemetry import spans as _tele
 from .engine import (DeadlineExceeded, EngineClosed, QueueFull, Shed,
-                     _LaneQueue, _OverQuota, _parse_lane_quotas,
-                     _parse_lanes)
+                     _LaneQueue, _OverQuota, _meta_call, _model_scope,
+                     _nbytes as _tensor_bytes, _parse_lane_quotas,
+                     _parse_lanes, _prime)
 
 __all__ = ["GenerationEngine", "GenerationStream",
            "project_generation_footprint"]
@@ -130,48 +133,21 @@ def _parse_prompt_buckets(spec, max_len):
     return tuple(bs)
 
 
-def _model_scope():
-    """Where the engine calls the model: no autograd graph, tensors that
-    are not inference tensors (whatever mode the caller is in), training
-    off, and hybridized children running as plain code."""
-    stack = contextlib.ExitStack()
-    stack.enter_context(torch.inference_mode(False))
-    stack.enter_context(torch.no_grad())
-    stack.enter_context(_ProgramScope(False, False))
-    return stack
-
-
-class _Method(torch.nn.Module):
-    """`block.<name>(...)` as a module's forward, for `functional_call`."""
-
-    def __init__(self, block, name):
-        super().__init__()
-        self.block = block
-        self._name = name
-
-    def forward(self, *args, **kwargs):
-        return getattr(self.block, self._name)(*args, **kwargs)
-
-
 def _leaf_specs(block, max_len, mem_len, vocab=False):
     """{leaf: (shape, dtype)} of one `init_cache` row at prompt length
     `mem_len`, and with `vocab` the width of `decode_step`'s logits, from
     a run on the meta device (the block's tensors swapped for meta
     copies): no device memory, no kernel."""
-    meta = {"block." + n: t.detach().to("meta")
-            for n, t in block.state_dict(keep_vars=True).items()}
     width = None
     with _model_scope():
         src = torch.zeros((1, mem_len), dtype=torch.int32, device="meta")
         valid = torch.full((1,), mem_len, dtype=torch.int32, device="meta")
-        row = torch.func.functional_call(
-            _Method(block, "init_cache"), meta, (src, valid),
-            dict(max_len=int(max_len), mem_len=int(mem_len)))
+        row = _meta_call(block, "init_cache", (src, valid),
+                         dict(max_len=int(max_len), mem_len=int(mem_len)))
         specs = {k: (tuple(v.shape), v.dtype) for k, v in row.items()}
         if vocab:
-            logits, _ = torch.func.functional_call(
-                _Method(block, "decode_step"), meta,
-                (src[:, 0], src[:, 0], row))
+            logits, _ = _meta_call(block, "decode_step",
+                                   (src[:, 0], src[:, 0], row))
             width = int(logits.shape[-1])
     return specs, width
 
@@ -446,9 +422,15 @@ class GenerationEngine:
         self._state = None      # _Static, allocated by the first device
         self._programs = {}     # work: "join", "decode", ("prefill", b)
         self._pool = None       # the programs' shared graph pool
+        self._rows = {}         # work -> cost-row key
         self._written = None    # leaves the decode step writes back
         self._ptrs = None       # every leaf's data_ptr() at allocation
-        self._primed = threading.local()
+        self._gate = _gc.gate(self._device)
+        # the engine's graphs are captured on a stream of their own, so
+        # the cuBLAS workspace they bake in is theirs alone: another
+        # engine's graphs may replay beside them
+        self._capture_stream = torch.cuda.Stream(self._device) \
+            if self._device.type == "cuda" else None
         _bb.install_crash_hooks()
 
     # -- static state and programs ---------------------------------------
@@ -507,18 +489,6 @@ class GenerationEngine:
             self._written = written
         return decode_step
 
-    def _prime(self):
-        """Create this thread's cuBLAS handles outside any capture (a
-        handle created inside one would allocate while capturing)."""
-        if self._device.type != "cuda" or getattr(self._primed, "done",
-                                                  False):
-            return
-        with _model_scope():
-            x = torch.ones((1, 8), device=self._device)
-            torch.nn.functional.linear(x, x, x[0, :1])
-            torch.bmm(x[None], x[None].transpose(1, 2))
-        self._primed.done = True
-
     def _run(self, key):
         """Replay program `key`, capturing it first when it does not
         exist yet (a capture on the CPU runs it once itself)."""
@@ -527,15 +497,36 @@ class GenerationEngine:
             fn = (self._prefill_fn(key[1]) if isinstance(key, tuple)
                   else self._join_fn() if key == "join"
                   else self._decode_fn())
-            self._prime()
-            prog, _ = _gc.capture(fn, self._device, pool=self._pool)
+            _prime(self._device)
+            t0 = time.monotonic()
+            prog, _ = _gc.capture(fn, self._device, pool=self._pool,
+                                  stream=self._capture_stream)
+            wall = time.monotonic() - t0
             if self._pool is None:
                 self._pool = prog.pool()
             self._programs[key] = prog
+            self._note_cost(key, prog.pool_growth, wall)
             events.incr("serve.traces")
             if prog.ran:
                 return
         prog.replay()
+        _costs.invoke(self._rows[key])
+
+    def _note_cost(self, key, growth, wall):
+        """One cost row per program, all in the family
+        ``<cost_label>:gen`` (``:gen[prefill16]``, ``:gen[join]``,
+        ``:gen[decode_step]``): the programs share the parameters and the
+        static state, which `costs.footprint_bytes` counts once, and each
+        adds its pool growth on the card."""
+        name = "prefill%d" % key[1] if isinstance(key, tuple) \
+            else ("decode_step" if key == "decode" else key)
+        shared = sum(_tensor_bytes(t) for t in self.held_tensors())
+        self._rows[key] = _costs.note_program(
+            "serve", "%s:gen[%s]" % (self._label, name),
+            group="%x" % id(self), param_bytes=shared,
+            argument_bytes=shared, output_bytes=0,
+            temp_bytes=max(0, growth or 0), pool_bytes=growth,
+            capture_s=wall)
 
     def _stage(self, prompt, bucket):
         """Copy `prompt`, padded to `bucket`, and its length into the
@@ -581,6 +572,16 @@ class GenerationEngine:
                 for k, r in rows.items())
         return holds_new_values
 
+    def held_tensors(self):
+        """The tensors this engine holds on its device: the model's
+        parameters and the static state its programs read and write."""
+        out = list(self._block.parameters())
+        st = self._state
+        if st is not None:
+            out += list(st.leaves().values()) + list(st.row.values())
+            out += list(st.src.values()) + list(st.valid.values())
+        return out
+
     def kv_cache_bytes(self):
         """Device bytes of the slot cache (the model's leaves at (S, ...)
         and the tok, pos and out rows), and the per-slot share."""
@@ -600,7 +601,7 @@ class GenerationEngine:
         summary dict."""
         t0 = time.monotonic()
         per_bucket = {}
-        with self._exec_lock, _model_scope():
+        with self._exec_lock, self._gate.work(), _model_scope():
             fault.maybe_raise(
                 "serve.oom", 0, msg="RESOURCE_EXHAUSTED: out of memory "
                 "while warming %r (injected)" % self._label)
@@ -797,7 +798,7 @@ class GenerationEngine:
         'ran' | 'idle' | 'closed'."""
         if self._stop:
             return "closed"
-        with self._exec_lock, _model_scope():
+        with self._exec_lock, self._gate.work(), _model_scope():
             self._admit()
             live = self._live()
             if not live:
@@ -1106,9 +1107,11 @@ class GenerationEngine:
                 for lane, c in self._lane_caps.items()}
 
     def install_slo_rules(self, **kw):
-        raise NotImplementedError(
-            "GenerationEngine.install_slo_rules (telemetry/slo.py) is not "
-            "yet ported")
+        """Register the default generation SLO rules (per-lane TTFT p99
+        against the observed deadline targets, and shed burn rates).
+        Returns the rule names."""
+        from ..telemetry import slo as _slo
+        return _slo.install_default_generation_rules(engine=self, **kw)
 
     def stats(self):
         with self._lock:

@@ -7,22 +7,34 @@ incubator_mxnet_tpu/telemetry/ that the generation engine reports to):
 - `telemetry.flightrec`: the always-on bounded event ring and the
   black-box JSON dumps (flightrec.py);
 - `telemetry.reqtrace`: per-request lifecycle journals with tail-based
-  exemplars (reqtrace.py).
+  exemplars (reqtrace.py);
+- `telemetry.costs`: one measured memory row per captured serving
+  program (costs.py);
+- `telemetry.history`: the durable on-disk metrics history (history.py);
+- `telemetry.memwatch`: the per-device memory observatory, ledger
+  against allocator (memwatch.py);
+- `telemetry.slo`: declarative SLO rules and alerts (slo.py);
+- `MetricsExporter`: Prometheus text and JSON export (export.py).
 
 Switch spans on with `MXNET_TELEMETRY=1` or `telemetry.enable()`;
 disabled, every span is a single bool read.
 
-Left out: the metrics exporter, per-step training telemetry, the cost
-registry, fleet views, durable history, SLO rules and the memory
-observatory.
+Left out: per-step training telemetry, the training side of the cost
+registry (`MeteredJit`) and fleet views.
 """
 from __future__ import annotations
 
 from .spans import SpanContext, current, enable, enabled, span
 from . import flightrec
 from . import reqtrace
+from . import costs
+from . import history
+from . import memwatch
+from . import slo
+from .export import MetricsExporter
 from .flightrec import dump_blackbox, install_crash_hooks
 
 __all__ = ["SpanContext", "span", "current", "enable", "enabled",
-           "flightrec", "reqtrace", "dump_blackbox",
+           "flightrec", "reqtrace", "costs", "history", "memwatch", "slo",
+           "MetricsExporter", "dump_blackbox",
            "install_crash_hooks"]

@@ -20,9 +20,8 @@ reqtrace.py).
 ``MXNET_REQTRACE=0`` makes `start()` return None
 and every stamp a no-op.
 
-Left out: the JAX package's durable history rows and the SLO rules'
-exemplar attachment (`telemetry/history.py`, `telemetry/slo.py` are not
-ported).
+Left out: the JAX package's durable history rows of promoted
+exemplars.
 """
 from __future__ import annotations
 
@@ -36,14 +35,17 @@ from .. import config as _cfg
 from ..monitor import events
 from . import flightrec as _bb
 
-__all__ = ["Record", "Journal", "journal", "enabled", "block", "PHASES"]
+__all__ = ["Record", "Journal", "journal", "enabled", "exemplars",
+           "worst_exemplar", "block", "PHASES"]
 
 #: per-engine-kind phase ladders: (phase, end-stamp slot) pairs walked
 #: in order from ``t_enq``.  A record terminated before a stamp landed
 #: charges the remaining wall to that phase — "which phase ate the
-#: budget" for sheds and deadline kills.  (The JAX package's one-shot
-#: "serve" ladder has no journaling engine in the port yet.)
+#: budget" for sheds and deadline kills.
 PHASES = {
+    "serve": (("queue", "t_collect"), ("coalesce", "t_exec"),
+              ("dispatch", "t_infer0"), ("infer", "t_infer1"),
+              ("join", "t_fin"), ("resolve", "t_done")),
     "gen": (("queue", "t_collect"), ("prefill", "t_exec"),
             ("decode", "t_fin"), ("resolve", "t_done")),
 }
@@ -73,7 +75,8 @@ class Record:
     or render time, never on the submit path."""
 
     __slots__ = ("rid", "lane", "tenant", "bucket", "n",
-                 "t_enq", "t_collect", "t_exec", "t_fin", "t_done",
+                 "t_enq", "t_collect", "t_exec", "t_infer0",
+                 "t_infer1", "t_fin", "t_done",
                  "status", "reason", "e2e_us")
 
     def __init__(self, t_enq, lane, tenant):
@@ -85,6 +88,8 @@ class Record:
         self.t_enq = t_enq
         self.t_collect = None
         self.t_exec = None
+        self.t_infer0 = None
+        self.t_infer1 = None
         self.t_fin = None
         self.t_done = None
         self.status = None
@@ -119,7 +124,7 @@ def _phases(rec, kind):
     stamp means the request terminated INSIDE that phase — it is
     charged the remaining wall and named the budget phase; a complete
     record's budget phase is its dominant one."""
-    ladder = PHASES[kind]
+    ladder = PHASES.get(kind, PHASES["serve"])
     phases, cur, budget = {}, rec.t_enq, None
     for name, attr in ladder:
         t = getattr(rec, attr)
@@ -273,6 +278,10 @@ class Journal:
                          for k, v in phases.items()})
 
     # -- introspection -------------------------------------------------
+    def exemplars(self):
+        with self._lock:
+            return [dict(e) for e in self._ex]
+
     def snapshot(self):
         """The journal's block for dumps:
         counts, per-lane window p99 + slowest recent request (with its
@@ -329,6 +338,30 @@ def _live_journals():
     with _GLOCK:
         refs = list(_JOURNALS)
     return [j for j in (r() for r in refs) if j is not None]
+
+
+def exemplars(lane=None, engine=None, model=None):
+    """Recent promoted exemplars across every engine, oldest first,
+    optionally filtered by lane / engine kind / model."""
+    with _GLOCK:
+        out = list(_EXEMPLARS)
+    if lane is not None:
+        out = [e for e in out if e.get("lane") == str(lane)]
+    if engine is not None:
+        out = [e for e in out if e.get("engine") == str(engine)]
+    if model is not None:
+        out = [e for e in out if e.get("model") == str(model)]
+    return out
+
+
+def worst_exemplar(lane=None, engine=None, model=None):
+    """The retained exemplar with the largest e2e matching the filters
+    (None when nothing matches): what a firing SLO rule attaches."""
+    best = None
+    for ex in exemplars(lane=lane, engine=engine, model=model):
+        if best is None or ex.get("e2e_us", 0) > best.get("e2e_us", 0):
+            best = ex
+    return best
 
 
 def block() -> dict:

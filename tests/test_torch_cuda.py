@@ -10,6 +10,7 @@ JAX) it runs without the repository's conftest:
     python -m pytest --noconftest -q -m cuda tests/test_torch_cuda.py
 """
 import re
+import threading
 
 import numpy as np
 import pytest
@@ -19,7 +20,8 @@ import incubator_mxnet_tpu_torch as tmx
 from incubator_mxnet_tpu_torch.ops import attention as tatt
 from incubator_mxnet_tpu_torch.ops import conv_stats as tcs
 from incubator_mxnet_tpu_torch.ops import nn as tnn
-from chip_smoke import _low_tolerance
+from incubator_mxnet_tpu_torch.monitor import events
+from chip_smoke import _device_kernels, _low_tolerance, _port_kernel_calls
 
 pytestmark = [pytest.mark.torch_port, pytest.mark.cuda]
 
@@ -151,12 +153,17 @@ def test_engine_serves_through_kernel(card):
         .astype(np.int32)
     before = tatt.flash_fwd_launches
     eng.warmup()
+    # each bucket's capture issues its 2 launches (2 layers) into its
+    # graph; a replay runs no wrapper and counts nothing
+    assert tatt.flash_fwd_launches - before == 2 * 3
     futs = [eng.submit(t) for t in toks]
     outs = [f.result(timeout=60) for f in futs]
     assert eng.close(timeout=30)
-    st = eng.stats()
-    batches = st["batches"] + st["warmup_batches"]
-    assert tatt.flash_fwd_launches - before == 2 * batches  # 2 layers
+    assert tatt.flash_fwd_launches - before == 2 * 3
+    # a replayed batch launches the kernel twice, by the profiler's names
+    x = np.zeros((4, 64), np.int32)
+    rows, _ = _device_kernels(torch, lambda: eng._run(0, x, []), 3)
+    assert _port_kernel_calls(rows, 3) == {"flash_fwd_kernel": 2}
     cpu = tmx.models.bert_small(vocab_size=100, max_length=64,
                                 device="cpu")
     cpu.load_state_dict({k: v.cpu() for k, v in net.state_dict().items()})
@@ -165,6 +172,168 @@ def test_engine_serves_through_kernel(card):
     for o, r in zip(outs, ref):
         assert o.device == card
         assert (o.cpu() - r).abs().max().item() <= 1e-4
+
+
+def test_engine_captures_per_replica_bucket_flat_in_traffic(card):
+    tmx.random.seed(1)
+    net = tmx.models.bert_small(vocab_size=100, max_length=64)
+    eng = tmx.serving.InferenceEngine(
+        net, devices=["cuda:0", "cuda:0"], buckets=(1, 2, 4),
+        example_shape=(64,), wire_dtype="int32")
+    traces = events.get("serve.traces")
+    eng.warmup()
+    assert events.get("serve.traces") - traces == 2 * 3
+    toks = np.random.RandomState(1).randint(0, 100, (20, 64)) \
+        .astype(np.int32)
+    outs = [f.result(timeout=60) for f in [eng.submit(t) for t in toks]]
+    assert eng.close(timeout=30)
+    assert events.get("serve.traces") - traces == 2 * 3
+    with torch.inference_mode():
+        ref = net.eval()(torch.from_numpy(toks).to(card))
+    for o, r in zip(outs, ref):
+        assert (o - r).abs().max().item() <= 1e-4
+    assert all(n > 0 for n in eng.stats()["device_batches"])
+
+
+def test_capture_while_another_engine_serves(card):
+    """Engine b warms up (captures) while engine a serves from another
+    thread on the same card: the device gate holds a's work off each
+    capture, so no capture fails."""
+    tmx.random.seed(2)
+    a_net = tmx.models.bert_small(vocab_size=100, max_length=64)
+    b_net = tmx.models.bert_small(vocab_size=100, max_length=64)
+    a = a_net.inference_engine(buckets=(1, 2, 4), example_shape=(64,),
+                               wire_dtype="int32")
+    b = b_net.inference_engine(buckets=(1, 2, 4, 8), example_shape=(64,),
+                               wire_dtype="int32")
+    a.warmup()
+    toks = np.random.RandomState(2).randint(0, 100, (8, 64)) \
+        .astype(np.int32)
+    stop, errors, served = threading.Event(), [], [0]
+
+    def traffic():
+        try:
+            while not stop.is_set():
+                for f in [a.submit(t) for t in toks[:3]]:
+                    f.result(timeout=60)
+                    served[0] += 1
+        except Exception as e:      # noqa: BLE001 — reported below
+            errors.append(e)
+
+    t = threading.Thread(target=traffic)
+    t.start()
+    try:
+        b.warmup()
+        outs = [f.result(timeout=60) for f in [b.submit(x) for x in toks]]
+    finally:
+        stop.set()
+        t.join(timeout=60)
+    assert not errors, errors
+    assert served[0] > 0
+    with torch.inference_mode():
+        ref = b_net.eval()(torch.from_numpy(toks).to(card))
+    for o, r in zip(outs, ref):
+        assert (o - r).abs().max().item() <= 1e-4
+    a.close()
+    b.close()
+
+
+def test_refresh_params_from_swaps_in_place_on_card(card):
+    tmx.random.seed(3)
+    v1 = tmx.models.bert_small(vocab_size=100, max_length=64)
+    v2 = tmx.models.bert_small(vocab_size=100, max_length=64).eval()
+    eng = v1.inference_engine(buckets=(1, 2), example_shape=(64,),
+                              wire_dtype="int32")
+    eng.warmup()
+    ptrs = {n: t.data_ptr() for n, t in eng._reps[0].params.items()}
+    traces = events.get("serve.traces")
+    eng.refresh_params_from(v2)
+    toks = np.random.RandomState(3).randint(0, 100, (2, 64)) \
+        .astype(np.int32)
+    out = eng.submit_batch(toks).result(timeout=60)
+    assert eng.close(timeout=30)
+    assert events.get("serve.traces") == traces
+    assert {n: t.data_ptr() for n, t in eng._reps[0].params.items()} \
+        == ptrs
+    with torch.inference_mode():
+        ref = v2(torch.from_numpy(toks).to(card))
+    assert (out - ref).abs().max().item() <= 1e-5
+
+
+def test_refresh_params_from_waits_for_the_callers_stream(card):
+    # the swap source is loaded on the default stream behind a stall and
+    # not synchronized: the copy onto the replica must wait for the load
+    tmx.random.seed(3)
+    v1 = tmx.models.bert_small(vocab_size=100, max_length=64)
+    v2 = tmx.models.bert_small(vocab_size=100, max_length=64).eval()
+    toks = np.random.RandomState(4).randint(0, 100, (2, 64)) \
+        .astype(np.int32)
+    with torch.inference_mode():
+        ref = v2(torch.from_numpy(toks).to(card))
+    weights = {k: v.clone() for k, v in v2.state_dict().items()}
+    with torch.no_grad():
+        for t in v2.state_dict().values():
+            t.zero_()
+    eng = v1.inference_engine(buckets=(2,), example_shape=(64,),
+                              wire_dtype="int32")
+    eng.warmup()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(200_000_000)
+    v2.load_state_dict(weights)
+    eng.refresh_params_from(v2)
+    out = eng.submit_batch(toks).result(timeout=60)
+    assert eng.close(timeout=30)
+    assert (out - ref).abs().max().item() <= 1e-5
+
+
+def test_a_served_result_outlives_default_stream_reads(card):
+    # a client reads its result on the default stream behind a stall and
+    # drops it: the next batch's result copy must not take its block
+    # before that read has run
+    tmx.random.seed(5)
+    net = tmx.models.bert_small(vocab_size=100, max_length=64).eval()
+    eng = net.inference_engine(buckets=(1,), example_shape=(64,),
+                               wire_dtype="int32")
+    eng.warmup()
+    a, b = np.random.RandomState(5).randint(0, 100, (2, 64)) \
+        .astype(np.int32)
+    want = eng.submit(a).result(timeout=60).clone()
+    out = eng.submit(a).result(timeout=60)
+    torch.cuda._sleep(200_000_000)
+    seen = out * 1
+    del out
+    eng.submit(b).result(timeout=60)
+    torch.cuda.synchronize()
+    assert eng.close(timeout=30)
+    assert torch.equal(seen, want)
+
+
+def test_registry_admission_on_card_budget(card):
+    tmx.random.seed(4)
+    net = tmx.models.bert_small(vocab_size=100, max_length=64)
+    reg = tmx.serving.ModelRegistry(devices=[tmx.gpu(0)])
+    total = torch.cuda.mem_get_info(card)[1]
+    assert reg._budgets == [total]              # the card's own budget
+    rec = reg.register("m", net, example_shape=(64,), wire_dtype="int32",
+                       buckets=(1, 2))
+    assert rec["basis"] == "projected"
+    reg.warmup("m")
+    st = reg.stats()
+    assert st["models"]["m"]["basis"] == "measured"
+    assert st["ledger"][0]["committed"] == st["models"]["m"][
+        "footprint_bytes"] > rec["detail"]["param_bytes"]
+    tight = tmx.serving.ModelRegistry(devices=[tmx.gpu(0)],
+                                      hbm_budget=rec["footprint_bytes"] // 2)
+    torch.cuda.synchronize()
+    allocated = torch.cuda.memory_allocated(card)
+    with pytest.raises(tmx.serving.AdmissionDenied, match="'m2'"):
+        tight.register("m2", net, example_shape=(64,), wire_dtype="int32",
+                       buckets=(1, 2))
+    assert torch.cuda.memory_allocated(card) == allocated
+    out = reg.submit("m", np.zeros(64, np.int32)).result(timeout=60)
+    assert out.shape == (64, 100)
+    reg.close()
+    tight.close()
 
 
 def _bwd_inputs(card, BH, T, d, dtype, causal, seed=1):

@@ -42,7 +42,7 @@ from incubator_mxnet_tpu_torch.serving import (DeadlineExceeded,
                                                EngineClosed,
                                                GenerationEngine, Shed,
                                                project_generation_footprint)
-from incubator_mxnet_tpu_torch.telemetry import flightrec, spans
+from incubator_mxnet_tpu_torch.telemetry import flightrec, slo, spans
 
 pytestmark = pytest.mark.torch_port
 
@@ -450,9 +450,14 @@ def test_born_expired_and_lane_quota_shed(net):
         eng.submit(np.array([3, 4]), lane="hi", max_new_tokens=2)
         assert eng.stats()["lanes"]["depths"] == {"hi": 1, "lo": 2}
         assert eng.slo_lane_quotas() == {"hi": 1.0, "lo": 0.25}
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            eng.install_slo_rules()
+        # no deadline accepted yet: the shed burn rules alone, budgeted
+        # by the lane quotas
+        assert eng.install_slo_rules() == ["gen-shed-hi", "gen-shed-lo"]
+        assert [slo.rules()[n].budget for n in ("gen-shed-hi",
+                                                 "gen-shed-lo")] \
+            == [0.02, 0.75]
     finally:
+        slo.clear_rules()
         eng.close()
 
 

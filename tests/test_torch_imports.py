@@ -121,3 +121,34 @@ def test_generation_modules_load_no_jax(tmp_path):
                          timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+# the nine modules of the serving tier: importing them loads neither JAX
+# nor the JAX package
+SERVING_TIER_MODULES = (
+    "config", "storage", "telemetry.costs", "telemetry.history",
+    "telemetry.memwatch", "telemetry.slo", "telemetry.export",
+    "serving.engine", "serving.registry")
+
+
+def test_serving_tier_modules_load_no_jax(tmp_path):
+    env = dict(os.environ, PATH=str(tmp_path), CUDA_HOME=str(tmp_path),
+               PYTHONPATH=str(ROOT))
+    code = ("import importlib, sys\n"
+            "for n in %r:\n"
+            "    importlib.import_module('incubator_mxnet_tpu_torch.' + n)\n"
+            "from incubator_mxnet_tpu_torch.serving import (\n"
+            "    ModelRegistry, AdmissionDenied, CircuitOpen, UnknownModel,\n"
+            "    project_footprint, InferenceEngine)\n"
+            "from incubator_mxnet_tpu_torch.telemetry import (\n"
+            "    MetricsExporter, slo, memwatch, history, costs)\n"
+            "from incubator_mxnet_tpu_torch.graph_capture import gate\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in\n"
+            "       ('jax', 'jaxlib', 'incubator_mxnet_tpu')]\n"
+            "assert not bad, bad\n"
+            "print('ok')" % (SERVING_TIER_MODULES,))
+    out = subprocess.run([sys.executable, "-c", code], cwd=str(tmp_path),
+                         env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"

@@ -22,7 +22,10 @@ T = 16
 
 
 class _Recorder(torch.nn.Module):
-    """Wraps a module and keeps every batch it is given."""
+    """Wraps a module and keeps a copy of every batch it is given.  The
+    engine runs the module only while it captures a bucket's program;
+    a replay re-issues the copy into the same tensor, so the kept copy of
+    a bucket holds the batch that bucket served last."""
 
     def __init__(self, net):
         super().__init__()
@@ -104,6 +107,7 @@ def test_padding_up_to_bucket_and_batch_count(net, monkeypatch):
                           max_wait_us=100_000, example_shape=(T,),
                           wire_dtype="int32")
     eng.warmup()
+    # one call per bucket, at its capture (the JAX engine's trace)
     assert [b.shape[0] for b in rec.batches] == [1, 2, 4]
     toks = _tokens(3, seed=1)
     # all three are queued before the dispatcher starts, so they coalesce
@@ -114,8 +118,10 @@ def test_padding_up_to_bucket_and_batch_count(net, monkeypatch):
     start()
     outs = [f.result(timeout=30) for f in futs]
     eng.close(timeout=10)
-    assert len(rec.batches) == 4
-    served = rec.batches[-1]
+    # traffic replays the bucket-4 program: no further call, and the
+    # program's copy of its input now holds the served batch
+    assert len(rec.batches) == 3
+    served = rec.batches[2]
     assert served.shape == (4, T) and served.dtype == torch.int32
     assert torch.equal(served[:3], torch.from_numpy(toks))
     assert not served[3].any()              # zero padding
