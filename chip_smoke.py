@@ -188,6 +188,33 @@ Drives incubator_mxnet_tpu_torch only (never JAX or the JAX package):
              the kernel names only one mode ran are printed.  The save and
              resume round of train_resnet_gluon above already runs
              hybridized (its nets and loss block are).
+13b. ndarray — the mx.nd surface at full width, f32, seed 0 and inputs
+             from RandomState(0): bert_base + FusedMLMCELoss fed
+             nd.array(tokens, ctx=mx.gpu(0), dtype="int32") returns an
+             NDArray bit for bit the same call fed the tensor (12 forward
+             launches), and one Adam step under record() with
+             loss.backward() on the NDArray loss, from a copy of the same
+             start as a step fed tensors: loss, every gradient and
+             updated parameter bit for bit (12 launches of each kernel);
+             an attention block written only in nd ops (three
+             nd.FullyConnected(flatten=False), nd.contrib.flash_attention
+             over 12 heads, the output projection, nd.LayerNorm of the
+             residual, nd.mean(nd.square(h - t))) at batch 8 x 512 x 768,
+             its eight weights and biases attach_grad()-ed, two steps of
+             record, backward and nd.adam_update(out=(w, m, v)), held
+             against the same script with attention's plain version on
+             the card (loss by TOL, gradients by BWD_TOL of their scale
+             floored at 1e-3 of the step's largest, as train's rule for
+             the key bias, updated weights by BWD_TOL of theirs), one
+             launch of each kernel a step;
+             a gradient penalty through nd.FullyConnected(768 -> 3072),
+             nd.Activation(tanh) and nd.FullyConnected(3072 -> 768) by
+             autograd.grad(create_graph=True) and a second backward, its
+             weight gradients against torch.autograd.grad over the same
+             tensors, and its ms; the host us per call (median of 1000)
+             of nd.broadcast_add and NDArray + on (768,) beside
+             torch.add.  The flash rows of the kernels line carry these
+             launches as nd_launches.
 14. kernels — one JSON line per the port's kernel table (4 rows), then the
              card's name and power limit, then the final {"ok": true, ...}
              line.
@@ -3523,6 +3550,343 @@ def _ptxas(reports):
     return out
 
 
+
+# -- ndarray: the mx.nd surface on the card ---------------------------------
+
+ND_BLOCK_STEPS = 2
+ND_DISPATCH_CALLS = 1000
+
+
+def _flash_counts(att):
+    return dict(zip(("fwd", "dq", "dkv"), _all_counts(att)[:3]))
+
+
+def _bitwise(torch, pairs):
+    """Names of the (name, a, b) tensor pairs whose bits differ."""
+    return [name for name, a, b in pairs if not _same_bits(torch, a, b)]
+
+
+def _nd_bert(torch, mx, att, rs):
+    """BERT-base through the NDArray boundary: the forward fed an NDArray
+    against the same call fed the tensor, then one Adam step from two
+    copies of one start, one fed NDArrays (loss.backward() on the NDArray
+    loss) and one fed tensors: every gradient and updated parameter bit
+    for bit.  Returns the launches of the forward and of the step."""
+    nd = mx.nd
+    tokens = rs.randint(0, 30522, (TRAIN_BATCH, SEQ)).astype(np.int32)
+    labels = rs.randint(0, 30522, (TRAIN_BATCH, SEQ)).astype(np.float32)
+    mx.random.seed(0)
+    nets, heads, trainers, named = [], [], [], []
+    for _ in range(2):
+        net = mx.models.bert_base(dropout=0.0, output_hidden=True,
+                                  device="cuda:0")
+        head = mx.models.FusedMLMCELoss(30522, 768, device="cuda:0")
+        if nets:
+            net.load_state_dict(nets[0].state_dict())
+            head.load_state_dict(heads[0].state_dict())
+        params = dict(net.collect_params())
+        params.update({"loss." + n: p
+                       for n, p in head.collect_params().items()})
+        nets.append(net)
+        heads.append(head)
+        named.append(params)
+        trainers.append(mx.gluon.Trainer(params, "adam",
+                                         {"learning_rate": 1e-4}))
+    x_nd = nd.array(tokens, ctx=mx.gpu(0), dtype="int32")
+    y_nd = nd.array(labels, ctx=mx.gpu(0))
+    x_t, y_t = x_nd._data.clone(), y_nd._data.clone()
+    _check(isinstance(x_nd, nd.NDArray) and x_nd.context == mx.gpu(0)
+           and x_nd._data.dtype == torch.int32, "nd.array on the card")
+    with mx.autograd.pause():
+        _reset_counts(att)              # the NDArray forward
+        out_nd = nets[0](x_nd)
+        torch.cuda.synchronize()
+        fwd = _flash_counts(att)
+        out_t = nets[0](x_t)
+    _check(isinstance(out_nd, nd.NDArray), "bert_base fed an NDArray "
+           "returned %s" % type(out_nd).__name__)
+    fwd_same = _same_bits(torch, out_nd._data, out_t)
+
+    _reset_counts(att)                  # the NDArray training step
+    with mx.autograd.record():
+        loss_nd = heads[0](nets[0](x_nd), y_nd)
+    loss_nd.backward()
+    trainers[0].step(TRAIN_BATCH)
+    torch.cuda.synchronize()
+    step = _flash_counts(att)
+    _check(isinstance(loss_nd, nd.NDArray), "the loss block fed NDArrays "
+           "returned %s" % type(loss_nd).__name__)
+    loss_t = _train_step(mx, nets[1], heads[1], trainers[1], (x_t,), y_t)
+    torch.cuda.synchronize()
+    pairs = [("loss", loss_nd._data.detach(), loss_t)]
+    for name, p in named[0].items():
+        q = named[1][name]
+        pairs.append(("grad:" + name, p.grad, q.grad))
+        pairs.append(("param:" + name, p.detach(), q.detach()))
+    differ = _bitwise(torch, pairs)
+    row = dict(part="bert_base", batch=TRAIN_BATCH, seq=SEQ,
+               layers=len(nets[0].encoder.layers),
+               forward_bit_equal=fwd_same, forward_launches=fwd,
+               step_launches=step, step_tensors=len(pairs),
+               step_bits_differ=differ[:8], step_bits_differ_count=len(
+                   differ), loss_mean=loss_t.mean().item())
+    del nets, heads, trainers, named, out_nd, out_t, loss_nd, loss_t, pairs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
+def _nd_block(mx, x, t, weights, gamma, beta):
+    """One recorded forward of the imperative attention block written in
+    nd ops: three projections, nd.contrib.flash_attention over 12 heads,
+    the output projection, LayerNorm of the residual, and the mean squared
+    error against t."""
+    nd = mx.nd
+    wq, bq, wk, bk, wv, bv, wo, bo = weights
+    units = x.shape[-1]
+    with mx.autograd.record():
+        q = nd.FullyConnected(x, wq, bq, num_hidden=units, flatten=False)
+        k = nd.FullyConnected(x, wk, bk, num_hidden=units, flatten=False)
+        v = nd.FullyConnected(x, wv, bv, num_hidden=units, flatten=False)
+        a = nd.contrib.flash_attention(q, k, v, num_heads=12)
+        o = nd.FullyConnected(a, wo, bo, num_hidden=units, flatten=False)
+        h = nd.LayerNorm(x + o, gamma, beta)
+        loss = nd.mean(nd.square(h - t))
+    return loss
+
+
+def _nd_block_run(torch, mx, att, arrays, plain):
+    """ND_BLOCK_STEPS steps of the block (record, backward, nd.adam_update
+    of each weight with out=(w, m, v)): the losses, each step's gradients,
+    the final weights, the step ms (CUDA events) and the launches per
+    step.  With `plain`, attention takes its plain version on the card."""
+    nd = mx.nd
+    x_np, t_np, w_np = arrays
+    x, t = nd.array(x_np, ctx=mx.gpu(0)), nd.array(t_np, ctx=mx.gpu(0))
+    weights = [nd.array(w, ctx=mx.gpu(0)) for w in w_np]
+    for w in weights:
+        w.attach_grad()
+    states = [(nd.zeros(w.shape, ctx=mx.gpu(0)),
+               nd.zeros(w.shape, ctx=mx.gpu(0))) for w in weights]
+    gamma = nd.ones((x.shape[-1],), ctx=mx.gpu(0))
+    beta = nd.zeros((x.shape[-1],), ctx=mx.gpu(0))
+    losses, grads, ms, launches = [], [], [], []
+    ctx = _plain_backward(att, torch.matmul, forward=True) if plain \
+        else contextlib.nullcontext()
+    with ctx:
+        for _ in range(ND_BLOCK_STEPS):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            _reset_counts(att)
+            start.record()
+            loss = _nd_block(mx, x, t, weights, gamma, beta)
+            loss.backward()
+            step_grads = [w.grad._data.clone() for w in weights]
+            for w, (m, v) in zip(weights, states):
+                nd.adam_update(w, w.grad, m, v, out=(w, m, v), lr=1e-4)
+            end.record()
+            end.synchronize()
+            launches.append(_flash_counts(att))
+            ms.append(start.elapsed_time(end))
+            losses.append(loss._data.detach().clone())
+            grads.append(step_grads)
+    return dict(losses=losses, grads=grads, ms=ms, launches=launches,
+                weights=[w._data.detach().clone() for w in weights])
+
+
+def _nd_block_phase(torch, mx, att, rs):
+    """The imperative block at BERT-base width, through the kernels and
+    through the plain attention, held to the flash rows' tolerances."""
+    B, T, C = TRAIN_BATCH, SEQ, 768
+    x_np = rs.randn(B, T, C).astype(np.float32)
+    t_np = rs.randn(B, T, C).astype(np.float32)
+    w_np = []
+    for _ in range(4):
+        w_np.append((rs.randn(C, C) * 0.02).astype(np.float32))
+        w_np.append((rs.randn(C) * 0.02).astype(np.float32))
+    arrays = (x_np, t_np, w_np)
+    kern = _nd_block_run(torch, mx, att, arrays, plain=False)
+    ref = _nd_block_run(torch, mx, att, arrays, plain=True)
+    names = ("wq", "bq", "wk", "bk", "wv", "bv", "wo", "bo")
+    loss_err = max((a - b).abs().item()
+                   for a, b in zip(kern["losses"], ref["losses"]))
+    loss_ratio = max(((a - b).abs() / _out_tolerance(torch, b, "float32"))
+                     .max().item()
+                     for a, b in zip(kern["losses"], ref["losses"]))
+    # each gradient's scale is floored at 1e-3 of the step's largest, as
+    # train's rule does: the key bias has a gradient of exactly 0 in exact
+    # arithmetic (softmax ignores a shift of a row's scores), so both
+    # routes give it rounding noise, held to the block's scale
+    grad_ratio, worst = 0.0, None
+    for step, (gk, gr) in enumerate(zip(kern["grads"], ref["grads"])):
+        floor = 1e-3 * max(b.abs().max().item() for b in gr)
+        for name, a, b in zip(names, gk, gr):
+            tol = BWD_TOL * max(b.abs().max().item(), floor)
+            r = (a - b).abs().max().item() / tol
+            if r >= grad_ratio:
+                grad_ratio, worst = r, "step %d %s" % (step, name)
+    weight_ratio, worst_w = 0.0, None
+    for name, a, b in zip(names, kern["weights"], ref["weights"]):
+        r = ((a - b).abs() / _grad_tolerance(torch, b, "float32")).max() \
+            .item()
+        if r >= weight_ratio:
+            weight_ratio, worst_w = r, name
+    row = dict(part="imperative_block", batch=B, seq=T, units=C, heads=12,
+               steps=ND_BLOCK_STEPS, optimizer="nd.adam_update lr 1e-4",
+               losses=[v.item() for v in kern["losses"]],
+               loss_max_abs_err=loss_err, loss_err_over_tol=loss_ratio,
+               worst_grad_err_over_tol=grad_ratio, worst_grad=worst,
+               worst_weight_err_over_tol=weight_ratio, worst_weight=worst_w,
+               step_ms=kern["ms"], plain_step_ms=ref["ms"],
+               launches_per_step=kern["launches"],
+               plain_launches_per_step=ref["launches"])
+    return row
+
+
+def _nd_penalty(torch, mx, att, rs):
+    """A gradient penalty through nd.FullyConnected(768 -> 3072),
+    nd.Activation(tanh) and nd.FullyConnected(3072 -> 768) at batch
+    8 x 512: autograd.grad(create_graph=True), then a backward of the
+    penalty; its weight gradients against torch.autograd.grad over the
+    same tensors, and its ms (CUDA events, median of 5)."""
+    import torch.nn.functional as F
+    nd = mx.nd
+    B, T, C, H = TRAIN_BATCH, SEQ, 768, 3072
+    x_np = rs.randn(B, T, C).astype(np.float32)
+    w_np = [(rs.randn(H, C) * 0.02).astype(np.float32),
+            (rs.randn(H) * 0.02).astype(np.float32),
+            (rs.randn(C, H) * 0.02).astype(np.float32),
+            (rs.randn(C) * 0.02).astype(np.float32)]
+    x = nd.array(x_np, ctx=mx.gpu(0))
+    ws = [nd.array(w, ctx=mx.gpu(0)) for w in w_np]
+    for a in [x] + ws:
+        a.attach_grad()
+
+    def nd_step():
+        with mx.autograd.record():
+            h = nd.Activation(nd.FullyConnected(x, ws[0], ws[1],
+                                                num_hidden=H, flatten=False),
+                              act_type="tanh")
+            y = nd.FullyConnected(h, ws[2], ws[3], num_hidden=C,
+                                  flatten=False)
+            gx, = mx.autograd.grad(nd.sum(y), [x], create_graph=True)
+            pen = nd.sum(nd.square(gx))
+        pen.backward()
+        return pen
+
+    pen = nd_step()
+    got = [w.grad._data.clone() for w in ws]
+    dev = x.context
+    tx = torch.tensor(x_np, device=dev, requires_grad=True)
+    tws = [torch.tensor(w, device=dev, requires_grad=True) for w in w_np]
+    h = torch.tanh(F.linear(tx, tws[0], tws[1]))
+    y = F.linear(h, tws[2], tws[3])
+    gx, = torch.autograd.grad(y.sum(), tx, create_graph=True)
+    ref_pen = gx.square().sum()
+    # the last bias does not reach the penalty: its gradient is zero
+    ref = [torch.zeros_like(w) if g is None else g for w, g in zip(
+        tws, torch.autograd.grad(ref_pen, tws, allow_unused=True))]
+    ratio = max(((a - b).abs() / _grad_tolerance(torch, b, "float32"))
+                .max().item() for a, b in zip(got, ref))
+    ms = []
+    for _ in range(5):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        nd_step()
+        end.record()
+        end.synchronize()
+        ms.append(start.elapsed_time(end))
+    return dict(part="grad_penalty", batch=B, seq=T, units=C, hidden=H,
+                penalty=pen.asscalar().item(),
+                penalty_abs_err=abs(pen.asscalar().item()
+                                    - ref_pen.item()),
+                worst_grad_err_over_tol=ratio,
+                grads_bit_equal=all(_same_bits(torch, a, b)
+                                    for a, b in zip(got, ref)),
+                ms=ms, ms_median=statistics.median(ms))
+
+
+def _host_us(fn, calls=ND_DISPATCH_CALLS):
+    """Median host microseconds of one call, over `calls` warm calls."""
+    for _ in range(50):
+        fn()
+    times = []
+    for _ in range(calls):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e6)
+    return statistics.median(times)
+
+
+def _nd_dispatch(torch, mx):
+    """Host cost of the registry dispatch on (768,) operands."""
+    nd = mx.nd
+    a = nd.array(np.arange(768, dtype=np.float32), ctx=mx.gpu(0))
+    b = nd.array(np.ones(768, np.float32), ctx=mx.gpu(0))
+    ta, tb = a._data, b._data
+    row = dict(part="dispatch", shape=[768], calls=ND_DISPATCH_CALLS,
+               nd_broadcast_add_us=_host_us(lambda: nd.broadcast_add(a, b)),
+               ndarray_add_us=_host_us(lambda: a + b),
+               torch_add_us=_host_us(lambda: torch.add(ta, tb)))
+    torch.cuda.synchronize()
+    return row
+
+
+def phase_ndarray(torch, mx, att):
+    """The mx.nd surface on the card: BERT-base through the NDArray
+    boundary, an imperative attention block in nd ops, a create_graph
+    gradient penalty and the dispatch cost; returns each flash kernel's
+    launches in the NDArray paths."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    rs = np.random.RandomState(0)
+    t0 = time.monotonic()
+    bert = _nd_bert(torch, mx, att, rs)
+    block = _nd_block_phase(torch, mx, att, rs)
+    penalty = _nd_penalty(torch, mx, att, rs)
+    dispatch = _nd_dispatch(torch, mx)
+    _emit(dict(phase="ndarray", seconds=time.monotonic() - t0,
+               parts=[bert, block, penalty, dispatch]))
+    _check(bert["forward_bit_equal"], "bert_base fed an NDArray differs "
+           "from the same call fed the tensor")
+    _check(not bert["step_bits_differ"], "the NDArray training step "
+           "differs from the tensor one in %d tensors, e.g. %s"
+           % (bert["step_bits_differ_count"], bert["step_bits_differ"]))
+    layers = bert["layers"]
+    _check(bert["forward_launches"] == dict(fwd=layers, dq=0, dkv=0),
+           "the NDArray forward launched %r" % bert["forward_launches"])
+    _check(bert["step_launches"] == dict(fwd=layers, dq=layers, dkv=layers),
+           "the NDArray step launched %r" % bert["step_launches"])
+    _check(block["loss_err_over_tol"] <= 1.0, "the imperative block's loss "
+           "is %g of its tolerance from the plain route"
+           % block["loss_err_over_tol"])
+    _check(block["worst_grad_err_over_tol"] <= 1.0, "gradient %s of the "
+           "imperative block is %g of its tolerance from the plain route"
+           % (block["worst_grad"], block["worst_grad_err_over_tol"]))
+    _check(block["worst_weight_err_over_tol"] <= 1.0, "updated weight %s "
+           "of the imperative block is %g of its tolerance from the plain "
+           "route" % (block["worst_weight"],
+                      block["worst_weight_err_over_tol"]))
+    _check(all(c == dict(fwd=1, dq=1, dkv=1)
+               for c in block["launches_per_step"]),
+           "an imperative block step launched %r"
+           % block["launches_per_step"])
+    _check(all(c == dict(fwd=0, dq=0, dkv=0)
+               for c in block["plain_launches_per_step"]),
+           "the plain route launched a kernel")
+    _check(all(math.isfinite(v) for v in block["losses"]),
+           "non-finite block loss %r" % block["losses"])
+    _check(penalty["worst_grad_err_over_tol"] <= 1.0, "the penalty's "
+           "weight gradients are %g of their tolerance from torch's"
+           % penalty["worst_grad_err_over_tol"])
+    return {k: dict(bert_forward=bert["forward_launches"][k],
+                    bert_step=bert["step_launches"][k],
+                    imperative_block=sum(c[k] for c in
+                                         block["launches_per_step"]))
+            for k in ("fwd", "dq", "dkv")}
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3574,6 +3938,7 @@ def main():
     registry_launches = phase_serve_registry(torch, mx, att)
     _serving_retired(torch)
     hyb = phase_hybridize_all(torch, mx, att, cs)
+    nd_launches = phase_ndarray(torch, mx, att)
 
     def nmt(kernel):
         """A flash row's NMT-path and bf16-path launches and their shapes'
@@ -3587,7 +3952,8 @@ def main():
                                            BF16_CASES)["non_causal"],
                     hybridized_launches_per_step={
                         p: hyb[p]["profiled_launches_per_step"][kernel]
-                        for p in ("train_bf16", "train_nmt")})
+                        for p in ("train_bf16", "train_nmt")},
+                    nd_launches=nd_launches[kernel])
     shape = dict(shape=[main_row["BH"], main_row["T"], main_row["d"]],
                  dtype=main_row["dtype"])
     bwd_src = "incubator_mxnet_tpu_torch/ops/csrc/flash_attention_bwd.cu"

@@ -3,11 +3,13 @@ incubator_mxnet_tpu, for NVIDIA Hopper (H100).
 
 Conventional import:  ``import incubator_mxnet_tpu_torch as mx``
 
-Plain tensor code is PyTorch; every kernel that the JAX package wrote in
-Pallas for the TPU is a CUDA kernel written by hand (`ops/csrc/`), built
-with nvcc at first use.  Entry points run on `cuda:0` unless the caller
-passes `device="cpu"`.  This package imports neither JAX nor the JAX
-package.
+`mx.nd` is MXNet's imperative surface: `NDArray` over a torch tensor,
+one function per registered operator (`ops.registry`) and `autograd`
+over torch's.  Plain tensor code is PyTorch; every kernel that the JAX
+package wrote in Pallas for the TPU is a CUDA kernel written by hand
+(`ops/csrc/`), built with nvcc at first use.  Entry points run on
+`cuda:0` unless the caller passes `device="cpu"`.  This package imports
+neither JAX nor the JAX package.
 """
 from __future__ import annotations
 
@@ -21,7 +23,8 @@ from . import random
 from . import initializer
 from . import initializer as init   # alias namespace, as in the JAX package
 from . import ndarray
-from . import ndarray as nd         # the file format; NDArray is not ported
+from . import ndarray as nd         # canonical alias mx.nd
+from .ndarray import NDArray
 from . import ops
 from . import autograd
 from . import lr_scheduler
@@ -34,3 +37,4 @@ from . import models
 from . import serving
 from .serving import InferenceEngine
 from . import weights
+from . import test_utils

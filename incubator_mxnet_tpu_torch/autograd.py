@@ -29,10 +29,25 @@ incubator_mxnet_tpu/autograd.py) on top of torch's own autograd.
   and eager code) sum, as in eager torch: a contribution already made in
   this pass is kept aside and added back after the replay overwrites the
   buffer.
+* `mx.nd.NDArray`s take part as MXNet's do.  `backward` and `grad` take
+  NDArray heads and head gradients.  An NDArray with `attach_grad()` (or
+  `mark_variables`) wraps a leaf tensor that names the array as its owner
+  (`_mx_owner`); `backward` writes that leaf's gradient into the array's
+  `.grad` NDArray per its grad_req ('write' replaces, 'add' sums, 'null'
+  leaves it) and leaves torch's `Tensor.grad` of the leaf empty.
+* `grad(heads, variables, ..., create_graph)` returns NDArray gradients
+  and writes no `.grad`; with `create_graph=True` the gradients are
+  recorded, so a backward through them gives second-order gradients.
+  A node whose backward is not differentiable again (the flash
+  attention kernels, an `autograd.Function`) raises `MXNetError` there,
+  as the JAX package refuses to differentiate its Pallas kernels.
+* `Function` is MXNet's custom op: `forward` and `backward` run under
+  `pause()` on NDArrays, and the call is one recorded node.
 """
 from __future__ import annotations
 
 import threading
+import weakref
 
 import torch
 from torch.utils.weak import WeakIdKeyDictionary
@@ -40,7 +55,8 @@ from torch.utils.weak import WeakIdKeyDictionary
 from .base import MXNetError
 
 __all__ = ["record", "pause", "train_mode", "predict_mode", "is_recording",
-           "is_training", "backward"]
+           "is_training", "backward", "grad", "mark_variables", "Function",
+           "set_recording", "set_training"]
 
 _STATE = threading.local()
 
@@ -129,31 +145,189 @@ def _reachable_leaves(heads):
     return leaves
 
 
-def backward(heads, head_grads=None, retain_graph=False):
-    """Gradients of `heads` into the `.grad` of the leaves they reach,
-    overwriting what was there (grad_req='write'), or adding to it for a
-    parameter with grad_req 'add'.  A head without a `head_grads` entry
-    is seeded with ones of its own shape."""
-    if isinstance(heads, torch.Tensor):
+def _tensors(xs):
+    """The tensors of a list of tensors and NDArrays."""
+    return [x._data if hasattr(x, "_grad_req") else x for x in xs]
+
+
+def _heads(heads, head_grads, api):
+    """(head tensors, gradient tensors): a head without a gradient is
+    seeded with ones of its own shape."""
+    if not isinstance(heads, (list, tuple)):
         heads = [heads]
     if head_grads is None:
         head_grads = [None] * len(heads)
-    elif isinstance(head_grads, torch.Tensor):
+    elif not isinstance(head_grads, (list, tuple)):
         head_grads = [head_grads]
     if len(head_grads) != len(heads):
-        raise MXNetError("backward: %d head gradients for %d heads"
-                         % (len(head_grads), len(heads)))
+        raise MXNetError("%s: %d head gradients for %d heads"
+                         % (api, len(head_grads), len(heads)))
+    heads = _tensors(heads)
     for h in heads:
         if not h.requires_grad:
             raise MXNetError(
                 "cannot differentiate: output was not computed while "
                 "recording (is autograd.record() active?)")
-    grads = [torch.ones_like(h) if g is None else g
+    grads = [torch.ones_like(h) if g is None else _tensors([g])[0]
              for h, g in zip(heads, head_grads)]
+    return heads, grads
+
+
+def _owner(leaf):
+    """The NDArray that `leaf` is the attached tensor of, or None."""
+    ref = getattr(leaf, "_mx_owner", None)
+    return None if ref is None else ref()
+
+
+def backward(heads, head_grads=None, retain_graph=False, train_mode=True):
+    """Gradients of `heads` into the `.grad` of the leaves they reach,
+    overwriting what was there (grad_req='write'), or adding to it for a
+    parameter with grad_req 'add'.  A head without a `head_grads` entry
+    is seeded with ones of its own shape.  An NDArray leaf's gradient
+    goes to the array's `.grad` (module doc)."""
+    heads, grads = _heads(heads, head_grads, "backward")
+    owned = []
     for leaf in _reachable_leaves(heads):
-        if getattr(leaf, "grad_req", "write") == "write":
+        nd = _owner(leaf)
+        if nd is not None:
+            owned.append((leaf, nd))
+            leaf.grad = None
+        elif getattr(leaf, "grad_req", "write") == "write":
             leaf.grad = None
     torch.autograd.backward(heads, grads, retain_graph=retain_graph)
+    for leaf, nd in owned:
+        g, leaf.grad = leaf.grad, None
+        if g is None or nd._grad is None or nd._grad_req == "null":
+            continue
+        if nd._grad_req == "add":
+            nd._grad._data = nd._grad._data + g
+        else:
+            nd._grad._data = g
+
+
+def grad(heads, variables, head_grads=None, retain_graph=None,
+         create_graph=False, train_mode=True):
+    """The gradients of `heads` with respect to `variables` (NDArrays),
+    as NDArrays, without writing any `.grad`.  With `create_graph` they
+    are recorded (in `train_mode`), so a backward through them gives
+    higher-order gradients; `retain_graph` defaults to `create_graph`."""
+    from .ndarray.ndarray import _wrap
+    if retain_graph is None:
+        retain_graph = create_graph
+    single = not isinstance(variables, (list, tuple))
+    variables = [variables] if single else list(variables)
+    heads, grads = _heads(heads, head_grads, "grad")
+    xs = _tensors(variables)
+    live = [i for i, x in enumerate(xs) if x.requires_grad]
+    scope = _RecordingStateScope(True, train_mode) if create_graph \
+        else _RecordingStateScope(None, None)
+    with scope:
+        got = torch.autograd.grad(heads, [xs[i] for i in live], grads,
+                                  retain_graph=retain_graph,
+                                  create_graph=create_graph,
+                                  allow_unused=True)
+    out = [None] * len(xs)
+    for i, g in zip(live, got):
+        out[i] = g
+    return [_wrap(torch.zeros_like(x) if g is None else g)
+            for x, g in zip(xs, out)]
+
+
+def mark_variables(variables, gradients, grad_reqs="write"):
+    """Make each NDArray of `variables` a leaf whose gradient goes into
+    the NDArray of `gradients` at its place, per `grad_reqs` (ref:
+    autograd.mark_variables)."""
+    if isinstance(grad_reqs, str):
+        grad_reqs = [grad_reqs] * len(variables)
+    for v, g, req in zip(variables, gradients, grad_reqs):
+        t = v._data.detach()
+        if req != "null" and t.dtype.is_floating_point:
+            t.requires_grad_(True)
+            t._mx_owner = weakref.ref(v)
+        v._data = t
+        v._grad = g
+        v._grad_req = req
+
+
+class _FunctionNode(torch.autograd.Function):
+    """One recorded `Function` call: the forward runs the user's
+    `forward` on NDArrays over the inputs, the backward its `backward`."""
+
+    @staticmethod
+    def forward(ctx, func, slots, *tensors):
+        from .ndarray.ndarray import _wrap
+        it = iter(tensors)
+        inputs = [_wrap(next(it)) if s is None else s for s in slots]
+        with pause():
+            outputs = func.forward(*inputs)
+        ctx.func, ctx.n_in = func, len(tensors)
+        func._multi = isinstance(outputs, (list, tuple))
+        outs = tuple(outputs) if func._multi else (outputs,)
+        return tuple(o._data for o in outs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        from .ndarray.ndarray import _wrap
+        if torch.is_grad_enabled():
+            raise MXNetError(
+                "%s: a custom autograd.Function is differentiable once; "
+                "autograd.grad(create_graph=True) cannot pass through it"
+                % type(ctx.func).__name__)
+        with pause():
+            igrads = ctx.func.backward(*[_wrap(g) for g in grads])
+        if not isinstance(igrads, (list, tuple)):
+            igrads = [igrads]
+        if len(igrads) != ctx.n_in:
+            raise MXNetError("%s.backward returned %d gradients for %d "
+                             "array inputs" % (type(ctx.func).__name__,
+                                               len(igrads), ctx.n_in))
+        return (None, None) + tuple(
+            None if g is None else _tensors([g])[0] for g in igrads)
+
+
+class Function:
+    """User-defined differentiable operation (ref: autograd.Function).
+
+    Subclass, implement `forward(*inputs)` and `backward(*output_grads)`
+    over NDArrays, then call the instance like a function::
+
+        class sigmoid(autograd.Function):
+            def forward(self, x):
+                y = 1 / (1 + nd.exp(-x))
+                self.save_for_backward(y)
+                return y
+            def backward(self, dy):
+                y, = self.saved_tensors
+                return dy * y * (1 - y)
+
+    Both run with autograd paused; while recording, the call is one node
+    whose gradient is `backward`, which returns one gradient per NDArray
+    input (None for one that takes none)."""
+
+    def __init__(self):
+        self.saved_tensors = ()
+
+    def save_for_backward(self, *args):
+        self.saved_tensors = args
+
+    def forward(self, *inputs):
+        raise NotImplementedError
+
+    def backward(self, *output_grads):
+        raise NotImplementedError
+
+    def __call__(self, *inputs):
+        from .ndarray.ndarray import NDArray, _wrap
+        nd_inputs = [a for a in inputs if isinstance(a, NDArray)]
+        if not (is_recording()
+                and any(a._data.requires_grad for a in nd_inputs)):
+            with pause():
+                return self.forward(*inputs)
+        slots = [None if isinstance(a, NDArray) else a for a in inputs]
+        outs = _FunctionNode.apply(self, slots,
+                                   *[a._data for a in nd_inputs])
+        wrapped = [_wrap(o) for o in outs]
+        return wrapped if self._multi else wrapped[0]
 
 
 # -- gradients of captured backwards ---------------------------------------

@@ -4,7 +4,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["MXNetError", "torch_dtype"]
+__all__ = ["MXNetError", "torch_dtype", "nd_dtype"]
 
 
 class MXNetError(RuntimeError):
@@ -25,3 +25,40 @@ def torch_dtype(dtype):
     except KeyError:
         raise ValueError("unsupported dtype %r (one of %s)"
                          % (dtype, ", ".join(_DTYPES))) from None
+
+
+#: every dtype name `mx.nd` takes -> its torch dtype
+_ND_DTYPES = {"float32": torch.float32, "float64": torch.float64,
+              "float16": torch.float16, "bfloat16": torch.bfloat16,
+              "uint8": torch.uint8, "int8": torch.int8,
+              "int16": torch.int16, "int32": torch.int32,
+              "int64": torch.int64, "bool": torch.bool,
+              "uint16": torch.uint16, "uint32": torch.uint32,
+              "uint64": torch.uint64}
+#: the JAX package runs with 64-bit types off: a 64-bit dtype asked for
+#: is its 32-bit sibling
+_X64_OFF = {torch.float64: torch.float32, torch.int64: torch.int32,
+            torch.uint64: torch.uint32}
+
+
+def nd_dtype(dtype):
+    """The torch dtype `mx.nd` gives for `dtype` (a name, a numpy dtype or
+    type, a Python type or a torch dtype), 64-bit types narrowed to 32
+    bits as the JAX package's arrays are."""
+    if dtype is None:
+        return None
+    if not isinstance(dtype, torch.dtype):
+        if dtype is float:
+            dtype = "float32"
+        elif dtype is int:
+            dtype = "int32"
+        elif dtype is bool:
+            dtype = "bool"
+        name = getattr(dtype, "__name__", None) if isinstance(dtype, type) \
+            else None
+        name = name or getattr(dtype, "name", None) or str(dtype)
+        try:
+            dtype = _ND_DTYPES[name.replace("torch.", "")]
+        except KeyError:
+            raise TypeError("unknown dtype %r" % (dtype,)) from None
+    return _X64_OFF.get(dtype, dtype)

@@ -2,19 +2,25 @@
 incubator_mxnet_tpu/contrib/amp/__init__.py; ref: python/mxnet/contrib/
 amp/amp.py).
 
-The JAX `init` wraps the op registry's functions so that the ops of
-`lists.TARGET_DTYPE_OPS` cast their float32 inputs to the target dtype
-and the ops of `lists.FP32_OPS` cast their bfloat16 and float16 inputs
-to float32.  The port has no op registry yet (ROADMAP.md, Queue 1 item
-4), but its layers call their ops through the module attribute
-(`ops.fully_connected(...)` after `from ...ops import nn as ops`).  So
-`init` here is the port's stand-in for the registry wrap: `_PORT_OPS`
-maps the reference op names to the port functions that implement them
-(a Convolution is `convolution` and the fused pointwise product with
-BatchNorm statistics, `conv1x1_bn_stats`), `init` rebinds those
-attributes to cast-wrapped versions and `turn_off` restores them.
-Names the port lacks are skipped, as the JAX `_try_get` returns None
-for them.  The wrap moves onto the registry once that is ported.
+`init` makes the ops of `lists.TARGET_DTYPE_OPS` cast their float32
+inputs to the target dtype and the ops of `lists.FP32_OPS` cast their
+bfloat16 and float16 inputs to float32, as the JAX `init` does by
+wrapping the op registry's functions.  Two places are wrapped:
+
+* the Gluon layers call `ops.nn`'s functions through the module
+  attribute (`ops.fully_connected(...)` after `from ...ops import nn as
+  ops`), so `_PORT_OPS` maps a reference op name to the port functions
+  that implement it (a Convolution is `convolution` and the fused
+  pointwise product with BatchNorm statistics, `conv1x1_bn_stats`) and
+  `init` rebinds those attributes to cast-wrapped versions.  The
+  registry entries of these ops look their function up in `ops.nn` when
+  they run, so the rebinding covers `mx.nd.FullyConnected` too;
+* every other listed op that the registry holds (`dot`, `batch_dot`,
+  `exp`, `log`, `sum`, `mean`, `norm`, ...) has its registry entry's
+  function wrapped, so `mx.nd.dot` and `NDArray.exp` cast.
+
+`turn_off` restores both.  Names the port lacks are skipped, as the JAX
+`_try_get` returns None for them.
 
 Default target is bfloat16 (float32's exponent range, so no loss
 scaling); float16 pairs with the dynamic `LossScaler`.
@@ -30,6 +36,7 @@ from . import lists
 from .loss_scaler import LossScaler
 from ...base import torch_dtype
 from ...ops import nn as _nn
+from ...ops import registry as _registry
 
 __all__ = ["init", "init_trainer", "scale_loss", "unscale",
            "convert_hybrid_block", "convert_model", "convert_symbol",
@@ -49,7 +56,7 @@ _PORT_OPS = {
 
 _LOW_FLOATS = (torch.bfloat16, torch.float16)
 
-# target name; (module, attribute) -> original function
+# target name; (module or OpDef, attribute) -> original function
 _CURRENT = {"target": None, "orig": {}}
 
 
@@ -88,10 +95,17 @@ def init(target_dtype="bfloat16", target_precision_ops=None,
     for op in f32_list:
         policy.setdefault(op, (torch.float32, _LOW_FLOATS))
     for op, (to_dtype, from_dtypes) in policy.items():
-        for mod, attr in _PORT_OPS.get(op, ()):
-            fn = getattr(mod, attr)
-            _CURRENT["orig"][mod, attr] = fn
-            setattr(mod, attr, _wrap_cast(fn, to_dtype, from_dtypes))
+        if op in _PORT_OPS:
+            for mod, attr in _PORT_OPS[op]:
+                fn = getattr(mod, attr)
+                _CURRENT["orig"][mod, attr] = fn
+                setattr(mod, attr, _wrap_cast(fn, to_dtype, from_dtypes))
+            continue
+        od = _registry._REGISTRY.get(op)
+        if od is None or (od, "fn") in _CURRENT["orig"]:
+            continue
+        _CURRENT["orig"][od, "fn"] = od.fn
+        od.fn = _wrap_cast(od.fn, to_dtype, from_dtypes)
     _CURRENT["target"] = name
 
 

@@ -66,6 +66,7 @@ from .. import graph_capture as _capture
 from .. import random as _rnd
 from ..base import MXNetError
 from ..context import resolve_device
+from ..ndarray.ndarray import NDArray, _wrap, unwrap
 
 __all__ = ["Block", "HybridBlock", "new_parameter", "cast_parameter",
            "materialize"]
@@ -92,9 +93,30 @@ def materialize(param, shape):
         param._finish_deferred_init()
 
 
+def _nd_call(call, args, kwargs):
+    """`call(*args, **kwargs)` with the NDArray arguments unwrapped to
+    their tensors, and the tensor results wrapped as NDArrays; None when
+    no argument is an NDArray."""
+    if not any(isinstance(a, NDArray) for a in args) and not any(
+            isinstance(a, NDArray) for a in kwargs.values()):
+        return None
+    args = tuple(unwrap(a) for a in args)
+    kwargs = {k: unwrap(v) for k, v in kwargs.items()}
+    out, ospec = tree_flatten(call(*args, **kwargs))
+    return tree_unflatten([_wrap(o) if isinstance(o, torch.Tensor) else o
+                           for o in out], ospec)
+
+
 class Block(nn.Module):
     """ref: gluon.Block — a composable layer; the PyTorch module protocol
-    (`forward`, `train()`/`eval()`, `state_dict`) applies as is."""
+    (`forward`, `train()`/`eval()`, `state_dict`) applies as is.  Called
+    with `mx.nd` NDArrays, a block runs on their tensors and returns
+    NDArrays, as the JAX package's blocks do; called with tensors, it
+    returns tensors."""
+
+    def __call__(self, *args, **kwargs):
+        out = _nd_call(super().__call__, args, kwargs)
+        return super().__call__(*args, **kwargs) if out is None else out
 
     def collect_params(self, select=None):
         """`ParameterDict` of structural parameter names → parameters,
@@ -198,9 +220,12 @@ class HybridBlock(Block):
                           static_shape=static_shape)
 
     def __call__(self, *args, **kwargs):
+        out = _nd_call(self.__call__, args, kwargs)
+        if out is not None:
+            return out
         cached = self.__dict__.get("_cached_graph")
         if cached is None or _in_program():
-            return super().__call__(*args, **kwargs)
+            return nn.Module.__call__(self, *args, **kwargs)
         return cached(args, kwargs)
 
     def inference_engine(self, **kwargs):

@@ -19,6 +19,7 @@ import numpy as _np
 import torch
 
 from .base import MXNetError
+from .ndarray.ndarray import unwrap
 
 __all__ = ["EvalMetric", "CompositeEvalMetric", "Accuracy", "TopKAccuracy",
            "F1", "MAE", "MSE", "RMSE", "CrossEntropy", "NegativeLogLikelihood",
@@ -57,7 +58,8 @@ def create(metric, *args, **kwargs):
 
 
 def _tensor(x):
-    """`x` as a tensor (a tensor stays where it is)."""
+    """`x` as a tensor (a tensor or an NDArray's stays where it is)."""
+    x = unwrap(x)
     if isinstance(x, torch.Tensor):
         return x.detach()
     return torch.as_tensor(_np.asarray(x))
@@ -79,6 +81,7 @@ def _value(x):
 
 
 def _as_numpy(x):
+    x = unwrap(x)
     if isinstance(x, torch.Tensor):
         x = x.detach().cpu()
         return (x.float() if x.dtype == torch.bfloat16 else x).numpy()

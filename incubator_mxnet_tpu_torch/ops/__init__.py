@@ -1,5 +1,10 @@
 """Operators of the PyTorch port: plain PyTorch for what the JAX package
-left to XLA, hand-written CUDA kernels for what it wrote in Pallas."""
+left to XLA, hand-written CUDA kernels for what it wrote in Pallas.  The
+modules register their operators in `registry` under the JAX package's
+names, for `mx.nd`."""
+from . import registry
+from . import tensor
 from . import nn
 from . import attention
 from . import optimizer
+from . import random

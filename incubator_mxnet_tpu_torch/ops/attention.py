@@ -44,6 +44,7 @@ import threading
 import torch
 
 from . import _kernels
+from ..base import MXNetError
 
 __all__ = ["naive_attention", "flash_attention_fwd",
            "flash_attention_fwd_plain", "flash_attention_bwd",
@@ -358,8 +359,16 @@ class _FlashAttention(torch.autograd.Function):
         return out
 
     @staticmethod
-    @torch.autograd.function.once_differentiable
     def backward(ctx, dout):
+        if torch.is_grad_enabled():
+            # a backward that records (create_graph=True): the kernels'
+            # gradients are not differentiable again, and the JAX package
+            # refuses to differentiate its Pallas kernels too
+            raise MXNetError(
+                "flash attention is differentiable once: its backward is "
+                "the dQ and dK/dV kernels, which have no gradient of their "
+                "own; autograd.grad(create_graph=True) cannot pass through "
+                "it")
         q, k, v, out, lse = ctx.saved_tensors
         # autograd may hand over a strided gradient (the head merge in
         # _contrib_flash_attention transposes); the kernels take (BH, T, d)
@@ -403,3 +412,17 @@ def _contrib_flash_attention(query, key, value, num_heads=1, scale=None,
     out = flash_attention(split(query), split(key), split(value),
                           scale=scale, causal=causal)
     return out.transpose(1, 2).reshape(B, T, C)
+
+
+from .registry import register  # noqa: E402
+
+
+@register("_contrib_flash_attention",
+          ndarray_inputs=("query", "key", "value"))
+def _contrib_flash_attention_op(query, key, value, num_heads=1, scale=None,
+                                causal=False):
+    """Fused multi-head attention core softmax(QK^T/sqrt(d))V over (B, T,
+    C) post-projection activations, C = num_heads * d (`mx.nd.contrib.
+    flash_attention`); the CUDA kernels on the card."""
+    return _contrib_flash_attention(query, key, value, num_heads, scale,
+                                    causal)

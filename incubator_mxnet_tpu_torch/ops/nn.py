@@ -33,7 +33,8 @@ from ..base import torch_dtype as _torch_dtype
 __all__ = ["fully_connected", "convolution", "conv1x1_bn_stats",
            "pooling", "activation",
            "flatten", "batch_norm", "layer_norm", "embedding", "leaky_relu",
-           "dropout", "softmax", "log_softmax", "fused_softmax_ce",
+           "dropout", "softmax", "log_softmax", "softmin", "softmax_output",
+           "smooth_l1", "make_loss", "fused_softmax_ce",
            "fused_linear_softmax_ce"]
 
 
@@ -128,7 +129,8 @@ def pooling(data, kernel=(), pool_type="max", global_pool=False,
             return summed / (kernel[0] * kernel[1])
         return summed / window_sum(torch.ones_like(data))
     if pool_type == "lp":
-        raise NotImplementedError("pooling pool_type='lp' is not yet ported")
+        summed = window_sum(data.abs().pow(p_value))
+        return summed.pow(1.0 / p_value)
     raise ValueError(pool_type)
 
 
@@ -246,15 +248,16 @@ def batch_norm(data, gamma, beta, moving_mean, moving_var, eps=1e-3,
 
 
 def layer_norm(data, gamma, beta, axis=-1, eps=1e-5):
-    """Normalize over the last axis with the biased variance, then scale
-    and shift.  The result takes the promoted dtype of data and gamma, as
-    the JAX op's arithmetic does (bf16 data with f32 gamma gives f32)."""
-    if axis % data.ndim != data.ndim - 1:
-        raise NotImplementedError("layer_norm over axis %d is not yet "
-                                  "ported (last axis only)" % axis)
+    """Normalize over `axis` with the biased variance, then scale and
+    shift.  The result takes the promoted dtype of data and gamma, as the
+    JAX op's arithmetic does (bf16 data with f32 gamma gives f32)."""
     dt = torch.promote_types(data.dtype, gamma.dtype)
-    return F.layer_norm(data.to(dt), (data.shape[-1],), gamma.to(dt),
-                        beta.to(dt), eps)
+    ax = axis % data.ndim
+    x = data.to(dt)
+    if ax != data.ndim - 1:
+        x = x.movedim(ax, -1)
+    out = F.layer_norm(x, (x.shape[-1],), gamma.to(dt), beta.to(dt), eps)
+    return out if ax == data.ndim - 1 else out.movedim(-1, ax)
 
 
 def embedding(data, weight):
@@ -265,23 +268,39 @@ def embedding(data, weight):
     return F.embedding(idx, weight)
 
 
-def leaky_relu(data, act_type):
-    """Only `gelu`, the exact erf form, is ported."""
+def leaky_relu(data, gamma=None, act_type="leaky", slope=0.25,
+               lower_bound=0.125, upper_bound=0.334):
+    """leaky, prelu (per-channel `gamma` on axis 1), elu, selu, gelu (the
+    exact erf form) and rrelu (its deterministic mean slope)."""
     if act_type == "gelu":
         return F.gelu(data, approximate="none")
-    raise NotImplementedError("leaky_relu act_type=%r is not yet ported"
-                              % (act_type,))
+    if act_type == "leaky":
+        return F.leaky_relu(data, slope)
+    if act_type == "prelu":
+        g = gamma.reshape((1, -1) + (1,) * (data.ndim - 2)) \
+            if gamma.ndim == 1 and data.ndim > 2 else gamma
+        return torch.where(data >= 0, data, g * data)
+    if act_type == "elu":
+        return torch.where(data >= 0, data, slope * torch.expm1(data))
+    if act_type == "selu":
+        return F.selu(data)
+    if act_type == "rrelu":
+        mid = (lower_bound + upper_bound) / 2.0
+        return torch.where(data >= 0, data, mid * data)
+    raise ValueError(act_type)
 
 
-def dropout(data, p=0.5, training=False, generator=None):
+def dropout(data, p=0.5, training=False, generator=None, axes=()):
     """Inverted dropout drawn from `generator`; the identity unless
-    `training` and p > 0.  Inside a checkpointed forward's recompute the
-    forward's mask is used again (`random.remat_mask`)."""
+    `training` and p > 0.  `axes` share one mask value along them.
+    Inside a checkpointed forward's recompute the forward's mask is used
+    again (`random.remat_mask`)."""
     if not training or p <= 0.0:
         return data
     keep = 1.0 - p
+    shape = tuple(1 if i in axes else s for i, s in enumerate(data.shape))
     mask = _rnd.remat_mask(lambda: torch.rand(
-        data.shape, generator=generator, device=data.device,
+        shape, generator=generator, device=data.device,
         dtype=torch.float32) < keep)
     return data * mask.to(data.dtype) / keep
 
@@ -308,6 +327,79 @@ def log_softmax(data, axis=-1, temperature=None, dtype=None):
     data, ax = _softmax_input(data, axis, temperature, False)
     out = torch.log_softmax(data, dim=ax)
     return out if dtype is None else out.to(_torch_dtype(dtype))
+
+
+def softmin(data, axis=-1, temperature=None, dtype=None):
+    """softmax of -data along `axis`, as `softmax`."""
+    data, ax = _softmax_input(data, axis, temperature, False)
+    out = torch.softmax(-data, dim=ax)
+    return out if dtype is None else out.to(_torch_dtype(dtype))
+
+
+class _SoftmaxOutput(torch.autograd.Function):
+    """Forward softmax; backward the op's own rule, (softmax - smoothed
+    one_hot(label)) * grad_scale, whatever the incoming gradient unless
+    `out_grad` (ref: SoftmaxOutputOp::Backward)."""
+
+    @staticmethod
+    def forward(ctx, data, label, grad_scale, ignore_label, use_ignore,
+                normalization, multi_output, smooth_alpha, out_grad):
+        p = torch.softmax(data, dim=1 if multi_output else -1)
+        ctx.save_for_backward(p, label)
+        ctx.attrs = (grad_scale, ignore_label, use_ignore, normalization,
+                     multi_output, smooth_alpha, out_grad)
+        return p
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, cot):
+        p, label = ctx.saved_tensors
+        (grad_scale, ignore_label, use_ignore, normalization, multi_output,
+         smooth_alpha, out_grad) = ctx.attrs
+        axis = 1 if multi_output else p.ndim - 1
+        C = p.shape[axis]
+        oh = F.one_hot(label.long().clamp(0, C - 1), C).to(p.dtype)
+        oh = oh.movedim(-1, axis)
+        if smooth_alpha:
+            oh = oh * (1.0 - smooth_alpha) \
+                + (1.0 - oh) * (smooth_alpha / max(C - 1, 1))
+        g = (p - oh) * grad_scale
+        if use_ignore:
+            keep = (label != ignore_label).to(p.dtype)
+            g = g * keep.unsqueeze(axis)
+        if normalization == "batch":
+            g = g / p.shape[0]
+        elif normalization == "valid":
+            n = torch.clamp_min((label != ignore_label).sum(), 1) \
+                if use_ignore else label.numel()
+            g = g / n
+        if out_grad:
+            g = g * cot
+        return (g,) + (None,) * 8
+
+
+def softmax_output(data, label, grad_scale=1.0, ignore_label=-1.0,
+                   multi_output=False, use_ignore=False,
+                   preserve_shape=False, normalization="null",
+                   out_grad=False, smooth_alpha=0.0):
+    """Softmax (axis 1 with multi_output, else the last) whose gradient
+    is SoftmaxOutput's own rule (`_SoftmaxOutput`)."""
+    return _SoftmaxOutput.apply(data, label, float(grad_scale),
+                                float(ignore_label), bool(use_ignore),
+                                str(normalization), bool(multi_output),
+                                float(smooth_alpha), bool(out_grad))
+
+
+def smooth_l1(data, scalar=1.0):
+    """0.5 s^2 x^2 where |x| < 1/s^2, else |x| - 0.5/s^2."""
+    s2 = scalar * scalar
+    return torch.where(data.abs() < 1.0 / s2, 0.5 * s2 * data.square(),
+                       data.abs() - 0.5 / s2)
+
+
+def make_loss(data, grad_scale=1.0, valid_thresh=0.0, normalization="null"):
+    """The identity; marks its input as a loss head (ref: MakeLoss)."""
+    return data
 
 
 class _SoftmaxCE(torch.autograd.Function):
@@ -443,3 +535,139 @@ def fused_linear_softmax_ce(hidden, weight, bias, label, num_chunks=0):
             "_fused_linear_softmax_ce: %d rows not divisible into %d "
             "chunks" % (n, nchunk))
     return _LinearSoftmaxCE.apply(hidden, weight, bias, label, nchunk)
+
+
+# -- registry entries -------------------------------------------------------
+# The JAX package's names and signatures over the functions above.  Each
+# entry calls its function through this module's namespace when it runs,
+# so `contrib.amp`'s rebinding of a module attribute covers the entry too.
+
+from .registry import register  # noqa: E402
+
+
+@register("FullyConnected", ndarray_inputs=("data", "weight", "bias"))
+def _fully_connected_op(data, weight, bias=None, num_hidden=0, no_bias=False,
+                        flatten=True):
+    """data @ weight.T + bias, weight (num_hidden, in_units)."""
+    return fully_connected(data, weight, bias, num_hidden, no_bias, flatten)
+
+
+@register("Convolution", ndarray_inputs=("data", "weight", "bias"))
+def _convolution_op(data, weight, bias=None, kernel=(), stride=(),
+                    dilate=(), pad=(), num_filter=0, num_group=1,
+                    no_bias=False, workspace=1024, cudnn_tune=None,
+                    cudnn_off=False, layout=None):
+    return convolution(data, weight, bias, kernel, stride, dilate, pad,
+                       num_filter, num_group, no_bias, workspace,
+                       cudnn_tune, cudnn_off, layout)
+
+
+@register("Pooling", ndarray_inputs=("data",))
+def _pooling_op(data, kernel=(), pool_type="max", global_pool=False,
+                cudnn_off=False, pooling_convention="valid", stride=(),
+                pad=(), p_value=2, count_include_pad=True, layout=None):
+    return pooling(data, kernel, pool_type, global_pool, cudnn_off,
+                   pooling_convention, stride, pad, p_value,
+                   count_include_pad, layout)
+
+
+@register("Activation", ndarray_inputs=("data",))
+def _activation_op(data, act_type="relu"):
+    return activation(data, act_type)
+
+
+@register("LeakyReLU", ndarray_inputs=("data", "gamma"))
+def _leaky_relu_op(data, gamma=None, act_type="leaky", slope=0.25,
+                   lower_bound=0.125, upper_bound=0.334):
+    return leaky_relu(data, gamma, act_type, slope, lower_bound, upper_bound)
+
+
+@register("softmax", ndarray_inputs=("data",))
+def _softmax_op(data, axis=-1, temperature=None, length=None,
+                use_length=False, dtype=None):
+    return softmax(data, axis, temperature, length, use_length, dtype)
+
+
+@register("log_softmax", ndarray_inputs=("data",))
+def _log_softmax_op(data, axis=-1, temperature=None, dtype=None):
+    return log_softmax(data, axis, temperature, dtype)
+
+
+@register("softmin", ndarray_inputs=("data",))
+def _softmin_op(data, axis=-1, temperature=None, dtype=None):
+    return softmin(data, axis, temperature, dtype)
+
+
+@register("BatchNorm",
+          ndarray_inputs=("data", "gamma", "beta", "moving_mean",
+                          "moving_var"),
+          num_outputs=3, visible_outputs=1)
+def _batch_norm_op(data, gamma, beta, moving_mean, moving_var, eps=1e-3,
+                   momentum=0.9, fix_gamma=True, use_global_stats=False,
+                   output_mean_var=False, axis=1, cudnn_off=False,
+                   _training=True):
+    """(out, batch mean, batch var); batch statistics while training
+    (`autograd.is_training()`), the moving ones otherwise.  The moving
+    statistics are not written (the caller updates them)."""
+    return batch_norm(data, gamma, beta, moving_mean, moving_var, eps,
+                      momentum, fix_gamma, use_global_stats, axis,
+                      training=_training)
+
+
+@register("LayerNorm", ndarray_inputs=("data", "gamma", "beta"))
+def _layer_norm_op(data, gamma, beta, axis=-1, eps=1e-5,
+                   output_mean_var=False):
+    return layer_norm(data, gamma, beta, axis, eps)
+
+
+@register("Dropout", ndarray_inputs=("data",), needs_rng=True)
+def _dropout_op(data, p=0.5, mode="training", axes=(), cudnn_off=False,
+                _training=True, _rng_key=None):
+    """Dropout while training (or always with mode='always'), drawn from
+    the device's generator (`_rng_key`)."""
+    if not _training and mode != "always":
+        return data
+    return dropout(data, p, training=True, generator=_rng_key,
+                   axes=tuple(axes))
+
+
+@register("Embedding", ndarray_inputs=("data", "weight"),
+          nograd_argnums=(0,))
+def _embedding_op(data, weight, input_dim=0, output_dim=0, dtype="float32",
+                  sparse_grad=False):
+    return embedding(data, weight)
+
+
+@register("_fused_softmax_ce", ndarray_inputs=("pred", "label"),
+          nograd_argnums=(1,))
+def _fused_softmax_ce_op(pred, label, axis=-1):
+    return fused_softmax_ce(pred, label, axis)
+
+
+@register("_fused_linear_softmax_ce",
+          ndarray_inputs=("hidden", "weight", "bias", "label"),
+          nograd_argnums=(3,))
+def _fused_linear_softmax_ce_op(hidden, weight, bias, label, num_chunks=0):
+    return fused_linear_softmax_ce(hidden, weight, bias, label, num_chunks)
+
+
+@register("SoftmaxOutput", ndarray_inputs=("data", "label"),
+          nograd_argnums=(1,))
+def _softmax_output_op(data, label, grad_scale=1.0, ignore_label=-1.0,
+                       multi_output=False, use_ignore=False,
+                       preserve_shape=False, normalization="null",
+                       out_grad=False, smooth_alpha=0.0):
+    return softmax_output(data, label, grad_scale, ignore_label,
+                          multi_output, use_ignore, preserve_shape,
+                          normalization, out_grad, smooth_alpha)
+
+
+@register("smooth_l1", ndarray_inputs=("data",))
+def _smooth_l1_op(data, scalar=1.0):
+    return smooth_l1(data, scalar)
+
+
+@register("MakeLoss", ndarray_inputs=("data",))
+def _make_loss_op(data, grad_scale=1.0, valid_thresh=0.0,
+                  normalization="null"):
+    return make_loss(data, grad_scale, valid_thresh, normalization)

@@ -38,7 +38,10 @@ import torch
 
 __all__ = ["sgd_update", "sgd_mom_update", "multi_sgd_update",
            "multi_sgd_mom_update", "mp_sgd_update", "mp_sgd_mom_update",
-           "nag_mom_update", "adam_update"]
+           "nag_mom_update", "adam_update", "rmsprop_update",
+           "rmspropalex_update", "ftrl_update", "adagrad_update",
+           "signsgd_update", "signum_update", "lamb_update_phase1",
+           "lamb_update_phase2"]
 
 
 def _f32(t):
@@ -188,3 +191,214 @@ def adam_update(weight, grad, mean, var, lr=0.001, beta1=0.9, beta2=0.999,
     else:
         w.addcdiv_(m, denom, value=-lr)
     _write_back(((weight, w), (mean, m), (var, v)))
+
+
+# -- registry entries -------------------------------------------------------
+# The JAX package's 16 update ops, functional as there: each returns the
+# new weight (and states) and leaves its inputs as they were; `nd`'s
+# `out=` writes the results back.  The nine above run on copies of the
+# weight and states; the other eight are plain elementwise functions in
+# the inputs' dtype, as the JAX bodies are.
+
+from .registry import register  # noqa: E402
+
+
+def _copies(*ts):
+    return tuple(t.clone() for t in ts)
+
+
+@register("sgd_update", ndarray_inputs=("weight", "grad"),
+          differentiable=False)
+def _sgd_update_op(weight, grad, lr=0.01, wd=0.0, rescale_grad=1.0,
+                   clip_gradient=-1.0, lazy_update=True):
+    w, = _copies(weight)
+    sgd_update(w, grad, lr, wd, rescale_grad, clip_gradient)
+    return w
+
+
+@register("sgd_mom_update", ndarray_inputs=("weight", "grad", "mom"),
+          differentiable=False, num_outputs=2)
+def _sgd_mom_update_op(weight, grad, mom, lr=0.01, momentum=0.0, wd=0.0,
+                       rescale_grad=1.0, clip_gradient=-1.0,
+                       lazy_update=True):
+    w, m = _copies(weight, mom)
+    sgd_mom_update(w, grad, m, lr, momentum, wd, rescale_grad, clip_gradient)
+    return w, m
+
+
+@register("mp_sgd_update", ndarray_inputs=("weight", "grad", "weight32"),
+          differentiable=False, num_outputs=2)
+def _mp_sgd_update_op(weight, grad, weight32, lr=0.01, wd=0.0,
+                      rescale_grad=1.0, clip_gradient=-1.0,
+                      lazy_update=True):
+    w, w32 = _copies(weight, weight32)
+    mp_sgd_update(w, grad, w32, lr, wd, rescale_grad, clip_gradient)
+    return w, w32
+
+
+@register("mp_sgd_mom_update",
+          ndarray_inputs=("weight", "grad", "mom", "weight32"),
+          differentiable=False, num_outputs=3)
+def _mp_sgd_mom_update_op(weight, grad, mom, weight32, lr=0.01,
+                          momentum=0.0, wd=0.0, rescale_grad=1.0,
+                          clip_gradient=-1.0, lazy_update=True):
+    w, m, w32 = _copies(weight, mom, weight32)
+    mp_sgd_mom_update(w, grad, m, w32, lr, momentum, wd, rescale_grad,
+                      clip_gradient)
+    return w, m, w32
+
+
+@register("nag_mom_update", ndarray_inputs=("weight", "grad", "mom"),
+          differentiable=False, num_outputs=2)
+def _nag_mom_update_op(weight, grad, mom, lr=0.01, momentum=0.0, wd=0.0,
+                       rescale_grad=1.0, clip_gradient=-1.0):
+    w, m = _copies(weight, mom)
+    nag_mom_update(w, grad, m, lr, momentum, wd, rescale_grad, clip_gradient)
+    return w, m
+
+
+@register("adam_update", ndarray_inputs=("weight", "grad", "mean", "var"),
+          differentiable=False, num_outputs=3)
+def _adam_update_op(weight, grad, mean, var, lr=0.001, beta1=0.9,
+                    beta2=0.999, epsilon=1e-8, wd=0.0, rescale_grad=1.0,
+                    clip_gradient=-1.0, lazy_update=True):
+    w, m, v = _copies(weight, mean, var)
+    adam_update(w, grad, m, v, lr, beta1, beta2, epsilon, wd, rescale_grad,
+                clip_gradient)
+    return w, m, v
+
+
+@register("multi_sgd_update", ndarray_inputs=None, differentiable=False,
+          num_outputs=-1)
+def _multi_sgd_update_op(*arrays, lrs=(), wds=(), rescale_grad=1.0,
+                         clip_gradient=-1.0, num_weights=1):
+    ws = _copies(*arrays[0:2 * num_weights:2])
+    multi_sgd_update(ws, arrays[1:2 * num_weights:2], list(lrs), list(wds),
+                     rescale_grad, clip_gradient)
+    return ws
+
+
+@register("multi_sgd_mom_update", ndarray_inputs=None, differentiable=False,
+          num_outputs=-1)
+def _multi_sgd_mom_update_op(*arrays, lrs=(), wds=(), momentum=0.0,
+                             rescale_grad=1.0, clip_gradient=-1.0,
+                             num_weights=1):
+    n3 = 3 * num_weights
+    ws = _copies(*arrays[0:n3:3])
+    ms = _copies(*arrays[2:n3:3])
+    multi_sgd_mom_update(ws, arrays[1:n3:3], ms, list(lrs), list(wds),
+                         momentum, rescale_grad, clip_gradient)
+    return tuple(t for pair in zip(ws, ms) for t in pair)
+
+
+def _prep(grad, rescale_grad, clip_gradient):
+    g = grad * rescale_grad
+    if clip_gradient is not None and clip_gradient > 0:
+        g = torch.clamp(g, -clip_gradient, clip_gradient)
+    return g
+
+
+def _clip_weights(w, clip_weights):
+    if clip_weights is not None and clip_weights > 0:
+        w = torch.clamp(w, -clip_weights, clip_weights)
+    return w
+
+
+@register("rmsprop_update", ndarray_inputs=("weight", "grad", "n"),
+          differentiable=False, num_outputs=2)
+def rmsprop_update(weight, grad, n, lr=0.001, gamma1=0.9, epsilon=1e-8,
+                   wd=0.0, rescale_grad=1.0, clip_gradient=-1.0,
+                   clip_weights=-1.0):
+    g = _prep(grad, rescale_grad, clip_gradient) + wd * weight
+    new_n = gamma1 * n + (1.0 - gamma1) * torch.square(g)
+    w = weight - lr * g / torch.sqrt(new_n + epsilon)
+    return _clip_weights(w, clip_weights), new_n
+
+
+@register("rmspropalex_update",
+          ndarray_inputs=("weight", "grad", "n", "g", "delta"),
+          differentiable=False, num_outputs=4)
+def rmspropalex_update(weight, grad, n, g, delta, lr=0.001, gamma1=0.95,
+                       gamma2=0.9, epsilon=1e-8, wd=0.0, rescale_grad=1.0,
+                       clip_gradient=-1.0, clip_weights=-1.0):
+    gr = _prep(grad, rescale_grad, clip_gradient) + wd * weight
+    new_n = gamma1 * n + (1.0 - gamma1) * torch.square(gr)
+    new_g = gamma1 * g + (1.0 - gamma1) * gr
+    new_delta = gamma2 * delta - lr * gr / torch.sqrt(
+        new_n - torch.square(new_g) + epsilon)
+    w = _clip_weights(weight + new_delta, clip_weights)
+    return w, new_n, new_g, new_delta
+
+
+@register("ftrl_update", ndarray_inputs=("weight", "grad", "z", "n"),
+          differentiable=False, num_outputs=3)
+def ftrl_update(weight, grad, z, n, lr=0.1, lamda1=0.01, beta=1.0, wd=0.0,
+                rescale_grad=1.0, clip_gradient=-1.0):
+    g = _prep(grad, rescale_grad, clip_gradient)
+    new_n = n + torch.square(g)
+    sigma = (torch.sqrt(new_n) - torch.sqrt(n)) / lr
+    new_z = z + g - sigma * weight
+    w = torch.where(
+        torch.abs(new_z) <= lamda1, torch.zeros_like(weight),
+        -(new_z - torch.sign(new_z) * lamda1)
+        / ((beta + torch.sqrt(new_n)) / lr + wd))
+    return w, new_z, new_n
+
+
+@register("adagrad_update", ndarray_inputs=("weight", "grad", "history"),
+          differentiable=False, num_outputs=2)
+def adagrad_update(weight, grad, history, lr=0.01, epsilon=1e-7, wd=0.0,
+                   rescale_grad=1.0, clip_gradient=-1.0):
+    g = _prep(grad, rescale_grad, clip_gradient)
+    new_h = history + torch.square(g)
+    w = weight - lr * (g / (torch.sqrt(new_h) + epsilon) + wd * weight)
+    return w, new_h
+
+
+@register("signsgd_update", ndarray_inputs=("weight", "grad"),
+          differentiable=False)
+def signsgd_update(weight, grad, lr=0.01, wd=0.0, rescale_grad=1.0,
+                   clip_gradient=-1.0):
+    g = _prep(grad, rescale_grad, clip_gradient)
+    return weight - lr * (torch.sign(g) + wd * weight)
+
+
+@register("signum_update", ndarray_inputs=("weight", "grad", "mom"),
+          differentiable=False, num_outputs=2)
+def signum_update(weight, grad, mom, lr=0.01, momentum=0.0, wd=0.0,
+                  rescale_grad=1.0, clip_gradient=-1.0, wd_lh=0.0):
+    g = _prep(grad, rescale_grad, clip_gradient)
+    new_mom = momentum * mom - (1.0 - momentum) * g
+    w = weight + lr * (torch.sign(new_mom) - wd_lh * weight) \
+        - lr * wd * weight
+    return w, new_mom
+
+
+@register("lamb_update_phase1",
+          ndarray_inputs=("weight", "grad", "mean", "var"),
+          differentiable=False, num_outputs=3)
+def lamb_update_phase1(weight, grad, mean, var, beta1=0.9, beta2=0.999,
+                       epsilon=1e-6, t=1, bias_correction=True, wd=0.0,
+                       rescale_grad=1.0, clip_gradient=-1.0):
+    g = _prep(grad, rescale_grad, clip_gradient)
+    m = beta1 * mean + (1.0 - beta1) * g
+    v = beta2 * var + (1.0 - beta2) * torch.square(g)
+    if bias_correction:
+        mh = m / (1.0 - beta1 ** t)
+        vh = v / (1.0 - beta2 ** t)
+    else:
+        mh, vh = m, v
+    return mh / (torch.sqrt(vh) + epsilon) + wd * weight, m, v
+
+
+@register("lamb_update_phase2", ndarray_inputs=("weight", "g", "r1", "r2"),
+          differentiable=False)
+def lamb_update_phase2(weight, g, r1, r2, lr=0.01, lower_bound=-1.0,
+                       upper_bound=-1.0):
+    r1c = r1
+    if lower_bound is not None and lower_bound > 0:
+        r1c = torch.clamp_min(r1c, lower_bound)
+    if upper_bound is not None and upper_bound > 0:
+        r1c = torch.clamp_max(r1c, upper_bound)
+    ratio = torch.where((r1c > 0) & (r2 > 0), r1c / r2, torch.ones_like(r1c))
+    return weight - lr * ratio * g

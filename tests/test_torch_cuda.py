@@ -1218,3 +1218,100 @@ def test_generation_engine_replays_its_programs_on_card(card):
             else:
                 print("near tie at step %d, gap %g" % (diff, gaps[diff]))
                 assert gaps[diff] <= 1e-4, (g, ref)
+
+
+# -- mx.nd on the card ------------------------------------------------------
+
+def test_ndarray_defaults_to_the_card(card):
+    nd = tmx.nd
+    x = nd.array([[1.0, 2.0], [3.0, 4.0]])
+    assert x.context == card and x._data.is_cuda
+    for y in (nd.zeros((2,)), nd.arange(4), x + 1, nd.dot(x, x),
+              nd.random.uniform(shape=(3,)), x.argmax(axis=1)):
+        assert y.context == card
+    assert (x * 2).asnumpy().tolist() == [[2.0, 4.0], [6.0, 8.0]]
+    nd.waitall()
+
+
+def test_ndarray_write_does_not_reach_views_on_the_card(card):
+    x = tmx.nd.array(np.arange(12, dtype=np.float32).reshape(3, 4))
+    view, row = x.reshape((4, 3)), x[1]
+    x[:] = 0
+    x += 2
+    assert view.asnumpy().ravel().tolist() == list(range(12))
+    assert row.asnumpy().tolist() == [4.0, 5.0, 6.0, 7.0]
+    assert (x.asnumpy() == 2).all()
+
+
+def test_nd_flash_attention_launches_the_kernels(card):
+    """nd.contrib.flash_attention on NDArrays with attach_grad: one launch
+    of each kernel, output and gradients within the flash rows' bounds of
+    the plain route on the card."""
+    rs = np.random.RandomState(0)
+    arrays = [rs.randn(2, 128, 128).astype(np.float32) for _ in range(3)]
+    cot = rs.randn(2, 128, 128).astype(np.float32)
+
+    def run():
+        qkv = [tmx.nd.array(a) for a in arrays]
+        for a in qkv:
+            a.attach_grad()
+        with tmx.autograd.record():
+            out = tmx.nd.contrib.flash_attention(*qkv, num_heads=2)
+        out.backward(tmx.nd.array(cot))
+        return out._data, [a.grad._data for a in qkv]
+
+    before = (tatt.flash_fwd_launches, tatt.flash_bwd_dq_launches,
+              tatt.flash_bwd_dkv_launches)
+    out, grads = run()
+    torch.cuda.synchronize()
+    assert (tatt.flash_fwd_launches, tatt.flash_bwd_dq_launches,
+            tatt.flash_bwd_dkv_launches) == tuple(b + 1 for b in before)
+    saved = tatt.flash_attention_fwd, tatt.flash_attention_bwd
+    tatt.flash_attention_fwd = tatt.flash_attention_fwd_plain
+    tatt.flash_attention_bwd = tatt.flash_attention_bwd_plain
+    try:
+        ref, ref_grads = run()
+    finally:
+        tatt.flash_attention_fwd, tatt.flash_attention_bwd = saved
+    assert (out - ref).abs().max().item() <= 1e-4
+    for g, r in zip(grads, ref_grads):
+        assert (g - r).abs().max().item() <= 1e-4 * r.abs().max().item()
+
+
+def test_nd_second_order_through_flash_raises_on_card(card):
+    qkv = [tmx.nd.array(np.random.RandomState(i).randn(1, 64, 64)
+                        .astype(np.float32)) for i in range(3)]
+    for a in qkv:
+        a.attach_grad()
+    with pytest.raises(tmx.MXNetError, match="differentiable once"):
+        with tmx.autograd.record():
+            s = tmx.nd.sum(tmx.nd.square(
+                tmx.nd.contrib.flash_attention(*qkv, num_heads=1)))
+            tmx.autograd.grad(s, [qkv[0]], create_graph=True)
+
+
+def test_nd_create_graph_penalty_on_card(card):
+    """A gradient penalty by autograd.grad(create_graph=True) on the card
+    against torch.autograd.grad over the same tensors."""
+    import torch.nn.functional as F
+    rs = np.random.RandomState(1)
+    xs = rs.randn(4, 16).astype(np.float32)
+    ws = [rs.randn(32, 16).astype(np.float32) * 0.1,
+          rs.randn(32).astype(np.float32) * 0.1]
+    x = tmx.nd.array(xs)
+    w, b = (tmx.nd.array(a) for a in ws)
+    for a in (x, w, b):
+        a.attach_grad()
+    with tmx.autograd.record():
+        y = tmx.nd.Activation(tmx.nd.FullyConnected(x, w, b, num_hidden=32),
+                              act_type="tanh")
+        gx, = tmx.autograd.grad(tmx.nd.sum(y), [x], create_graph=True)
+        pen = tmx.nd.sum(tmx.nd.square(gx))
+    pen.backward()
+    tx = torch.tensor(xs, device=card, requires_grad=True)
+    tw, tb = (torch.tensor(a, device=card, requires_grad=True) for a in ws)
+    tgx, = torch.autograd.grad(torch.tanh(F.linear(tx, tw, tb)).sum(), tx,
+                               create_graph=True)
+    gw, gb = torch.autograd.grad(tgx.square().sum(), [tw, tb])
+    assert torch.allclose(w.grad._data, gw, rtol=1e-5, atol=1e-6)
+    assert torch.allclose(b.grad._data, gb, rtol=1e-5, atol=1e-6)

@@ -1,0 +1,461 @@
+"""PyTorch port: every operator of the port's registry against the JAX
+package's, through both packages' `invoke`.
+
+The inputs are those of the JAX package's own sweep
+(`tests/python/unittest/test_op_sweep.py`, its `CASES` and
+`RANDOM_CHECKS`, read by path), plus cases written here for the port's
+ops that sweep does not cover (aliases take their op's case).  Each
+output is held to the JAX output's dtype and shape, and its values:
+
+* exactly, for the outputs of selection, shape, index, comparison and
+  creation ops and any non-float output (`EXACT`; their gradients, which
+  sum, take the elementwise rule);
+* within 2e-5 of the output's scale (max |ref|, at least 1) for
+  reductions, products and normalizations (`SCALED`);
+* within rtol 1e-5 (atol 1e-6) elementwise for the rest.
+
+Gradients are held against `jax.vjp` of the JAX op with a seeded
+cotangent on the first output, at the same tolerances; the forward of
+such a case is held to that program's outputs, the others to the JAX
+`invoke`.  Sampling ops are
+held to the JAX sweep's moment checks, never to shared seeds.
+`_contrib_flash_attention` is held against the JAX Pallas kernels run in
+interpret mode.  Two coverage tests pin the registry: every port op is
+swept here, and the JAX ops the port lacks are exactly `NOT_YET_PORTED`
+(listed in ROADMAP.md, Queue 1).
+"""
+import functools
+import importlib.util
+import os
+
+import numpy as np
+import pytest
+
+import jax
+import jax.numpy as jnp
+import incubator_mxnet_tpu as jmx
+from incubator_mxnet_tpu import nd as jnd
+from incubator_mxnet_tpu.ndarray.ndarray import invoke as jinvoke
+from incubator_mxnet_tpu.ops import registry as jreg
+
+import incubator_mxnet_tpu_torch as tmx
+from incubator_mxnet_tpu_torch import nd as tnd
+from incubator_mxnet_tpu_torch import autograd as tag
+from incubator_mxnet_tpu_torch.ndarray.ndarray import invoke as tinvoke
+from incubator_mxnet_tpu_torch.ops import registry as treg
+
+pytestmark = pytest.mark.torch_port
+
+_HERE = os.path.dirname(os.path.abspath(__file__))
+_spec = importlib.util.spec_from_file_location(
+    "_jax_op_sweep",
+    os.path.join(_HERE, "python", "unittest", "test_op_sweep.py"))
+_jsweep = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(_jsweep)
+
+#: JAX ops the port does not register yet (ROADMAP.md, Queue 1)
+NOT_YET_PORTED = {
+    # ops/contrib.py
+    "AdaptiveAvgPooling2D", "BilinearResize2D", "MultiBoxDetection",
+    "MultiBoxPrior", "MultiBoxTarget", "ROIAlign", "ROIPooling",
+    "bipartite_matching", "box_decode", "box_encode", "box_iou", "box_nms",
+    "count_sketch", "getnnz", "index_copy", "interleaved_matmul_selfatt_qk",
+    "interleaved_matmul_selfatt_valatt",
+    # ops/control_flow.py
+    "cond", "foreach", "while_loop",
+    # ops/quantization.py
+    "_contrib_dequantize", "_contrib_quantize", "_contrib_quantize_v2",
+    "_contrib_quantized_act", "_contrib_quantized_conv",
+    "_contrib_quantized_elemwise_add", "_contrib_quantized_flatten",
+    "_contrib_quantized_fully_connected", "_contrib_quantized_pooling",
+    "_contrib_requantize",
+    # ops/rcnn.py
+    "_contrib_MultiProposal", "_contrib_Proposal", "_contrib_ProposalTarget",
+    # ops/rnn.py
+    "RNN", "RNN_varlen",
+    # ops/nn.py
+    "Deconvolution", "GridGenerator", "GroupNorm", "InstanceNorm", "LRN",
+    "UpSampling", "CTCLoss", "ctc_loss", "_contrib_SyncBatchNorm",
+}
+
+# ---------------------------------------------------------------------------
+# cases: the JAX sweep's, plus the port ops it does not sweep
+# ---------------------------------------------------------------------------
+
+RS = np.random.RandomState(7)
+
+
+def U(lo, hi, *shape):
+    return RS.uniform(lo, hi, size=shape).astype(np.float32)
+
+
+def I(hi, *shape):
+    return RS.randint(0, hi, size=shape).astype(np.float32)
+
+
+CASES = {op: [dict(args=c["args"], kw=c["kw"], grad=c["grad"],
+                   grad_argnums=c["grad_argnums"]) for c in cases]
+         for op, cases in _jsweep.CASES.items() if op in treg._REGISTRY}
+
+
+def case(op, args, kw, grad=True, grad_argnums=None):
+    CASES.setdefault(op, []).append(dict(args=args, kw=kw, grad=grad,
+                                         grad_argnums=grad_argnums))
+
+
+#: alias -> an op of the same OpDef that the JAX sweep has a case for
+ALIASES = {"Cast": "cast", "Pad": "pad", "Reshape": "reshape",
+           "SliceChannel": "split", "SwapAxis": "swapaxes",
+           "_add": "elemwise_add", "_plus": "elemwise_add",
+           "_sub": "elemwise_sub", "_minus": "elemwise_sub",
+           "_mul": "elemwise_mul", "_div": "elemwise_div",
+           "_copy": "identity", "stop_gradient": "BlockGrad",
+           "broadcast_axes": "broadcast_axis", "flatten": "Flatten",
+           "max_axis": "max", "min_axis": "min", "sum_axis": "sum",
+           "pow": "_power", "reverse": "flip"}
+for _alias, _op in ALIASES.items():
+    assert treg.get(_alias) is treg.get(_op), _alias
+    CASES[_alias] = CASES[_op]
+
+_X4 = U(-1, 1, 2, 3, 6, 6)
+case("Convolution", [_X4, U(-1, 1, 4, 3, 3, 3), U(-1, 1, 4)],
+     {"kernel": (3, 3), "num_filter": 4, "pad": (1, 1)})
+case("Convolution", [_X4, U(-1, 1, 6, 1, 3, 3)],
+     {"kernel": (3, 3), "num_filter": 6, "num_group": 3, "stride": (2, 2),
+      "no_bias": True})
+for _kw in ({"kernel": (2, 2), "stride": (2, 2), "pool_type": "max"},
+            {"kernel": (3, 3), "stride": (2, 2), "pad": (1, 1),
+             "pool_type": "avg"},
+            {"kernel": (3, 3), "stride": (2, 2), "pad": (1, 1),
+             "pool_type": "avg", "count_include_pad": False},
+            {"kernel": (3, 3), "stride": (2, 2), "pool_type": "sum",
+             "pooling_convention": "full"},
+            {"kernel": (2, 2), "stride": (2, 2), "pool_type": "lp"},
+            {"global_pool": True, "pool_type": "avg"}):
+    case("Pooling", [_X4], _kw)
+_BN = [U(-1, 1, 4, 3, 2, 2), U(0.5, 1.5, 3), U(-0.5, 0.5, 3),
+       U(-0.5, 0.5, 3), U(0.5, 1.5, 3)]
+case("BatchNorm", _BN, {"fix_gamma": False}, grad_argnums=(0, 1, 2))
+case("BatchNorm", _BN, {"fix_gamma": False, "_training": True},
+     grad_argnums=(0, 1, 2))
+case("BatchNorm", _BN, {"_training": True}, grad_argnums=(0, 2))
+case("LayerNorm", [U(-1, 1, 3, 4, 5), U(0.5, 1.5, 5), U(-0.5, 0.5, 5)], {})
+case("LayerNorm", [U(-1, 1, 3, 4, 5), U(0.5, 1.5, 4), U(-0.5, 0.5, 4)],
+     {"axis": 1})
+case("Dropout", [U(-1, 1, 4, 5)], {"p": 0.5})
+case("_fused_softmax_ce", [U(-2, 2, 6, 7), I(7, 6)], {})
+case("_fused_linear_softmax_ce",
+     [U(-1, 1, 8, 5), U(-1, 1, 9, 5), U(-0.5, 0.5, 9), I(9, 8)],
+     {"num_chunks": 2})
+case("amp_cast", [U(-1, 1, 3, 4)], {"dtype": "float16"}, grad=False)
+case("amp_cast", [I(5, 3, 4).astype(np.int32)], {"dtype": "float16"},
+     grad=False)
+case("amp_multicast", [U(-1, 1, 3, 4).astype(np.float16), U(-1, 1, 3, 4)],
+     {"num_outputs": 2}, grad=False)
+case("amp_multicast", [U(-1, 1, 3, 4).astype(np.float16), U(-1, 1, 3, 4)],
+     {"num_outputs": 2, "cast_narrow": True}, grad=False)
+case("LeakyReLU", [U(-1, 1, 2, 3, 4), U(0.1, 0.3, 3)],
+     {"act_type": "prelu"})
+for _act in ("selu", "gelu", "rrelu"):
+    case("LeakyReLU", [U(-2, 2, 3, 4) + 0.05], {"act_type": _act})
+case("Activation", [U(-2, 2, 3, 4)], {"act_type": "tanh"})
+case("Activation", [U(-2, 2, 3, 4)], {"act_type": "softsign"})
+case("SoftmaxOutput", [U(-1, 1, 4, 5), I(5, 4)],
+     {"normalization": "batch", "grad_scale": 2.0}, grad_argnums=(0,))
+case("reshape", [U(-1, 1, 2, 3, 4)], {"shape": (0, -3)})
+case("reshape", [U(-1, 1, 2, 3, 4)], {"shape": (-4, 1, 2, -2)})
+case("reshape", [U(-1, 1, 2, 3, 4)], {"shape": (-1, 0), "reverse": True})
+case("slice", [U(-1, 1, 4, 5)], {"begin": (3, None), "end": (0, None),
+                                 "step": (-1, 2)})
+case("pad", [U(-1, 1, 2, 3, 4, 5)],
+     {"mode": "reflect", "pad_width": (0, 0, 0, 0, 2, 1, 1, 2)})
+case("sum", [I(3, 2, 3, 4).astype(np.int32)], {"axis": 1}, grad=False)
+case("mean", [I(3, 2, 3, 4).astype(np.int32)], {}, grad=False)
+case("topk", [RS.permutation(24).reshape(4, 6).astype(np.float32)],
+     {"axis": 1, "k": 3, "ret_typ": "both", "is_ascend": True}, grad=False)
+case("topk", [RS.permutation(24).reshape(4, 6).astype(np.float32)],
+     {"axis": 0, "k": 2, "ret_typ": "mask"}, grad=False)
+case("argsort", [RS.permutation(24).reshape(4, 6).astype(np.float32)],
+     {"axis": 0, "is_ascend": False, "dtype": "int32"}, grad=False)
+case("take", [U(-1, 1, 5, 3), np.array([[0, 7], [-2, 4]], np.float32)],
+     {"axis": 0, "mode": "wrap"}, grad_argnums=(0,))
+case("one_hot", [I(5, 6)], {"depth": 5, "dtype": "int32"}, grad=False)
+case("SequenceMask", [U(-1, 1, 3, 5, 2), np.array([1, 3, 5], np.float32)],
+     {"use_sequence_length": True, "value": 0.5, "axis": 1},
+     grad_argnums=(0,))
+case("_arange", [], {"start": 2, "stop": 11, "step": 3, "dtype": "int32"},
+     grad=False)
+case("_arange", [], {"start": 0.0, "stop": 3.0, "repeat": 2}, grad=False)
+
+#: (op, index) pairs to run; an alias's cases run under the alias' name
+_ALL = [(op, i) for op in treg.list_ops() for i in range(len(CASES.get(op,
+                                                                      ())))]
+
+SCALED = {"sum", "sum_axis", "mean", "prod", "nansum", "nanprod", "norm",
+          "dot", "batch_dot", "khatri_rao", "L2Normalization",
+          "FullyConnected", "Convolution", "Pooling", "softmax",
+          "log_softmax", "softmin", "LayerNorm", "BatchNorm",
+          "SoftmaxOutput", "_fused_softmax_ce", "_fused_linear_softmax_ce"}
+EXACT = {"argmax", "argmin", "argmax_channel", "argsort", "topk", "sort",
+         "shape_array", "size_array", "one_hot", "boolean_mask", "where",
+         "take", "pick", "gather_nd", "scatter_nd", "_scatter_set_nd",
+         "reshape", "Reshape", "reshape_like", "Flatten", "flatten",
+         "expand_dims", "squeeze", "transpose", "swapaxes", "SwapAxis",
+         "flip", "reverse", "tile", "repeat", "broadcast_to",
+         "broadcast_like", "broadcast_axis", "broadcast_axes", "concat",
+         "Concat", "stack", "split", "SliceChannel", "slice", "slice_axis",
+         "slice_like", "pad", "Pad", "depth_to_space", "space_to_depth",
+         "diag", "cast", "Cast", "amp_cast", "amp_multicast", "identity",
+         "_copy", "BlockGrad", "stop_gradient", "zeros_like", "ones_like",
+         "_zeros", "_ones", "_full", "_eye", "arange_like", "Embedding",
+         "SequenceMask", "SequenceLast", "SequenceReverse", "MakeLoss",
+         "max", "max_axis", "min", "min_axis", "relu", "abs", "sign",
+         "negative", "clip", "round", "rint", "ceil", "floor", "trunc",
+         "fix", "_maximum_scalar", "_minimum_scalar", "Dropout"}
+
+
+def _name(dt):
+    return str(dt).replace("torch.", "")
+
+
+def _assert_close(op, got, ref, what):
+    """`got` (port) against `ref` (JAX), numpy arrays of one dtype."""
+    assert got.shape == ref.shape, (op, what, got.shape, ref.shape)
+    g, r = got.astype(np.float64), ref.astype(np.float64)
+    if (op in EXACT and what == "output") or not np.issubdtype(
+            ref.dtype, np.floating):
+        assert np.array_equal(g, r, equal_nan=True), (op, what, g, r)
+        return
+    if op in SCALED:
+        scale = max(1.0, float(np.abs(r).max())) if r.size else 1.0
+        err = float(np.abs(g - r).max()) if r.size else 0.0
+        assert err <= 2e-5 * scale, (op, what, err, scale)
+        return
+    assert np.allclose(g, r, rtol=1e-5, atol=1e-6, equal_nan=True), \
+        (op, what, float(np.abs(g - r).max()))
+
+
+def _outs(x):
+    return tuple(x) if isinstance(x, (tuple, list)) else (x,)
+
+
+def _grad_argnums(op, c):
+    if c["grad_argnums"] is not None:
+        return tuple(c["grad_argnums"])
+    return tuple(i for i in range(len(c["args"]))
+                 if i not in jreg.get(op).nograd_argnums)
+
+
+# an alias shares its op's OpDef (asserted above): its gradient is its
+# op's, which runs
+_GRAD = [(op, i) for op, i in _ALL
+         if CASES[op][i]["grad"] and treg.get(op).differentiable
+         and op != "Dropout" and op not in ALIASES]
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_vjp(op, idx):
+    """(outputs, cotangent, gradients) of the JAX op on case `idx`, the
+    gradients of the first output against a seeded cotangent: one
+    compiled program (the vjp op by op compiles each primitive's forward
+    and transpose on its own, which is most of this file's time)."""
+    c = CASES[op][idx]
+    argnums = _grad_argnums(op, c)
+    kw = dict(c["kw"])
+    jfn = jreg.get(op).fn
+    jargs = [jnp.asarray(a) for a in c["args"]]
+
+    def f(*xs):
+        full = list(jargs)
+        for i, x in zip(argnums, xs):
+            full[i] = x
+        outs = _outs(jfn(*full, **kw))
+        return outs[0], outs[1:]
+
+    xs = [jargs[i] for i in argnums]
+    first = jax.eval_shape(f, *xs)[0]
+    cot = np.random.RandomState(idx + 1).uniform(
+        -1, 1, size=first.shape).astype(np.float32)
+
+    def run(xs, ct):
+        out, vjp, rest = jax.vjp(f, *xs, has_aux=True)
+        return (out,) + tuple(rest), vjp(ct)
+
+    outs, grads = jax.jit(run)(xs, jnp.asarray(cot, dtype=first.dtype))
+    return outs, cot, grads
+
+
+class _Out:
+    """A JAX array as a JAX NDArray shows it: its dtype and asnumpy."""
+
+    def __init__(self, a):
+        self.dtype, self._a = np.dtype(a.dtype), a
+
+    def asnumpy(self):
+        return np.asarray(self._a)
+
+
+@pytest.mark.parametrize("op,idx", _ALL, ids=["%s-%d" % c for c in _ALL])
+def test_op_forward_matches_jax(op, idx):
+    """The JAX side is its `invoke`, or for a case whose gradient is
+    checked, the same registry function in the gradient's program (but
+    for an op that reads the training flag, which the gradient's program
+    takes as `record()` sets it)."""
+    c = CASES[op][idx]
+    if (op, idx) in _GRAD and not treg.get(op).needs_training:
+        jout = tuple(_Out(o) for o in _jax_vjp(op, idx)[0])
+    else:
+        jout = _outs(jinvoke(op, *[jnd.array(a) for a in c["args"]],
+                             **c["kw"]))
+    tout = _outs(tinvoke(op, *[tnd.array(a, ctx="cpu") for a in c["args"]],
+                         ctx="cpu", **c["kw"]))
+    assert len(tout) == len(jout), (op, len(tout), len(jout))
+    for k, (t, j) in enumerate(zip(tout, jout)):
+        assert isinstance(t, tnd.NDArray)
+        assert _name(t.dtype) == str(j.dtype), (op, k, t.dtype, j.dtype)
+        _assert_close(op, t.asnumpy(), j.asnumpy(), "output")
+
+
+@pytest.mark.parametrize("op,idx", _GRAD, ids=["%s-%d" % c for c in _GRAD])
+def test_op_gradient_matches_jax_vjp(op, idx):
+    c = CASES[op][idx]
+    argnums = _grad_argnums(op, c)
+    _, cot, jgrads = _jax_vjp(op, idx)
+    targs = [tnd.array(a, ctx="cpu") for a in c["args"]]
+    for i in argnums:
+        targs[i].attach_grad()
+    with tag.record():
+        tout = _outs(tinvoke(op, *targs, **c["kw"]))[0]
+    tgrads = tag.grad(tout, [targs[i] for i in argnums],
+                      head_grads=tnd.array(cot, ctx="cpu"))
+    for i, tg, jg in zip(argnums, tgrads, jgrads):
+        assert _name(tg.dtype) == str(jg.dtype), (op, i)
+        _assert_close(op, tg.asnumpy(), np.asarray(jg), "grad of input %d"
+                      % i)
+
+
+@pytest.mark.parametrize("op", sorted(_jsweep.RANDOM_CHECKS))
+def test_random_op_statistics(op):
+    """The JAX sweep's moment checks, on the port's samples."""
+    args, kw, check = _jsweep.RANDOM_CHECKS[op]
+    tmx.random.seed(1234)
+    out = tinvoke(op, *[tnd.array(a, ctx="cpu") for a in args], ctx="cpu",
+                  **kw)
+    try:        # the JAX output's dtype and shape, without compiling
+        jout = _outs(jax.eval_shape(lambda: jreg.get(op).fn(
+            *[jnp.asarray(a) for a in args], _rng_key=jax.random.PRNGKey(0),
+            **kw)))[0]
+    except jax.errors.ConcretizationTypeError:
+        jout = _outs(jinvoke(op, *[jnd.array(a) for a in args], **kw))[0]
+    out = _outs(out)[0]
+    assert _name(out.dtype) == str(jout.dtype) and out.shape == jout.shape
+    x = out.asnumpy()
+    assert check(x.astype(np.float64)), (op, x.mean())
+
+
+def test_dropout_training_statistics():
+    """Training dropout (mode 'always' outside record, and under
+    record()) zeroes about p of the elements and scales the rest by
+    1/(1-p), in both packages; `axes` shares the mask along them."""
+    x = np.ones((200, 100), np.float32)
+    for out in (tinvoke("Dropout", tnd.array(x, ctx="cpu"), p=0.3,
+                        mode="always"),
+                jinvoke("Dropout", jnd.array(x), p=0.3, mode="always")):
+        a = out.asnumpy()
+        assert set(np.unique(a)) <= {0.0, np.float32(1 / 0.7)}
+        assert abs((a == 0).mean() - 0.3) < 0.02
+    with tag.record():
+        a = tnd.Dropout(tnd.array(x, ctx="cpu"), p=0.5, axes=(1,)).asnumpy()
+    assert (a == a[:, :1]).all() and abs((a[:, 0] == 0).mean() - 0.5) < 0.15
+    assert (tnd.Dropout(tnd.array(x, ctx="cpu"), p=0.5).asnumpy() == x).all()
+
+
+@pytest.fixture
+def pallas_interpret(monkeypatch):
+    monkeypatch.setenv("MXNET_PALLAS_INTERPRET", "1")
+    monkeypatch.setenv("MXNET_FLASH_BLOCK_Q", "128")
+    monkeypatch.setenv("MXNET_FLASH_BLOCK_K", "128")
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_contrib_flash_attention_matches_pallas(pallas_interpret, causal):
+    """`nd.contrib.flash_attention` (the kernels' plain versions on the
+    CPU) against the JAX registry op on the Pallas kernels in interpret
+    mode: output and the three gradients, within 2e-5 of their scale."""
+    rs = np.random.RandomState(3)
+    B, T, C, H = 2, 128, 64, 2
+    qkv = [(rs.randn(B, T, C) * 0.5).astype(np.float32) for _ in range(3)]
+    cot = rs.uniform(-1, 1, (B, T, C)).astype(np.float32)
+    kw = dict(num_heads=H, causal=causal)
+    jfn = jreg.get("_contrib_flash_attention").fn
+    jout, vjp = jax.vjp(lambda q, k, v: jfn(q, k, v, **kw),
+                        *[jnp.asarray(a) for a in qkv])
+    jgrads = vjp(jnp.asarray(cot))
+    targs = [tnd.array(a, ctx="cpu") for a in qkv]
+    for a in targs:
+        a.attach_grad()
+    with tag.record():
+        tout = tnd.contrib.flash_attention(*targs, **kw)
+    tout.backward(tnd.array(cot, ctx="cpu"))
+    _assert_close("_contrib_flash_attention", tout.asnumpy(),
+                  np.asarray(jout), "output")
+    for i, (a, jg) in enumerate(zip(targs, jgrads)):
+        g, r = a.grad.asnumpy(), np.asarray(jg)
+        assert np.abs(g - r).max() <= 2e-5 * max(1.0, np.abs(r).max()), i
+
+
+def test_flash_attention_second_order_raises(pallas_interpret):
+    """create_graph through the flash kernels: the JAX package raises (it
+    cannot differentiate its Pallas kernels), and the port raises
+    MXNetError, never a silent zero."""
+    rs = np.random.RandomState(4)
+    qkv = [rs.randn(1, 128, 32).astype(np.float32) for _ in range(3)]
+    jq = [jnd.array(a) for a in qkv]
+    for a in jq:
+        a.attach_grad()
+    with pytest.raises(Exception):
+        with jmx.autograd.record():
+            s = (jinvoke("_contrib_flash_attention", *jq, num_heads=2)
+                 ** 2).sum()
+            jmx.autograd.grad(s, [jq[0]], create_graph=True)
+    tq = [tnd.array(a, ctx="cpu") for a in qkv]
+    for a in tq:
+        a.attach_grad()
+    with pytest.raises(tmx.MXNetError, match="differentiable once"):
+        with tag.record():
+            s = (tnd.contrib.flash_attention(*tq, num_heads=2) ** 2).sum()
+            tag.grad(s, [tq[0]], create_graph=True)
+
+
+def test_every_port_op_is_swept():
+    """Every op of the port's registry has a case here (an alias takes
+    its op's), a moment check, or a test of its own in this file."""
+    own = {"_contrib_flash_attention": "test_contrib_flash_attention_"
+           "matches_pallas"}
+    covered = set(CASES) | set(_jsweep.RANDOM_CHECKS) | set(own)
+    missing = [op for op in treg.list_ops() if op not in covered]
+    assert not missing, missing
+    src = open(os.path.abspath(__file__)).read()
+    assert all(name in src for name in own.values())
+
+
+def test_jax_ops_not_in_port_are_the_listed_ones():
+    """The JAX registry minus the port's is NOT_YET_PORTED, which
+    ROADMAP.md lists too; the port registers nothing the JAX package
+    lacks."""
+    jops, tops = set(jreg.list_ops()), set(treg.list_ops())
+    assert jops - tops == NOT_YET_PORTED
+    assert tops <= jops
+    roadmap = open(os.path.join(_HERE, os.pardir, "ROADMAP.md")).read()
+    assert [op for op in sorted(NOT_YET_PORTED) if op not in roadmap] == []
+
+
+def test_registry_metadata_matches_jax():
+    """Tensor inputs, differentiability, outputs, rng and training flags
+    and gradient-free inputs are the JAX entries'."""
+    for op in treg.list_ops():
+        t, j = treg.get(op), jreg.get(op)
+        for attr in ("ndarray_inputs", "differentiable", "num_outputs",
+                     "visible_outputs", "needs_rng", "needs_training",
+                     "nograd_argnums"):
+            assert getattr(t, attr) == getattr(j, attr), (op, attr)
