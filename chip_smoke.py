@@ -215,7 +215,52 @@ Drives incubator_mxnet_tpu_torch only (never JAX or the JAX package):
              of nd.broadcast_add and NDArray + on (768,) beside
              torch.add.  The flash rows of the kernels line carry these
              launches as nd_launches.
-14. kernels — one JSON line per the port's kernel table (4 rows), then the
+13c. kernel_nms — the greedy NMS kernel (a mask launch and a scan
+             launch) against its plain version on the card, keep flags
+             and kept positions exactly: Proposal's shape (2 x 2000, IoU
+             > 0.7 by the +1 convention, the first 1000 kept), box_nms's
+             (8 x 4096, class-aware over 20 classes, valid_thresh 0), and
+             repeated boxes with tied scores both ways; box_nms end to end
+             by the kernel and by the plain route on tied scores.  Both
+             shapes timed (CUDA events, median of 5 x 20) beside the plain
+             version, each launch's device time, and the bound (the
+             needed pairs' IoUs on the CUDA cores).  There is no PyTorch
+             NMS call on the card's machine (no torchvision).
+13d. train_ssd — bench.py's config 3a: ssd_512_vgg16(classes=20),
+             initialize(ctx=cuda:0), a batch-1 f32 step's loss and 79
+             gradients against a CPU copy at 512 x 512 (loss, median
+             gradient error), and the same step in float64 activations,
+             every gradient within 1e-6 of its scale; then
+             net and SSDTrainLoss hybridized, batch 8 of 512 x 512 bf16
+             images from RandomState(0), one gt box [1, .2, .2, .7, .7]
+             each, SGD lr 0.01 momentum 0.9: 2 warm-up steps (eager, then
+             captured) and 10 timed ones that only replay (step ms,
+             images/s, peak memory, captures and replays), 2 profiled
+             steps (busy share); then MultiBoxDetection of the trained
+             batch's softmaxed scores over its 24,564 anchors through the
+             NMS kernel (one launch, both kernels by profiler name), held
+             to the greedy invariants per image and class (no kept pair
+             above 0.5, every suppressed box overlapped above 0.5 by a
+             kept box scoring at least as high), and its ms.
+13e. train_rcnn — bench.py's config 3b: faster_rcnn_resnet50_v1b(
+             classes=20), staged parity at batch 1 f32 (the RPN's outputs
+             against a CPU copy; Proposal and ProposalTarget on the card's
+             RPN outputs by the kernel and by the plain route, exactly; the
+             head's loss and every gradient it reaches against the CPU
+             copy fed the card's 32 sampled rois); then net and
+             RCNNTrainLoss hybridized, batch 2 of 600 x 800 bf16 images,
+             im_info [600, 800, 1], gt [60, 60, 260, 260, 1] and [200,
+             200, 420, 420, 2], 256 sampled rois, SGD lr 1e-3 momentum
+             0.9, timed as train_ssd but after 3 warm-up steps (the eager
+             one leaves the RPN without gradients, the captured backward
+             gives it zeros, so the Trainer captures at the third); the
+             eager and the capturing step launch the conv kernel 33 times
+             and the NMS kernel once, a replayed step the same by profiler
+             name.  The head's gradients are held, as train_resnet's,
+             by their largest and median error to 3 x the CPU copy's own
+             spread under a 2**-22 change of its input (batch-1
+             BatchNorm's cancelling sums).
+14. kernels — one JSON line per the port's kernel table (5 rows), then the
              card's name and power limit, then the final {"ok": true, ...}
              line.
 
@@ -704,7 +749,8 @@ def _device_ms(torch, fn, reps=20):
 # live in an anonymous namespace; cuDNN's own "..._flash_bprop_..." do not)
 _PORT_KERNEL = re.compile(r"::(flash_(?:fwd|bwd_dq|bwd_dkv)_kernel"
                           r"|conv1x1_stats(?:_tc)?_kernel"
-                          r"|stats_reduce_kernel)\b")
+                          r"|stats_reduce_kernel"
+                          r"|mxt_nms_(?:mask|scan)_kernel)\b")
 
 
 def _profile(torch, fn, reps, top=8, **row):
@@ -895,17 +941,19 @@ def _graph_counts(blocks, trainer):
 
 
 def _mode_run(torch, mx, att, cs, build, step, hybrid, units, trace=False):
-    """TRAIN_WARMUP + TRAIN_STEPS steps of a fresh `build()` = (net, loss
-    block, trainer), eager or hybridized as bench.py hybridizes (the net
-    with static_alloc and static_shape, the loss plain): step ms (CUDA
+    """TRAIN_WARMUP + TRAIN_STEPS steps of `build()` = (net, loss block,
+    trainer), eager or hybridized as bench.py hybridizes (the net with
+    static_alloc and static_shape, the loss plain): step ms (CUDA
     events), `units` per s, peak memory, the losses and final
     parameters, what the captured programs did, and PROFILE_STEPS
     profiled steps (busy share, each port kernel's launches per step,
     the 8 costliest kernels, every kernel's name); with `trace` one
-    step's host time by op.  The launch counters count what the wrappers
-    issue: over the whole run (`launches`), per warm-up step and per
-    timed step.  A hybridized step launches through its graphs, which no
-    wrapper sees, so its launches per step are the profiler's."""
+    step's host time by op.  The launch counters (`_COUNT_KEYS`, conv,
+    nms) count what the wrappers issue: over the whole run (`launches`),
+    per warm-up step and per timed step.  A hybridized step launches
+    through its graphs, which no wrapper sees, so its launches per step
+    are the profiler's."""
+    from incubator_mxnet_tpu_torch.ops import nms
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     net, head, trainer = build()
@@ -916,8 +964,9 @@ def _mode_run(torch, mx, att, cs, build, step, hybrid, units, trace=False):
         net.hybridize(active=False)
     run = lambda: step(net, head, trainer)      # noqa: E731
     _reset_counts(att)                  # the path starts here
-    cs.conv1x1_stats_launches = 0
-    counts = lambda: _all_counts(att) + (cs.conv1x1_stats_launches,)  # noqa
+    cs.conv1x1_stats_launches = nms.nms_launches = 0
+    counts = lambda: _all_counts(att) + (  # noqa: E731
+        cs.conv1x1_stats_launches, nms.nms_launches)
 
     def counted():
         before, programs = counts(), _graph_counts((net, head), trainer)
@@ -944,7 +993,7 @@ def _mode_run(torch, mx, att, cs, build, step, hybrid, units, trace=False):
     peak = torch.cuda.max_memory_allocated()
     params = [p.detach().cpu().clone() for p in trainer._params]
     rows, wall_us = _device_kernels(torch, run, PROFILE_STEPS)
-    keys = _COUNT_KEYS + ("conv",)
+    keys = _COUNT_KEYS + ("conv", "nms")
     launches = dict(zip(keys, counts()))    # the path ends here
     device_us = sum(r[0] for r in rows)
     kernels = _port_kernel_calls(rows, PROFILE_STEPS)
@@ -959,7 +1008,8 @@ def _mode_run(torch, mx, att, cs, build, step, hybrid, units, trace=False):
                       for c, g in warmup],
         launches_per_step=[dict(zip(keys, c)) for c in sorted(set(per_step))],
         profiled_launches_per_step=dict(
-            zip(("fwd", "dq", "dkv", "conv"), _profiled_counts(kernels))),
+            zip(("fwd", "dq", "dkv", "conv"), _profiled_counts(kernels)),
+            nms=kernels.get("mxt_nms_mask_kernel", 0)),
         profile=dict(steps=PROFILE_STEPS, wall_us=wall_us,
                      device_us=device_us, busy_share=device_us / wall_us,
                      port_kernels=kernels,
@@ -1014,7 +1064,7 @@ def phase_hybridize(torch, mx, att, cs, name, build, step, units,
     """`name` eager and hybridized in one process, from the same weights
     and data (`_mode_run`), held against each other (`_ab_compare`).
     Each kernel's launches a step must be `per_step_want` (in the order
-    of `_COUNT_KEYS` + ("conv",)): in the profiler's names over the
+    of `_COUNT_KEYS` + ("conv", "nms")): in the profiler's names over the
     profiled steps, in both modes; by the counters in every eager timed
     step and in the hybridized warm-up step that captured, whose
     wrappers issued the launches its graphs hold (the causal ones too,
@@ -1034,12 +1084,12 @@ def phase_hybridize(torch, mx, att, cs, name, build, step, units,
     _check(ok, "%s: the hybridized run differs from the eager one by more "
            "than the eager rerun's spread: %r" % (name, row))
     want = tuple(per_step_want)
-    totals = want[:3] + want[-1:]
+    totals = want[:3] + want[-2:]
     for run in (eager[0], hyb[0]):
         measured = tuple(run["profiled_launches_per_step"].values())
         _check(measured == totals,
-               "%s (%s): a profiled step launched %r (fwd, dq, dkv, conv), "
-               "not %r" % (name, run["mode"], measured, totals))
+               "%s (%s): a profiled step launched %r (fwd, dq, dkv, conv, "
+               "nms), not %r" % (name, run["mode"], measured, totals))
         _check(all(n > 0 for n, w in zip(run["launches"].values(), want)
                    if w),
                "%s (%s): a kernel of the path was not launched: %r"
@@ -1048,7 +1098,7 @@ def phase_hybridize(torch, mx, att, cs, name, build, step, units,
                "%s (%s): non-finite loss" % (name, run["mode"]))
     per_step, _ = eager[2]
     _check(all(c == want for c in per_step),
-           "%s (eager) launched %r a step (%s, conv), not %r"
+           "%s (eager) launched %r a step (%s, conv, nms), not %r"
            % (name, sorted(set(per_step)), ", ".join(_COUNT_KEYS), want))
     per_step, warmup = hyb[2]
     zero = (0,) * len(want)
@@ -1447,13 +1497,34 @@ def phase_train_bf16(torch, mx, att):
     return launches
 
 
+def rcnn_conv_shapes(cs):
+    """(N, C, HW, O, sites): the pointwise conv + BatchNorm pairs of one
+    train_rcnn step.  `cs.RESNET_CONV_SHAPES` lists stages 1-3 first and
+    stage 4's three shapes last: stages 1-3 run on the RCNN_BATCH
+    images' stride-4, 8 and 16 maps (224 x 224's 3136, 784 and 196 become
+    HW 30000, 7500 and 1900 at 600 x 800; each stride-2 layer rounds up),
+    stage 4 on the sampled rois' 14 x 14 ROIAlign output (HW 196, then 49
+    after its strided 3 x 3), as at 224 x 224."""
+    H, W = RCNN_HW
+    maps = {hw: -(-H // 2 ** s) * -(-W // 2 ** s)
+            for hw, s in ((3136, 2), (784, 3), (196, 4))}
+    return ([(RCNN_BATCH, C, maps[HW], O, k)
+             for C, HW, O, k in cs.RESNET_CONV_SHAPES[:-3]]
+            + [(RCNN_ROIS * RCNN_BATCH, C, HW, O, k)
+               for C, HW, O, k in cs.RESNET_CONV_SHAPES[-3:]])
+
+
 def conv_cases(cs):
-    """kernel_conv cases (N, C, HW, O, dtype): the step's shapes in bf16
-    (`cs.RESNET_CONV_SHAPES`), the tool's five shapes in f32, ragged
+    """kernel_conv cases (N, C, HW, O, dtype): the resnet50_v1b step's
+    shapes in bf16 (`cs.RESNET_CONV_SHAPES`) and train_rcnn's
+    (`rcnn_conv_shapes`: partial column tiles at HW 30000, the CUDA-core
+    instance at HW 7500 and 1900), the tool's five shapes in f32, ragged
     shapes in both dtypes, and the f16 instances at three step shapes
     (rows, and both slab tilings) and a ragged one."""
     return ([(RESNET_BATCH, C, HW, O, "bfloat16")
              for C, HW, O, _ in cs.RESNET_CONV_SHAPES]
+            + [(N, C, HW, O, "bfloat16")
+               for N, C, HW, O, _ in rcnn_conv_shapes(cs)]
             + [(RESNET_BATCH, C, HW, O, "float32") for C, HW, O in (
                 (64, 3136, 256), (128, 784, 512), (256, 196, 1024),
                 (512, 49, 2048), (256, 3136, 64))]
@@ -1490,14 +1561,19 @@ def _conv_bound(N, C, HW, O, dtype):
 def phase_kernel_conv(torch, cs):
     """The fused 1x1-conv + statistics kernel against its plain version
     over `conv_cases`; returns the per-step sums over the 33 launch sites
-    of a bf16 resnet50_v1b step."""
+    of a bf16 resnet50_v1b step ("resnet") and of a train_rcnn step
+    ("rcnn")."""
     import torch.nn.functional as F
     gen = torch.Generator(device="cuda")
     gen.manual_seed(2)
-    sites = {(C, HW, O): k for C, HW, O, k in cs.RESNET_CONV_SHAPES}
-    step = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, library_conv_ms=0.0,
-                bound_ms=0.0, max_abs_err=0.0, launches=0)
-    bound_by_ms = dict(bytes=0.0, operations=0.0)
+    sites = dict(
+        resnet={(RESNET_BATCH, C, HW, O): k
+                for C, HW, O, k in cs.RESNET_CONV_SHAPES},
+        rcnn={(N, C, HW, O): k for N, C, HW, O, k in rcnn_conv_shapes(cs)})
+    steps = {p: dict(ms=0.0, plain_ms=0.0, library_ms=0.0,
+                     library_conv_ms=0.0, bound_ms=0.0, max_abs_err=0.0,
+                     launches=0, paths={}) for p in sites}
+    bound_by_ms = {p: dict(bytes=0.0, operations=0.0) for p in sites}
     for N, C, HW, O, dt in conv_cases(cs):
         dtype = getattr(torch, dt)
         x = torch.randn(N, C, HW, device="cuda", generator=gen).to(dtype)
@@ -1541,23 +1617,29 @@ def phase_kernel_conv(torch, cs):
         _emit(row)
         _check(ok, "conv1x1_stats disagrees with its plain version or the "
                    "exact product: %r" % (row,))
-        k = sites.get((C, HW, O)) if (N, dt) == (RESNET_BATCH,
-                                                 "bfloat16") else None
-        if k:
-            _check(path.startswith("tensor_cores"), "the step shape %r "
-                   "takes the %s instance, not the tensor cores"
-                   % ((C, HW, O), path))
+        for p, by_shape in sites.items():
+            k = by_shape.get((N, C, HW, O)) if dt == "bfloat16" else None
+            if not k:
+                continue
+            _check(p != "resnet" or path.startswith("tensor_cores"),
+                   "the step shape %r takes the %s instance, not the "
+                   "tensor cores" % ((C, HW, O), path))
+            step = steps[p]
             for key in ("ms", "plain_ms", "library_ms", "library_conv_ms",
                         "bound_ms"):
                 step[key] += k * row[key]
             step["max_abs_err"] = max(step["max_abs_err"], err_y)
-            bound_by_ms[row["bound_by"]] += k * row["bound_ms"]
+            step["paths"][path] = step["paths"].get(path, 0) + k
+            bound_by_ms[p][row["bound_by"]] += k * row["bound_ms"]
             step["launches"] += k
-    _check(step["launches"] == RESNET_SITES, "the step's conv shapes cover "
-           "%d launch sites, not %d" % (step["launches"], RESNET_SITES))
-    # what bounds most of the step's summed bound
-    step["bound_by"] = max(bound_by_ms, key=bound_by_ms.get)
-    return step
+    for p, want in (("resnet", RESNET_SITES), ("rcnn", RCNN_SITES)):
+        _check(steps[p]["launches"] == want, "the %s step's conv shapes "
+               "cover %d launch sites, not %d"
+               % (p, steps[p]["launches"], want))
+        # what bounds most of the step's summed bound
+        steps[p]["bound_by"] = max(bound_by_ms[p], key=bound_by_ms[p].get)
+    _emit(dict(phase="kernel_conv_steps", **steps))
+    return steps
 
 
 def _resnet_grads(mx, net, loss_fn, x, y):
@@ -3025,7 +3107,7 @@ def phase_hybridize_all(torch, mx, att, cs):
     labels = rs.randint(0, 30522, (BF16_BATCH, SEQ)).astype(np.float32)
     x, y = torch.from_numpy(tokens).cuda(), torch.from_numpy(labels).cuda()
     out = {}
-    flash = lambda causal: (12,) * 3 + (causal,) * 3 + (0,)   # noqa: E731
+    flash = lambda causal: (12,) * 3 + (causal,) * 3 + (0, 0)  # noqa: E731
     out["train_bf16"] = phase_hybridize(
         torch, mx, att, cs, "train_bf16",
         _mlm_build(mx, lambda: mx.models.bert_base(
@@ -3044,7 +3126,7 @@ def phase_hybridize_all(torch, mx, att, cs):
     out["train_resnet_gluon"] = phase_hybridize(
         torch, mx, att, cs, "train_resnet_gluon", _gluon_build(mx),
         lambda n, h, t: _gluon_step(mx, n, t, h, img, ilab)[1],
-        RESNET_BATCH, (0,) * 6 + (RESNET_SITES,))
+        RESNET_BATCH, (0,) * 6 + (RESNET_SITES, 0))
     return out
 
 
@@ -3530,7 +3612,7 @@ def _ptxas(reports):
     for log in reports.values():
         for line in log.splitlines():
             m = re.search(r"(flash_[a-z_]+_kernel|conv1x1_stats(?:_tc)?_kernel"
-                          r"|stats_reduce_kernel)"
+                          r"|stats_reduce_kernel|mxt_nms_(?:mask|scan)_kernel)"
                           r"((?:I(?:f|13__nv_bfloat16|6__half|Li\d+E"
                           r"|Lb[01]E)+E)?)",
                           line)
@@ -3887,6 +3969,640 @@ def phase_ndarray(torch, mx, att):
                                          block["launches_per_step"]))
             for k in ("fwd", "dq", "dkv")}
 
+
+# -- detection: the NMS kernel, SSD-512 and Faster R-CNN (bench.py 3a, 3b) --
+
+# kernel_nms: Proposal's shape (2 images x 2000 proposals, IoU > 0.7 by the
+# +1 convention, the first 1000 kept), box_nms's (8 x 4096 boxes,
+# class-aware over 20 classes, valid_thresh 0, every rank), and repeated
+# boxes with tied scores.  Keep flags and kept positions must equal the
+# plain version's exactly: both decide `iou > thresh` on the same f32
+# arithmetic (the kernel without FMA contraction).
+NMS_PROPOSAL = (2, 2000, 0.7, 1000)
+NMS_BOX = (8, 4096, 0.5)
+# a pair's IoU: 4 min/max, 2 subtractions and 2 max for the overlap, its
+# product, the union's add and subtract, the division and the compare
+NMS_PAIR_OPS = 13
+# bench.py config 3a: ssd_512_vgg16(classes=20), batch 8, 512 x 512 bf16
+# images (f32 parameters), one gt box [1, .2, .2, .7, .7] per image, SGD
+# lr 0.01 momentum 0.9, net and SSDTrainLoss hybridized
+SSD_BATCH = 8
+SSD_SIZE = 512
+SSD_CLASSES = 20
+SSD_ANCHORS = 24564
+# SSD's batch-1 parity: in f32, VGG's max-pool windows route a gradient
+# by which of near-equal inputs is largest, and 13 convolutions summed in
+# another order on the card flip more of them than the CPU copy's own
+# 2**-22 spread does (one tensor at 6x it, the median at 2x): the f32
+# step is held by its loss and its median error.  The same step in
+# float64 activations flips none, and every gradient is held to 1e-6 of
+# its scale (f64 sums in another order, each gradient rounded once to
+# the f32 parameter's dtype: 6e-8); a wrong gradient path moves a tensor
+# by O(1).  Faster R-CNN's head step holds the same way: its f32 step
+# sits at the CPU copy's own 2**-22 spread (batch-1 BatchNorm's
+# cancelling sums), and in float64 activations BatchNorm takes float64
+# arithmetic too (`ops.nn._bn_acc`)
+F64_GRAD_TOL = 1e-6
+# MultiBoxDetection over the trained batch, its defaults: score 0.01, IoU
+# 0.5, class-aware, every rank
+SSD_NMS = 0.5
+# bench.py config 3b: faster_rcnn_resnet50_v1b(classes=20), batch 2,
+# 600 x 800 bf16 images, im_info [600, 800, 1], two gt boxes per image,
+# 128 sampled rois per image, SGD lr 1e-3 momentum 0.9, hybridized
+RCNN_BATCH = 2
+RCNN_HW = (600, 800)
+RCNN_ROIS = 128
+# the staged parity at batch 1 samples 32 rois (8 foreground), so that
+# the CPU copy's stage 4 over them takes seconds, not minutes
+RCNN_PARITY_ROIS = 32
+RCNN_SITES = 33         # 27 fused pairs in stages 1-3, 6 in stage 4
+# the parity of a detection stage (RPN outputs, the head's loss and every
+# gradient) on the card against a CPU copy, f32 without TF32: each tensor
+# within TRAIN_TOL of its scale (floored at 1e-3 of the largest), as
+# train's gradients
+
+
+def _nms_inputs(torch, rs, B, N, scale, aware=False, ties=False):
+    """B x N boxes in descending score order on the card, their valid
+    flags (scores > 0) and, where `aware`, class ids of 20 classes."""
+    ctr = rs.rand(B, N, 2) * scale
+    wh = rs.rand(B, N, 2) * scale * 0.25 + scale / 100
+    boxes = np.concatenate([ctr - wh / 2, ctr + wh / 2], -1)
+    scores = np.sort(rs.uniform(-0.1, 1.0, (B, N)), axis=1)[:, ::-1]
+    if ties:            # every third box repeats the box before it
+        rep = boxes[:, 1::3].shape[1]
+        boxes[:, 1::3] = boxes[:, 0:-1:3][:, :rep]
+    dev = "cuda:0"
+    return dict(
+        boxes=torch.tensor(boxes, dtype=torch.float32, device=dev),
+        valid=torch.tensor(scores > 0, device=dev),
+        cls=torch.tensor(rs.randint(0, 20, (B, N)).astype(np.float32),
+                         device=dev) if aware else None)
+
+
+def _nms_pairs(inp):
+    """Pairs (i < j) whose IoU the greedy pass needs: of the boxes that
+    take part, of one class where the pass is class-aware."""
+    valid = inp["valid"]
+    valid = np.ones(inp["boxes"].shape[:2], bool) if valid is None \
+        else valid.cpu().numpy()
+    cls = None if inp["cls"] is None else inp["cls"].cpu().numpy()
+    n = 0
+    for b in range(valid.shape[0]):
+        if cls is None:
+            k = int(valid[b].sum())
+            n += k * (k - 1) // 2
+        else:
+            c = np.bincount(cls[b][valid[b]].astype(np.int64))
+            n += int((c * (c - 1) // 2).sum())
+    return n
+
+
+def _nms_bound(inp, topk):
+    """Least time (ms) of one NMS call: the pairs' IoUs on the CUDA cores,
+    or its inputs read once (boxes, class ids, flags) and its outputs
+    written once (keep flags, kept positions)."""
+    B, N = inp["boxes"].shape[:2]
+    nbytes = B * N * (16 + 4 * (inp["cls"] is not None)
+                      + (inp["valid"] is not None) + 1) + B * topk * 8
+    pairs = _nms_pairs(inp)
+    t_ops = pairs * NMS_PAIR_OPS / PEAK_FLOPS_F32_CUDA_CORES
+    t_bytes = nbytes / PEAK_BYTES_S
+    return dict(bound_ms=max(t_ops, t_bytes) * 1e3,
+                bound_by="operations" if t_ops >= t_bytes else "bytes",
+                pairs=pairs, bytes=nbytes)
+
+
+def _nms_case(torch, nms, name, inp, thresh, plus_one, topk, timed):
+    """The kernel against its plain version on `inp`; with `timed` their
+    times (CUDA events, median of 5 x 20), each launch's device time
+    (profiler) and the bound."""
+    kw = dict(cls=inp["cls"], plus_one=plus_one, topk=topk)
+
+    def run():
+        return nms.nms_sorted(inp["boxes"], inp["valid"], thresh, **kw)
+    before = nms.nms_launches
+    got = run()
+    torch.cuda.synchronize()
+    launched = nms.nms_launches - before
+    ref = nms.nms_sorted_plain(inp["boxes"], inp["valid"], thresh, **kw)
+    got, ref = ((g,) if topk <= 0 else g for g in (got, ref))
+    B, N = inp["boxes"].shape[:2]
+    err = (got[0].int() - ref[0].int()).abs().max().item()
+    if topk > 0:
+        err = max(err, (got[1] - ref[1]).abs().max().item())
+    row = dict(case=name, shape=[B, N], thresh=thresh, plus_one=plus_one,
+               class_aware=inp["cls"] is not None, topk=topk,
+               launches=launched, kept=int(got[0].sum()),
+               max_abs_err=float(err),
+               keep_equal=bool(torch.equal(got[0], ref[0])),
+               idx_equal=bool(topk <= 0 or torch.equal(got[1], ref[1])))
+    if timed:
+        row["ms"] = _time_ms(torch, run)
+        row["plain_ms"] = _time_ms(torch, lambda: nms.nms_sorted_plain(
+            inp["boxes"], inp["valid"], thresh, **kw))
+        row["device_ms"], row["device_kernels"] = _device_ms(torch, run)
+        row.update(_nms_bound(inp, max(topk, 0)), library_ms=None)
+    return row
+
+
+@contextlib.contextmanager
+def _plain_nms(nms):
+    """The detection ops' NMS by its plain version on card tensors, the
+    route the kernel is held against (never the port's own)."""
+    kernel = nms.nms_sorted
+    nms.nms_sorted = nms.nms_sorted_plain
+    try:
+        yield
+    finally:
+        nms.nms_sorted = kernel
+
+
+def phase_kernel_nms(torch):
+    """The NMS kernel against its plain version at Proposal's and
+    box_nms's shapes and on tied scores, and box_nms end to end by both
+    routes; returns the timed rows by case."""
+    from incubator_mxnet_tpu_torch.ops import contrib, nms
+    t0 = time.monotonic()
+    rs = np.random.RandomState(0)
+    B, N, thresh, topk = NMS_PROPOSAL
+    prop = _nms_inputs(torch, rs, B, N, 800.0)
+    prop["valid"] = None                # Proposal passes no flags
+    rows = [_nms_case(torch, nms, "proposal", prop, thresh, True, topk,
+                      True)]
+    B, N, thresh = NMS_BOX
+    box = _nms_inputs(torch, rs, B, N, 1.0, aware=True)
+    rows.append(_nms_case(torch, nms, "box_nms", box, thresh, False, 0,
+                          True))
+    ties = _nms_inputs(torch, rs, 2, 1000, 300.0, ties=True)
+    rows.append(_nms_case(torch, nms, "ties_plus_one", ties, 0.6, True,
+                          400, False))
+    rows.append(_nms_case(torch, nms, "ties_corner", ties, 0.6, False, 0,
+                          False))
+    # box_nms end to end (rank, gather, the pass, scatter back), tied
+    # scores (16 values) so that the stable rank decides
+    scores = torch.tensor(np.round(rs.uniform(-0.1, 1.0, (B, N)) * 16) / 16,
+                          dtype=torch.float32, device="cuda:0")
+    det = torch.cat([box["cls"][..., None], scores[..., None],
+                     box["boxes"]], -1)
+    got = contrib.box_nms(det, overlap_thresh=thresh, id_index=0)
+    with _plain_nms(nms):
+        ref = contrib.box_nms(det, overlap_thresh=thresh, id_index=0)
+    e2e = bool(torch.equal(got, ref))
+    _emit(dict(phase="kernel_nms", seconds=time.monotonic() - t0,
+               cases=rows, box_nms_end_to_end_equal=e2e,
+               library="none: torch has no NMS call and the card's "
+                       "machine has no torchvision"))
+    for r in rows:
+        _check(r["keep_equal"] and r["idx_equal"],
+               "NMS kernel differs from its plain version: %r" % (r,))
+        _check(r["launches"] == 1 and 0 < r["kept"] < r["shape"][0]
+               * r["shape"][1], "NMS case %s launched %d times and kept "
+               "%d" % (r["case"], r["launches"], r["kept"]))
+    _check(e2e, "box_nms by the kernel differs from its plain route")
+    return {r["case"]: r for r in rows if "ms" in r}
+
+
+def _nms_profiled(kernels):
+    """The NMS kernel's two launches by name among `_port_kernel_calls`'
+    {port kernel: launches per call}."""
+    return {k: n for k, n in kernels.items() if k.startswith("mxt_nms_")}
+
+
+def _detection_invariants(torch, det, scores, thresh):
+    """MultiBoxDetection's output (B, N, 6) against the greedy pass's two
+    invariants, per image and class: no two kept boxes overlap above
+    `thresh`, and every valid box not kept overlaps a kept box of its
+    class that scores at least as high (`scores`: the boxes' scores
+    before the pass).  The IoUs are `ops.nms.iou_corner`'s on the card,
+    another computation than the kernel's, so each test leaves 1e-6 at
+    the threshold."""
+    from incubator_mxnet_tpu_torch.ops import nms
+    worst, unexplained, kept, suppressed = 0.0, 0, 0, 0
+    for b in range(det.shape[0]):
+        d, s = det[b], scores[b]
+        cls, keep = d[:, 0], d[:, 1] >= 0
+        for c in torch.unique(cls[cls >= 0]).tolist():
+            k = (cls == c) & keep
+            lost = (cls == c) & ~keep
+            kb, ks = d[k, 2:], s[k]
+            kept += kb.shape[0]
+            suppressed += int(lost.sum())
+            if kb.shape[0] > 1:
+                iou = nms.iou_corner(kb, kb)
+                iou.fill_diagonal_(0)
+                worst = max(worst, iou.max().item())
+            if bool(lost.any()):
+                iou = nms.iou_corner(d[lost, 2:], kb)
+                ok = (iou > thresh - 1e-6) & (ks[None, :] >= s[lost][:, None])
+                unexplained += int((~ok.any(1)).sum())
+    return dict(kept=kept, suppressed=suppressed,
+                worst_kept_pair_iou_same_class=worst,
+                suppressed_without_a_kept_suppressor=unexplained)
+
+
+def _staged_err(torch, got, ref):
+    """_scaled_err over two {name: tensor} of one stage."""
+    return _scaled_err({n: t.detach().float().cpu() for n, t in got.items()},
+                       {n: t.detach().float() for n, t in ref.items()})
+
+
+def _spread_parity(torch, grads, ref_grads, spread_grads):
+    """The card's gradients against a CPU copy's, beside the CPU copy's
+    own spread (its gradients with the input scaled by 1 + 2**-22): the
+    largest and the median error over scale (`_scaled_err`) of each."""
+    err = _staged_err(torch, grads, ref_grads)
+    spread = _staged_err(torch, spread_grads, ref_grads)
+    worst = max(err, key=err.get)
+    return dict(gradients=len(err), worst_grad=worst,
+                grad_err_over_scale_max=dict(card=err[worst],
+                                             cpu_spread=max(spread.values())),
+                grad_err_over_scale_median=dict(
+                    card=statistics.median(err.values()),
+                    cpu_spread=statistics.median(spread.values())),
+                within_train_tol=sum(v <= TRAIN_TOL for v in err.values()),
+                spread_factor=RESNET_SPREAD_FACTOR)
+
+
+def _spread_checks(name, parity, which=("max", "median")):
+    """train_resnet's rule: max-pool windows and batch-1 BatchNorm's
+    cancelling sums make these gradients no smooth function of the input
+    at f32 rounding, so the card's largest and median errors are held to
+    RESNET_SPREAD_FACTOR x the CPU copy's own under a 2**-22 change of
+    its input; a wrong gradient path moves its tensors by O(1) of their
+    scale."""
+    for what in which:
+        v = parity["grad_err_over_scale_" + what]
+        _check(v["card"] <= RESNET_SPREAD_FACTOR * max(v["cpu_spread"],
+                                                       1e-6),
+               "%s: the %s gradient error against the CPU copy, %g of its "
+               "scale, exceeds %g x the CPU copy's own spread %g"
+               % (name, what, v["card"], RESNET_SPREAD_FACTOR,
+                  v["cpu_spread"]))
+
+
+def _det_train_checks(name, run, conv_want, nms_want):
+    """A detection training run's gates (`run`: what `_mode_run`
+    returns): finite losses; the eager warm-up step and the capturing one
+    issued a step's kernels; the timed steps only replayed and ran no
+    wrapper; a profiled (replayed) step launched the kernels by name."""
+    out, _, (per_step, warmup) = run
+    _check(all(math.isfinite(v) for v in out["losses"]),
+           "%s: non-finite loss %r" % (name, out["losses"]))
+    want = (0,) * len(_COUNT_KEYS) + (conv_want, nms_want)
+    zero = (0,) * len(want)
+    for launched, programs in warmup:
+        # a step that ran the blocks eagerly or captured them launched a
+        # step's kernels; one that replayed them launched none
+        ran = programs["eager_calls"] or programs["captures"] \
+            and not programs["replays"]
+        _check(launched == (want if ran else zero), "%s: a warm-up step "
+               "launched %r, not %r" % (name, launched,
+                                        want if ran else zero))
+    _check(warmup[1][1]["captures"] > 0,
+           "%s: the second warm-up step captured nothing" % name)
+    _check(all(c == zero for c in per_step),
+           "%s: a timed step ran a kernel wrapper: %r"
+           % (name, sorted(set(per_step))))
+    timed = out["programs"]["during_timed_steps"]
+    _check(timed["captures"] == 0 and timed["eager_updates"] == 0
+           and timed["eager_calls"] == 0 and timed["replays"] > 0,
+           "%s: the timed steps did not only replay: %r" % (name, timed))
+    conv = out["profiled_launches_per_step"]["conv"]
+    _check(conv == conv_want, "%s: a profiled step launched the conv "
+           "kernel %d times, not %d" % (name, conv, conv_want))
+    nms_names = {"mxt_nms_mask_kernel": nms_want,
+                 "mxt_nms_scan_kernel": nms_want} if nms_want else {}
+    got = _nms_profiled(out["profile"]["port_kernels"])
+    _check(got == nms_names, "%s: a profiled step launched %r of the NMS "
+           "kernel, not %r" % (name, got, nms_names))
+
+
+def _det_summary(out):
+    return _summary(out) | dict(images_per_s=out["units_per_s"])
+
+
+def _ssd_loss_grads(mx, net, loss_b, x, y):
+    with mx.autograd.record():
+        loss = loss_b(*net(x), y)
+    mx.autograd.backward(loss)
+    return loss.detach(), {n: p.grad.detach().clone()
+                           for n, p in net.collect_params().items()
+                           if p.requires_grad}
+
+
+def _carry(mx, net, cpu_net):
+    """`cpu_net` given `net`'s parameters (materialised on the card) by
+    structural name."""
+    mx.weights.load_reference_params(
+        cpu_net, {n: p.detach().float().cpu().numpy()
+                  for n, p in net.collect_params().items()}, device="cpu")
+
+
+def phase_train_ssd(torch, mx, att, cs):
+    """SSD-512 on VGG16-reduced-atrous as bench.py's run_ssd trains it,
+    then MultiBoxDetection over the trained batch; returns the NMS
+    kernel's launches and the run's summary."""
+    from incubator_mxnet_tpu_torch.models import ssd_512_vgg16, SSDTrainLoss
+    from incubator_mxnet_tpu_torch.ops import contrib, nms
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.monotonic()
+    rs = np.random.RandomState(0)
+    images = rs.randn(SSD_BATCH, 3, SSD_SIZE, SSD_SIZE).astype(np.float32)
+    labels = np.zeros((SSD_BATCH, 1, 5), np.float32)
+    labels[:, 0] = [1, 0.2, 0.2, 0.7, 0.7]
+    mx.random.seed(0)
+    net = ssd_512_vgg16(classes=SSD_CLASSES)
+    net.initialize(ctx="cuda:0")
+    loss_b = SSDTrainLoss()
+    # parity: one batch-1 f32 step against a CPU copy at the same 512 x
+    # 512 (VGG16-reduced needs at least 264 px for conv12's 1 x 1 map)
+    x1 = torch.from_numpy(images[:1])
+    y1 = torch.from_numpy(labels[:1])
+    with mx.autograd.pause():
+        net(x1.cuda())
+    cpu_net = ssd_512_vgg16(classes=SSD_CLASSES)
+    _carry(mx, net, cpu_net)
+    loss1, grads = _ssd_loss_grads(mx, net, loss_b, x1.cuda(), y1.cuda())
+    cpu_loss = SSDTrainLoss()
+    ref_loss, ref_grads = _ssd_loss_grads(mx, cpu_net, cpu_loss, x1, y1)
+    _, spread_grads = _ssd_loss_grads(mx, cpu_net, cpu_loss,
+                                      x1 * (1.0 + 2.0 ** -22), y1)
+    parity = _spread_parity(torch, grads, ref_grads, spread_grads)
+    loss_err = abs(loss1.item() - ref_loss.item())
+    parity.update(batch=1, dtype="float32", image=[3, SSD_SIZE, SSD_SIZE],
+                  loss=loss1.item(), loss_abs_err=loss_err)
+    # the same step in float64 activations (the f32 weights cast up by
+    # every layer): no max-pool window flips, every gradient path held
+    _, grads = _ssd_loss_grads(mx, net, loss_b, x1.double().cuda(),
+                               y1.cuda())
+    _, ref_grads = _ssd_loss_grads(mx, cpu_net, cpu_loss, x1.double(), y1)
+    err64 = _staged_err(torch, grads, ref_grads)
+    worst64 = max(err64, key=err64.get)
+    parity.update(float64=dict(worst_grad=worst64,
+                               worst_grad_err_over_scale=err64[worst64],
+                               gradients=len(err64), tol=F64_GRAD_TOL))
+    del cpu_net, ref_grads, grads, spread_grads
+    x = torch.from_numpy(images).cuda().to(torch.bfloat16)
+    y = torch.from_numpy(labels).cuda()
+
+    def step(net, loss_b, trainer):
+        with mx.autograd.record():
+            anchors, cls_preds, box_preds = net(x)
+            loss = loss_b(anchors, cls_preds, box_preds, y)
+        mx.autograd.backward(loss)
+        trainer.step(SSD_BATCH)
+        return loss.detach()
+    # the main path starts and ends its counts in _mode_run; the detection
+    # after it adds its own launch
+    run = _mode_run(torch, mx, att, cs, lambda: (
+        net, loss_b, mx.gluon.Trainer(net.collect_params(), "sgd", {
+            "learning_rate": 0.01, "momentum": 0.9})), step, True, SSD_BATCH)
+
+    # detection over the trained batch: its softmaxed class scores
+    with mx.autograd.pause():
+        anchors, cls_preds, box_preds = net(x)
+    cls_prob = torch.softmax(cls_preds.float(), -1).transpose(1, 2)
+    loc = box_preds.float()
+    before = nms.nms_launches
+    det = contrib.multibox_detection(cls_prob, loc, anchors,
+                                     nms_threshold=SSD_NMS)
+    torch.cuda.synchronize()
+    det_launches = nms.nms_launches - before
+    launches = nms.nms_launches         # the main path ends here
+    inv = _detection_invariants(torch, det, cls_prob[:, 1:].amax(1),
+                                SSD_NMS)
+    det_ms = _time_ms(torch, lambda: contrib.multibox_detection(
+        cls_prob, loc, anchors, nms_threshold=SSD_NMS), reps=5, rounds=3)
+    det_rows, _ = _device_kernels(
+        torch, lambda: contrib.multibox_detection(
+            cls_prob, loc, anchors, nms_threshold=SSD_NMS), 1)
+    det_kernels = dict(
+        nms_launches=_nms_profiled(_port_kernel_calls(det_rows)),
+        nms_device_us={k[:60]: us for us, k, _ in det_rows
+                       if "mxt_nms_" in k},
+        device_us=sum(r[0] for r in det_rows))
+    _emit(dict(phase="train_ssd", model="ssd_512_vgg16",
+               classes=SSD_CLASSES, dtype="bfloat16", batch=SSD_BATCH,
+               image=[3, SSD_SIZE, SSD_SIZE], optimizer="sgd", lr=0.01,
+               momentum=0.9, anchors=int(anchors.shape[1]),
+               seconds=time.monotonic() - t0, parity=parity, **run[0],
+               images_per_s=run[0]["units_per_s"],
+               detection=dict(shape=list(det.shape), nms_threshold=SSD_NMS,
+                              launches=det_launches, ms=det_ms,
+                              **inv, **det_kernels)))
+    _check(anchors.shape[1] == SSD_ANCHORS, "%d anchors, not %d"
+           % (anchors.shape[1], SSD_ANCHORS))
+    _check(loss_err <= SERVE_TOL * max(1.0, abs(ref_loss.item())),
+           "the batch-1 loss differs from the CPU copy by %g" % loss_err)
+    _spread_checks("train_ssd", parity, ("median",))
+    _check(err64[worst64] <= F64_GRAD_TOL and len(err64) == 79,
+           "float64 gradient %s differs from the CPU copy by %g of its "
+           "scale > %g (%d tensors)" % (worst64, err64[worst64], F64_GRAD_TOL,
+                                        len(err64)))
+    _check(parity["gradients"] == 79, "%d trainable tensors, not 79"
+           % parity["gradients"])
+    _det_train_checks("train_ssd", run, 0, 0)
+    _check(det_launches == 1 and det_kernels["nms_launches"] == {
+        "mxt_nms_mask_kernel": 1, "mxt_nms_scan_kernel": 1},
+        "MultiBoxDetection launched the NMS kernel %d times (%r)"
+        % (det_launches, det_kernels["nms_launches"]))
+    _check(inv["kept"] > 0 and inv["suppressed"] > 0,
+           "the detection kept %d and suppressed %d" % (inv["kept"],
+                                                       inv["suppressed"]))
+    _check(inv["worst_kept_pair_iou_same_class"] <= SSD_NMS + 1e-6,
+           "two kept boxes of one class overlap at IoU %g"
+           % inv["worst_kept_pair_iou_same_class"])
+    _check(inv["suppressed_without_a_kept_suppressor"] == 0,
+           "%d suppressed boxes overlap no kept box of their class that "
+           "scores higher" % inv["suppressed_without_a_kept_suppressor"])
+    return dict(launches=launches, detection_launches=det_launches,
+                detection_ms=det_ms, **_det_summary(run[0]))
+
+
+def _rcnn_data(batch):
+    rs = np.random.RandomState(0)
+    H, W = RCNN_HW
+    x = rs.randn(batch, 3, H, W).astype(np.float32)
+    im_info = np.tile([H, W, 1.0], (batch, 1)).astype(np.float32)
+    gt = np.zeros((batch, 2, 5), np.float32)
+    gt[:, 0] = [60, 60, 260, 260, 1]
+    gt[:, 1] = [200, 200, 420, 420, 2]
+    return x, im_info, gt
+
+
+def _rcnn_head_grads(mx, net, loss_b, x, sel):
+    """The head's loss and every gradient it reaches, on the sampled
+    rois `sel` = (rois, labels, targets, weights)."""
+    rois, labels, targets, weights = sel
+    with mx.autograd.record():
+        feat = net.features(x)
+        cls_pred, box_pred = net.head(feat, rois)
+        loss = loss_b(cls_pred, box_pred, labels, targets, weights)
+    mx.autograd.backward(loss)
+    return loss.detach(), {n: p.grad.detach().clone()
+                           for n, p in net.collect_params().items()
+                           if p.requires_grad and p.grad is not None}
+
+
+@contextlib.contextmanager
+def _conv_sites(cs):
+    """{(C, HW, O): launches} of the conv kernel inside."""
+    seen, launch = collections.Counter(), cs._fused_cuda
+
+    def counted(x, w):
+        seen[(x.shape[1], x.shape[2], w.shape[0])] += 1
+        return launch(x, w)
+    cs._fused_cuda = counted
+    try:
+        yield seen
+    finally:
+        cs._fused_cuda = launch
+
+
+def _rcnn_parity(torch, mx, cs, net, loss_b, nms, rcnn):
+    """The staged parity at batch 1, f32: the RPN's outputs against a CPU
+    copy; Proposal and ProposalTarget on the card's RPN outputs by the
+    kernel and by the plain route, exactly; the head's loss and every
+    gradient against the CPU copy fed the card's sampled rois, with the
+    conv kernel's launch sites of that step (`rcnn_conv_shapes`); and the
+    same step in float64 activations, every gradient within
+    F64_GRAD_TOL."""
+    from incubator_mxnet_tpu_torch.models import (faster_rcnn_resnet50_v1b,
+                                                  RCNNTrainLoss)
+    x, im_info, gt = (torch.from_numpy(a) for a in _rcnn_data(1))
+    xc, ic, gc_ = x.cuda(), im_info.cuda(), gt.cuda()
+    with mx.autograd.pause():
+        net(xc, ic)                     # every deferred width
+    cpu = faster_rcnn_resnet50_v1b(classes=SSD_CLASSES)
+    _carry(mx, net, cpu)
+    rpn, ref_rpn = {}, {}
+    for model, inp, out in ((net, xc, rpn), (cpu, x, ref_rpn)):
+        with mx.autograd.record():      # batch statistics, as in a step
+            out["rpn_cls"], out["rpn_box"] = model.rpn(model.features(inp))
+    rpn_err = _staged_err(torch, rpn, ref_rpn)
+
+    def select():
+        with torch.no_grad():
+            rois = net.proposals(rpn["rpn_cls"], rpn["rpn_box"], ic)
+            return (rois,) + tuple(rcnn.proposal_target(
+                rois, gc_, num_classes=SSD_CLASSES + 1, batch_images=1,
+                batch_rois=RCNN_PARITY_ROIS))
+    kernel_sel = select()
+    with _plain_nms(nms):
+        plain_sel = select()
+    names = ("proposals", "rois", "labels", "targets", "weights")
+    sel_equal = {n: bool(torch.equal(a, b))
+                 for n, a, b in zip(names, kernel_sel, plain_sel)}
+    sampled = kernel_sel[1:]
+    with _conv_sites(cs) as sites:
+        loss, grads = _rcnn_head_grads(mx, net, loss_b, xc, sampled)
+    cpu_sel = tuple(t.cpu() for t in sampled)
+    cpu_loss = RCNNTrainLoss()
+    ref_loss, ref_grads = _rcnn_head_grads(mx, cpu, cpu_loss, x, cpu_sel)
+    _, spread_grads = _rcnn_head_grads(mx, cpu, cpu_loss,
+                                       x * (1.0 + 2.0 ** -22), cpu_sel)
+    parity = _spread_parity(torch, grads, ref_grads, spread_grads)
+    # the same step in float64 activations (F64_GRAD_TOL's comment)
+    _, g64 = _rcnn_head_grads(mx, net, loss_b, xc.double(), sampled)
+    _, ref64 = _rcnn_head_grads(mx, cpu, cpu_loss, x.double(), cpu_sel)
+    err64 = _staged_err(torch, g64, ref64)
+    worst64 = max(err64, key=err64.get)
+    parity.update(
+        batch=1, dtype="float32", image=[3] + list(RCNN_HW),
+        rpn_err_over_scale=rpn_err, selection_equal=sel_equal,
+        proposals_kept=int((kernel_sel[0][:, 1] >= 0).sum()),
+        sampled_rois=RCNN_PARITY_ROIS,
+        foreground=int((sampled[1] > 0).sum()),
+        loss=loss.item(), loss_abs_err=abs(loss.item() - ref_loss.item()),
+        cpu_gradients=len(ref_grads),
+        conv_sites={"%d,%d,%d" % k: n for k, n in sorted(sites.items())},
+        float64=dict(worst_grad=worst64,
+                     worst_grad_err_over_scale=err64[worst64],
+                     gradients=len(err64), tol=F64_GRAD_TOL))
+    return parity
+
+
+def phase_train_rcnn(torch, mx, att, cs):
+    """Faster R-CNN on resnet50_v1b as bench.py's run_rcnn trains it;
+    returns the conv and NMS kernels' launches and the run's summary."""
+    from incubator_mxnet_tpu_torch.models import (faster_rcnn_resnet50_v1b,
+                                                  RCNNTrainLoss)
+    from incubator_mxnet_tpu_torch.ops import nms, rcnn
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.monotonic()
+    mx.random.seed(0)
+    net = faster_rcnn_resnet50_v1b(classes=SSD_CLASSES)
+    net.initialize(ctx="cuda:0")
+    loss_b = RCNNTrainLoss()
+    parity = _rcnn_parity(torch, mx, cs, net, loss_b, nms, rcnn)
+
+    x, im_info, gt = _rcnn_data(RCNN_BATCH)
+    x = torch.from_numpy(x).cuda().to(torch.bfloat16)
+    im_info, gt = torch.from_numpy(im_info).cuda(), \
+        torch.from_numpy(gt).cuda()
+
+    def step(net, loss_b, trainer):
+        with mx.autograd.record():
+            (cls_pred, box_pred, rois, labels, targets, weights, _, _) = \
+                net(x, im_info, gt_boxes=gt,
+                    batch_rois=RCNN_ROIS * RCNN_BATCH)
+            loss = loss_b(cls_pred, box_pred, labels, targets, weights)
+        mx.autograd.backward(loss)
+        # the head loss does not reach the RPN: its parameters take zero
+        # gradients, as in the JAX Trainer
+        trainer.step(RCNN_BATCH)
+        return loss.detach()
+    run = _mode_run(torch, mx, att, cs, lambda: (
+        net, loss_b, mx.gluon.Trainer(net.collect_params(), "sgd", {
+            "learning_rate": 1e-3, "momentum": 0.9})), step, True,
+        RCNN_BATCH)
+    out = run[0]
+    launches = {k: out["launches"][k] for k in ("conv", "nms")}
+    _emit(dict(phase="train_rcnn", model="faster_rcnn_resnet50_v1b",
+               classes=SSD_CLASSES, dtype="bfloat16", batch=RCNN_BATCH,
+               image=[3] + list(RCNN_HW), rois=RCNN_ROIS * RCNN_BATCH,
+               optimizer="sgd", lr=1e-3, momentum=0.9,
+               seconds=time.monotonic() - t0, parity=parity, **out,
+               images_per_s=out["units_per_s"]))
+    _check(max(parity["rpn_err_over_scale"].values()) <= TRAIN_TOL,
+           "the RPN's outputs differ from the CPU copy: %r"
+           % parity["rpn_err_over_scale"])
+    _check(all(parity["selection_equal"].values()),
+           "Proposal/ProposalTarget by the kernel differ from the plain "
+           "route: %r" % parity["selection_equal"])
+    _check(parity["foreground"] > 0, "no foreground roi was sampled")
+    _check(parity["loss_abs_err"] <= SERVE_TOL * max(1.0, parity["loss"]),
+           "the head's loss differs from the CPU copy: %r" % parity)
+    _spread_checks("train_rcnn", parity)
+    _check(parity["gradients"] == parity["cpu_gradients"] > 0,
+           "the card reached %d gradients, the CPU copy %d"
+           % (parity["gradients"], parity["cpu_gradients"]))
+    f64 = parity["float64"]
+    _check(f64["worst_grad_err_over_scale"] <= F64_GRAD_TOL
+           and f64["gradients"] == parity["cpu_gradients"],
+           "float64 gradient %s differs from the CPU copy by %g of its "
+           "scale > %g (%d tensors)" % (f64["worst_grad"],
+                                        f64["worst_grad_err_over_scale"],
+                                        F64_GRAD_TOL, f64["gradients"]))
+    want_sites = {"%d,%d,%d" % (C, HW, O): k
+                  for _, C, HW, O, k in rcnn_conv_shapes(cs)}
+    _check(parity["conv_sites"] == want_sites,
+           "the head step launched the conv kernel at %r, not at "
+           "rcnn_conv_shapes' %r" % (parity["conv_sites"], want_sites))
+    _det_train_checks("train_rcnn", run, RCNN_SITES, 1)
+    _check(launches == dict(conv=2 * RCNN_SITES, nms=2),
+           "the warm-up steps launched %r (a step is %d conv and 1 NMS)"
+           % (launches, RCNN_SITES))
+    return dict(launches=launches, **_det_summary(out),
+                profiled_conv_per_step=out["profiled_launches_per_step"][
+                    "conv"],
+                profiled_nms_per_step=_nms_profiled(
+                    out["profile"]["port_kernels"]))
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3928,7 +4644,8 @@ def main():
     bwd_row = bwd_rows[BERT_CASE]
     train_launches = phase_train(torch, mx, att)
     bf16_launches = phase_train_bf16(torch, mx, att)
-    conv_step = phase_kernel_conv(torch, cs)
+    conv_steps = phase_kernel_conv(torch, cs)
+    conv_step = conv_steps["resnet"]
     resnet_row = phase_train_resnet(torch, mx, cs)
     conv_launches = resnet_row["launches"]
     gluon_launches = phase_train_resnet_gluon(torch, mx, cs, resnet_row)
@@ -3939,6 +4656,9 @@ def main():
     _serving_retired(torch)
     hyb = phase_hybridize_all(torch, mx, att, cs)
     nd_launches = phase_ndarray(torch, mx, att)
+    nms_rows = phase_kernel_nms(torch)
+    ssd = phase_train_ssd(torch, mx, att, cs)
+    rcnn = phase_train_rcnn(torch, mx, att, cs)
 
     def nmt(kernel):
         """A flash row's NMT-path and bf16-path launches and their shapes'
@@ -4009,7 +4729,31 @@ def main():
              library_ms=conv_step["library_ms"],
              library_conv_ms=conv_step["library_conv_ms"],
              shape="the %d launch sites of one resnet50_v1b step, summed"
-                   % RESNET_SITES, dtype="bfloat16", batch=RESNET_BATCH)]})
+                   % RESNET_SITES, dtype="bfloat16", batch=RESNET_BATCH,
+             train_rcnn_step={k: conv_steps["rcnn"][k] for k in (
+                 "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                 "max_abs_err", "launches", "paths")},
+             train_rcnn_warmup_launches=rcnn["launches"]["conv"],
+             train_rcnn_launches_per_step=rcnn["profiled_conv_per_step"]),
+        dict(name="nms", route="cuda",
+             source="incubator_mxnet_tpu_torch/ops/csrc/nms.cu",
+             replaces="no TPU kernel: box_nms "
+                      "(incubator_mxnet_tpu/ops/contrib.py:59) and "
+                      "_nms_keep (incubator_mxnet_tpu/ops/rcnn.py:58) are "
+                      "XLA loops there",
+             launches=ssd["launches"] + rcnn["launches"]["nms"],
+             train_rcnn_warmup_launches=rcnn["launches"]["nms"],
+             train_rcnn_launches_per_step=rcnn["profiled_nms_per_step"],
+             detection_launches=ssd["detection_launches"],
+             detection_ms=ssd["detection_ms"], parity="exact",
+             max_abs_err=max(r["max_abs_err"] for r in nms_rows.values()),
+             ms=nms_rows["proposal"]["ms"],
+             plain_ms=nms_rows["proposal"]["plain_ms"],
+             bound_ms=nms_rows["proposal"]["bound_ms"],
+             bound_by=nms_rows["proposal"]["bound_by"],
+             library_ms=None, shape=nms_rows["proposal"]["shape"],
+             box_nms_shape={k: nms_rows["box_nms"][k] for k in (
+                 "shape", "ms", "plain_ms", "bound_ms", "bound_by")})]})
     print(smi, flush=True)
     _emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                   "count": torch.cuda.device_count()}})

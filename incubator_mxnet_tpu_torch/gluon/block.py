@@ -159,7 +159,7 @@ class Block(nn.Module):
         `cast_dtype` and `dtype_source` are accepted and, as in the JAX
         package, change nothing."""
         from .. import ndarray as nd
-        loaded = nd.load(filename, ctx="cpu")
+        loaded = nd._load_tensors(filename, ctx="cpu")
         loaded = {(k.split(":", 1)[1] if k.startswith(("arg:", "aux:"))
                    else k): v for k, v in loaded.items()}
         params = self.collect_params()

@@ -480,7 +480,7 @@ class ParameterDict(OrderedDict):
     def load(self, fname, ctx=None, allow_missing=False,
              ignore_extra=False, restore_prefix=""):
         from .. import ndarray as nd
-        loaded = nd.load(fname, ctx="cpu")
+        loaded = nd._load_tensors(fname, ctx="cpu")
         if restore_prefix:
             loaded = {restore_prefix + k: v for k, v in loaded.items()}
         if not allow_missing:

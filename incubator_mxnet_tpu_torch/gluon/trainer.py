@@ -5,7 +5,10 @@ incubator_mxnet_tpu/gluon/trainer.py).
 (`net.collect_params()`), a dict or a list of parameters on one device.
 `step(batch_size)` sets the optimizer's `rescale_grad` to
 `1 / batch_size` and updates, in place, every parameter that requires
-grad from the gradient the last backward wrote.  A parameter with
+grad from the gradient the last backward wrote; one that no backward
+reached is updated with a zero gradient, as in the JAX package, so that
+an eager step and a hybridized one (whose captured backward writes
+zeros there) update the same parameters.  A parameter with
 grad_req 'null' (`requires_grad=False`, such as BatchNorm's running
 statistics) is kept in the list and never updated, and gets no
 optimizer state; so is a deferred parameter the first forward has not
@@ -126,20 +129,16 @@ class Trainer:
 
     def update(self, batch_size, ignore_stale_grad=False):
         """Update every parameter that requires grad.  A parameter that no
-        backward reached has no gradient: that raises, or is skipped with
-        `ignore_stale_grad`."""
+        backward reached is updated with a zero gradient, its persistent
+        buffer zeroed, as the JAX Trainer updates it from its zero-filled
+        gradient; `ignore_stale_grad` changes nothing, as there."""
         self._optimizer.rescale_grad = self._scale / batch_size
         live = []
         for i, p in enumerate(self._params):
             if not p.requires_grad or is_deferred(p):
                 continue
             if p.grad is None:
-                if ignore_stale_grad:
-                    continue
-                raise MXNetError(
-                    "parameter #%d %s has no gradient: run backward first, "
-                    "or pass ignore_stale_grad=True"
-                    % (i, tuple(p.shape)))
+                p.grad = _ag.grad_buffer(p).zero_()
             live.append(i)
         if not live:
             return

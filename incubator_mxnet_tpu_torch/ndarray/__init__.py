@@ -16,7 +16,8 @@ length of a JSON header (u64), the header `{"names", "dtypes",
 bytes in order.  bfloat16 travels as its raw 2-byte words, read back
 through `np.uint16` and `Tensor.view(torch.bfloat16)`, so no numpy
 bfloat16 type is needed.  `save` takes NDArrays or tensors; `load`
-returns tensors (the JAX package returns NDArrays).
+returns NDArrays, as the JAX package does (`_load_tensors` is the
+tensors' form, which the parameter loaders read).
 """
 from __future__ import annotations
 
@@ -35,6 +36,7 @@ from ..ops import registry as _registry
 # every module that registers operators, before the stubs are generated
 from ..ops import tensor as _tensor, nn as _nn, optimizer as _optimizer  # noqa: F401
 from ..ops import random as _random_ops, attention as _attention  # noqa: F401
+from ..ops import contrib as _contrib_ops, rcnn as _rcnn  # noqa: F401
 from .ndarray import NDArray, invoke, apply_fn, array, unwrap, _wrap
 
 __all__ = ["NDArray", "array", "invoke", "apply_fn", "zeros", "ones",
@@ -84,9 +86,17 @@ def save(fname, data):
 
 
 def load(fname, ctx=None):
-    """The tensors of a file `save` wrote (or the JAX package's
-    `nd.save`), on `ctx` (default `cuda:0`): a dict if they are named,
-    else a list."""
+    """The arrays of a file `save` wrote (or the JAX package's
+    `nd.save`) as NDArrays on `ctx` (default `cuda:0`): a dict if they
+    are named, else a list."""
+    loaded = _load_tensors(fname, ctx)
+    if isinstance(loaded, dict):
+        return {k: _wrap(v) for k, v in loaded.items()}
+    return [_wrap(v) for v in loaded]
+
+
+def _load_tensors(fname, ctx=None):
+    """`load`, with torch tensors in place of NDArrays."""
     dev = resolve_device(ctx)
     with open(fname, "rb") as f:
         magic, _version, hlen = struct.unpack("<QQQ", f.read(24))
@@ -251,9 +261,16 @@ random.shuffle = _rand_stub("shuffle", "_shuffle")
 _sys.modules[random.__name__] = random
 
 # nd.contrib namespace (ref: python/mxnet/ndarray/contrib.py): the contrib
-# ops the port registers, and the fused attention core
+# ops, registered flat, under the JAX package's list, and the fused
+# attention core
 contrib = _types.ModuleType(__name__ + ".contrib")
-for _opname in ["boolean_mask", "arange_like"]:
+for _opname in ["box_iou", "box_nms", "box_encode", "box_decode",
+                "bipartite_matching", "MultiBoxPrior", "MultiBoxTarget",
+                "MultiBoxDetection", "ROIAlign", "BilinearResize2D",
+                "AdaptiveAvgPooling2D", "count_sketch", "index_copy",
+                "getnnz", "boolean_mask", "arange_like",
+                "interleaved_matmul_selfatt_qk",
+                "interleaved_matmul_selfatt_valatt"]:
     setattr(contrib, _opname, getattr(_this, _opname))
 contrib.flash_attention = getattr(_this, "_contrib_flash_attention")
 _sys.modules[contrib.__name__] = contrib

@@ -156,12 +156,18 @@ def _bcast_shape(x, axis):
     return tuple(x.shape[axis] if i == axis else 1 for i in range(x.ndim))
 
 
+def _bn_acc(x):
+    """The dtype BatchNorm's statistics and arithmetic take: f32, or
+    float64 for a float64 input."""
+    return torch.promote_types(x.dtype, torch.float32)
+
+
 def _bn_stats(x, axis):
-    """Batch mean and biased variance over every axis but `axis`, in f32:
-    one pass E[x²] - E[x]², clamped at 0; with `MXNET_BN_STABLE_VAR` the
-    shifted two-pass E[(x - mean)²]."""
+    """Batch mean and biased variance over every axis but `axis`, in
+    `_bn_acc(x)`: one pass E[x²] - E[x]², clamped at 0; with
+    `MXNET_BN_STABLE_VAR` the shifted two-pass E[(x - mean)²]."""
     red = tuple(i for i in range(x.ndim) if i != axis)
-    x32 = x.float()
+    x32 = x.to(_bn_acc(x))
     m1 = x32.mean(dim=red)
     if _config.get("MXNET_BN_STABLE_VAR"):
         d = x32 - m1.reshape(_bcast_shape(x, axis))
@@ -193,9 +199,9 @@ class _BNTrain(torch.autograd.Function):
         else:
             mean, var = _moments(s1, s2, n)
         inv = torch.rsqrt(var + eps)
-        g32 = g.float()
+        g32 = g.to(mean.dtype)
         scale = (g32 * inv).reshape(bshape)
-        shift = (b.float() - mean * g32 * inv).reshape(bshape)
+        shift = (b.to(mean.dtype) - mean * g32 * inv).reshape(bshape)
         # in the activation dtype: no full-size f32 intermediate
         out = x * scale.to(x.dtype) + shift.to(x.dtype)
         ctx.save_for_backward(x, g, mean, inv)
@@ -211,13 +217,14 @@ class _BNTrain(torch.autograd.Function):
         red = tuple(i for i in range(x.ndim) if i != axis)
         bshape = _bcast_shape(x, axis)
         n = x.numel() // x.shape[axis]
-        dy32 = dy.float()
-        xhat = (x.float() - mean.reshape(bshape)) * inv.reshape(bshape)
+        acc = mean.dtype
+        dy32 = dy.to(acc)
+        xhat = (x.to(acc) - mean.reshape(bshape)) * inv.reshape(bshape)
         dbeta = dy32.sum(dim=red)
         dgamma = (dy32 * xhat).sum(dim=red)
         m1 = (dbeta / n).reshape(bshape)
         m2 = (dgamma / n).reshape(bshape)
-        dx = (g.float() * inv).reshape(bshape) * (dy32 - m1 - xhat * m2)
+        dx = (g.to(acc) * inv).reshape(bshape) * (dy32 - m1 - xhat * m2)
         return (dx.to(x.dtype), dgamma.to(g.dtype), dbeta.to(g.dtype), None,
                 None, None, None, None)
 
@@ -237,12 +244,13 @@ def batch_norm(data, gamma, beta, moving_mean, moving_var, eps=1e-3,
         s1, s2, n = sums if sums is not None else (None, None, 0)
         return _BNTrain.apply(data, g, beta, axis, eps, s1, s2, n)
     bshape = _bcast_shape(data, axis)
-    mean = moving_mean.float()
-    var = moving_var.float()
+    acc = _bn_acc(data)
+    mean = moving_mean.to(acc)
+    var = moving_var.to(acc)
     inv = torch.rsqrt(var + eps)
-    g32 = g.float()
+    g32 = g.to(acc)
     scale = (g32 * inv).reshape(bshape)
-    shift = (beta.float() - mean * g32 * inv).reshape(bshape)
+    shift = (beta.to(acc) - mean * g32 * inv).reshape(bshape)
     out = data * scale.to(data.dtype) + shift.to(data.dtype)
     return out, mean, var
 
@@ -403,12 +411,13 @@ def make_loss(data, grad_scale=1.0, valid_thresh=0.0, normalization="null"):
 
 
 class _SoftmaxCE(torch.autograd.Function):
-    """-log softmax(pred)[label] along the last axis; residuals are the
-    logits, the labels and a per-row f32 lse."""
+    """-log softmax(pred)[label] along the last axis, in f32 (float64 for
+    float64 logits); residuals are the logits, the labels and a per-row
+    lse."""
 
     @staticmethod
     def forward(ctx, pred, label):
-        p32 = pred.float()
+        p32 = pred.to(torch.promote_types(pred.dtype, torch.float32))
         lse = torch.logsumexp(p32, dim=-1, keepdim=True)
         idx = label.long().unsqueeze(-1)
         loss = (lse - p32.gather(-1, idx)).squeeze(-1)
@@ -419,17 +428,17 @@ class _SoftmaxCE(torch.autograd.Function):
     @torch.autograd.function.once_differentiable
     def backward(ctx, dy):
         pred, idx, lse = ctx.saved_tensors
-        # softmax in f32 from the saved lse, minus the one-hot label
-        dpred = torch.exp(pred.float() - lse)
+        # softmax in lse's dtype from the saved lse, minus the one-hot label
+        dpred = torch.exp(pred.to(lse.dtype) - lse)
         dpred.scatter_add_(-1, idx, torch.full_like(idx, -1.0,
                                                     dtype=dpred.dtype))
-        dpred.mul_(dy.float().unsqueeze(-1))
+        dpred.mul_(dy.to(lse.dtype).unsqueeze(-1))
         return dpred.to(pred.dtype), None
 
 
 def fused_softmax_ce(pred, label, axis=-1):
     """-log softmax(pred)[label] per row, along `axis`; the loss has
-    pred's shape without that axis, in f32.  The backward recomputes the
+    pred's shape without that axis, in f32 (float64 for float64 pred).  The backward recomputes the
     softmax from the logits and a per-row lse (ref: the JAX package's
     memory-exact custom vjp)."""
     ax = axis % pred.ndim

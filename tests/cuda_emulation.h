@@ -59,6 +59,13 @@ inline uint4 make_uint4(unsigned x, unsigned y, unsigned z, unsigned w) { return
 inline uint32_t __float_as_uint(float f) { uint32_t u; std::memcpy(&u, &f, 4); return u; }
 inline float __uint_as_float(uint32_t u) { float f; std::memcpy(&f, &u, 4); return f; }
 inline size_t __cvta_generic_to_shared(const void* p) { return reinterpret_cast<size_t>(p); }
+// the rounding intrinsics: one IEEE operation each (a host build for x86-64
+// has no FMA to contract them into)
+inline float __fadd_rn(float a, float b) { return a + b; }
+inline float __fsub_rn(float a, float b) { return a - b; }
+inline float __fmul_rn(float a, float b) { return a * b; }
+inline float __fdiv_rn(float a, float b) { return a / b; }
+inline int __ffsll(long long x) { return __builtin_ffsll(x); }
 
 struct __nv_bfloat16 { uint16_t x; };
 struct __nv_bfloat162 { __nv_bfloat16 x, y; };

@@ -1315,3 +1315,92 @@ def test_nd_create_graph_penalty_on_card(card):
     gw, gb = torch.autograd.grad(tgx.square().sum(), [tw, tb])
     assert torch.allclose(w.grad._data, gw, rtol=1e-5, atol=1e-6)
     assert torch.allclose(b.grad._data, gb, rtol=1e-5, atol=1e-6)
+
+
+# --- detection: the NMS kernel and a hybridized faster_rcnn_toy step -------
+
+def _nms_inputs(card, B, N, seed, aware=False, ties=False):
+    rs = np.random.RandomState(seed)
+    ctr = rs.rand(B, N, 2) * 100
+    wh = rs.rand(B, N, 2) * 40 + 2
+    boxes = np.concatenate([ctr - wh / 2, ctr + wh / 2], -1)
+    if ties:
+        rep = boxes[:, 1::3].shape[1]
+        boxes[:, 1::3] = boxes[:, 0:-1:3][:, :rep]
+    cls = torch.tensor(rs.randint(0, 4, (B, N)).astype(np.float32),
+                       device=card) if aware else None
+    valid = torch.tensor(rs.rand(B, N) > 0.2, device=card)
+    return torch.tensor(boxes, dtype=torch.float32, device=card), cls, valid
+
+
+@pytest.mark.parametrize("B,N,plus_one,aware,topk,ties", [
+    (2, 2000, True, False, 1000, False), (3, 700, False, True, 0, False),
+    (2, 130, True, False, 100, True), (4, 64, False, False, 0, True)])
+def test_nms_kernel_matches_plain_version(card, B, N, plus_one, aware,
+                                          topk, ties):
+    from incubator_mxnet_tpu_torch.ops import nms
+    boxes, cls, valid = _nms_inputs(card, B, N, N, aware, ties)
+    for thresh in (0.3, 0.7):
+        before = nms.nms_launches
+        got = nms.nms_sorted(boxes, valid, thresh, cls=cls,
+                             plus_one=plus_one, topk=topk)
+        torch.cuda.synchronize()
+        assert nms.nms_launches == before + 1
+        ref = nms.nms_sorted_plain(boxes, valid, thresh, cls, plus_one, topk)
+        got, ref = ((g,) if topk <= 0 else g for g in (got, ref))
+        for g, r in zip(got, ref):
+            assert torch.equal(g, r)
+        assert 0 < int(got[0].sum()) < B * N
+
+
+def test_nms_kernel_raises_on_what_it_does_not_take(card):
+    from incubator_mxnet_tpu_torch.ops import nms
+    boxes = torch.zeros(1, 8, 4, device=card)
+    with pytest.raises(ValueError, match="float32"):
+        nms.nms_sorted(boxes.half(), None, 0.5)
+    with pytest.raises(ValueError, match=r"\(B, N, 4\)"):
+        nms.nms_sorted(boxes[..., :3], None, 0.5)
+    with pytest.raises(ValueError, match="cls"):
+        nms.nms_sorted(boxes, None, 0.5, cls=torch.zeros(1, 8))
+
+
+def test_faster_rcnn_toy_hybridized_step_on_card(card):
+    """One hybridized faster_rcnn_toy training step after its eager and
+    capturing ones: Proposal's NMS by the kernel in the eager and the
+    capturing step (one launch each), none by a wrapper in the replayed
+    one, whose loss is finite and whose labels are sampled classes."""
+    from incubator_mxnet_tpu_torch import models
+    from incubator_mxnet_tpu_torch.ops import nms
+    rs = np.random.RandomState(1)
+    x = torch.tensor(rs.randn(2, 3, 64, 64).astype(np.float32), device=card)
+    im_info = torch.tensor([[64.0, 64.0, 1.0]] * 2, device=card)
+    gt = torch.tensor([[[6, 6, 30, 30, 1], [24, 20, 56, 60, 2]]] * 2,
+                      dtype=torch.float32, device=card)
+    tmx.random.seed(0)
+    net = models.faster_rcnn_toy(classes=3, device=card)
+    loss_b = models.RCNNTrainLoss()
+    net.hybridize()
+    loss_b.hybridize()
+    trainer = tmx.gluon.Trainer(net.collect_params(), "sgd",
+                                {"learning_rate": 0.01, "momentum": 0.9})
+    launches, losses, labels = [], [], []
+    for _ in range(3):
+        before = nms.nms_launches
+        with tmx.autograd.record():
+            out = net(x, im_info, gt_boxes=gt, batch_rois=16)
+            loss = loss_b(*out[:2], *out[3:6])
+        tmx.autograd.backward(loss)
+        trainer.step(2)
+        torch.cuda.synchronize()
+        launches.append(nms.nms_launches - before)
+        losses.append(loss.item())
+        labels.append(out[3])
+    cg = net.__dict__["_cached_graph"]
+    assert (cg.eager_calls, cg.captures, cg.replays) == (1, 2, 2)
+    # the RPN's parameters take zero gradients in every step, so the
+    # update's live set never changes: captured in step 2, replayed in 3
+    assert (trainer.eager_updates, trainer.captures,
+            trainer.replays) == (1, 1, 1)
+    assert launches == [1, 1, 0]
+    assert all(np.isfinite(losses)) and (labels[-1] > 0).any()
+    assert set(labels[-1].tolist()) <= {-1.0, 0.0, 1.0, 2.0, 3.0}

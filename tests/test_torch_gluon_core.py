@@ -242,12 +242,25 @@ def test_nd_save_load_lists_and_dtypes(tmp_path):
     path = str(tmp_path / "list")
     tmx.nd.save(path, arrays)
     back = tmx.nd.load(path, ctx="cpu")
-    assert isinstance(back, list) and len(back) == 3
-    for a, b in zip(arrays, back):
-        assert a.dtype == b.dtype and torch.equal(a, b)
     ref = nd.load(path)
+    # NDArrays in a list, as the JAX nd.load returns them
+    assert isinstance(back, list) and len(back) == 3 and len(ref) == 3
+    for a, b, r in zip(arrays, back, ref):
+        assert isinstance(b, tmx.nd.NDArray) and isinstance(r, nd.NDArray)
+        assert a.dtype == b._data.dtype and torch.equal(a, b._data)
+        assert b.shape == r.shape
     np.testing.assert_array_equal(_bits(ref[1].asnumpy()), _bits(arrays[1]))
-    np.testing.assert_array_equal(ref[2].asnumpy(), arrays[2].numpy())
+    np.testing.assert_array_equal(_bits(back[1]._data), _bits(arrays[1]))
+    for i in (0, 2):
+        np.testing.assert_array_equal(back[i].asnumpy(), ref[i].asnumpy())
+        assert back[i].asnumpy().dtype == ref[i].asnumpy().dtype
+    # named arrays come back as a dict of NDArrays in both
+    tmx.nd.save(path, {"a": arrays[0], "c": arrays[2]})
+    back, ref = tmx.nd.load(path, ctx="cpu"), nd.load(path)
+    assert isinstance(back, dict) and list(back) == list(ref) == ["a", "c"]
+    for k in back:
+        assert isinstance(back[k], tmx.nd.NDArray)
+        np.testing.assert_array_equal(back[k].asnumpy(), ref[k].asnumpy())
     with open(path, "r+b") as f:
         f.write(b"\0")
     with pytest.raises(MXNetError, match="invalid NDArray file"):
@@ -536,6 +549,58 @@ def test_multipliers_and_grad_req_match_jax_over_three_steps(opt):
     # the frozen bias: bit for bit as loaded, and no optimizer state
     np.testing.assert_array_equal(got["1.bias"].numpy(), init["1.bias"])
     assert 3 not in tr._updater.states and len(tr._updater.states) == 3
+
+
+@pytest.mark.parametrize("hybrid", [False, True])
+def test_unreached_parameters_update_from_zero_gradients_as_jax(hybrid):
+    """A parameter that no backward reaches (a Dense the loss never calls)
+    is updated from a zero gradient by both Trainers, so SGD's weight
+    decay moves it; `ignore_stale_grad` changes nothing in either.  The
+    port's live set is the same in every step, so a hybridized run
+    updates eagerly once, captures its update in step 2 and replays it
+    in step 3."""
+    rs = np.random.RandomState(6)
+    x = rs.randn(5, 6).astype(np.float32)
+    y = rs.randint(0, 4, 5).astype(np.float32)
+    hp = dict(learning_rate=0.1, momentum=0.9, wd=0.05)
+    jrandom.seed(0)
+    jnet, jidle = _mlp(jgluon.nn), jgluon.nn.Dense(3, in_units=6)
+    jnet.initialize()
+    jidle.initialize()
+    jnet(nd.array(x))
+    init, idle_init = _jax_params(jnet), _jax_params(jidle)
+    net, idle = _mlp(tmx.gluon.nn), tmx.gluon.nn.Dense(3, in_units=6)
+    tmx.weights.load_reference_params(net, init, device="cpu")
+    tmx.weights.load_reference_params(idle, idle_init, device="cpu")
+    if hybrid:
+        net.hybridize()
+    jtr = jgluon.Trainer(list(jnet.collect_params().values())
+                         + list(jidle.collect_params().values()), "sgd",
+                         dict(hp))
+    tr = tmx.gluon.Trainer(list(net.collect_params().values())
+                           + list(idle.collect_params().values()), "sgd",
+                           dict(hp))
+    jloss, loss_fn = (jgluon.loss.SoftmaxCrossEntropyLoss(),
+                      tmx.gluon.loss.SoftmaxCrossEntropyLoss())
+    for step in range(3):
+        with jag.record():
+            jl = jloss(jnet(nd.array(x)), nd.array(y))
+            jl.backward()
+        jtr.step(5, ignore_stale_grad=step == 1)
+        with tmx.autograd.record():
+            loss = loss_fn(net(torch.from_numpy(x)), torch.from_numpy(y))
+        tmx.autograd.backward(loss)
+        tr.step(5, ignore_stale_grad=step == 1)
+        for jblock, block in ((jnet, net), (jidle, idle)):
+            ref, got = _jax_params(jblock), _port_params(block)
+            for n in ref:
+                np.testing.assert_allclose(got[n].numpy(), ref[n], rtol=0,
+                                           atol=TOL, err_msg=n)
+    assert not np.allclose(_port_params(idle)["weight"].numpy(),
+                           idle_init["weight"])
+    assert len(tr._updater.states) == 6
+    if hybrid:
+        assert (tr.eager_updates, tr.captures, tr.replays) == (1, 1, 1)
 
 
 def test_grad_req_add_sums_until_zero_grad():

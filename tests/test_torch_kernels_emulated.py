@@ -1,5 +1,6 @@
-"""PyTorch port: the fused 1x1-conv + BatchNorm-statistics kernel's and the
-flash-attention forward kernel's CUDA sources run on the CPU, under the
+"""PyTorch port: the fused 1x1-conv + BatchNorm-statistics kernel's, the
+flash-attention forward kernel's and the greedy NMS kernel's CUDA
+sources run on the CPU, under the
 emulation of tests/cuda_emulation.h (built as in
 test_torch_bwd_kernels_emulated.py), and held against their plain versions
 (and a 16-bit y, as the plain version's, against the exact product) with the
@@ -20,6 +21,7 @@ import torch
 from incubator_mxnet_tpu_torch.ops import _kernels
 from incubator_mxnet_tpu_torch.ops import attention as tatt
 from incubator_mxnet_tpu_torch.ops import conv_stats as tcs
+from incubator_mxnet_tpu_torch.ops import nms as tnms
 import chip_smoke
 from chip_smoke import CONV_SUM_TOL, TOL
 from test_torch_bwd_kernels_emulated import build_emulated
@@ -210,7 +212,11 @@ def test_editing_a_shared_header_renames_the_libraries_that_include_it(
     with open(csrc / "mma_sm90.cuh", "a") as f:
         f.write("// edited\n")
     after_mma = names()
-    assert all(after_mma[n] != after_tiles[n] for n in _kernels.SOURCES)
+    # every source but the NMS kernel's includes mma_sm90.cuh
+    assert _kernels.local_headers(csrc / "nms.cu") == []
+    assert after_mma["nms"] == before["nms"]
+    assert all(after_mma[n] != after_tiles[n] for n in _kernels.SOURCES
+               if n != "nms")
 
 
 def test_emulated_fwd_kernel_output_has_no_one_sided_drift(fwd_lib):
@@ -232,3 +238,91 @@ def test_emulated_fwd_kernel_output_has_no_one_sided_drift(fwd_lib):
     exact = torch.softmax(s, -1) @ v.double()
     drift = ((out.double() - exact) * exact).sum() / exact.pow(2).sum()
     assert abs(drift.item()) <= 5e-7, drift.item()
+
+
+@pytest.fixture(scope="module")
+def nms_lib(tmp_path_factory):
+    return build_emulated("nms", tmp_path_factory.mktemp("nms"))
+
+
+def _nms_emulated(lib, boxes, valid, thresh, cls=None, plus_one=False,
+                  topk=0):
+    B, N, _ = boxes.shape
+    boxes = boxes.contiguous()
+    mask = torch.full((B * N * lib.mxt_nms_mask_words(N),), -1,
+                      dtype=torch.long)
+    keep = torch.full((B, N), 7, dtype=torch.uint8)
+    idx = torch.full((B, max(topk, 1)), 12345, dtype=torch.long)
+    assert lib.mxt_nms(
+        boxes.data_ptr(), 0 if cls is None else cls.contiguous().data_ptr(),
+        0 if valid is None else valid.contiguous().data_ptr(),
+        mask.data_ptr(), keep.data_ptr(), idx.data_ptr(), B, N, thresh,
+        int(plus_one), topk, None) == 0
+    return keep.bool(), idx[:, :topk]
+
+
+def _nms_boxes(B, N, scale, seed, ties=False):
+    rs = np.random.RandomState(seed)
+    ctr = rs.rand(B, N, 2) * scale * 0.3
+    wh = rs.rand(B, N, 2) * scale * 0.5 + 1
+    boxes = np.concatenate([ctr - wh / 2, ctr + wh / 2], -1)
+    if ties:        # repeated boxes: IoU exactly 1, and exact ties
+        boxes[:, 1::3] = boxes[:, 0:-1:3][:, :boxes[:, 1::3].shape[1]]
+    return torch.from_numpy(boxes.astype(np.float32))
+
+
+# (B, N, convention, class-aware, with valid flags, topk, ties): one chunk
+# of 64 and ragged chunks past it, Proposal's +1 convention with its topk
+# and box_nms' corner one, class-aware, with valid flags and with repeated
+# boxes
+NMS_CASES = [(2, 40, True, False, False, 16, False),
+             (2, 200, True, False, False, 50, False),
+             (1, 130, True, False, False, 200, True),
+             (3, 150, False, True, True, 0, False),
+             (2, 64, False, False, True, 0, True),
+             (2, 129, False, True, False, 0, True)]
+
+
+@pytest.mark.parametrize("B,N,plus_one,aware,flags,topk,ties", NMS_CASES)
+def test_emulated_nms_kernel_matches_plain_version(nms_lib, B, N, plus_one,
+                                                   aware, flags, topk, ties):
+    """The mask and scan launches give exactly the plain version's keep
+    flags (and first `topk` kept positions, -1 after)."""
+    rs = np.random.RandomState(N)
+    boxes = _nms_boxes(B, N, 60.0, seed=N + B, ties=ties)
+    cls = torch.from_numpy(rs.randint(0, 3, (B, N)).astype(np.float32)) \
+        if aware else None
+    valid = torch.from_numpy(rs.rand(B, N) > 0.25) if flags else None
+    for thresh in (0.3, 0.7):
+        keep, idx = _nms_emulated(nms_lib, boxes, valid, thresh, cls,
+                                  plus_one, topk)
+        ref = tnms.nms_sorted_plain(boxes, valid, thresh, cls, plus_one,
+                                    topk)
+        ref_keep = ref[0] if topk else ref
+        assert torch.equal(keep, ref_keep), (thresh, plus_one)
+        assert 0 < int(keep.sum()) < B * N
+        if topk:
+            assert torch.equal(idx, ref[1])
+
+
+def test_emulated_nms_kernel_refuses_too_many_images(nms_lib):
+    x = torch.zeros(1, 1, 4)
+    assert nms_lib.mxt_nms(x.data_ptr(), 0, 0, x.data_ptr(), x.data_ptr(),
+                           0, 70000, 1, 0.5, 0, 0, None) == 1
+
+
+@pytest.mark.parametrize("plus_one,boxes", [
+    (False, [[0, 0, 2, 2], [0, 0, 2, 1]]),
+    (True, [[0, 0, 1, 1], [0, 0, 1, 0]])])
+def test_emulated_nms_kernel_keeps_a_box_at_exactly_the_threshold(
+        nms_lib, plus_one, boxes):
+    """IoU exactly 0.5 does not suppress at thresh 0.5 (`iou > thresh`,
+    as the JAX ops decide); below the IoU, the threshold does."""
+    b = torch.tensor([boxes], dtype=torch.float32)
+    iou = (tnms.iou_plus_one if plus_one else tnms.iou_corner)(b[0], b[0])
+    assert iou[0, 1].item() == 0.5
+    for thresh, want in ((0.5, [True, True]), (0.45, [True, False])):
+        keep, _ = _nms_emulated(nms_lib, b, None, thresh, plus_one=plus_one)
+        assert keep[0].tolist() == want
+        assert torch.equal(keep, tnms.nms_sorted_plain(b, None, thresh,
+                                                       plus_one=plus_one))

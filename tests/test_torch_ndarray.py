@@ -312,7 +312,7 @@ def test_save_takes_ndarrays(tmp_path):
     f = str(tmp_path / "a.params")
     tnd.save(f, {"x": _t([1.0, 2.0]), "y": torch.ones(2)})
     got = tnd.load(f, ctx=CPU)
-    assert set(got) == {"x", "y"} and isinstance(got["x"], torch.Tensor)
+    assert set(got) == {"x", "y"} and isinstance(got["x"], tnd.NDArray)
     assert jnd.load(f)["x"].asnumpy().tolist() == [1.0, 2.0]
 
 

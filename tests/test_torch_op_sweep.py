@@ -55,12 +55,6 @@ _spec.loader.exec_module(_jsweep)
 
 #: JAX ops the port does not register yet (ROADMAP.md, Queue 1)
 NOT_YET_PORTED = {
-    # ops/contrib.py
-    "AdaptiveAvgPooling2D", "BilinearResize2D", "MultiBoxDetection",
-    "MultiBoxPrior", "MultiBoxTarget", "ROIAlign", "ROIPooling",
-    "bipartite_matching", "box_decode", "box_encode", "box_iou", "box_nms",
-    "count_sketch", "getnnz", "index_copy", "interleaved_matmul_selfatt_qk",
-    "interleaved_matmul_selfatt_valatt",
     # ops/control_flow.py
     "cond", "foreach", "while_loop",
     # ops/quantization.py
@@ -69,8 +63,6 @@ NOT_YET_PORTED = {
     "_contrib_quantized_elemwise_add", "_contrib_quantized_flatten",
     "_contrib_quantized_fully_connected", "_contrib_quantized_pooling",
     "_contrib_requantize",
-    # ops/rcnn.py
-    "_contrib_MultiProposal", "_contrib_Proposal", "_contrib_ProposalTarget",
     # ops/rnn.py
     "RNN", "RNN_varlen",
     # ops/nn.py
@@ -187,6 +179,88 @@ case("_arange", [], {"start": 2, "stop": 11, "step": 3, "dtype": "int32"},
      grad=False)
 case("_arange", [], {"start": 0.0, "stop": 3.0, "repeat": 2}, grad=False)
 
+
+# the detection ops (ops/contrib.py, ops/rcnn.py), which the JAX sweep
+# leaves to its own files (test_contrib_ops.py, test_rcnn.py)
+
+
+def _corner_boxes(n, lead=(), scale=1.0):
+    ctr = RS.rand(*(lead + (n, 2))) * scale
+    wh = RS.rand(*(lead + (n, 2))) * 0.4 * scale + 0.05 * scale
+    return np.concatenate([ctr - wh / 2, ctr + wh / 2], -1).astype(
+        np.float32)
+
+
+def _anchors(H, W, size):
+    cy, cx = np.meshgrid((np.arange(H) + 0.5) / H, (np.arange(W) + 0.5) / W,
+                         indexing="ij")
+    c = np.stack([cx, cy], -1).reshape(1, -1, 2)
+    return np.concatenate([c - size / 2, c + size / 2], -1).astype(
+        np.float32)
+
+
+def _probs(*shape, axis=1):
+    e = np.exp(RS.randn(*shape))
+    return (e / e.sum(axis, keepdims=True)).astype(np.float32)
+
+
+def _rois(R, B, H, W):
+    ctr = RS.rand(R, 2) * [W, H]
+    wh = RS.rand(R, 2) * [W / 2.0, H / 2.0] + 1
+    return np.concatenate([RS.randint(0, B, (R, 1)), ctr - wh / 2,
+                           ctr + wh / 2], 1).astype(np.float32)
+
+
+_DET = np.concatenate([RS.randint(0, 3, (2, 24, 1)), U(0, 1, 2, 24, 1),
+                       _corner_boxes(24, (2,))], -1).astype(np.float32)
+_LAB = np.concatenate([RS.randint(0, 2, (2, 2, 1)),
+                       _corner_boxes(2, (2,))], -1).astype(np.float32)
+case("box_iou", [_corner_boxes(4), _corner_boxes(5)], {})
+case("box_iou", [_corner_boxes(3, (2,)), _corner_boxes(4)],
+     {"format": "center"})
+case("box_nms", [_DET], {"overlap_thresh": 0.3, "id_index": 0}, grad=False)
+case("box_nms", [_DET], {"overlap_thresh": 0.2, "topk": 10,
+                         "valid_thresh": 0.3, "force_suppress": True},
+     grad=False)
+case("box_decode", [U(-1, 1, 2, 5, 4), _corner_boxes(5, (2,))],
+     {"std2": 0.2, "std3": 0.2})
+case("MultiBoxPrior", [U(-1, 1, 1, 2, 3, 4)],
+     {"sizes": (0.3, 0.6), "ratios": (1, 2, 0.5)}, grad=False)
+case("MultiBoxPrior", [U(-1, 1, 1, 2, 2, 2)],
+     {"sizes": (0.8,), "clip": True}, grad=False)
+case("MultiBoxTarget", [_anchors(4, 4, 0.3), _LAB, U(-1, 1, 2, 3, 16)],
+     {"overlap_threshold": 0.3}, grad=False)
+case("MultiBoxDetection", [_probs(2, 3, 16), U(-1, 1, 2, 64),
+                           _anchors(4, 4, 0.3)], {"nms_threshold": 0.3},
+     grad=False)
+case("ROIAlign", [U(-1, 1, 2, 3, 8, 9), _rois(5, 2, 8, 9)],
+     {"pooled_size": (2, 3), "sample_ratio": 2})
+case("ROIAlign", [U(-1, 1, 1, 2, 8, 8), _rois(4, 1, 16, 16)],
+     {"pooled_size": (2, 2), "spatial_scale": 0.5, "aligned": True})
+case("ROIPooling", [U(-1, 1, 2, 2, 8, 8), _rois(4, 2, 8, 8)],
+     {"pooled_size": (2, 2)})
+case("BilinearResize2D", [U(-1, 1, 1, 2, 4, 5)], {"height": 7, "width": 3})
+case("AdaptiveAvgPooling2D", [U(-1, 1, 2, 2, 7, 6)], {"output_size": (3, 2)})
+case("AdaptiveAvgPooling2D", [U(-1, 1, 2, 2, 8, 4)], {"output_size": 2})
+case("interleaved_matmul_selfatt_qk", [U(-1, 1, 3, 2, 24)], {"heads": 2})
+case("interleaved_matmul_selfatt_valatt",
+     [U(-1, 1, 3, 2, 24), U(0, 1, 4, 3, 3)], {"heads": 2})
+case("_contrib_Proposal",
+     [_probs(1, 2, 3, 4, 4).reshape(1, 6, 4, 4), U(-0.2, 0.2, 1, 12, 4, 4),
+      np.array([[32, 32, 1.0]], np.float32)],
+     {"rpn_pre_nms_top_n": 30, "rpn_post_nms_top_n": 8, "threshold": 0.5,
+      "rpn_min_size": 2, "scales": (4,), "ratios": (0.5, 1, 2),
+      "feature_stride": 8}, grad=False)
+case("_contrib_ProposalTarget",
+     [np.concatenate([np.zeros((6, 1)), _corner_boxes(6, scale=30.0)],
+                     1).astype(np.float32),
+      np.concatenate([_corner_boxes(2, (1,), scale=30.0),
+                      np.array([[[0], [1]]])], -1).astype(np.float32)],
+     {"num_classes": 3, "batch_rois": 6, "fg_fraction": 0.5,
+      "fg_overlap": 0.3}, grad=False)
+assert treg.get("_contrib_MultiProposal") is treg.get("_contrib_Proposal")
+CASES["_contrib_MultiProposal"] = CASES["_contrib_Proposal"]
+
 #: (op, index) pairs to run; an alias's cases run under the alias' name
 _ALL = [(op, i) for op in treg.list_ops() for i in range(len(CASES.get(op,
                                                                       ())))]
@@ -195,7 +269,10 @@ SCALED = {"sum", "sum_axis", "mean", "prod", "nansum", "nanprod", "norm",
           "dot", "batch_dot", "khatri_rao", "L2Normalization",
           "FullyConnected", "Convolution", "Pooling", "softmax",
           "log_softmax", "softmin", "LayerNorm", "BatchNorm",
-          "SoftmaxOutput", "_fused_softmax_ce", "_fused_linear_softmax_ce"}
+          "SoftmaxOutput", "_fused_softmax_ce", "_fused_linear_softmax_ce",
+          "ROIAlign", "BilinearResize2D", "AdaptiveAvgPooling2D",
+          "interleaved_matmul_selfatt_qk",
+          "interleaved_matmul_selfatt_valatt"}
 EXACT = {"argmax", "argmin", "argmax_channel", "argsort", "topk", "sort",
          "shape_array", "size_array", "one_hot", "boolean_mask", "where",
          "take", "pick", "gather_nd", "scatter_nd", "_scatter_set_nd",
@@ -211,7 +288,9 @@ EXACT = {"argmax", "argmin", "argmax_channel", "argsort", "topk", "sort",
          "SequenceMask", "SequenceLast", "SequenceReverse", "MakeLoss",
          "max", "max_axis", "min", "min_axis", "relu", "abs", "sign",
          "negative", "clip", "round", "rint", "ceil", "floor", "trunc",
-         "fix", "_maximum_scalar", "_minimum_scalar", "Dropout"}
+         "fix", "_maximum_scalar", "_minimum_scalar", "Dropout",
+         "box_nms", "bipartite_matching", "ROIPooling", "count_sketch",
+         "index_copy", "getnnz"}
 
 
 def _name(dt):

@@ -149,6 +149,47 @@ def test_batch_norm_matches_jax(monkeypatch, stable_var, fix_gamma):
     np.testing.assert_allclose(got.numpy(), _np(ref), rtol=0, atol=2e-5)
 
 
+@pytest.mark.parametrize("training", [True, False])
+def test_batch_norm_takes_float64_arithmetic_for_float64_input(training):
+    """A float64 input keeps float64 statistics and arithmetic (its f32
+    gamma, beta and moving statistics cast up): the output, the batch
+    statistics and the input's gradient within 1e-12 of torch's own
+    float64 BatchNorm, which f32 arithmetic misses by about 1e-7; gamma's
+    and beta's gradients are the f64 sums rounded once to f32.  The JAX
+    package has no float64 (x64 is off), so this is the port's rule."""
+    import torch.nn.functional as F
+    rs = np.random.RandomState(19)
+    x = torch.tensor(rs.randn(3, 5, 4, 6) * 0.5 + 3.0, requires_grad=True)
+    g = torch.tensor(rs.uniform(0.5, 1.5, 5).astype(np.float32),
+                     requires_grad=True)
+    b = torch.tensor(rs.randn(5).astype(np.float32), requires_grad=True)
+    mm, mv = _t(rs.randn(5).astype(np.float32)), \
+        _t(rs.rand(5).astype(np.float32))
+    dy = torch.tensor(rs.randn(*x.shape))
+    out, mean, var = tnn.batch_norm(x, g, b, mm, mv, eps=1e-5,
+                                    fix_gamma=False, training=training)
+    ref = F.batch_norm(x, mm.double().clone(), mv.double().clone(),
+                       g.double(), b.double(), training=training, eps=1e-5)
+    assert out.dtype == torch.float64
+    scale = ref.abs().max().item()
+    assert (out - ref).abs().max().item() <= 1e-12 * scale
+    if training:
+        want_mean = x.detach().mean(dim=(0, 2, 3))
+        want_var = x.detach().var(dim=(0, 2, 3), unbiased=False)
+        assert mean.dtype == var.dtype == torch.float64
+        assert (mean - want_mean).abs().max().item() <= 1e-12
+        assert (var - want_var).abs().max().item() <= 1e-12
+    got = torch.autograd.grad(out, (x, g, b), dy)
+    want = torch.autograd.grad(ref, (x, g, b), dy)
+    assert got[0].dtype == torch.float64
+    assert (got[0] - want[0]).abs().max().item() \
+        <= 1e-12 * want[0].abs().max().item()
+    for a, w in zip(got[1:], want[1:]):
+        assert a.dtype == torch.float32
+        np.testing.assert_allclose(a.numpy(), w.numpy(), rtol=2 ** -23,
+                                   atol=0)
+
+
 @pytest.mark.parametrize("momentum", [0.0, 0.9])
 def test_sgd_updates_match_jax(momentum):
     rs = np.random.RandomState(10)
