@@ -215,17 +215,24 @@ Drives incubator_mxnet_tpu_torch only (never JAX or the JAX package):
              of nd.broadcast_add and NDArray + on (768,) beside
              torch.add.  The flash rows of the kernels line carry these
              launches as nd_launches.
-13c. kernel_nms — the greedy NMS kernel (a mask launch and a scan
-             launch) against its plain version on the card, keep flags
-             and kept positions exactly: Proposal's shape (2 x 2000, IoU
-             > 0.7 by the +1 convention, the first 1000 kept), box_nms's
-             (8 x 4096, class-aware over 20 classes, valid_thresh 0), and
-             repeated boxes with tied scores both ways; box_nms end to end
-             by the kernel and by the plain route on tied scores.  Both
-             shapes timed (CUDA events, median of 5 x 20) beside the plain
-             version, each launch's device time, and the bound (the
-             needed pairs' IoUs on the CUDA cores).  There is no PyTorch
-             NMS call on the card's machine (no torchvision).
+13c. kernel_nms — the greedy NMS kernel (a count launch where flags
+             are given, a mask launch and a scan launch) against its plain
+             version on the card, keep flags and kept positions exactly:
+             Proposal's shape (2 x 2000, IoU > 0.7 by the +1 convention,
+             the first 1000 kept), box_nms's (8 x 4096, class-aware over
+             20 classes, valid_thresh 0), MultiBoxDetection's (8 x 24,564,
+             class-aware over 20, IoU 0.5, flags on a sorted prefix of
+             about 1.3 % of each image; the plain version on the prefix
+             that holds every valid box, the kernel's flags past it all
+             False), flags that are no prefix (2 x 2000, corner IoU),
+             Proposal's shape in the positions-only mode (the scan ends
+             at the 1000th kept box) against the plain mode, and repeated
+             boxes with tied scores both ways; box_nms end to end by the
+             kernel and by the plain route on tied scores.  Five shapes
+             timed (CUDA events, median of 5 x 20) beside the plain
+             version, each launch's device time, the scratch bytes and the
+             bound (the needed pairs' IoUs on the CUDA cores).  There is no
+             PyTorch NMS call on the card's machine (no torchvision).
 13d. train_ssd — bench.py's config 3a: ssd_512_vgg16(classes=20),
              initialize(ctx=cuda:0), a batch-1 f32 step's loss and 79
              gradients against a CPU copy at 512 x 512 (loss, median
@@ -238,10 +245,12 @@ Drives incubator_mxnet_tpu_torch only (never JAX or the JAX package):
              images/s, peak memory, captures and replays), 2 profiled
              steps (busy share); then MultiBoxDetection of the trained
              batch's softmaxed scores over its 24,564 anchors through the
-             NMS kernel (one launch, both kernels by profiler name), held
-             to the greedy invariants per image and class (no kept pair
-             above 0.5, every suppressed box overlapped above 0.5 by a
-             kept box scoring at least as high), and its ms.
+             NMS kernel (one launch; its count, mask and scan kernels by
+             profiler name), held to the greedy invariants per image and
+             class (no kept pair above 0.5, every suppressed box
+             overlapped above 0.5 by a kept box scoring at least as
+             high), its ms, and its NMS's valid boxes per image, scratch
+             bytes and bound (the same-class pairs of its valid boxes).
 13e. train_rcnn — bench.py's config 3b: faster_rcnn_resnet50_v1b(
              classes=20), staged parity at batch 1 f32 (the RPN's outputs
              against a CPU copy; Proposal and ProposalTarget on the card's
@@ -750,7 +759,7 @@ def _device_ms(torch, fn, reps=20):
 _PORT_KERNEL = re.compile(r"::(flash_(?:fwd|bwd_dq|bwd_dkv)_kernel"
                           r"|conv1x1_stats(?:_tc)?_kernel"
                           r"|stats_reduce_kernel"
-                          r"|mxt_nms_(?:mask|scan)_kernel)\b")
+                          r"|mxt_nms_(?:count|mask|scan)_kernel)\b")
 
 
 def _profile(torch, fn, reps, top=8, **row):
@@ -3612,7 +3621,7 @@ def _ptxas(reports):
     for log in reports.values():
         for line in log.splitlines():
             m = re.search(r"(flash_[a-z_]+_kernel|conv1x1_stats(?:_tc)?_kernel"
-                          r"|stats_reduce_kernel|mxt_nms_(?:mask|scan)_kernel)"
+                          r"|stats_reduce_kernel|mxt_nms_(?:count|mask|scan)_kernel)"
                           r"((?:I(?:f|13__nv_bfloat16|6__half|Li\d+E"
                           r"|Lb[01]E)+E)?)",
                           line)
@@ -3980,6 +3989,12 @@ def phase_ndarray(torch, mx, att):
 # arithmetic (the kernel without FMA contraction).
 NMS_PROPOSAL = (2, 2000, 0.7, 1000)
 NMS_BOX = (8, 4096, 0.5)
+# MultiBoxDetection's: SSD-512's anchors, class-aware over 20 classes, IoU
+# 0.5, flags on a sorted prefix of 1.1-1.5 % of each image (the trained
+# batch of train_ssd had 2,569 boxes over its 0.01 score, 1.3 %)
+NMS_MULTIBOX = (8, 24564, 0.5, (0.011, 0.015))
+# flags that are no prefix: every other box and a random third of the rest
+NMS_INTERLEAVED = (2, 2000, 0.5)
 # a pair's IoU: 4 min/max, 2 subtractions and 2 max for the overlap, its
 # product, the union's add and subtract, the division and the compare
 NMS_PAIR_OPS = 13
@@ -4040,32 +4055,46 @@ def _nms_inputs(torch, rs, B, N, scale, aware=False, ties=False):
                          device=dev) if aware else None)
 
 
-def _nms_pairs(inp):
-    """Pairs (i < j) whose IoU the greedy pass needs: of the boxes that
-    take part, of one class where the pass is class-aware."""
+def _nms_taking_part(inp, upto=None):
+    """(B, N) bool numpy: the boxes that take part in the greedy pass (its
+    valid flags, every box without them); with `upto` (per image) of an
+    image's first `upto[b]` boxes only."""
     valid = inp["valid"]
     valid = np.ones(inp["boxes"].shape[:2], bool) if valid is None \
-        else valid.cpu().numpy()
+        else valid.cpu().numpy().copy()
+    if upto is not None:
+        for b, u in enumerate(upto):
+            valid[b, u:] = False
+    return valid
+
+
+def _nms_pairs(inp, part):
+    """Pairs (i < j) whose IoU the greedy pass needs: of the boxes that
+    take part (`part`), of one class where the pass is class-aware."""
     cls = None if inp["cls"] is None else inp["cls"].cpu().numpy()
     n = 0
-    for b in range(valid.shape[0]):
+    for b in range(part.shape[0]):
         if cls is None:
-            k = int(valid[b].sum())
+            k = int(part[b].sum())
             n += k * (k - 1) // 2
         else:
-            c = np.bincount(cls[b][valid[b]].astype(np.int64))
+            c = np.bincount(cls[b][part[b]].astype(np.int64))
             n += int((c * (c - 1) // 2).sum())
     return n
 
 
-def _nms_bound(inp, topk):
-    """Least time (ms) of one NMS call: the pairs' IoUs on the CUDA cores,
-    or its inputs read once (boxes, class ids, flags) and its outputs
-    written once (keep flags, kept positions)."""
+def _nms_bound(inp, topk, keep_out=True, upto=None):
+    """Least time (ms) of one NMS call: the pairs' IoUs on the CUDA cores
+    (`_nms_pairs`), or the bytes it must move, the larger: every flag read
+    and every keep flag written (unless positions only), the boxes and
+    class ids of the boxes that take part (`_nms_taking_part`) read, and
+    the kept positions written."""
     B, N = inp["boxes"].shape[:2]
-    nbytes = B * N * (16 + 4 * (inp["cls"] is not None)
-                      + (inp["valid"] is not None) + 1) + B * topk * 8
-    pairs = _nms_pairs(inp)
+    part = _nms_taking_part(inp, upto)
+    nbytes = (B * N * ((inp["valid"] is not None) + keep_out)
+              + int(part.sum()) * (16 + 4 * (inp["cls"] is not None))
+              + B * topk * 8)
+    pairs = _nms_pairs(inp, part)
     t_ops = pairs * NMS_PAIR_OPS / PEAK_FLOPS_F32_CUDA_CORES
     t_bytes = nbytes / PEAK_BYTES_S
     return dict(bound_ms=max(t_ops, t_bytes) * 1e3,
@@ -4073,36 +4102,66 @@ def _nms_bound(inp, topk):
                 pairs=pairs, bytes=nbytes)
 
 
-def _nms_case(torch, nms, name, inp, thresh, plus_one, topk, timed):
+def _nms_scratch_bytes(B, N):
+    from incubator_mxnet_tpu_torch.ops import _kernels
+    return B * _kernels.library("nms").mxt_nms_mask_words(N) * 8
+
+
+def _nms_case(torch, nms, name, inp, thresh, plus_one, topk, timed,
+              positions_only=False, prefix=None):
     """The kernel against its plain version on `inp`; with `timed` their
     times (CUDA events, median of 5 x 20), each launch's device time
-    (profiler) and the bound."""
-    kw = dict(cls=inp["cls"], plus_one=plus_one, topk=topk)
+    (profiler) and the bound.  With `prefix` the plain version runs on
+    each image's first `prefix` boxes, which hold every box that takes
+    part, and the kernel's keep flags past them must be False."""
+    kw = dict(plus_one=plus_one, topk=topk, positions_only=positions_only)
+    ref_inp = inp if prefix is None else {
+        k: None if v is None else v[:, :prefix] for k, v in inp.items()}
 
     def run():
-        return nms.nms_sorted(inp["boxes"], inp["valid"], thresh, **kw)
+        return nms.nms_sorted(inp["boxes"], inp["valid"], thresh,
+                              cls=inp["cls"], **kw)
+
+    def plain():
+        return nms.nms_sorted_plain(ref_inp["boxes"], ref_inp["valid"],
+                                    thresh, cls=ref_inp["cls"], **kw)
     before = nms.nms_launches
     got = run()
     torch.cuda.synchronize()
     launched = nms.nms_launches - before
-    ref = nms.nms_sorted_plain(inp["boxes"], inp["valid"], thresh, **kw)
-    got, ref = ((g,) if topk <= 0 else g for g in (got, ref))
+    ref = plain()
+    # (keep or None, idx or None) of each
+    got, ref = ((None, g) if positions_only else (g[0], g[1]) if topk > 0
+                else (g, None) for g in (got, ref))
     B, N = inp["boxes"].shape[:2]
-    err = (got[0].int() - ref[0].int()).abs().max().item()
-    if topk > 0:
+    keep, tail_false = got[0], True
+    if keep is not None and prefix is not None:
+        tail_false = not bool(keep[:, prefix:].any())
+        keep = keep[:, :prefix]
+    err = 0 if keep is None else (keep.int() - ref[0].int()).abs().max().item()
+    if got[1] is not None:
         err = max(err, (got[1] - ref[1]).abs().max().item())
+    kept = int((got[1] >= 0).sum()) if positions_only else int(got[0].sum())
+    valid = inp["valid"]
     row = dict(case=name, shape=[B, N], thresh=thresh, plus_one=plus_one,
                class_aware=inp["cls"] is not None, topk=topk,
-               launches=launched, kept=int(got[0].sum()),
-               max_abs_err=float(err),
-               keep_equal=bool(torch.equal(got[0], ref[0])),
-               idx_equal=bool(topk <= 0 or torch.equal(got[1], ref[1])))
+               positions_only=positions_only, launches=launched, kept=kept,
+               valid_per_image=None if valid is None
+               else valid.sum(1).tolist(),
+               plain_on_prefix=prefix, max_abs_err=float(err),
+               keep_equal=keep is None or bool(torch.equal(keep, ref[0])),
+               idx_equal=got[1] is None or bool(torch.equal(got[1], ref[1])),
+               tail_false=tail_false,
+               scratch_bytes=_nms_scratch_bytes(B, N))
     if timed:
         row["ms"] = _time_ms(torch, run)
-        row["plain_ms"] = _time_ms(torch, lambda: nms.nms_sorted_plain(
-            inp["boxes"], inp["valid"], thresh, **kw))
+        row["plain_ms"] = _time_ms(torch, plain)
         row["device_ms"], row["device_kernels"] = _device_ms(torch, run)
-        row.update(_nms_bound(inp, max(topk, 0)), library_ms=None)
+        # positions only: the pass needs the boxes up to the topk-th kept
+        upto = None if not positions_only else [
+            N if int(i[-1]) < 0 else int(i[-1]) + 1 for i in got[1]]
+        row.update(_nms_bound(inp, max(topk, 0), not positions_only, upto),
+                   library_ms=None)
     return row
 
 
@@ -4119,9 +4178,10 @@ def _plain_nms(nms):
 
 
 def phase_kernel_nms(torch):
-    """The NMS kernel against its plain version at Proposal's and
-    box_nms's shapes and on tied scores, and box_nms end to end by both
-    routes; returns the timed rows by case."""
+    """The NMS kernel against its plain version at Proposal's, box_nms's
+    and MultiBoxDetection's shapes, with flags that are no prefix, in the
+    positions-only mode and on tied scores, and box_nms end to end by
+    both routes; returns the timed rows by case."""
     from incubator_mxnet_tpu_torch.ops import contrib, nms
     t0 = time.monotonic()
     rs = np.random.RandomState(0)
@@ -4149,12 +4209,28 @@ def phase_kernel_nms(torch):
     with _plain_nms(nms):
         ref = contrib.box_nms(det, overlap_thresh=thresh, id_index=0)
     e2e = bool(torch.equal(got, ref))
+    B, N, thresh, share = NMS_MULTIBOX
+    mbox = _nms_inputs(torch, rs, B, N, 1.0, aware=True)
+    ends = np.round(N * rs.uniform(*share, B)).astype(np.int64)
+    mbox["valid"] = torch.tensor(np.arange(N)[None, :] < ends[:, None],
+                                 device="cuda:0")
+    rows.append(_nms_case(torch, nms, "multibox_detection", mbox, thresh,
+                          False, 0, True, prefix=int(ends.max())))
+    B, N, thresh = NMS_INTERLEAVED
+    inter = _nms_inputs(torch, rs, B, N, 800.0)
+    flags = (np.arange(N) % 2 == 0)[None, :] | (rs.rand(B, N) < 0.33)
+    inter["valid"] = torch.tensor(flags, device="cuda:0")
+    rows.append(_nms_case(torch, nms, "interleaved_flags", inter, thresh,
+                          False, 0, True))
+    _, _, thresh, topk = NMS_PROPOSAL
+    rows.append(_nms_case(torch, nms, "proposal_positions_only", prop,
+                          thresh, True, topk, True, positions_only=True))
     _emit(dict(phase="kernel_nms", seconds=time.monotonic() - t0,
                cases=rows, box_nms_end_to_end_equal=e2e,
                library="none: torch has no NMS call and the card's "
                        "machine has no torchvision"))
     for r in rows:
-        _check(r["keep_equal"] and r["idx_equal"],
+        _check(r["keep_equal"] and r["idx_equal"] and r["tail_false"],
                "NMS kernel differs from its plain version: %r" % (r,))
         _check(r["launches"] == 1 and 0 < r["kept"] < r["shape"][0]
                * r["shape"][1], "NMS case %s launched %d times and kept "
@@ -4163,8 +4239,24 @@ def phase_kernel_nms(torch):
     return {r["case"]: r for r in rows if "ms" in r}
 
 
+@contextlib.contextmanager
+def _recorded_nms(nms):
+    """The inputs of every `nms_sorted` call inside (the detection ops'
+    own), each still run by the kernel: [{boxes, valid, cls}]."""
+    calls, kernel = [], nms.nms_sorted
+
+    def recording(boxes, valid, thresh, **kw):
+        calls.append(dict(boxes=boxes, valid=valid, cls=kw.get("cls")))
+        return kernel(boxes, valid, thresh, **kw)
+    nms.nms_sorted = recording
+    try:
+        yield calls
+    finally:
+        nms.nms_sorted = kernel
+
+
 def _nms_profiled(kernels):
-    """The NMS kernel's two launches by name among `_port_kernel_calls`'
+    """The NMS kernel's launches by name among `_port_kernel_calls`'
     {port kernel: launches per call}."""
     return {k: n for k, n in kernels.items() if k.startswith("mxt_nms_")}
 
@@ -4366,10 +4458,21 @@ def phase_train_ssd(torch, mx, att, cs):
     cls_prob = torch.softmax(cls_preds.float(), -1).transpose(1, 2)
     loc = box_preds.float()
     before = nms.nms_launches
-    det = contrib.multibox_detection(cls_prob, loc, anchors,
-                                     nms_threshold=SSD_NMS)
+    with _recorded_nms(nms) as calls:
+        det = contrib.multibox_detection(cls_prob, loc, anchors,
+                                         nms_threshold=SSD_NMS)
     torch.cuda.synchronize()
     det_launches = nms.nms_launches - before
+    # its NMS: the ranked boxes, the flags of those over the 0.01 score,
+    # their classes; the bound counts the same-class pairs of those boxes
+    det_in = calls[0]
+    det_valid = det_in["valid"]
+    det_nms = dict(
+        valid_per_image=det_valid.sum(1).tolist(),
+        n_eff_per_image=[int(v.nonzero().max()) + 1 if bool(v.any()) else 0
+                         for v in det_valid],
+        scratch_bytes=_nms_scratch_bytes(*det_valid.shape),
+        **_nms_bound(det_in, 0))
     launches = nms.nms_launches         # the main path ends here
     inv = _detection_invariants(torch, det, cls_prob[:, 1:].amax(1),
                                 SSD_NMS)
@@ -4390,7 +4493,7 @@ def phase_train_ssd(torch, mx, att, cs):
                seconds=time.monotonic() - t0, parity=parity, **run[0],
                images_per_s=run[0]["units_per_s"],
                detection=dict(shape=list(det.shape), nms_threshold=SSD_NMS,
-                              launches=det_launches, ms=det_ms,
+                              launches=det_launches, ms=det_ms, nms=det_nms,
                               **inv, **det_kernels)))
     _check(anchors.shape[1] == SSD_ANCHORS, "%d anchors, not %d"
            % (anchors.shape[1], SSD_ANCHORS))
@@ -4404,8 +4507,10 @@ def phase_train_ssd(torch, mx, att, cs):
     _check(parity["gradients"] == 79, "%d trainable tensors, not 79"
            % parity["gradients"])
     _det_train_checks("train_ssd", run, 0, 0)
-    _check(det_launches == 1 and det_kernels["nms_launches"] == {
-        "mxt_nms_mask_kernel": 1, "mxt_nms_scan_kernel": 1},
+    _check(len(calls) == 1 and det_launches == 1
+           and det_kernels["nms_launches"] == {
+               "mxt_nms_count_kernel": 1, "mxt_nms_mask_kernel": 1,
+               "mxt_nms_scan_kernel": 1},
         "MultiBoxDetection launched the NMS kernel %d times (%r)"
         % (det_launches, det_kernels["nms_launches"]))
     _check(inv["kept"] > 0 and inv["suppressed"] > 0,
@@ -4418,7 +4523,8 @@ def phase_train_ssd(torch, mx, att, cs):
            "%d suppressed boxes overlap no kept box of their class that "
            "scores higher" % inv["suppressed_without_a_kept_suppressor"])
     return dict(launches=launches, detection_launches=det_launches,
-                detection_ms=det_ms, **_det_summary(run[0]))
+                detection_ms=det_ms, detection_nms=det_nms,
+                **_det_summary(run[0]))
 
 
 def _rcnn_data(batch):
@@ -4603,16 +4709,12 @@ def phase_train_rcnn(torch, mx, att, cs):
                     out["profile"]["port_kernels"]))
 
 
-def main():
-    import torch
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device; this script runs only on the "
-              "card", file=sys.stderr)
-        return 1
-    import incubator_mxnet_tpu_torch as mx
+def setup(torch):
+    """What every run of the phases starts from, here and in
+    `tools/chip_phases.py`: f32 products without TF32, the card's env
+    line, and every kernel built from the checkout (the build line with
+    the ptxas report).  Returns the card's name and nvidia-smi's line."""
     from incubator_mxnet_tpu_torch.ops import _kernels
-    from incubator_mxnet_tpu_torch.ops import attention as att
-    from incubator_mxnet_tpu_torch.ops import conv_stats as cs
 
     # f32 products stay full f32 on the card (no TF32), so the kernel and
     # the served logits can be held to f32 tolerances
@@ -4636,6 +4738,19 @@ def main():
                spill_store_bytes=sum(k.get("spill_store_bytes", 0)
                                      for k in ptxas.values()),
                ptxas=ptxas))
+    return name, smi
+
+
+def main():
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs only on the "
+              "card", file=sys.stderr)
+        return 1
+    import incubator_mxnet_tpu_torch as mx
+    from incubator_mxnet_tpu_torch.ops import attention as att
+    from incubator_mxnet_tpu_torch.ops import conv_stats as cs
+    name, smi = setup(torch)
 
     fwd_rows = phase_kernel(torch, att)
     main_row = fwd_rows[BERT_CASE]
@@ -4752,8 +4867,12 @@ def main():
              bound_ms=nms_rows["proposal"]["bound_ms"],
              bound_by=nms_rows["proposal"]["bound_by"],
              library_ms=None, shape=nms_rows["proposal"]["shape"],
-             box_nms_shape={k: nms_rows["box_nms"][k] for k in (
-                 "shape", "ms", "plain_ms", "bound_ms", "bound_by")})]})
+             detection_bound_ms=ssd["detection_nms"]["bound_ms"],
+             **{case + "_shape": {k: nms_rows[case][k] for k in (
+                 "shape", "ms", "device_ms", "plain_ms", "bound_ms",
+                 "bound_by", "scratch_bytes")} for case in (
+                 "box_nms", "multibox_detection", "interleaved_flags",
+                 "proposal_positions_only")})]})
     print(smi, flush=True)
     _emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                   "count": torch.cuda.device_count()}})

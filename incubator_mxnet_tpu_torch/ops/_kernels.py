@@ -53,7 +53,7 @@ SOURCES = {
             ctypes.c_int),
     }),
     "nms": ("nms.cu", {
-        "mxt_nms_mask_words": ([ctypes.c_int], ctypes.c_int),
+        "mxt_nms_mask_words": ([ctypes.c_int], ctypes.c_longlong),
         "mxt_nms": (
             [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2
             + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p],

@@ -6,14 +6,16 @@ JAX package leaves them to XLA loops, which on the card would be N tiny
 launches or a loop whose exit depends on the data, and neither fits in a
 captured CUDA graph.
 
-`nms_sorted(boxes, valid, thresh, cls=None, plus_one=False, topk=0)`
-takes B images of N boxes in score order and returns `keep` (B, N) bool,
-and with `topk > 0` also the first `topk` kept positions (B, topk) int64,
--1 after them:
+`nms_sorted(boxes, valid, thresh, cls=None, plus_one=False, topk=0,
+positions_only=False)` takes B images of N boxes in score order and
+returns `keep` (B, N) bool, and with `topk > 0` also the first `topk`
+kept positions (B, topk) int64, -1 after them; with `positions_only`
+only those positions, which lets the kernel stop at the `topk`-th kept
+box:
 
-* a CUDA tensor launches the kernel (a mask launch and a scan launch),
-  or raises `ValueError` for what it does not take (boxes not f32, more
-  than 65,535 images);
+* a CUDA tensor launches the kernel (a count launch where `valid` is
+  given, a mask launch and a scan launch), or raises `ValueError` for
+  what it does not take (boxes not f32, more than 65,535 images);
 * a CPU tensor takes the plain PyTorch version (`nms_sorted_plain`): the
   same greedy pass as N vectorised updates with no host read, so that
   the CPU recorder of `graph_capture` captures it;
@@ -23,7 +25,8 @@ and with `topk > 0` also the first `topk` kept positions (B, topk) int64,
 package's order of operations, which the kernel repeats with rounding
 intrinsics so that `iou > thresh` decides the same way.  `nms_launches`
 counts the wrapper's calls that launched the kernel (each is one mask
-and one scan launch: `mxt_nms_mask_kernel`, `mxt_nms_scan_kernel`).
+and one scan launch, `mxt_nms_mask_kernel` and `mxt_nms_scan_kernel`,
+after one `mxt_nms_count_kernel` where `valid` is given).
 """
 from __future__ import annotations
 
@@ -82,10 +85,12 @@ def first_kept(keep, topk):
     return out[:, :topk]
 
 
-def nms_sorted_plain(boxes, valid, thresh, cls=None, plus_one=False, topk=0):
+def nms_sorted_plain(boxes, valid, thresh, cls=None, plus_one=False, topk=0,
+                     positions_only=False):
     """Plain PyTorch version of the kernel: the (B, N, N) suppression
     pairs, then one vectorised update per box in score order,
     keep &= ~(sup[i] & keep[i]), with keep starting as `valid`."""
+    _check_mode(topk, positions_only)
     B, N, _ = boxes.shape
     sup = (iou_plus_one if plus_one else iou_corner)(boxes, boxes) > thresh
     if cls is not None:
@@ -95,13 +100,21 @@ def nms_sorted_plain(boxes, valid, thresh, cls=None, plus_one=False, topk=0):
         if valid is None else valid.clone()
     for i in range(N):
         keep = keep & ~(sup[:, i, :] & keep[:, i:i + 1])
+    if positions_only:
+        return first_kept(keep, topk)
     if topk > 0:
         return keep, first_kept(keep, topk)
     return keep
 
 
-def _nms_cuda(boxes, valid, thresh, cls, plus_one, topk):
+def _check_mode(topk, positions_only):
+    if positions_only and topk <= 0:
+        raise ValueError("nms positions_only needs topk > 0, got %d" % topk)
+
+
+def _nms_cuda(boxes, valid, thresh, cls, plus_one, topk, positions_only):
     global nms_launches
+    _check_mode(topk, positions_only)
     if boxes.dtype != torch.float32:
         raise ValueError("nms kernel takes float32 boxes, got %s"
                          % boxes.dtype)
@@ -121,37 +134,46 @@ def _nms_cuda(boxes, valid, thresh, cls, plus_one, topk):
         cls = cls.to(torch.float32).contiguous()
     if valid is not None:
         valid = valid.to(torch.bool).contiguous()
-    keep = torch.empty((B, N), dtype=torch.bool, device=dev)
+    keep = None if positions_only else \
+        torch.empty((B, N), dtype=torch.bool, device=dev)
     idx = torch.empty((B, max(topk, 0)), dtype=torch.long, device=dev)
     if B * N == 0:
-        return (keep, idx.fill_(-1)) if topk > 0 else keep
-    lib = _kernels.library("nms")
-    mask = torch.empty(B * N * lib.mxt_nms_mask_words(N),
-                       dtype=torch.long, device=dev)
-    with torch.cuda.device(dev):
-        rc = lib.mxt_nms(
-            boxes.data_ptr(), 0 if cls is None else cls.data_ptr(),
-            0 if valid is None else valid.data_ptr(), mask.data_ptr(),
-            keep.data_ptr(), idx.data_ptr() if topk > 0 else 0, B, N,
-            float(thresh), int(bool(plus_one)), int(max(topk, 0)),
-            torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError("nms kernel launch failed with CUDA error %d"
-                           % rc)
-    nms_launches += 1
+        idx.fill_(-1)
+    else:
+        lib = _kernels.library("nms")
+        scratch = torch.empty(B * lib.mxt_nms_mask_words(N),
+                              dtype=torch.long, device=dev)
+        with torch.cuda.device(dev):
+            rc = lib.mxt_nms(
+                boxes.data_ptr(), 0 if cls is None else cls.data_ptr(),
+                0 if valid is None else valid.data_ptr(), scratch.data_ptr(),
+                0 if keep is None else keep.data_ptr(),
+                idx.data_ptr() if topk > 0 else 0, B, N, float(thresh),
+                int(bool(plus_one)), int(max(topk, 0)),
+                torch.cuda.current_stream(dev).cuda_stream)
+        if rc != 0:
+            raise RuntimeError("nms kernel launch failed with CUDA error %d"
+                               % rc)
+        nms_launches += 1
+    if positions_only:
+        return idx
     return (keep, idx) if topk > 0 else keep
 
 
-def nms_sorted(boxes, valid, thresh, cls=None, plus_one=False, topk=0):
+def nms_sorted(boxes, valid, thresh, cls=None, plus_one=False, topk=0,
+               positions_only=False):
     """Greedy NMS over `boxes` (B, N, 4) f32 in score order (module doc):
     the kernel for CUDA tensors, the plain version for CPU ones.  `valid`
     (B, N) bool or None: the boxes that take part (a box that does not is
     neither kept nor suppresses); `cls` (B, N) or None: class ids, only
     boxes of one class suppress each other; `plus_one`: `iou_plus_one`,
-    else `iou_corner`."""
+    else `iou_corner`; `positions_only` (with `topk > 0`): return only
+    the first `topk` kept positions."""
     if boxes.device.type == "cuda":
-        return _nms_cuda(boxes, valid, thresh, cls, plus_one, topk)
+        return _nms_cuda(boxes, valid, thresh, cls, plus_one, topk,
+                         positions_only)
     if boxes.device.type == "cpu":
-        return nms_sorted_plain(boxes, valid, thresh, cls, plus_one, topk)
+        return nms_sorted_plain(boxes, valid, thresh, cls, plus_one, topk,
+                                positions_only)
     raise ValueError("nms runs on CUDA or CPU tensors, got a tensor on %s"
                      % boxes.device)

@@ -77,8 +77,8 @@ def _nms_keep(boxes, scores, thresh, topk):
     that order, -1 padded."""
     order = torch.sort(scores, dim=1, descending=True, stable=True).indices
     b = torch.gather(boxes, 1, order[..., None].expand(boxes.shape))
-    _, keep = _nms.nms_sorted(b.float(), None, thresh, plus_one=True,
-                              topk=topk)
+    keep = _nms.nms_sorted(b.float(), None, thresh, plus_one=True,
+                           topk=topk, positions_only=True)
     return order, keep
 
 

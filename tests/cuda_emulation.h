@@ -7,10 +7,11 @@
 // run one after another, so a kernel's static __shared__ arrays are static
 // locals, one per kernel, that each block finds as the last one left them.
 // __syncthreads is a barrier of the block's threads.  The warp-wide
-// instructions (ldmatrix, mma.sync, shfl) are collectives: each lane posts its
-// operands, the warp meets at a barrier, each lane reads what the PTX ISA says
-// it receives, and the warp meets again.  cp.async copies at once, so its
-// waits are no-ops.  An mma sums its products and accumulator in double and
+// instructions (ldmatrix, mma.sync, shfl, ballot, redux) are collectives: each
+// lane posts its operands, the warp meets at a barrier, each lane reads what
+// the PTX ISA says it receives, and the warp meets again.  cp.async and the
+// bulk copy (cp.async.bulk) copy at once, so their waits, and the mbarrier a
+// bulk copy completes on, are no-ops.  The card has emu::kSmCount SMs.  An mma sums its products and accumulator in double and
 // rounds the sum to f32 toward zero, as the tensor cores do (the card matched
 // that rounding in 9 sums of 10, bwd_precision_study.py); the tests hold the
 // results to f32 or bf16 tolerances, not to the card's bits.
@@ -42,6 +43,7 @@ struct dim3 {
 struct uint3 { unsigned x, y, z; };
 uint3 threadIdx;
 uint3 blockIdx;
+uint3 gridDim;
 typedef void* cudaStream_t;
 enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1, cudaErrorInvalidConfiguration = 9 };
 enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize };
@@ -49,7 +51,10 @@ enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize };
 template <class K>
 int cudaFuncSetAttribute(K, cudaFuncAttribute, int bytes) { return bytes > 232448 ? 1 : 0; }
 inline int cudaGetLastError() { return 0; }
+enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount };
+inline int cudaGetDevice(int* device) { *device = 0; return 0; }
 using std::min;
+using std::max;
 
 struct float2 { float x, y; };
 inline float2 make_float2(float x, float y) { return {x, y}; }
@@ -66,6 +71,8 @@ inline float __fsub_rn(float a, float b) { return a - b; }
 inline float __fmul_rn(float a, float b) { return a * b; }
 inline float __fdiv_rn(float a, float b) { return a / b; }
 inline int __ffsll(long long x) { return __builtin_ffsll(x); }
+inline int __clzll(long long x) { return x ? __builtin_clzll(x) : 64; }
+inline int __popcll(unsigned long long x) { return __builtin_popcountll(x); }
 
 struct __nv_bfloat16 { uint16_t x; };
 struct __nv_bfloat162 { __nv_bfloat16 x, y; };
@@ -101,6 +108,8 @@ inline float __half2float(__half h) {
 inline __half2 __floats2half2_rn(float a, float b) { return {__float2half_rn(a), __float2half_rn(b)}; }
 
 namespace emu {
+// one SM, so that a grid sized to the card is small and its blocks stride
+constexpr int kSmCount = 1;
 constexpr int kMaxThreads = 1024;
 constexpr size_t kSmemBytes = 232448;
 constexpr size_t kStackBytes = 64 * 1024;
@@ -117,7 +126,7 @@ int current;
 const std::function<void()>* body;
 Barrier block_barrier;
 Barrier warp_barrier[kMaxThreads / 32];
-struct Slot { const void* p; uint32_t a[4], b[2]; float f; };
+struct Slot { const void* p; uint32_t a[4], b[2]; float f; uint64_t u; };
 Slot slot[kMaxThreads / 32][32];  // what each lane posts for a collective
 
 inline int warp() { return threadIdx.x / 32; }
@@ -146,6 +155,7 @@ inline void launch(dim3 grid, int threads, size_t smem_bytes, const std::functio
   for (unsigned by = 0; by < grid.y; ++by)
     for (unsigned bx = 0; bx < grid.x; ++bx) {
       blockIdx = {bx, by, 0};
+      gridDim = {grid.x, grid.y, grid.z};
       std::memset(smem, 0x7f, smem_bytes);  // stale shared memory reads as huge floats
       block_barrier = {threads, 0, 0};
       for (int w = 0; w < threads / 32; ++w) warp_barrier[w] = {32, 0, 0};
@@ -202,6 +212,55 @@ inline float __shfl_xor_sync(unsigned, float v, int mask) {
   emu::warp_sync();
   return r;
 }
+
+inline int cudaDeviceGetAttribute(int* value, cudaDeviceAttr, int) {
+  *value = emu::kSmCount;
+  return 0;
+}
+
+// what `reduce` makes of every lane's 64-bit `v`, read between the warp's
+// two meetings into this lane's own copy
+namespace emu {
+template <class F>
+inline uint64_t warp_collective(uint64_t v, F reduce) {
+  slot[warp()][lane()].u = v;
+  warp_sync();
+  uint64_t got[32];
+  for (int l = 0; l < 32; ++l) got[l] = slot[warp()][l].u;
+  const uint64_t r = reduce(got);
+  warp_sync();
+  return r;
+}
+}  // namespace emu
+
+inline unsigned __ballot_sync(unsigned, int pred) {
+  return static_cast<unsigned>(emu::warp_collective(pred != 0, [](const uint64_t* got) {
+    uint64_t bits = 0;
+    for (int l = 0; l < 32; ++l) bits |= static_cast<uint64_t>(got[l] != 0) << l;
+    return bits;
+  }));
+}
+inline unsigned __reduce_or_sync(unsigned, unsigned v) {
+  return static_cast<unsigned>(emu::warp_collective(v, [](const uint64_t* got) {
+    uint64_t r = 0;
+    for (int l = 0; l < 32; ++l) r |= got[l];
+    return r;
+  }));
+}
+inline unsigned __reduce_max_sync(unsigned, unsigned v) {
+  return static_cast<unsigned>(emu::warp_collective(v, [](const uint64_t* got) {
+    uint64_t r = 0;
+    for (int l = 0; l < 32; ++l) r = std::max(r, got[l]);
+    return r;
+  }));
+}
+
+// the mbarrier and the bulk asynchronous copy: the copy lands at once
+inline void mbar_init(unsigned long long*) {}
+inline void bulk_load(void* dst, const void* src, unsigned bytes, unsigned long long*) {
+  std::memcpy(dst, src, bytes);
+}
+inline void mbar_wait(unsigned long long*, int) {}
 
 inline void cp_async16(void* dst, const void* src, bool valid) {
   if (valid) std::memcpy(dst, src, 16); else std::memset(dst, 0, 16);

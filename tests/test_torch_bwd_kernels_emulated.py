@@ -108,9 +108,11 @@ def _emulated_source(path):
     return src
 
 
-def build_emulated(name, work):
+def build_emulated(name, work, defines=()):
     """Kernel library `name` of `_kernels.SOURCES` built for the CPU in
-    directory `work`, its C entry points bound as on the card."""
+    directory `work`, its C entry points bound as on the card; `defines`
+    are `NAME=value` macros passed as `-D` (a source's tunable constants,
+    lowered to reach their edge cases at small sizes)."""
     cxx = shutil.which("g++") or shutil.which("c++")
     if cxx is None:
         pytest.skip("needs a host C++ compiler (g++) to build the emulation")
@@ -120,7 +122,8 @@ def build_emulated(name, work):
     lib = work / ("lib%s.so" % name)
     build = subprocess.run(
         [cxx, "-std=c++17", "-O1", "-shared", "-fPIC", "-w",
-         "-I", str(HEADER.parent), "-o", str(lib), str(src)],
+         "-I", str(HEADER.parent)] + ["-D" + d for d in defines]
+        + ["-o", str(lib), str(src)],
         capture_output=True, text=True)
     assert build.returncode == 0, build.stderr
     so = ctypes.CDLL(str(lib))

@@ -1364,6 +1364,130 @@ def test_nms_kernel_raises_on_what_it_does_not_take(card):
         nms.nms_sorted(boxes, None, 0.5, cls=torch.zeros(1, 8))
 
 
+def _prefix_flags(card, B, N, share, seed):
+    """Each image's flags on a sorted prefix of about `share` of its
+    boxes, and the longest prefix."""
+    ends = np.round(N * np.random.RandomState(seed).uniform(
+        0.8 * share, 1.2 * share, B)).astype(np.int64)
+    valid = torch.tensor(np.arange(N)[None, :] < ends[:, None], device=card)
+    return valid, int(ends.max())
+
+
+def _interleaved_flags(card, B, N, seed):
+    """Every other box and a random third of the rest, none in the last
+    tenth: flags that are no prefix."""
+    rs = np.random.RandomState(seed)
+    flags = (np.arange(N) % 2 == 0)[None, :] | (rs.rand(B, N) < 0.33)
+    flags[:, N - N // 10:] = False
+    return torch.tensor(flags, device=card)
+
+
+@pytest.mark.parametrize("B,N,share,plus_one,aware,topk", [
+    (8, 24564, 0.013, False, True, 0), (2, 5000, 0.1, True, False, 300)])
+def test_nms_kernel_on_a_sparse_prefix_of_flags(card, B, N, share, plus_one,
+                                                aware, topk):
+    """MultiBoxDetection's shape (flags on 1.3 % of 24,564 anchors) and a
+    longer prefix: the kernel's flags equal the plain version's on the
+    prefix that holds every valid box, and are False past it."""
+    from incubator_mxnet_tpu_torch.ops import nms
+    boxes, cls, _ = _nms_inputs(card, B, N, N, aware)
+    valid, P = _prefix_flags(card, B, N, share, N)
+    for thresh in (0.3, 0.7):
+        got = nms.nms_sorted(boxes, valid, thresh, cls=cls,
+                             plus_one=plus_one, topk=topk)
+        ref = nms.nms_sorted_plain(
+            boxes[:, :P], valid[:, :P], thresh,
+            None if cls is None else cls[:, :P], plus_one, topk)
+        got, ref = ((g,) if topk <= 0 else g for g in (got, ref))
+        assert torch.equal(got[0][:, :P], ref[0])
+        assert not bool(got[0][:, P:].any()) and 0 < int(got[0].sum())
+        if topk:
+            assert torch.equal(got[1], ref[1])
+
+
+@pytest.mark.parametrize("B,N,plus_one,aware,topk", [
+    (2, 2000, False, False, 0), (3, 700, True, True, 200)])
+def test_nms_kernel_with_interleaved_flags(card, B, N, plus_one, aware,
+                                           topk):
+    from incubator_mxnet_tpu_torch.ops import nms
+    boxes, cls, _ = _nms_inputs(card, B, N, N + 1, aware)
+    valid = _interleaved_flags(card, B, N, N)
+    for thresh in (0.3, 0.7):
+        got = nms.nms_sorted(boxes, valid, thresh, cls=cls,
+                             plus_one=plus_one, topk=topk)
+        ref = nms.nms_sorted_plain(boxes, valid, thresh, cls, plus_one, topk)
+        got, ref = ((g,) if topk <= 0 else g for g in (got, ref))
+        for g, r in zip(got, ref):
+            assert torch.equal(g, r)
+        assert 0 < int(got[0].sum()) < int(valid.sum())
+
+
+@pytest.mark.parametrize("B,N,topk,flags", [
+    (2, 2000, 1000, False), (2, 300, 300, True), (4, 1000, 1, False)])
+def test_nms_kernel_positions_only(card, B, N, topk, flags):
+    """Proposal's mode: only the first `topk` kept positions, the scan
+    ending at the topk-th kept box; as the plain version's positions-only
+    mode and its full pass give them (`topk` reached, and not)."""
+    from incubator_mxnet_tpu_torch.ops import nms
+    boxes, _, valid = _nms_inputs(card, B, N, N + 2)
+    valid = valid if flags else None
+    for thresh in (0.3, 0.7):
+        before = nms.nms_launches
+        got = nms.nms_sorted(boxes, valid, thresh, plus_one=True, topk=topk,
+                             positions_only=True)
+        torch.cuda.synchronize()
+        assert nms.nms_launches == before + 1
+        ref = nms.nms_sorted_plain(boxes, valid, thresh, plus_one=True,
+                                   topk=topk, positions_only=True)
+        _, full = nms.nms_sorted(boxes, valid, thresh, plus_one=True,
+                                 topk=topk)
+        assert torch.equal(got, ref) and torch.equal(got, full)
+
+
+def test_nms_kernel_in_a_captured_graph_follows_the_flags(card):
+    """One captured graph of the NMS kernel, box_nms's form and
+    Proposal's positions-only form, replayed as the boxes and the number
+    of boxes that take part change: each replay gives the plain version's
+    result on the new inputs (n_eff and the early stop are read on the
+    device, the grid does not change)."""
+    from incubator_mxnet_tpu_torch.ops import nms
+    B, N = 4, 3000
+    boxes, cls, _ = _nms_inputs(card, B, N, 9, aware=True)
+    valid = torch.zeros(B, N, dtype=torch.bool, device=card)
+
+    def calls():
+        return (nms.nms_sorted(boxes, valid, 0.5, cls=cls),
+                nms.nms_sorted(boxes, None, 0.7, plus_one=True, topk=400,
+                               positions_only=True))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        calls()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        keep, idx = calls()
+    before = nms.nms_launches
+    for seed, flags in enumerate(("prefix", "all", "none", "interleaved")):
+        new, new_cls, _ = _nms_inputs(card, B, N, 20 + seed, aware=True)
+        boxes.copy_(new)
+        cls.copy_(new_cls)
+        if flags == "prefix":
+            valid.copy_(_prefix_flags(card, B, N, 0.02, seed)[0])
+        elif flags == "interleaved":
+            valid.copy_(_interleaved_flags(card, B, N, seed))
+        else:
+            valid.fill_(flags == "all")
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(keep, nms.nms_sorted_plain(boxes, valid, 0.5,
+                                                      cls)), flags
+        assert torch.equal(idx, nms.nms_sorted_plain(
+            boxes, None, 0.7, plus_one=True, topk=400,
+            positions_only=True)), flags
+    assert nms.nms_launches == before
+
+
 def test_faster_rcnn_toy_hybridized_step_on_card(card):
     """One hybridized faster_rcnn_toy training step after its eager and
     capturing ones: Proposal's NMS by the kernel in the eager and the

@@ -676,6 +676,23 @@ def test_nms_sorted_plain_conventions_and_first_kept():
                                        constant_values=-1))
 
 
+def test_nms_positions_only_mode():
+    """`positions_only` returns just the first `topk` kept positions, as
+    the full pass gives them (reached and not), and needs `topk` > 0."""
+    rs = np.random.RandomState(4)
+    boxes = torch.from_numpy(_boxes(60, scale=20.0, lead=(2,)))
+    valid = torch.from_numpy(rs.rand(2, 60) > 0.3)
+    for topk in (3, 60):
+        for plus_one in (False, True):
+            idx = tnms.nms_sorted(boxes, valid, 0.3, plus_one=plus_one,
+                                  topk=topk, positions_only=True)
+            _, want = tnms.nms_sorted(boxes, valid, 0.3, plus_one=plus_one,
+                                      topk=topk)
+            assert torch.equal(idx, want)
+    with pytest.raises(ValueError, match="topk"):
+        tnms.nms_sorted(boxes, None, 0.3, positions_only=True)
+
+
 def test_nms_is_captured_by_the_cpu_recorder():
     """The plain NMS reads no device value on the host: a capture records
     it and a replay on new boxes gives the new greedy result."""

@@ -245,20 +245,33 @@ def nms_lib(tmp_path_factory):
     return build_emulated("nms", tmp_path_factory.mktemp("nms"))
 
 
+# what the scratch holds before a call: a word no row of the tests writes
+SCRATCH_FILL = 0x5A5A5A5A5A5A5A5A
+
+
 def _nms_emulated(lib, boxes, valid, thresh, cls=None, plus_one=False,
-                  topk=0):
+                  topk=0, positions_only=False, scratch=None):
+    """(keep, idx) of the emulated kernel (keep None with
+    `positions_only`); `scratch`, where given, is the (B, words) tensor
+    the call uses, filled with SCRATCH_FILL here."""
     B, N, _ = boxes.shape
-    boxes = boxes.contiguous()
-    mask = torch.full((B * N * lib.mxt_nms_mask_words(N),), -1,
-                      dtype=torch.long)
-    keep = torch.full((B, N), 7, dtype=torch.uint8)
+    # held here: a copy made inside the call's arguments is freed before it
+    boxes, cls, valid = (None if t is None else t.contiguous()
+                         for t in (boxes, cls, valid))
+    words = lib.mxt_nms_mask_words(N)
+    if scratch is None:
+        scratch = torch.empty((B, words), dtype=torch.long)
+    assert tuple(scratch.shape) == (B, words)
+    scratch.fill_(SCRATCH_FILL)
+    keep = None if positions_only else torch.full((B, N), 7,
+                                                  dtype=torch.uint8)
     idx = torch.full((B, max(topk, 1)), 12345, dtype=torch.long)
     assert lib.mxt_nms(
-        boxes.data_ptr(), 0 if cls is None else cls.contiguous().data_ptr(),
-        0 if valid is None else valid.contiguous().data_ptr(),
-        mask.data_ptr(), keep.data_ptr(), idx.data_ptr(), B, N, thresh,
-        int(plus_one), topk, None) == 0
-    return keep.bool(), idx[:, :topk]
+        boxes.data_ptr(), 0 if cls is None else cls.data_ptr(),
+        0 if valid is None else valid.data_ptr(),
+        scratch.data_ptr(), 0 if keep is None else keep.data_ptr(),
+        idx.data_ptr(), B, N, thresh, int(plus_one), topk, None) == 0
+    return None if keep is None else keep.bool(), idx[:, :topk]
 
 
 def _nms_boxes(B, N, scale, seed, ties=False):
@@ -326,3 +339,195 @@ def test_emulated_nms_kernel_keeps_a_box_at_exactly_the_threshold(
         assert keep[0].tolist() == want
         assert torch.equal(keep, tnms.nms_sorted_plain(b, None, thresh,
                                                        plus_one=plus_one))
+
+
+def _triangle_words(N):
+    """Words of an image's mask triangle: chunk r of 64 rows holds the
+    words r..nb-1 of its rows, the last chunk N - 64 (nb - 1) rows."""
+    nb = -(-N // 64)
+    return 64 * ((nb - 1) * nb - (nb - 1) * (nb - 2) // 2) + N - 64 * (nb - 1)
+
+
+def _sparse_flags(kind, B, N, rs):
+    """"prefix": each image's first 8-12 % of boxes take part, a long
+    invalid tail after; "none": no box does; "interleaved": every other
+    box and a random third of the rest, none in the last tenth."""
+    if kind == "prefix":
+        ends = rs.randint(N * 8 // 100, N * 12 // 100 + 1, B)
+        return torch.from_numpy(np.arange(N)[None, :] < ends[:, None])
+    if kind == "none":
+        return torch.zeros(B, N, dtype=torch.bool)
+    flags = (np.arange(N) % 2 == 0)[None, :] | (rs.rand(B, N) < 0.33)
+    flags[:, N - N // 10:] = False
+    return torch.from_numpy(flags)
+
+
+# (B, N, convention, class-aware, flags, topk): a long invalid tail, no
+# box at all, and flags that are no prefix, each way and with its topk
+SPARSE_NMS_CASES = [(2, 300, False, True, "prefix", 0),
+                    (3, 300, True, False, "prefix", 20),
+                    (3, 200, False, False, "none", 10),
+                    (2, 300, False, True, "interleaved", 0),
+                    (2, 300, True, False, "interleaved", 40)]
+
+
+@pytest.mark.parametrize("B,N,plus_one,aware,flags,topk", SPARSE_NMS_CASES)
+def test_emulated_nms_kernel_matches_plain_version_on_sparse_flags(
+        nms_lib, B, N, plus_one, aware, flags, topk):
+    """Exactly the plain version's keep flags and positions where few or
+    no boxes take part, and no mask word written for a row or column at
+    or past n_eff (one past the last box that takes part): with every
+    box that takes part in the first chunk, only that chunk's rows below
+    n_eff are written, and the flag words."""
+    rs = np.random.RandomState(N + B)
+    boxes = _nms_boxes(B, N, 60.0, seed=N, ties=True)
+    cls = torch.from_numpy(rs.randint(0, 3, (B, N)).astype(np.float32)) \
+        if aware else None
+    valid = _sparse_flags(flags, B, N, rs)
+    tri, nb = _triangle_words(N), -(-N // 64)
+    for thresh in (0.3, 0.7):
+        scratch = torch.empty((B, nms_lib.mxt_nms_mask_words(N)),
+                              dtype=torch.long)
+        keep, idx = _nms_emulated(nms_lib, boxes, valid, thresh, cls,
+                                  plus_one, topk, scratch=scratch)
+        ref = tnms.nms_sorted_plain(boxes, valid, thresh, cls, plus_one,
+                                    topk)
+        ref_keep = ref[0] if topk else ref
+        assert torch.equal(keep, ref_keep), (thresh, plus_one)
+        if topk:
+            assert torch.equal(idx, ref[1])
+        if flags == "none":
+            assert not bool(keep.any()) and bool((idx == -1).all())
+        elif flags == "prefix":
+            assert 0 < int(keep.sum())
+        written = scratch[:, :tri] != SCRATCH_FILL
+        for b in range(B):
+            n_eff = int(valid[b].nonzero().max()) + 1 if valid[b].any() \
+                else 0
+            if flags != "interleaved":
+                want = torch.zeros(tri, dtype=torch.bool)
+                want[:n_eff] = True
+                assert n_eff <= 64 and torch.equal(written[b], want), b
+        assert bool((scratch[:, tri:tri + nb] != SCRATCH_FILL).any()) \
+            or flags == "none"
+
+
+@pytest.mark.parametrize("plus_one,flags", [(True, None),
+                                            (False, "interleaved")])
+@pytest.mark.parametrize("topk", [6, 1000])
+def test_emulated_nms_kernel_positions_only(nms_lib, plus_one, flags, topk):
+    """Without keep flags the kernel writes the first `topk` kept
+    positions, -1 after, as the plain version's positions-only mode and
+    its full pass do: `topk` reached in the first chunk (the scan ends
+    there), and never reached."""
+    B, N = 2, 260
+    rs = np.random.RandomState(topk)
+    boxes = _nms_boxes(B, N, 60.0, seed=topk, ties=True)
+    valid = None if flags is None else _sparse_flags(flags, B, N, rs)
+    for thresh in (0.3, 0.7):
+        keep, idx = _nms_emulated(nms_lib, boxes, valid, thresh,
+                                  plus_one=plus_one, topk=topk,
+                                  positions_only=True)
+        ref = tnms.nms_sorted_plain(boxes, valid, thresh, None, plus_one,
+                                    topk, positions_only=True)
+        full = tnms.nms_sorted_plain(boxes, valid, thresh, None, plus_one,
+                                     topk)
+        assert keep is None and torch.equal(idx, ref) \
+            and torch.equal(ref, full[1])
+        assert bool((idx >= 0).all()) if topk == 6 \
+            else bool((idx == -1).any())
+
+
+@pytest.fixture(scope="module")
+def nms_slab_lib(tmp_path_factory):
+    # slabs of 4 words of 64 rows: at N 700 (11 chunks) the first chunks'
+    # words come in three slabs
+    return build_emulated("nms", tmp_path_factory.mktemp("nms_slab"),
+                          defines=("MXT_NMS_SLAB_BYTES=2048",))
+
+
+@pytest.mark.parametrize("plus_one,aware,flags,topk,positions_only", [
+    (False, True, None, 0, False), (True, False, "interleaved", 300, False),
+    (True, False, None, 300, True), (False, False, "prefix", 0, False)])
+def test_emulated_nms_kernel_streams_rows_in_slabs(
+        nms_slab_lib, plus_one, aware, flags, topk, positions_only):
+    """A chunk's row words wider than one slab are streamed in several,
+    through both buffers, with the same result as the plain version."""
+    B, N = 2, 700
+    rs = np.random.RandomState(7)
+    boxes = _nms_boxes(B, N, 60.0, seed=11)
+    cls = torch.from_numpy(rs.randint(0, 3, (B, N)).astype(np.float32)) \
+        if aware else None
+    valid = None if flags is None else _sparse_flags(flags, B, N, rs)
+    if flags == "prefix":
+        valid = torch.from_numpy(np.arange(N) < 600)[None].expand(B, N)
+    for thresh in (0.3, 0.7):
+        keep, idx = _nms_emulated(nms_slab_lib, boxes, valid, thresh, cls,
+                                  plus_one, topk, positions_only)
+        ref = tnms.nms_sorted_plain(boxes, valid, thresh, cls, plus_one,
+                                    topk, positions_only)
+        if positions_only:
+            assert torch.equal(idx, ref)
+            continue
+        ref_keep = ref[0] if topk else ref
+        assert torch.equal(keep, ref_keep) and 0 < int(keep.sum()) < B * N
+        if topk:
+            assert torch.equal(idx, ref[1])
+
+
+def test_emulated_nms_scratch_is_at_most_the_full_mask(nms_lib):
+    """An image's scratch (the mask triangle and its flag words) is at
+    most the N x ceil(N / 64) words of a full mask past two chunks, and
+    about half of it at SSD-512's 24,564 anchors."""
+    for N in (129, 200, 2000, 4096, 24564):
+        nb = -(-N // 64)
+        words = nms_lib.mxt_nms_mask_words(N)
+        assert _triangle_words(N) + nb <= words <= N * nb, N
+    assert nms_lib.mxt_nms_mask_words(24564) / (24564 * 384) < 0.51
+
+
+def test_nms_bound_counts_only_the_boxes_that_take_part():
+    """chip_smoke's NMS bound reads every flag and writes every keep flag,
+    but reads the boxes and class ids of the boxes that take part only
+    (up to `upto` where given), and counts their pairs, by class where
+    the pass is class-aware."""
+    B, N = 2, 300
+    valid = torch.zeros(B, N, dtype=torch.bool)
+    valid[0, :10] = True
+    valid[1, [0, 5, 250]] = True
+    cls = torch.zeros(B, N)
+    cls[0, :4] = 1.0                    # classes of image 0: 4 ones, 6 zeros
+    inp = dict(boxes=torch.zeros(B, N, 4), valid=valid, cls=cls)
+    got = chip_smoke._nms_bound(inp, 0)
+    assert got["bytes"] == B * N * 2 + 13 * 20
+    assert got["pairs"] == 6 + 15 + 3
+    assert got["bound_by"] == "bytes"
+    every = dict(boxes=inp["boxes"], valid=None, cls=None)
+    assert chip_smoke._nms_bound(every, 5, keep_out=False, upto=[7, 300])[
+        "bytes"] == (7 + 300) * 16 + B * 5 * 8
+    assert chip_smoke._nms_bound(every, 0)["pairs"] == B * N * (N - 1) // 2
+
+
+@pytest.mark.parametrize("plus_one", [False, True])
+def test_emulated_nms_kernel_decides_as_the_division_near_the_threshold(
+        nms_lib, plus_one):
+    """The kernel decides IoU > thresh from the product thresh x union
+    where the two are far apart and from the division near the
+    threshold: for thresholds at each pair's IoU, one ulp and 2^-21 and
+    2^-19 of it either side, its flags are the plain version's."""
+    boxes = _nms_boxes(1, 40, 30.0, seed=5)
+    iou = (tnms.iou_plus_one if plus_one else tnms.iou_corner)(boxes[0],
+                                                               boxes[0])
+    pairs = [(i, j) for i in range(40) for j in range(i + 1, 40)
+             if 0.05 < float(iou[i, j]) < 0.95][:6]
+    assert len(pairs) == 6
+    for i, j in pairs:
+        two = boxes[:, [i, j]]
+        v = iou[i, j].reshape(1)
+        for thresh in (v, torch.nextafter(v, v + 1), torch.nextafter(v, v - 1),
+                       v * (1 + 2 ** -21), v * (1 - 2 ** -21),
+                       v * (1 + 2 ** -19), v * (1 - 2 ** -19)):
+            t = float(thresh.float())
+            keep, _ = _nms_emulated(nms_lib, two, None, t, plus_one=plus_one)
+            assert torch.equal(keep, tnms.nms_sorted_plain(
+                two, None, t, plus_one=plus_one)), (i, j, t)
