@@ -269,6 +269,42 @@ Drives incubator_mxnet_tpu_torch only (never JAX or the JAX package):
              by their largest and median error to 3 x the CPU copy's own
              spread under a 2**-22 change of its input (batch-1
              BatchNorm's cancelling sums).
+13f. train_lamb — BERT-base MLM as train_bf16 builds it (bf16, batch 16
+             x 512, the same data) trained with LAMB (lr 1e-4, wd 0.01,
+             epsilon 1e-6; no weight decay on LayerNorm gamma/beta and
+             biases, as GluonNLP's run_pretraining.py), eager and
+             hybridized through the hybridize phase's run: 12 launches of
+             each flash kernel a replayed step by name, the timed steps
+             only replaying, losses and parameters of both modes bit for
+             bit, the hybridized Trainer's one eager update and one
+             capture; the captured update's device ms and launches beside
+             train_bf16's Adam update captured and timed alike; one LAMB
+             update of every bf16 weight from fixed gradients against the
+             port's update of bf16 CPU copies of their values: each
+             element within one bf16 ulp of itself plus 2**-5 of its
+             step, at most 1 % of the moved elements with another step,
+             and planted controls (no update, lr x 2, the step negated)
+             failing that check.  The
+             weights are pure bf16 with no f32 master copy (the brief's
+             Trainer settings; multi_precision copies only float16), so
+             a step of about lr x rms(w) moves only the elements near 0:
+             the share moved is printed (moved_share).
+13g. optimizers — a user block written with hybrid_forward under
+             name_scope (a Dense child, a params.get weight filled by its
+             own infer_shape; batch 64, 256 -> 512 -> 10) trained 6 steps
+             under a FactorScheduler by each of AdaGrad, AdaDelta,
+             RMSProp (plain and centered), Ftrl, Signum, SignSGD, LAMB,
+             Adamax, Nadam, SGLD and Test, and by Adam and LAMB with
+             multi_precision on float16 weights: eager and hybridized on
+             the card bit for bit, the Trainer's 1 eager update, 1 capture
+             and 4 replays, the block's 2 captures; the losses within
+             1e-4 of the same run on a CPU copy; 6 updates from the same
+             gradients within 1e-5 of scale of the CPU's (float16 weights
+             within one float16 ulp); SGLD's replayed noise (2**20 zero
+             weights) differing between replays, its mean and variance
+             within 4 sigma of 0 and lr; each of the ten new losses as a
+             hybridized block (eager, capture, replay) against the CPU,
+             value and input gradients within 1e-5 of scale.
 14. kernels — one JSON line per the port's kernel table (5 rows), then the
              card's name and power limit, then the final {"ok": true, ...}
              line.
@@ -1124,6 +1160,7 @@ def phase_hybridize(torch, mx, att, cs, name, build, step, units,
            and timed["eager_calls"] == 0 and timed["replays"] > 0,
            "%s: the hybridized timed steps did not only replay: %r"
            % (name, timed))
+    hyb[0]["compare"] = row
     return hyb[0]
 
 
@@ -3088,9 +3125,12 @@ def phase_train_nmt(torch, mx, att):
     return launches
 
 
-def _mlm_build(mx, net_fn, vocab, units, dtype=None):
-    """(net, FusedMLMCELoss, Adam lr 1e-4) fresh from seed 0, cast to
-    `dtype` where given, as the training phases build them."""
+def _mlm_build(mx, net_fn, vocab, units, dtype=None, optimizer="adam",
+               optimizer_params=None, no_wd=None):
+    """(net, FusedMLMCELoss, Trainer) fresh from seed 0, cast to `dtype`
+    where given, as the training phases build them: Adam lr 1e-4 unless
+    `optimizer` and `optimizer_params` say otherwise, with wd_mult 0 on
+    the parameters whose structural names match `no_wd`."""
     def build():
         mx.random.seed(0)
         net, head = net_fn(), mx.models.FusedMLMCELoss(vocab, units,
@@ -3098,12 +3138,31 @@ def _mlm_build(mx, net_fn, vocab, units, dtype=None):
         if dtype is not None:
             net.cast(dtype)
             head.cast(dtype)
+        if no_wd is not None:
+            for blk in (net, head):
+                blk.collect_params(no_wd).setattr("wd_mult", 0.0)
         params = dict(net.collect_params())
         params.update({"loss." + n: p
                        for n, p in head.collect_params().items()})
-        return net, head, mx.gluon.Trainer(params, "adam",
-                                           {"learning_rate": 1e-4})
+        return net, head, mx.gluon.Trainer(
+            params, optimizer, dict(optimizer_params
+                                    or {"learning_rate": 1e-4}))
     return build
+
+
+def _bf16_mlm_batch(torch):
+    """The bf16 BERT phases' batch: BF16_BATCH x SEQ tokens and labels
+    from RandomState(0), on the card."""
+    rs = np.random.RandomState(0)
+    tokens = rs.randint(0, 30522, (BF16_BATCH, SEQ)).astype(np.int32)
+    labels = rs.randint(0, 30522, (BF16_BATCH, SEQ)).astype(np.float32)
+    return torch.from_numpy(tokens).cuda(), torch.from_numpy(labels).cuda()
+
+
+def _flash_per_step(causal):
+    """A step's launches of (fwd, dq, dkv, their causal ones, conv, nms)
+    on a path through 12 attention layers."""
+    return (12,) * 3 + (causal,) * 3 + (0, 0)
 
 
 def phase_hybridize_all(torch, mx, att, cs):
@@ -3111,12 +3170,9 @@ def phase_hybridize_all(torch, mx, att, cs):
     hybridized as bench.py hybridizes them (`phase_hybridize`), with the
     host trace of one eager bf16 and NMT step; returns the hybridized
     runs by path."""
-    rs = np.random.RandomState(0)
-    tokens = rs.randint(0, 30522, (BF16_BATCH, SEQ)).astype(np.int32)
-    labels = rs.randint(0, 30522, (BF16_BATCH, SEQ)).astype(np.float32)
-    x, y = torch.from_numpy(tokens).cuda(), torch.from_numpy(labels).cuda()
+    x, y = _bf16_mlm_batch(torch)
     out = {}
-    flash = lambda causal: (12,) * 3 + (causal,) * 3 + (0, 0)  # noqa: E731
+    flash = _flash_per_step
     out["train_bf16"] = phase_hybridize(
         torch, mx, att, cs, "train_bf16",
         _mlm_build(mx, lambda: mx.models.bert_base(
@@ -3138,6 +3194,482 @@ def phase_hybridize_all(torch, mx, att, cs):
         RESNET_BATCH, (0,) * 6 + (RESNET_SITES, 0))
     return out
 
+
+# -- slice 17: LAMB at BERT-base width, and the optimizers on a user block ---
+
+LAMB_PARAMS = {"learning_rate": 1e-4, "wd": 0.01, "epsilon": 1e-6}
+# GluonNLP's run_pretraining.py: no weight decay on LayerNorm and biases
+LAMB_NO_WD = ".*(gamma|beta|bias)$"
+# the card's LAMB update of bf16 weights against the port's CPU update of
+# bf16 copies of the same values, which rounds as the card does (f32
+# arithmetic, g' and the norms rounded to bf16, one rounding into each
+# weight): the two differ only where the devices' f32 sums (the norms) or
+# contracted products round otherwise.  Each element within one bf16 ulp
+# of itself plus LAMB_STEP_RTOL of the CPU's step (g', r1, r2 and their
+# ratio each rounded to bf16, each within 2**-7 of itself where it rounds
+# otherwise), and of the elements that either side moves at most
+# LAMB_STEP_MISMATCH with another step: a norm one bf16 ulp off scales its
+# tensor's steps by 2**-8 and flips the rounding of about that share of
+# its moved elements.  A no-op update, lr x 2 and a sign flip, planted
+# through the same check, mismatch most moved elements and must fail
+LAMB_STEP_RTOL = 2.0 ** -5
+LAMB_STEP_MISMATCH = 0.01
+# replays of a captured update timed by CUDA events (median), and profiled:
+# a window of 10 LAMB updates (94k kernel records) lost records on the card
+UPDATE_REPS = 10
+UPDATE_PROFILED = 2
+
+
+def _update_program_ms(torch, trainer):
+    """One replay of `trainer`'s captured update: its ms by CUDA events
+    (median of UPDATE_REPS), its kernels' device ms and launches by
+    torch.profiler over UPDATE_PROFILED replays, the costliest kernels
+    (the replays move the weights on: call it last)."""
+    program = trainer._program[1]
+    events_ms = _event_ms(torch, program.replay, reps=UPDATE_REPS)
+    ms, kernels = _device_ms(torch, program.replay, reps=UPDATE_PROFILED)
+    return dict(ms=events_ms, device_ms=ms,
+                launches=sum(k["calls"] for k in kernels), top=kernels[:4])
+
+
+def _lamb_step_counts(torch, old, new, ref):
+    """One weight's update `new` from `old` against the reference update
+    `ref`: (the largest element difference over its allowance, one bf16
+    ulp of the larger of the two values plus LAMB_STEP_RTOL of the
+    reference's step; elements moved by either; elements that differ;
+    elements)."""
+    o, n, r = old.float(), new.float(), ref.float()
+    _, e = torch.frexp(torch.maximum(n.abs(), r.abs()))
+    allow = torch.exp2((e - 8).float()) + LAMB_STEP_RTOL * (r - o).abs()
+    return ((n - r).abs().div_(allow).max().item(),
+            int(((n != o) | (r != o)).sum()), int((n != r).sum()), o.numel())
+
+
+def _lamb_step_check(rows):
+    """Merges `_lamb_step_counts` rows: the largest element difference
+    over its allowance, the share of elements that the updates move, the
+    share of moved elements whose steps differ, and whether these pass
+    (something moved, each element within its allowance, the mismatch
+    within LAMB_STEP_MISMATCH)."""
+    err = max(r[0] for r in rows)
+    moved, differ, total = (sum(r[i] for r in rows) for i in (1, 2, 3))
+    mismatch = differ / max(moved, 1)
+    return dict(max_elem_err=err, moved_share=moved / total,
+                step_mismatch=mismatch,
+                ok=bool(moved > 0 and err <= 1.0
+                        and mismatch <= LAMB_STEP_MISMATCH))
+
+
+def _lamb_updates(mx, params, olds, grads, lr):
+    """LAMB_PARAMS's update at `lr` of copies of `olds` from `grads`,
+    each weight its own index of one optimizer over `params` (their
+    wd_mult): the new weights."""
+    opt = mx.optimizer.create("lamb", param_dict=dict(enumerate(params)),
+                              **dict(LAMB_PARAMS, learning_rate=lr))
+    news = []
+    for i, (w, g) in enumerate(zip(olds, grads)):
+        w = w.clone()
+        opt.update(i, w, g, opt.create_state(i, w))
+        news.append(w)
+    return news
+
+
+def _lamb_parity(torch, mx, params, names):
+    """One LAMB update of each bf16 card weight from fixed gradients
+    (N(0, 1e-3) from a seeded card generator, bf16), held against the
+    port's update of bf16 CPU copies of the same values
+    (`_lamb_step_check`), per weight and over all; and the planted
+    controls, each held the same way: the weights left as they were,
+    the card's update at twice the lr, and its step negated."""
+    gen = torch.Generator(device="cuda:0")
+    gen.manual_seed(1)
+    olds = [p.detach().clone() for p in params]
+    grads = [(torch.randn(p.shape, generator=gen, device=p.device)
+              * 1e-3).to(p.dtype) for p in params]
+    lr = LAMB_PARAMS["learning_rate"]
+    card = _lamb_updates(mx, params, olds, grads, lr)
+    twice = _lamb_updates(mx, params, olds, grads, 2 * lr)
+    olds = [w.cpu() for w in olds]
+    ref = _lamb_updates(mx, params, olds, [g.cpu() for g in grads], lr)
+    card, twice = [w.cpu() for w in card], [w.cpu() for w in twice]
+    flip = [2 * o.float() - n.float() for o, n in zip(olds, card)]
+    rows = {k: [_lamb_step_counts(torch, o, n, r)
+                for o, n, r in zip(olds, news, ref)]
+            for k, news in (("card", card), ("noop", olds),
+                            ("lr_x2", twice), ("sign_flip", flip))}
+    per_weight = {name: _lamb_step_check([row])
+                  for name, row in zip(names, rows["card"])}
+    worst = sorted(per_weight.items(),
+                   key=lambda kv: -kv[1]["step_mismatch"])[:5]
+    return dict(_lamb_step_check(rows["card"]), weights=len(params),
+                step_rtol=LAMB_STEP_RTOL,
+                step_mismatch_tol=LAMB_STEP_MISMATCH,
+                worst=[dict(name=k, **v) for k, v in worst],
+                controls={k: _lamb_step_check(rows[k])
+                          for k in ("noop", "lr_x2", "sign_flip")})
+
+
+def phase_train_lamb(torch, mx, att, cs):
+    """BERT-base MLM in bf16 (bert_base + FusedMLMCELoss cast to bf16,
+    batch 16 x 512, the bf16 phases' data) trained with LAMB (lr 1e-4, wd
+    0.01, epsilon 1e-6, no wd on LayerNorm gamma/beta and biases), eager
+    and hybridized (`phase_hybridize`: 12 launches of each flash kernel a
+    step, timed steps only replaying); both modes' losses and parameters
+    bit for bit; the hybridized Trainer's 1 eager update and 1 capture;
+    the captured update's device ms and launches beside train_bf16's
+    Adam update measured the same way; one LAMB update on the card held
+    against the port's CPU update of bf16 copies of the same values, with
+    planted controls (`_lamb_parity`)."""
+    t0 = time.monotonic()
+    x, y = _bf16_mlm_batch(torch)
+    base = _mlm_build(mx, lambda: mx.models.bert_base(
+        dropout=0.0, output_hidden=True, device="cuda:0"), 30522, 768,
+        "bfloat16", "lamb", LAMB_PARAMS, LAMB_NO_WD)
+    trainers = []
+
+    def build():
+        net, head, trainer = base()
+        trainers.append((trainer, list(net.collect_params()) + [
+            "loss." + n for n in head.collect_params()]))
+        return net, head, trainer
+    step = lambda n, h, t: _train_step(mx, n, h, t, (x,), y).mean()  # noqa
+    run = phase_hybridize(torch, mx, att, cs, "train_lamb", build, step,
+                          BF16_BATCH * SEQ, _flash_per_step(0))
+    eager_tr, (hyb_tr, names) = trainers[0][0], trainers[1]
+    del trainers[2:]
+    counts = dict(captures=hyb_tr.captures, replays=hyb_tr.replays,
+                  eager_updates=hyb_tr.eager_updates)
+    no_wd = sum(getattr(p, "wd_mult", 1.0) == 0.0 for p in hyb_tr._params)
+    parity = _lamb_parity(torch, mx, hyb_tr._params, names)
+    lamb_update = _update_program_ms(torch, hyb_tr)
+    del eager_tr, hyb_tr, trainers[:]
+    gc.collect()
+    torch.cuda.empty_cache()
+    # train_bf16's Adam update, captured the same way and timed alike
+    net, head, adam = _mlm_build(mx, lambda: mx.models.bert_base(
+        dropout=0.0, output_hidden=True, device="cuda:0"), 30522, 768,
+        "bfloat16")()
+    net.hybridize(static_alloc=True, static_shape=True)
+    head.hybridize()
+    for _ in range(2):
+        step(net, head, adam)
+    _check(adam.captures == 1, "the Adam update was not captured")
+    adam_update = _update_program_ms(torch, adam)
+    del net, head, adam
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = dict(phase="train_lamb", batch=[BF16_BATCH, SEQ],
+               optimizer=dict(name="lamb", **LAMB_PARAMS),
+               no_wd_params=no_wd, **_summary(run),
+               step_ms=run["step_ms"], losses=run["losses"],
+               eager_vs_hybridized=run["compare"], trainer=counts,
+               flash_launches_per_replayed_step=run[
+                   "profiled_launches_per_step"],
+               update=dict(lamb=lamb_update, adam=adam_update),
+               parity=parity,
+               wall_s=time.monotonic() - t0)
+    _emit(out)
+    cmp = run["compare"]
+    _check(cmp["losses_bit_equal"] and cmp["params_bit_equal"],
+           "train_lamb: eager and hybridized differ: %r" % (cmp,))
+    _check(counts["captures"] == 1 and counts["eager_updates"] == 1
+           and counts["replays"] >= TRAIN_STEPS,
+           "train_lamb: the Trainer did not capture once and replay: %r"
+           % (counts,))
+    _check(no_wd > 0, "train_lamb: no parameter without weight decay")
+    _check(parity["ok"], "train_lamb: the card's LAMB update is not the "
+           "CPU's: %r" % (parity,))
+    failed = [k for k, v in parity["controls"].items() if v["ok"]]
+    _check(not failed, "train_lamb: the LAMB parity check passed the "
+           "planted updates %s" % failed)
+    return out
+
+
+OPT_BATCH, OPT_IN, OPT_HIDDEN, OPT_CLASSES = 64, 256, 512, 10
+OPT_STEPS = 6
+# the same 6 updates from the same gradients, card against CPU, f32: the
+# two devices order and fuse the f32 arithmetic differently
+OPT_UPDATE_TOL = 1e-5
+# losses of the user block trained 6 steps on the card against its CPU
+# copy (f32 products without TF32 on both)
+OPT_LOSS_TOL = 1e-4
+# a loss's value and input gradient in a hybridized block, card against
+# CPU
+OPT_LOSS_BLOCK_TOL = 1e-5
+SGLD_ELEMS = 1 << 20
+OPT_CASES = (
+    # (case, optimizer, its parameters, dtype); every case also takes wd
+    # 1e-4 and a FactorScheduler(2, 0.5)
+    ("adagrad", "adagrad", dict(learning_rate=0.01), "float32"),
+    ("adadelta", "adadelta", {}, "float32"),
+    ("rmsprop", "rmsprop", dict(learning_rate=1e-3), "float32"),
+    ("rmsprop_centered", "rmsprop",
+     dict(learning_rate=1e-3, centered=True, clip_weights=1.0), "float32"),
+    ("ftrl", "ftrl", dict(learning_rate=0.1, lamda1=1e-5), "float32"),
+    ("signum", "signum", dict(learning_rate=1e-3), "float32"),
+    ("signsgd", "signsgd", dict(learning_rate=1e-3), "float32"),
+    ("lamb", "lamb", dict(learning_rate=1e-3), "float32"),
+    ("adamax", "adamax", dict(learning_rate=2e-3), "float32"),
+    ("nadam", "nadam", dict(learning_rate=1e-3), "float32"),
+    ("sgld", "sgld", dict(learning_rate=1e-5), "float32"),
+    ("test", "test", dict(learning_rate=0.01), "float32"),
+    ("adam_mp", "adam", dict(learning_rate=1e-3, multi_precision=True),
+     "float16"),
+    ("lamb_mp", "lamb", dict(learning_rate=1e-3, multi_precision=True),
+     "float16"),
+)
+
+
+def _opt_user_block(mx):
+    """The phase's user block, written as a Gluon user writes one: a
+    hybrid_forward over mx.nd ops, a child Dense and a weight of its own
+    from params.get, its width filled by infer_shape."""
+    class UserMLP(mx.gluon.HybridBlock):
+        def __init__(self):
+            super().__init__()
+            with self.name_scope():
+                self.hidden = mx.gluon.nn.Dense(OPT_HIDDEN, in_units=OPT_IN)
+                self.proj = self.params.get(
+                    "proj", shape=(OPT_CLASSES, 0), allow_deferred_init=True)
+
+        def infer_shape(self, x, *args):
+            self.proj.shape = (OPT_CLASSES, OPT_HIDDEN)
+
+        def hybrid_forward(self, F, x, proj):
+            return F.FullyConnected(F.relu(self.hidden(x)), proj,
+                                    no_bias=True, num_hidden=OPT_CLASSES)
+    return UserMLP
+
+
+def _opt_kwargs(mx, kw):
+    return dict(kw, wd=1e-4, lr_scheduler=mx.lr_scheduler.FactorScheduler(
+        step=2, factor=0.5))
+
+
+def _opt_train(torch, mx, case, init, data, device, hybrid):
+    """OPT_STEPS steps of the user block from `init` (values by parameter
+    name) on `device`: the losses, the parameters after, the Trainer and
+    the block."""
+    _, name, kw, dtype = case
+    mx.random.seed(0)
+    net = _opt_user_block(mx)()
+    net.initialize(ctx=device)
+    x, y = (a.to(device) for a in data)
+    with mx.autograd.pause():
+        net(x[:1])
+    for n, p in net.collect_params().items():
+        p.set_data(init[n])
+    if dtype != "float32":
+        net.cast(dtype)
+        x = x.to(getattr(torch, dtype))
+    if hybrid:
+        net.hybridize(static_alloc=True, static_shape=True)
+    loss = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    trainer = mx.gluon.Trainer(net.collect_params(), name,
+                               _opt_kwargs(mx, kw))
+    losses = [_train_step(mx, net, loss, trainer, (x,), y).float().mean()
+              for _ in range(OPT_STEPS)]
+    return (torch.stack(losses).cpu(),
+            [p.detach().clone() for p in trainer._params], trainer, net)
+
+
+def _opt_update_err(torch, mx, case):
+    """OPT_STEPS updates of 3 tensors from the same gradients, through the
+    optimizer on the card and on the CPU: the largest error over each
+    tensor's scale (f32), or in float16 ulps of the CPU weight (master
+    copies)."""
+    _, name, kw, dtype = case
+    rs = np.random.RandomState(2)
+    shapes = ((300, 40), (513,), (9, 7, 5))
+    w0 = [rs.randn(*s).astype(np.float32) for s in shapes]
+    gs = [[rs.randn(*s).astype(np.float32) for s in shapes]
+          for _ in range(OPT_STEPS)]
+    dt = getattr(torch, dtype)
+    out = []
+    for device in ("cuda:0", "cpu"):
+        opt = mx.optimizer.create(name, **_opt_kwargs(mx, kw))
+        ws = [torch.from_numpy(a).to(device, dt) for a in w0]
+        sts = [opt.create_state_multi_precision(i, w)
+               for i, w in enumerate(ws)]
+        for step in range(OPT_STEPS):
+            for i, w in enumerate(ws):
+                opt.update_multi_precision(
+                    i, w, torch.from_numpy(gs[step][i]).to(device, dt),
+                    sts[i])
+        out.append([w.float().cpu() for w in ws])
+    if dtype == "float16":
+        return max(((a - b).abs() / torch.exp2(torch.floor(torch.log2(
+            b.abs().clamp_min(2.0 ** -14))) - 10)).max().item()
+            for a, b in zip(*out))
+    return max(((a - b).abs().max() / b.abs().max()).item()
+               for a, b in zip(*out))
+
+
+def _sgld_moments(torch, mx):
+    """SGLD's captured update of SGLD_ELEMS zero weights from zero
+    gradients (no wd): the change of each replay is the noise N(0, 1)
+    sqrt(lr); its mean and variance over the weights, in sigmas of their
+    estimates, and whether two replays drew the same noise."""
+    lr = 1e-2
+    p = mx.gluon.Parameter("sgld_w", shape=(SGLD_ELEMS,))
+    p.initialize(init="zeros", ctx="cuda:0")
+    trainer = mx.gluon.Trainer([p], "sgld", {"learning_rate": lr})
+    p.grad = mx.autograd.grad_buffer(p)
+    changes = []
+    for _ in range(4):
+        before = p.detach().clone()
+        trainer.step(1)
+        changes.append((p.detach() - before).double())
+    n = float(SGLD_ELEMS)
+    replayed = changes[2:]
+    return dict(
+        trainer=dict(captures=trainer.captures, replays=trainer.replays,
+                     eager_updates=trainer.eager_updates),
+        mean_sigmas=[abs(c.mean().item()) / math.sqrt(lr / n)
+                     for c in replayed],
+        var_sigmas=[abs(c.var().item() - lr) / (lr * math.sqrt(2.0 / n))
+                    for c in replayed],
+        replays_differ=not torch.equal(replayed[0], replayed[1]))
+
+
+LOSS_BLOCKS = (
+    # (loss class, its arguments, kind of inputs)
+    ("L2Loss", {}, "reg"), ("L1Loss", {}, "reg"),
+    ("SigmoidBinaryCrossEntropyLoss", {}, "binary"),
+    ("SigmoidBCELoss", dict(from_sigmoid=True), "prob"),
+    ("KLDivLoss", dict(from_logits=False), "dist"),
+    ("HuberLoss", dict(rho=0.5), "reg"), ("HingeLoss", {}, "signed"),
+    ("SquaredHingeLoss", {}, "signed"), ("LogisticLoss", {}, "signed"),
+    ("TripletLoss", {}, "triplet"), ("CosineEmbeddingLoss", {}, "cosine"),
+)
+
+
+def _loss_inputs(torch, kind, rs):
+    """(inputs that take a gradient, other inputs) for a loss."""
+    f = np.float32
+    n, k = OPT_BATCH, OPT_CLASSES
+    pred = rs.randn(n, k).astype(f)
+    if kind == "reg":
+        other = [rs.randn(n, k)]
+    elif kind == "binary":
+        other = [rs.randint(0, 2, (n, k))]
+    elif kind == "prob":
+        pred = rs.rand(n, k).astype(f) * 0.9 + 0.05
+        other = [rs.randint(0, 2, (n, k))]
+    elif kind == "dist":
+        lab = rs.rand(n, k)
+        other = [lab / lab.sum(axis=1, keepdims=True)]
+    elif kind == "signed":
+        other = [rs.choice([-1.0, 1.0], (n, k))]
+    elif kind == "triplet":
+        return [pred, rs.randn(n, k).astype(f), rs.randn(n, k).astype(f)], []
+    else:
+        return [pred, rs.randn(n, k).astype(f)], [rs.choice([-1.0, 1.0], n)]
+    return [pred], [a.astype(f) for a in other]
+
+
+def _loss_block_errs(torch, mx):
+    """Each loss as a hybridized block on the card (eager, capture, replay,
+    each with its backward) against the same loss eagerly on the CPU: the
+    value's and the input gradients' largest error over their scale."""
+    rs = np.random.RandomState(3)
+    out = {}
+    for cls, kw, kind in LOSS_BLOCKS:
+        diff, other = _loss_inputs(torch, kind, rs)
+        res = {}
+        for device, hybrid in (("cuda:0", True), ("cpu", False)):
+            block = getattr(mx.gluon.loss, cls)(**kw)
+            if hybrid:
+                block.hybridize()
+            for _ in range(3 if hybrid else 1):
+                xs = [torch.from_numpy(a).to(device).requires_grad_()
+                      for a in diff]
+                with mx.autograd.record():
+                    v = block(*xs, *[torch.from_numpy(a).to(device)
+                                     for a in other])
+                mx.autograd.backward(v)
+            res[device] = [v.detach().cpu()] + [x.grad.cpu() for x in xs]
+            if hybrid:
+                g = block._cached_graph
+                res["programs"] = (g.eager_calls, g.captures, g.replays)
+        out[cls] = dict(
+            err=max(((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+                    .item() for a, b in zip(res["cuda:0"], res["cpu"])),
+            programs=res["programs"])
+    return out
+
+
+def phase_optimizers(torch, mx):
+    """The eleven optimizers the JAX package adds to SGD, NAG and Adam,
+    RMSProp also centered, and Adam and LAMB with master copies of float16
+    weights, each training a user block written with hybrid_forward under
+    name_scope (a Dense child, a params.get weight filled by its own
+    infer_shape) for 6 steps under a FactorScheduler, on the card eager
+    and hybridized: bit for bit, the Trainer's 1 eager update, 1 capture
+    and replays after; the same run on a CPU copy (losses within
+    OPT_LOSS_TOL); 6 updates from the same gradients on the card and on
+    the CPU (OPT_UPDATE_TOL of scale, master copies within one float16
+    ulp); SGLD's replayed noise by its moments; and each new loss as a
+    hybridized block on the card against the CPU."""
+    t0 = time.monotonic()
+    rs = np.random.RandomState(4)
+    data = (torch.from_numpy(rs.randn(OPT_BATCH, OPT_IN).astype(np.float32)),
+            torch.from_numpy(rs.randint(0, OPT_CLASSES, OPT_BATCH)
+                             .astype(np.float32)))
+    mx.random.seed(0)
+    ref = _opt_user_block(mx)()
+    ref.initialize(ctx="cpu")
+    with mx.autograd.pause():
+        ref(data[0][:1])
+    init = {n: p.detach().clone() for n, p in ref.collect_params().items()}
+    rows, failed = {}, []
+    for case in OPT_CASES:
+        e_loss, e_params, _, _ = _opt_train(torch, mx, case, init, data,
+                                            "cuda:0", False)
+        h_loss, h_params, tr, net = _opt_train(torch, mx, case, init, data,
+                                               "cuda:0", True)
+        c_loss, _, _, _ = _opt_train(torch, mx, case, init, data, "cpu",
+                                     False)
+        g = net._cached_graph
+        row = dict(
+            bit_equal=_same_bits(torch, e_loss, h_loss) and all(
+                _same_bits(torch, a, b) for a, b in zip(e_params, h_params)),
+            trainer=(tr.eager_updates, tr.captures, tr.replays),
+            block=(g.eager_calls, g.captures, g.replays),
+            lr_last=tr.learning_rate,
+            cpu_loss_err=((h_loss - c_loss).abs()
+                          / c_loss.abs().clamp_min(1e-30)).max().item(),
+            losses=h_loss.tolist())
+        if case[1] != "sgld":
+            row["update_err"] = _opt_update_err(torch, mx, case)
+        rows[case[0]] = row
+        # SGLD's noise is each device's generator's: held by its moments
+        ok = (row["bit_equal"] and row["trainer"] == (1, 1, OPT_STEPS - 2)
+              and row["block"] == (1, 2, 2 * (OPT_STEPS - 2))
+              and (case[1] == "sgld" or row["cpu_loss_err"] <= OPT_LOSS_TOL)
+              and row.get("update_err", 0.0) <= (
+                  1.0 if case[3] == "float16" else OPT_UPDATE_TOL))
+        if not ok:
+            failed.append(case[0])
+    sgld = _sgld_moments(torch, mx)
+    losses = _loss_block_errs(torch, mx)
+    out = dict(phase="optimizers", steps=OPT_STEPS,
+               shape=[OPT_BATCH, OPT_IN, OPT_HIDDEN, OPT_CLASSES],
+               tolerances=dict(update=OPT_UPDATE_TOL, loss=OPT_LOSS_TOL,
+                               loss_block=OPT_LOSS_BLOCK_TOL,
+                               float16_update_ulps=1.0),
+               optimizers=rows, sgld=sgld, loss_blocks=losses,
+               failed=failed, wall_s=time.monotonic() - t0)
+    _emit(out)
+    _check(not failed, "optimizers: failed %r" % (failed,))
+    _check(sgld["trainer"] == dict(captures=1, replays=2, eager_updates=1)
+           and sgld["replays_differ"]
+           and max(sgld["mean_sigmas"] + sgld["var_sigmas"]) <= 4.0,
+           "optimizers: SGLD's replayed noise: %r" % (sgld,))
+    bad = {k: v for k, v in losses.items()
+           if v["err"] > OPT_LOSS_BLOCK_TOL or v["programs"] != (1, 2, 2)}
+    _check(not bad, "optimizers: loss blocks off the CPU: %r" % (bad,))
+    return out
 
 def phase_decode_nmt(torch, mx, att):
     """transformer_nmt_base's cached decode on cuda:0: init_cache, then
@@ -4774,6 +5306,8 @@ def main():
     nms_rows = phase_kernel_nms(torch)
     ssd = phase_train_ssd(torch, mx, att, cs)
     rcnn = phase_train_rcnn(torch, mx, att, cs)
+    lamb = phase_train_lamb(torch, mx, att, cs)
+    phase_optimizers(torch, mx)
 
     def nmt(kernel):
         """A flash row's NMT-path and bf16-path launches and their shapes'
@@ -4785,9 +5319,11 @@ def main():
                     bf16_launches=bf16_launches[kernel],
                     bf16_shape=_shape_rows(fwd_rows, bwd_rows, kernel,
                                            BF16_CASES)["non_causal"],
-                    hybridized_launches_per_step={
-                        p: hyb[p]["profiled_launches_per_step"][kernel]
-                        for p in ("train_bf16", "train_nmt")},
+                    hybridized_launches_per_step=dict(
+                        {p: hyb[p]["profiled_launches_per_step"][kernel]
+                         for p in ("train_bf16", "train_nmt")},
+                        train_lamb=lamb["flash_launches_per_replayed_step"][
+                            kernel]),
                     nd_launches=nd_launches[kernel])
     shape = dict(shape=[main_row["BH"], main_row["T"], main_row["d"]],
                  dtype=main_row["dtype"])

@@ -12,7 +12,21 @@ then materialises and fills the parameter on its `initialize` device.
 `collect_params()` returns a `ParameterDict` keyed by structural names,
 as the JAX package's `_collect_params_with_prefix()` names them
 (`encoder.layers.0.attn.query.weight`), which are also their
-`named_parameters()` names and the keys of `save_parameters` files.
+`named_parameters()` names and the keys of `save_parameters` files (a
+parameter tied to two attributes has one key, its first name in module
+order).  These keys stay structural: the JAX package's parameter files
+and `weights.load_reference_params` use them.  Besides, as in the JAX
+package, every block has a `prefix` (the class name in lower case and a
+per-thread counter: "dense0_", "hybridsequential1_"; `name_scope()`
+leaves it as it is), a `name` (the prefix without its "_"), and
+`params`, a `ParameterDict` of its own parameters keyed by
+`Parameter.name`, the prefixed name ("dense0_weight"), which
+`params.get(name, **kwargs)` creates or shares (`params=`).  A block
+written as `hybrid_forward(self, F, x, *args, **params)` with no
+`forward` runs with `F` the port's `mx.nd` and its own parameters passed
+by attribute name (`HybridBlock.forward`); a parameter of it whose shape
+has a 0 is filled by `infer_shape`, its own or the default one that runs
+the forward on meta tensors.  `summary(*inputs)` prints the JAX table.
 
 `cast(dtype)` converts every parameter of the tree in place, keeping
 each parameter object (one not yet materialised records the dtype), so
@@ -52,15 +66,19 @@ changes the parameters' key and drops the block's programs.
 """
 from __future__ import annotations
 
+import contextlib
+import math
 import re
 import threading
+from collections import OrderedDict
 
 import torch
 from torch import nn
-from torch.utils._pytree import tree_flatten, tree_unflatten
+from torch.utils._pytree import tree_flatten, tree_map, tree_unflatten
 
-from .parameter import (Parameter, ParameterDict, cast_parameter,
-                        is_deferred)
+from .parameter import (DeferredInitializationError, Parameter,
+                        ParameterDict, cast_parameter, in_shape_pass,
+                        is_deferred, shape_pass)
 from .. import autograd as _ag
 from .. import graph_capture as _capture
 from .. import random as _rnd
@@ -69,7 +87,36 @@ from ..context import resolve_device
 from ..ndarray.ndarray import NDArray, _wrap, unwrap
 
 __all__ = ["Block", "HybridBlock", "new_parameter", "cast_parameter",
-           "materialize"]
+           "materialize", "nameless_scope"]
+
+
+# -- names (ref: the JAX package's _gen_prefix and name_scope) ---------------
+
+class _NameCounter(threading.local):
+    def __init__(self):
+        self.counts = {}
+
+
+_NAMES = _NameCounter()
+
+
+def _gen_prefix(hint):
+    """`hint` and its count so far, "dense0_", "dense1_", ...: one
+    counter per class name and thread, as in the JAX package."""
+    n = _NAMES.counts.get(hint, 0)
+    _NAMES.counts[hint] = n + 1
+    return "%s%d_" % (hint, n)
+
+
+@contextlib.contextmanager
+def nameless_scope():
+    """Name counters of their own inside, the outer ones restored after."""
+    counts = _NAMES.counts
+    _NAMES.counts = {}
+    try:
+        yield
+    finally:
+        _NAMES.counts = counts
 
 
 def new_parameter(name, shape, init, device, dtype, grad_req="write"):
@@ -80,6 +127,8 @@ def new_parameter(name, shape, init, device, dtype, grad_req="write"):
     `initialize`."""
     p = Parameter(name, grad_req=grad_req, shape=shape, dtype=dtype,
                   init=init, allow_deferred_init=True)
+    # the block it is assigned to prefixes its name (`Block.__setattr__`)
+    p.__dict__["_unscoped"] = True
     if device is not None:
         p.initialize(ctx=device)
     return p
@@ -87,10 +136,12 @@ def new_parameter(name, shape, init, device, dtype, grad_req="write"):
 
 def materialize(param, shape):
     """Give a deferred `param` its full `shape` and complete its
-    initialization; a parameter that has data is left as it is."""
+    initialization (inside a shape pass only the shape); a parameter
+    that has data is left as it is."""
     if is_deferred(param):
         param._set_shape(shape)
-        param._finish_deferred_init()
+        if not in_shape_pass():
+            param._finish_deferred_init()
 
 
 def _nd_call(call, args, kwargs):
@@ -112,7 +163,63 @@ class Block(nn.Module):
     (`forward`, `train()`/`eval()`, `state_dict`) applies as is.  Called
     with `mx.nd` NDArrays, a block runs on their tensors and returns
     NDArrays, as the JAX package's blocks do; called with tensors, it
-    returns tensors."""
+    returns tensors.
+
+    `Block(prefix=None, params=None)`: the prefix defaults to the class
+    name in lower case and its count ("dense0_"), `params` is a
+    `ParameterDict` whose parameters `self.params.get` shares.  A
+    `Parameter` assigned to an attribute is registered under that name
+    (`_reg_params`) and in `self.params` by its `name`; one made by
+    `new_parameter` ("weight") takes the block's prefix ("dense0_weight")
+    as the JAX `params.get("weight")` gives it."""
+
+    def __init__(self, prefix=None, params=None):
+        super().__init__()
+        self._prefix = prefix if prefix is not None \
+            else _gen_prefix(type(self).__name__.lower())
+        self._params = ParameterDict(self._prefix, shared=params)
+        self._reg_params = OrderedDict()
+
+    def __setattr__(self, name, value):
+        if isinstance(value, Parameter):
+            reg = self.__dict__.get("_reg_params")
+            if reg is not None:
+                if value.__dict__.pop("_unscoped", False):
+                    value.name = self._prefix + value.name
+                reg[name] = value
+                if value.name not in self._params:
+                    OrderedDict.__setitem__(self._params, value.name, value)
+        super().__setattr__(name, value)
+
+    def name_scope(self):
+        """`with self.name_scope():` around the children's construction;
+        as in the JAX package, the children's prefixes do not nest in
+        it."""
+        return contextlib.nullcontext()
+
+    @property
+    def prefix(self):
+        return self._prefix
+
+    @property
+    def name(self):
+        return self._prefix.rstrip("_")
+
+    @property
+    def params(self):
+        """This block's own parameters (not its children's), keyed by
+        name, with its prefix (`params.get("weight")`)."""
+        return self._params
+
+    def _own_params(self):
+        """{attribute name: parameter} of the parameters assigned to this
+        block's attributes, in order (what `hybrid_forward` receives)."""
+        out = OrderedDict()
+        for n in self.__dict__.get("_reg_params", ()):
+            p = getattr(self, n, None)
+            if p is not None:
+                out[n] = p
+        return out
 
     def __call__(self, *args, **kwargs):
         out = _nd_call(super().__call__, args, kwargs)
@@ -196,6 +303,64 @@ class Block(nn.Module):
         """Move the parameters to `device` (default `cuda:0`)."""
         return self.to(resolve_device(device))
 
+    def summary(self, *inputs):
+        """Print and return a per-layer table, as the JAX `Block.summary`
+        gives it: per block that runs, in the order they finish, its
+        structural name (the class name for this block), type, first
+        output's shape and the size of its own parameters, then the
+        total over `collect_params()`.  The forward runs eagerly under
+        `autograd.pause()`, with every hybridized block's programs set
+        aside and restored after, so that each child's hook fires."""
+        rows, handles = [], []
+
+        def count(block):
+            return sum(math.prod(p.shape or ())
+                       for p in block._own_params().values()
+                       if not is_deferred(p) or p._shape_known())
+
+        def register(block, prefix):
+            def hook(blk, args, out, _name=prefix or type(block).__name__):
+                first = out[0] if isinstance(out, (list, tuple)) else out
+                shape = tuple(getattr(first, "shape", ()))
+                rows.append((_name, type(blk).__name__, shape, count(blk)))
+            handles.append(block.register_forward_hook(hook))
+            for name, child in block.named_children():
+                register(child, (prefix + "." if prefix else "") + name)
+
+        register(self, "")
+        set_aside = []
+        for m in self.modules():
+            graph = m.__dict__.get("_cached_graph")
+            if graph is not None:
+                set_aside.append((m, graph))
+                m.__dict__["_cached_graph"] = None
+        try:
+            with _ag.pause():
+                self(*inputs)
+        finally:
+            for h in handles:
+                h.remove()
+            for m, graph in set_aside:
+                m.__dict__["_cached_graph"] = graph
+
+        lines = ["%s" % ("-" * 68),
+                 "%-28s %-14s %14s %8s" % ("Layer", "Type",
+                                           "Output Shape", "Params"),
+                 "=" * 68]
+        for name, typ, shape, n in rows:
+            lines.append("%-28s %-14s %14s %8d"
+                         % (name[:28] or "(self)", typ[:14], str(shape), n))
+        unique = {id(p): tuple(p.shape or ())
+                  for p in self.collect_params().values()}
+        total = sum(math.prod(s) for s in unique.values()
+                    if s and all(d > 0 for d in s))
+        lines.append("=" * 68)
+        lines.append("Total params: %d" % total)
+        lines.append("-" * 68)
+        out = "\n".join(lines)
+        print(out)
+        return out
+
 
 class HybridBlock(Block):
     """ref: gluon.HybridBlock."""
@@ -224,9 +389,81 @@ class HybridBlock(Block):
         if out is not None:
             return out
         cached = self.__dict__.get("_cached_graph")
-        if cached is None or _in_program():
+        if cached is None or _in_program() or in_shape_pass():
             return nn.Module.__call__(self, *args, **kwargs)
         return cached(args, kwargs)
+
+    def forward(self, x, *args, **kwargs):
+        """The forward of a block written as `hybrid_forward(self, F, x,
+        *args, **params)` (ref: HybridBlock.forward): `F` is `mx.nd`, the
+        inputs and this block's own parameters (`_own_params`, by
+        attribute name) come in as NDArrays, and the NDArrays it returns
+        go out as their tensors.  Its `nd` ops record for autograd when
+        torch's grad mode is on, as the port's other blocks do.  A
+        parameter without data takes its shape from `infer_shape` and is
+        initialized before the call."""
+        if type(self).hybrid_forward is HybridBlock.hybrid_forward:
+            raise NotImplementedError(
+                "%s defines neither forward nor hybrid_forward"
+                % type(self).__name__)
+        from .. import ndarray as F
+        params = self._own_params()
+        if not in_shape_pass() and any(map(is_deferred, params.values())):
+            self._finish_deferred(x, *args)
+            params = self._own_params()
+
+        def wrap(t):
+            return _wrap(t) if isinstance(t, torch.Tensor) else t
+        prev = _ag.set_recording(torch.is_grad_enabled())
+        try:
+            out = self.hybrid_forward(
+                F, wrap(x), *map(wrap, args),
+                **{k: wrap(v) for k, v in kwargs.items()},
+                **{k: wrap(p) for k, p in params.items()})
+        finally:
+            _ag.set_recording(prev)
+        return tree_map(unwrap, out)
+
+    def hybrid_forward(self, F, x, *args, **kwargs):
+        raise NotImplementedError
+
+    def infer_shape(self, *args):
+        """Fill the unknown widths of the parameters from the inputs (ref:
+        HybridBlock.infer_shape).  A block may override it with its own
+        rule (`Dense`, `Conv2D` and user blocks do); this default runs
+        the forward once on the meta device, as the JAX package runs it
+        under `jax.eval_shape`: parameters with data and the inputs as
+        empty meta tensors, a parameter without data but with a known
+        shape as one too, and each child's rule recording the shapes it
+        finds.  An op with no meta path raises an MXNetError naming it."""
+        if in_shape_pass():
+            return
+        metas = {n: torch.empty(p.shape, dtype=p.dtype, device="meta")
+                 for n, p in self.named_parameters() if not is_deferred(p)}
+        ins = tuple(torch.empty(a.shape, dtype=a.dtype, device="meta")
+                    if isinstance(a, torch.Tensor) else a for a in args)
+        from ..ops import attention
+        watch = _capture._Watch(record=False)
+        try:
+            with shape_pass(), _ag.pause(), attention.shapes_only(), \
+                    watch:
+                torch.func.functional_call(self, metas, ins)
+        except DeferredInitializationError:
+            raise
+        except Exception as exc:
+            raise MXNetError(
+                "infer_shape of %s: its forward failed on meta tensors at "
+                "%s: %s: %s" % (type(self).__name__, watch.last,
+                                type(exc).__name__, exc)) from exc
+
+    def _finish_deferred(self, *args):
+        """`infer_shape(*args)`, then initialize every parameter of the
+        tree whose shape it made known."""
+        self.infer_shape(*args)
+        for p in self.parameters():
+            if is_deferred(p) and p._shape_known() \
+                    and p.__dict__.get("_deferred_init") is not None:
+                p._finish_deferred_init()
 
     def inference_engine(self, **kwargs):
         """Build a `serving.InferenceEngine` over this block; keyword

@@ -40,7 +40,9 @@ again.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
+import threading
 import warnings
 from collections import OrderedDict
 
@@ -55,7 +57,8 @@ from ..base import MXNetError, torch_dtype
 from ..context import current_device, resolve_device
 
 __all__ = ["Parameter", "Constant", "ParameterDict",
-           "DeferredInitializationError", "is_deferred", "cast_parameter"]
+           "DeferredInitializationError", "is_deferred", "cast_parameter",
+           "shape_pass", "in_shape_pass"]
 
 _GRAD_REQS = ("write", "add", "null")
 
@@ -68,6 +71,27 @@ def is_deferred(param):
     """Whether `param` holds no data yet (not initialized, or waiting for
     its shape)."""
     return isinstance(param, _DeferredParameter)
+
+
+_SHAPE_PASS = threading.local()
+
+
+@contextlib.contextmanager
+def shape_pass():
+    """A shape-only forward on the meta device (`HybridBlock.infer_shape`):
+    inside it a parameter without data whose shape is known stands in as
+    an empty meta tensor of that shape, and `block.materialize` records a
+    shape without allocating."""
+    prev = getattr(_SHAPE_PASS, "on", False)
+    _SHAPE_PASS.on = True
+    try:
+        yield
+    finally:
+        _SHAPE_PASS.on = prev
+
+
+def in_shape_pass():
+    return getattr(_SHAPE_PASS, "on", False)
 
 
 def touch(param):
@@ -340,14 +364,31 @@ class _DeferredParameter(UninitializedTensorMixin, Parameter):
         one."""
         return self.__dict__.get("_shape")
 
+    @shape.setter
+    def shape(self, shape):
+        """Fill the unknown widths, as a block's `infer_shape` does (ref:
+        Parameter.shape's setter)."""
+        self._set_shape(shape)
+
     __repr__ = Parameter.__repr__
+
+    def _meta(self):
+        return torch.empty(self._shape, dtype=self.dtype, device="meta")
 
     @classmethod
     def __torch_function__(cls, func, types, args=(), kwargs=None):
         if func in cls._allowed_methods or \
                 func.__class__.__name__ == "method-wrapper":
             return super().__torch_function__(func, types, args, kwargs)
-        for a in list(args) + list((kwargs or {}).values()):
+        kwargs = kwargs or {}
+        if in_shape_pass() and all(
+                a._shape_known() for a in list(args) + list(kwargs.values())
+                if isinstance(a, _DeferredParameter)):
+            def meta(a):
+                return a._meta() if isinstance(a, _DeferredParameter) else a
+            return func(*[meta(a) for a in args],
+                        **{k: meta(v) for k, v in kwargs.items()})
+        for a in list(args) + list(kwargs.values()):
             if isinstance(a, _DeferredParameter):
                 a._check_initialized()
                 raise DeferredInitializationError(

@@ -15,10 +15,13 @@ optimizer state; so is a deferred parameter the first forward has not
 materialised yet, which a Trainer built before that forward updates
 from then on.  The optimizer reads each parameter's `lr_mult` and
 `wd_mult` through `param_dict` (`collect_params(...).setattr("wd_mult",
-0.0)`).  An aggregatable optimizer (SGD) updates all the
+0.0)`).  An aggregatable optimizer (SGD, Adam) updates all the
 parameters in one `update_multi` call, as the JAX Trainer's aggregated
 path does, unless it keeps master weights (`multi_precision`): then each
-parameter takes `update_multi_precision`.  `contrib.amp.scale_loss`
+parameter takes `update_multi_precision`; every other optimizer of the
+registry (NAG, AdaGrad, AdaDelta, RMSProp, Ftrl, Signum, SignSGD, LAMB,
+Adamax, Nadam, SGLD, Test) updates parameter by parameter in the
+Trainer's order, as there.  `contrib.amp.scale_loss`
 sets `_scale` to the loss scale's inverse, which `update` folds into
 `rescale_grad`.  `save_states`/`load_states` write and read the
 optimizer's states with the optimizer itself (scheduler and update
@@ -28,10 +31,12 @@ kvstore; parameters on several devices, or a `dist` kvstore, raise
 "not yet ported".
 
 Each `step` runs the optimizer's host bookkeeping (`Optimizer._hypers`:
-update counts, the scheduler's lr, the multipliers, Adam's bias
-correction) and writes the lr and wd and the `rescale_grad` into one
-static f32 vector on the device (`optimizer.Hypers`), one slot per
-distinct (lr, wd) pair, from which the device update reads them.
+update counts, the scheduler's lr, the multipliers, and the per-step
+extras: Adam's and Adamax's bias corrections folded into the lr, LAMB's
+1 - beta^t, Nadam's schedule values, SGLD's sqrt(lr)) and writes the lr,
+the wd, the extras and the `rescale_grad` into one static f32 vector on
+the device (`optimizer.Hypers`), one slot per distinct (lr, wd, extras),
+from which the device update reads them.
 When every live parameter's gradient is in its persistent buffer (a
 hybridized block's backward put it there, `autograd.grad_buffer`), the
 device update is one captured program (`graph_capture`, a CUDA graph on
@@ -40,11 +45,17 @@ their weights, gradients and states, and the optimizer's constants: it
 is captured once an eager update has run with the same key but the
 gradients' storage (which loaded its kernels), and replayed from then
 on, so that an lr a scheduler or `set_learning_rate` changes, and
-Adam's bias correction, reach every replay with no capture.  Otherwise
+every per-step extra, reach every replay with no capture; SGLD's noise
+comes from the port's generator, which the capture registers with its
+graph, so each replay draws anew.  A change of a constant the update
+holds as a number (`Optimizer._static_key`: momentum, betas, epsilon,
+RMSProp's gamma1/gamma2/centered/clip_weights, Ftrl's lamda1/beta, LAMB's
+bounds and bias_correction, ...) captures again.  Otherwise
 the update runs eagerly, the same code on the same hyper vector: with
 gradients a backward left in new storage, under `contrib.amp`'s loss
 scaler (whose overflow check reads the device on the host), and for an
-optimizer with only `update`.
+optimizer with only `update` (every registered optimizer has a device
+update).
 `captures`, `replays` and `eager_updates` count the three.
 `load_states` drops the captured update.
 """
@@ -154,12 +165,12 @@ class Trainer:
             if i not in states:
                 states[i] = opt.create_state_multi_precision(
                     i, params[i].data)
-        lrs, wds = opt._hypers(live)
+        lrs, wds, extras = opt._hypers(live)
         weights = [params[i].data for i in live]
         grads = [params[i].grad for i in live]
         sts = [states[i] for i in live]
         hypers = self._hypers.write(lrs, wds, opt.rescale_grad,
-                                    weights[0].device)
+                                    weights[0].device, extras)
 
         def run():
             opt._device_update(live, weights, grads, sts, hypers)

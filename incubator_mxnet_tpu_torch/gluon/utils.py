@@ -1,12 +1,12 @@
 """Gluon utilities of the PyTorch port (counterpart of
 incubator_mxnet_tpu/gluon/utils.py): `split_data`, `split_and_load` (one
-device), `clip_global_norm` and `check_sha1`.  `download` is not yet
-ported: the port runs without network access, so files are placed by
-hand and loaded from disk.
+device), `clip_global_norm`, `check_sha1` and `download`.
 """
 from __future__ import annotations
 
 import hashlib
+import os
+import urllib.request
 import warnings
 
 import numpy as np
@@ -84,7 +84,23 @@ def check_sha1(filename, sha1_hash):
 
 def download(url, path=None, overwrite=False, sha1_hash=None, retries=5,
              verify_ssl=True):
-    """Not yet ported: the port fetches nothing from the network."""
-    raise NotImplementedError(
-        "gluon.utils.download is not yet ported; place the file on disk "
-        "and load it from there")
+    """Fetch `url` to a file and return its path, as the JAX package's
+    `download` does: the file is `path` (or, for a directory or None,
+    the URL's last part inside it, or in "."); an existing file is kept
+    unless `overwrite`, or unless `sha1_hash` is given and does not match.
+    The fetch is `urllib.request.urlretrieve`, once (`retries` and
+    `verify_ssl` are taken and, as there, change nothing); a failure
+    raises an MXNetError that names the URL and the path to place the
+    file at by hand."""
+    fname = path if path and not os.path.isdir(path) else \
+        os.path.join(path or ".", url.split("/")[-1])
+    if os.path.exists(fname) and not overwrite and \
+            (not sha1_hash or check_sha1(fname, sha1_hash)):
+        return fname
+    try:
+        urllib.request.urlretrieve(url, fname)
+    except Exception as e:
+        raise MXNetError(
+            "download of %s failed (%s) — this environment has no egress; "
+            "place the file at %s manually" % (url, e, fname))
+    return fname

@@ -23,8 +23,8 @@ from .ndarray.ndarray import unwrap
 
 __all__ = ["EvalMetric", "CompositeEvalMetric", "Accuracy", "TopKAccuracy",
            "F1", "MAE", "MSE", "RMSE", "CrossEntropy", "NegativeLogLikelihood",
-           "Perplexity", "PearsonCorrelation", "Loss", "CustomMetric", "np",
-           "create", "register"]
+           "Perplexity", "PearsonCorrelation", "Loss", "Caffe", "Torch",
+           "CustomMetric", "np", "create", "register"]
 
 _REGISTRY = {}
 
@@ -361,6 +361,16 @@ class Loss(EvalMetric):
             p = _tensor(pred)
             self.sum_metric = self.sum_metric + p.double().sum()
             self.num_inst += p.numel()
+
+
+class Caffe(Loss):
+    """ref: metric.Caffe: the `Loss` metric, named "loss" (not in the
+    registry, as in the JAX package)."""
+
+
+class Torch(Loss):
+    """ref: metric.Torch: the `Loss` metric, named "loss" (not in the
+    registry, as in the JAX package)."""
 
 
 class CustomMetric(EvalMetric):

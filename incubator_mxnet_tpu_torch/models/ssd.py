@@ -14,8 +14,9 @@ Every shape is static: the anchors come from the feature maps' shapes
 matching, and detection is `MultiBoxDetection`, whose greedy NMS is the
 `ops.nms` kernel on the card, so net and loss each capture into one
 program when hybridized.  `SSDTrainLoss` is `MultiBoxTarget` +
-softmax-CE + smooth-L1 as a `forward` over the port's ops (the JAX
-block's `hybrid_forward(F, ...)` form is not ported).  Every block takes
+softmax-CE + smooth-L1 as a `forward` over the port's tensor ops, where
+the JAX block has `hybrid_forward(F, ...)` over `nd` ops (a form the
+port's `HybridBlock` runs too).  Every block takes
 `device` and `dtype`, as the ResNet blocks do.
 """
 from __future__ import annotations

@@ -1,36 +1,54 @@
 """Optimizers of the PyTorch port (counterpart of
 incubator_mxnet_tpu/optimizer/optimizer.py): the `Optimizer` base with
-its registry, `SGD`, `NAG`, `Adam`, and the `Updater` that keeps
-per-index state and saves and restores it with the optimizer.
+its registry, the fourteen optimizers of the JAX package (`SGD`, `NAG`,
+`Adam`, `AdaGrad`, `AdaDelta`, `RMSProp` plain and centered, `Ftrl`,
+`Signum`, `SignSGD`, `LAMB`, `Adamax`, `Nadam`, `SGLD`, `Test`), each
+registered under its lower-case name with its JAX class's defaults,
+state layout and state order, and the `Updater` that keeps per-index
+state and saves and restores it with the optimizer.
 
 With an `lr_scheduler`, the learning rate is the scheduler's at the
 optimizer's `num_update` (counted before an update reads it, so the
 k-th update takes `lr_scheduler(k)`), and `set_learning_rate` raises.
+`Test` counts no update and reads `lr` as set, as the JAX class does.
 
 Weights, gradients and states are torch tensors; an update writes the
 weight and its state in place (`ops.optimizer`), in the weight's and
-the state's own dtype.  With `multi_precision=True` a float16 weight is
-updated through an f32 master copy kept in its state, exactly as the
-JAX condition `weight.dtype == float16` says; any other dtype (bf16
+the state's own dtype, computing in f32 and rounding once into each
+buffer.  With `multi_precision=True` a float16 weight is updated
+through an f32 master copy kept in its state, exactly as the JAX
+condition `weight.dtype == float16` says; any other dtype (bf16
 included) takes the plain update.  An optimizer with
 `aggregatable = True` (SGD, Adam) also has `update_multi`, which the
 Trainer takes for all its parameters at once, as the JAX Trainer's
-aggregated path does; NAG updates tensor by tensor, as in the JAX
-package.  The other optimizers of the JAX package are not yet ported.
+aggregated path does; the others update tensor by tensor, as in the JAX
+package.  Sparse (row_sparse) gradients are not ported: AdaGrad given
+one raises.
 
 Each update is split in two, so that a `gluon.Trainer` can capture the
 device part once and replay it (`graph_capture`):
 
 * host bookkeeping, `_hypers(indices)`: the update counts, the
-  scheduler's learning rate, the lr and wd multipliers and Adam's bias
-  correction, as Python numbers, every step;
+  scheduler's learning rate, the lr and wd multipliers, and the values
+  that change from step to step, as Python numbers, every step: Adam's
+  bias correction and Adamax's 1 / (1 - beta1^t) folded into the lr;
+  LAMB's 1 - beta1^t and 1 - beta2^t (with `bias_correction`); Nadam's
+  1 - momentum_t, momentum_{t+1}, 1 - m_schedule, 1 - m_schedule_next
+  and 1 - beta2^t, whose `m_schedule` is one product on the optimizer,
+  multiplied once per index update in the order the indices are updated
+  (pickled with the optimizer, so `save_states` carries it); SGLD's
+  sqrt(lr).  These are the `extras` of an index (`_index_extras`);
 * the device update, `_device_update(..., hypers)`, which reads the
-  lr, wd and `rescale_grad` as 0-dim f32 tensors and branches on no
-  hyper value.  `Hypers` holds them: one f32 vector on the device
-  (`_hyper_array`, the counterpart of the JAX package's `_hyper_array`,
-  "so schedules don't recompile") with one slot per distinct (lr, wd)
-  pair, and the parameters grouped by slot, which the multi-tensor
-  updates take one group at a time.
+  lr, wd, `rescale_grad` and the extras as 0-dim f32 tensors and
+  branches on no hyper value.  `Hypers` holds them: one f32 vector on
+  the device (`_hyper_array`, the counterpart of the JAX package's
+  `_hyper_array`, "so schedules don't recompile") with one slot per
+  distinct (lr, wd, extras), and the parameters grouped by slot, which
+  the multi-tensor updates take one group at a time.  The constants
+  that a captured update holds as numbers are `_static_key()`; a
+  change of one calls for another capture.  SGLD draws its noise from
+  the port's generator of the weight's device (`random.generator`),
+  which a capture registers with its graph, so every replay draws anew.
 
 `update`, `update_multi_precision` and `update_multi` run both parts,
 with the values put on the weight's device each call.
@@ -40,13 +58,24 @@ from __future__ import annotations
 import math
 import pickle
 
+import numpy as np
 import torch
 
+from .. import random as _rnd
 from ..base import MXNetError
 from ..ops import optimizer as _ops
 
-__all__ = ["Optimizer", "SGD", "NAG", "Adam", "register", "create",
-           "get_updater", "Updater"]
+__all__ = ["Optimizer", "SGD", "NAG", "Adam", "AdaGrad", "AdaDelta",
+           "RMSProp", "Ftrl", "Signum", "SignSGD", "LAMB", "Adamax",
+           "Nadam", "SGLD", "Test", "register", "create", "get_updater",
+           "Updater"]
+
+#: the constants of the optimizers that a captured update holds as
+#: numbers (`Optimizer._static_key`)
+_STATIC_ATTRS = ("momentum", "beta1", "beta2", "epsilon", "gamma1",
+                 "gamma2", "centered", "clip_weights", "rho", "lamda1",
+                 "beta", "wd_lh", "lower_bound", "upper_bound",
+                 "bias_correction", "schedule_decay", "float_stable_eps")
 
 _OPT_REGISTRY = {}
 
@@ -146,15 +175,23 @@ class Optimizer:
         taken."""
         return self._get_lr(index)
 
+    def _index_extras(self, index):
+        """The per-step values other than lr and wd that an update of
+        `index` reads as device hypers, its count already taken (called
+        once per index update); () for most optimizers."""
+        return ()
+
     def _hypers(self, indices):
         """Host bookkeeping of one update of each of `indices`, in order:
-        count it, then read its lr and wd.  Returns ([lr], [wd])."""
-        lrs, wds = [], []
+        count it, then read its lr, wd and extras.  Returns ([lr], [wd],
+        [extras])."""
+        lrs, wds, extras = [], [], []
         for i in indices:
             self._update_count(i)
             lrs.append(self._index_lr(i))
             wds.append(self._get_wd(i))
-        return lrs, wds
+            extras.append(self._index_extras(i))
+        return lrs, wds, extras
 
     def create_state(self, index, weight):
         return None
@@ -172,20 +209,19 @@ class Optimizer:
         return self.create_state(index, weight)
 
     #: the device update of one tensor, (index, weight, grad, state, lr,
-    #: wd, rescale_grad) with 0-dim tensor hypers; None for an optimizer
-    #: that has only `update`
+    #: wd, rescale_grad, *extras) with 0-dim tensor hypers; None for an
+    #: optimizer that has only `update`
     _device_one = None
 
-    def _device_one_mp(self, index, weight, grad, state, lr, wd, rescale):
+    def _device_one_mp(self, index, weight, grad, state, *hypers):
         """`_device_one`, or for a master-copied weight the update of its
         f32 copy from the f32 gradient, rounded into `weight`."""
         if self._master_copy(weight):
             inner, w32 = state
-            self._device_one(index, w32, grad.float(), inner, lr, wd,
-                             rescale)
+            self._device_one(index, w32, grad.float(), inner, *hypers)
             weight.copy_(w32)
         else:
-            self._device_one(index, weight, grad, state, lr, wd, rescale)
+            self._device_one(index, weight, grad, state, *hypers)
 
     def _device_multi(self, indices, weights, grads, states, hypers):
         """The aggregated device update: tensor by tensor here."""
@@ -208,14 +244,14 @@ class Optimizer:
         changing one calls for another capture."""
         return (type(self), self.clip_gradient, self.multi_precision,
                 self.aggregatable) + tuple(
-                    getattr(self, n, None)
-                    for n in ("momentum", "beta1", "beta2", "epsilon"))
+                    getattr(self, n, None) for n in _STATIC_ATTRS)
 
     def _run_one(self, device_fn, index, weight, grad, state):
         """Host bookkeeping of one update of `index`, then `device_fn`
         with its hypers on the weight's device."""
-        hypers = Hypers().write(*self._hypers([index]), self.rescale_grad,
-                                weight.device)
+        lrs, wds, extras = self._hypers([index])
+        hypers = Hypers().write(lrs, wds, self.rescale_grad, weight.device,
+                                extras)
         device_fn(index, weight, grad, state, *hypers.at(0))
 
     def update(self, index, weight, grad, state):
@@ -238,8 +274,9 @@ class Optimizer:
     def update_multi(self, indices, weights, grads, states):
         """One aggregated update of the parameters at `indices`."""
         indices = list(indices)
-        hypers = Hypers().write(*self._hypers(indices), self.rescale_grad,
-                                weights[0].device)
+        lrs, wds, extras = self._hypers(indices)
+        hypers = Hypers().write(lrs, wds, self.rescale_grad,
+                                weights[0].device, extras)
         self._device_multi(indices, weights, grads, states, hypers)
 
     #: whether `update_multi` updates a list of parameters at once
@@ -247,39 +284,48 @@ class Optimizer:
 
 
 class Hypers:
-    """The lr, wd and `rescale_grad` of one update of a list of
-    parameters, as 0-dim f32 views of one vector on the device: one slot
-    per distinct (lr, wd) pair, in order of first use, then the rescale.
-    `write` puts a step's values in, into the same vector while the
-    layout (the slot of each position) holds, so that an update captured
-    on these views reads each step's values.  `groups` lists (positions,
-    lr, wd) per slot; `at(pos)` gives (lr, wd, rescale) of a position."""
+    """The lr, wd, `rescale_grad` and extras (the other per-step values,
+    `Optimizer._index_extras`) of one update of a list of parameters, as
+    0-dim f32 views of one vector on the device: one slot per distinct
+    (lr, wd, extras), in order of first use, each slot's extras after
+    all the lrs and wds, then the rescale.  `write` puts a step's values
+    in, into the same vector while the layout (the slot of each position
+    and the number of extras) holds, so that an update captured on these
+    views reads each step's values.  `groups` lists (positions, lr, wd)
+    per slot; `at(pos)` gives (lr, wd, rescale, *extras) of a
+    position."""
 
     def __init__(self):
         self.layout = self.vec = None
 
-    def write(self, lrs, wds, rescale, device):
+    def write(self, lrs, wds, rescale, device, extras=None):
+        if extras is None:
+            extras = [()] * len(lrs)
         slots = {}
-        layout = tuple(slots.setdefault(h, len(slots))
-                       for h in zip(lrs, wds))
-        values = [lr for lr, _ in slots] + [wd for _, wd in slots] \
-            + [rescale]
+        layout = tuple(slots.setdefault((lr, wd) + tuple(ex), len(slots))
+                       for lr, wd, ex in zip(lrs, wds, extras))
+        layout += (len(extras[0]) if extras else 0,)
+        values = [k[0] for k in slots] + [k[1] for k in slots] \
+            + [v for k in slots for v in k[2:]] + [rescale]
         if (self.vec is not None and layout == self.layout
                 and self.vec.device == torch.device(device)):
             _hyper_array(values, device, out=self.vec)
             return self
         self.layout, self.vec = layout, _hyper_array(values, device)
-        m = len(slots)
+        m, n_ex = len(slots), layout[-1]
         views = self.vec.unbind()
         self.lr, self.wd, self.rescale = views[:m], views[m:2 * m], \
-            views[2 * m]
-        self.groups = [([p for p, k in enumerate(layout) if k == slot],
+            views[-1]
+        self.extras = [views[2 * m + s * n_ex:2 * m + (s + 1) * n_ex]
+                       for s in range(m)]
+        self.groups = [([p for p, k in enumerate(layout[:-1]) if k == slot],
                         self.lr[slot], self.wd[slot]) for slot in range(m)]
         return self
 
     def at(self, pos):
         slot = self.layout[pos]
-        return self.lr[slot], self.wd[slot], self.rescale
+        return (self.lr[slot], self.wd[slot], self.rescale) \
+            + tuple(self.extras[slot])
 
 
 def _hyper_array(values, device, out=None):
@@ -409,6 +455,292 @@ class Adam(Optimizer):
                          clip_gradient=self.clip_gradient)
 
     aggregatable = True
+
+
+def _zeros(weight, n):
+    """`n` fresh zero states of `weight`'s shape, dtype and device, each
+    its own tensor."""
+    return tuple(torch.zeros_like(weight) for _ in range(n))
+
+
+def _pow_f32(base, t):
+    """base**t as the JAX package computes `beta ** t` of an f32 hyper
+    array and an integer t on the device (`lax.integer_pow`: f32
+    products by binary exponentiation), as a Python number."""
+    x, acc = np.float32(base), None
+    while t > 0:
+        if t & 1:
+            acc = x if acc is None else np.float32(acc * x)
+        t >>= 1
+        if t > 0:
+            x = np.float32(x * x)
+    return float(np.float32(1.0) if acc is None else acc)
+
+
+@register
+class AdaGrad(Optimizer):
+    """ref: optimizer.AdaGrad → adagrad_update (`ops.optimizer.
+    adagrad_update_`); state: the squared-gradient history.  A sparse
+    (row_sparse) gradient raises: sparse storage is not yet ported."""
+
+    def __init__(self, eps=1e-7, **kwargs):
+        super().__init__(**kwargs)
+        self.float_stable_eps = eps
+
+    def create_state(self, index, weight):
+        return torch.zeros_like(weight)
+
+    def _device_one(self, index, weight, grad, state, lr, wd, rescale):
+        if grad.layout != torch.strided:
+            raise MXNetError("AdaGrad: a %s gradient is sparse storage, "
+                             "which is not yet ported" % (grad.layout,))
+        _ops.adagrad_update_(weight, grad, state, lr, wd, rescale,
+                             epsilon=self.float_stable_eps,
+                             clip_gradient=self.clip_gradient)
+
+
+@register
+class AdaDelta(Optimizer):
+    """ref: optimizer.AdaDelta (no learning rate); state (acc_g,
+    acc_delta)."""
+
+    def __init__(self, rho=0.90, epsilon=1e-5, **kwargs):
+        super().__init__(**kwargs)
+        self.rho, self.epsilon = rho, epsilon
+
+    def create_state(self, index, weight):
+        return _zeros(weight, 2)
+
+    def _device_one(self, index, weight, grad, state, lr, wd, rescale):
+        acc_g, acc_delta = state
+        _ops.adadelta_update_(weight, grad, acc_g, acc_delta, wd, rescale,
+                              rho=self.rho, epsilon=self.epsilon,
+                              clip_gradient=self.clip_gradient)
+
+
+@register
+class RMSProp(Optimizer):
+    """ref: optimizer.RMSProp → rmsprop_update, or with `centered`
+    rmspropalex_update; state (n,) or, centered, (n, g, delta)."""
+
+    def __init__(self, learning_rate=0.001, gamma1=0.9, gamma2=0.9,
+                 epsilon=1e-8, centered=False, clip_weights=None, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.gamma1, self.gamma2 = gamma1, gamma2
+        self.centered = centered
+        self.epsilon = epsilon
+        self.clip_weights = clip_weights
+
+    def create_state(self, index, weight):
+        return _zeros(weight, 3 if self.centered else 1)
+
+    def _device_one(self, index, weight, grad, state, lr, wd, rescale):
+        kw = dict(gamma1=self.gamma1, epsilon=self.epsilon,
+                  clip_gradient=self.clip_gradient,
+                  clip_weights=self.clip_weights)
+        if self.centered:
+            n, g, delta = state
+            _ops.rmspropalex_update_(weight, grad, n, g, delta, lr, wd,
+                                     rescale, gamma2=self.gamma2, **kw)
+        else:
+            _ops.rmsprop_update_(weight, grad, state[0], lr, wd, rescale,
+                                 **kw)
+
+
+@register
+class Ftrl(Optimizer):
+    """ref: optimizer.Ftrl → ftrl_update; state (z, n)."""
+
+    def __init__(self, lamda1=0.01, learning_rate=0.1, beta=1.0, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.lamda1, self.beta = lamda1, beta
+
+    def create_state(self, index, weight):
+        return _zeros(weight, 2)
+
+    def _device_one(self, index, weight, grad, state, lr, wd, rescale):
+        z, n = state
+        _ops.ftrl_update_(weight, grad, z, n, lr, wd, rescale,
+                          lamda1=self.lamda1, beta=self.beta,
+                          clip_gradient=self.clip_gradient)
+
+
+@register
+class Signum(Optimizer):
+    """ref: optimizer.Signum → signum_update; with momentum 0 the state
+    is None and the update signsgd_update."""
+
+    def __init__(self, learning_rate=0.01, momentum=0.9, wd_lh=0.0,
+                 **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.momentum = momentum
+        self.wd_lh = wd_lh
+
+    def create_state(self, index, weight):
+        if self.momentum == 0.0:
+            return None
+        return torch.zeros_like(weight)
+
+    def _device_one(self, index, weight, grad, state, lr, wd, rescale):
+        if state is None:
+            _ops.signsgd_update_(weight, grad, lr, wd, rescale,
+                                 clip_gradient=self.clip_gradient)
+        else:
+            _ops.signum_update_(weight, grad, state, lr, wd, rescale,
+                                momentum=self.momentum, wd_lh=self.wd_lh,
+                                clip_gradient=self.clip_gradient)
+
+
+@register
+class SignSGD(Signum):
+    """ref: optimizer.SignSGD: Signum with momentum 0 by default."""
+
+    def __init__(self, **kwargs):
+        kwargs.setdefault("momentum", 0.0)
+        super().__init__(**kwargs)
+
+
+@register
+class LAMB(Optimizer):
+    """ref: optimizer.LAMB → lamb_update_phase1, the norms, then
+    lamb_update_phase2; state (mean, var).  Phase 1 returns g' in the
+    gradient's dtype (the JAX `_fused(..., out_ref_idx=(1, 2, 3))`
+    rounds it so), r1 = ||w|| and r2 = ||g'|| are taken on the device in
+    the weight's and g''s dtypes (`ops.optimizer.lamb_norm`), and phase 2
+    reads the weight again, which nothing phase 1 writes aliases.  The
+    bias corrections 1 - beta^t are extras, computed as the JAX op
+    computes them in f32 (`_pow_f32`)."""
+
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-6, lower_bound=None, upper_bound=None,
+                 bias_correction=True, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.beta1, self.beta2, self.epsilon = beta1, beta2, epsilon
+        self.lower_bound, self.upper_bound = lower_bound, upper_bound
+        self.bias_correction = bias_correction
+
+    def create_state(self, index, weight):
+        return _zeros(weight, 2)
+
+    def _index_extras(self, index):
+        if not self.bias_correction:
+            return ()
+        t = self._index_update_count[index]
+        one = np.float32(1.0)
+        return (float(one - np.float32(_pow_f32(self.beta1, t))),
+                float(one - np.float32(_pow_f32(self.beta2, t))))
+
+    def _device_one(self, index, weight, grad, state, lr, wd, rescale,
+                    *bias):
+        mean, var = state
+        gp = _ops.lamb_update_phase1_(
+            weight, grad, mean, var, wd, rescale, beta1=self.beta1,
+            beta2=self.beta2, epsilon=self.epsilon,
+            bias1=bias[0] if bias else None,
+            bias2=bias[1] if bias else None,
+            clip_gradient=self.clip_gradient)
+        r1, r2 = _ops.lamb_norm(weight), _ops.lamb_norm(gp)
+        _ops.lamb_update_phase2_(weight, gp, r1, r2, lr,
+                                 lower_bound=self.lower_bound,
+                                 upper_bound=self.upper_bound)
+
+
+@register
+class Adamax(Optimizer):
+    """ref: optimizer.Adamax; state (m, u); the bias correction
+    1 / (1 - beta1^t) folded into the lr."""
+
+    def __init__(self, learning_rate=0.002, beta1=0.9, beta2=0.999,
+                 **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.beta1, self.beta2 = beta1, beta2
+
+    def create_state(self, index, weight):
+        return _zeros(weight, 2)
+
+    def _index_lr(self, index):
+        t = self._index_update_count[index]
+        return self._get_lr(index) / (1.0 - self.beta1 ** t)
+
+    def _device_one(self, index, weight, grad, state, lr, wd, rescale):
+        m, u = state
+        _ops.adamax_update_(weight, grad, m, u, lr, wd, rescale,
+                            beta1=self.beta1, beta2=self.beta2,
+                            clip_gradient=self.clip_gradient)
+
+
+@register
+class Nadam(Optimizer):
+    """ref: optimizer.Nadam; state (m, v).  `m_schedule` is multiplied
+    by momentum_t once per index update, on the host, in the order the
+    indices are updated, as the JAX class does; its per-step values
+    reach the device as extras (module doc)."""
+
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-8, schedule_decay=0.004, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.beta1, self.beta2, self.epsilon = beta1, beta2, epsilon
+        self.schedule_decay = schedule_decay
+        self.m_schedule = 1.0
+
+    def create_state(self, index, weight):
+        return _zeros(weight, 2)
+
+    def _index_extras(self, index):
+        t = self._index_update_count[index]
+        momentum_t = self.beta1 * (1.0 - 0.5 * 0.96 ** (
+            t * self.schedule_decay))
+        momentum_t_1 = self.beta1 * (1.0 - 0.5 * 0.96 ** (
+            (t + 1) * self.schedule_decay))
+        self.m_schedule *= momentum_t
+        m_schedule_next = self.m_schedule * momentum_t_1
+        return (1.0 - momentum_t, momentum_t_1, 1.0 - self.m_schedule,
+                1.0 - m_schedule_next, 1.0 - self.beta2 ** t)
+
+    def _device_one(self, index, weight, grad, state, lr, wd, rescale,
+                    *extras):
+        m, v = state
+        _ops.nadam_update_(weight, grad, m, v, lr, wd, rescale, *extras,
+                           beta1=self.beta1, beta2=self.beta2,
+                           epsilon=self.epsilon,
+                           clip_gradient=self.clip_gradient)
+
+
+@register
+class SGLD(Optimizer):
+    """ref: optimizer.SGLD (stochastic gradient Langevin dynamics); no
+    state.  The noise N(0, 1) sqrt(lr) is drawn from the port's
+    generator of the weight's device, so it is not the JAX package's
+    threefry stream: the update is held by its moments."""
+
+    def create_state(self, index, weight):
+        return None
+
+    def _index_extras(self, index):
+        return (math.sqrt(self._get_lr(index)),)
+
+    def _device_one(self, index, weight, grad, state, lr, wd, rescale,
+                    sqrt_lr):
+        _ops.sgld_update_(weight, grad, lr, wd, rescale, sqrt_lr,
+                          _rnd.generator(weight.device),
+                          clip_gradient=self.clip_gradient)
+
+
+@register
+class Test(Optimizer):
+    """ref: optimizer.Test: w -= lr g rescale_grad with the `lr` as set
+    (no scheduler, no multipliers, no wd) and no update counted; its
+    state is zeros that no update reads."""
+
+    def create_state(self, index, weight):
+        return torch.zeros_like(weight)
+
+    def _hypers(self, indices):
+        n = len(indices)
+        return [self.lr] * n, [0.0] * n, [()] * n
+
+    def _device_one(self, index, weight, grad, state, lr, wd, rescale):
+        _ops.test_update_(weight, grad, lr, rescale)
 
 
 def _map_state(fn, state):

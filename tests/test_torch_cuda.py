@@ -1528,3 +1528,91 @@ def test_faster_rcnn_toy_hybridized_step_on_card(card):
     assert launches == [1, 1, 0]
     assert all(np.isfinite(losses)) and (labels[-1] > 0).any()
     assert set(labels[-1].tolist()) <= {-1.0, 0.0, 1.0, 2.0, 3.0}
+
+
+# -- the optimizers' captured updates ------------------------------------------
+
+def _update_runs(card, name, kw, dtype, steps=5, seed=0, factor=None):
+    """`steps` Trainer updates of 3 card parameters from fixed gradients,
+    once with the gradients in fresh tensors (every update eager) and
+    once in the parameters' persistent buffers (1 eager update, 1
+    capture, then replays); the weights after each update, both ways.
+    With `factor`, each run has a FactorScheduler(2, factor) of its
+    own."""
+    rs = np.random.RandomState(seed)
+    shapes = ((64, 48), (300,), (7, 5, 3))
+    init = [rs.randn(*s).astype(np.float32) for s in shapes]
+    grads = [[rs.randn(*s).astype(np.float32) for s in shapes]
+             for _ in range(steps)]
+    runs = []
+    for stable in (False, True):
+        tmx.random.seed(seed)
+        params = [tmx.gluon.Parameter("p%d" % i, shape=a.shape, dtype=dtype)
+                  for i, a in enumerate(init)]
+        for p, a in zip(params, init):
+            p.initialize(ctx=card)
+            p.set_data(a)
+        params[1].wd_mult = 0.0
+        own = dict(kw)
+        if factor is not None:
+            own["lr_scheduler"] = tmx.lr_scheduler.FactorScheduler(
+                step=2, factor=factor)
+        trainer = tmx.gluon.Trainer(params, name, own)
+        seen = []
+        for step in range(steps):
+            for p, g in zip(params, grads[step]):
+                g = torch.from_numpy(g).to(card, dtype)
+                if stable:
+                    p.grad = tmx.autograd.grad_buffer(p)
+                    p.grad.copy_(g)
+                else:
+                    p.grad = g
+            trainer.step(2)
+            seen.append([p.detach().clone() for p in params])
+        torch.cuda.synchronize()
+        runs.append((seen, trainer))
+    return runs
+
+
+@pytest.mark.parametrize("name,kw,dtype", [
+    ("lamb", dict(learning_rate=1e-2, wd=0.01, epsilon=1e-6),
+     torch.bfloat16),
+    ("lamb", dict(learning_rate=1e-2, wd=0.01, lower_bound=0.5,
+                  upper_bound=4.0, bias_correction=False), torch.float32),
+    ("nadam", dict(learning_rate=1e-2, wd=0.01), torch.float32),
+    ("nadam", dict(learning_rate=1e-2, wd=0.01), torch.bfloat16),
+])
+def test_captured_update_equals_eager_on_card(card, name, kw, dtype):
+    """LAMB and Nadam replayed as a CUDA graph under a FactorScheduler:
+    bit for bit the eager updates, with every per-step value (bias
+    corrections, Nadam's schedule, the lr) read from the hyper vector."""
+    (eager, et), (graphed, gt) = _update_runs(card, name, kw, dtype,
+                                              factor=0.5)
+    assert (et.eager_updates, et.captures) == (5, 0)
+    assert (gt.eager_updates, gt.captures, gt.replays) == (1, 1, 3)
+    for a, b in zip(eager, graphed):
+        for x, y in zip(a, b):
+            assert x.dtype == dtype
+            assert torch.equal(x.view(torch.int16 if dtype ==
+                                      torch.bfloat16 else torch.int32),
+                               y.view(torch.int16 if dtype ==
+                                      torch.bfloat16 else torch.int32))
+    if name == "nadam":
+        assert et.optimizer.m_schedule == gt.optimizer.m_schedule
+
+
+def test_sgld_replays_draw_new_noise_on_card(card):
+    """SGLD's noise comes from the port's generator, registered with the
+    update's graph: each replay draws anew, and the replayed run is the
+    eager run's sequence."""
+    kw = dict(learning_rate=1e-2)
+    (eager, _), (graphed, gt) = _update_runs(card, "sgld", kw,
+                                             torch.float32)
+    assert gt.replays == 3
+    steps = [[b - a for a, b in zip(x, y)]
+             for x, y in zip(graphed[1:], graphed[2:])]
+    for d1, d2 in zip(steps, steps[1:]):
+        assert not torch.equal(d1[0], d2[0])
+    for a, b in zip(eager, graphed):
+        for x, y in zip(a, b):
+            assert torch.equal(x, y)

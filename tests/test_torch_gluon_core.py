@@ -16,6 +16,7 @@ values.
 import copy
 import math
 import os
+import tempfile
 
 import numpy as np
 import pytest
@@ -922,8 +923,13 @@ def test_gluon_utils():
         tmx.gluon.utils.split_data(data, 2)
     loaded = tmx.gluon.utils.split_and_load(data.numpy(), [tmx.cpu()])
     assert len(loaded) == 1 and torch.equal(loaded[0], data)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        tmx.gluon.utils.download("http://localhost/x")
+    missing = "file://" + os.path.join(os.path.dirname(__file__),
+                                       "no_such_file.bin")
+    with tempfile.TemporaryDirectory() as d:
+        with pytest.raises(MXNetError, match="download of .*no_such_file"
+                           ".bin failed .* place the file at"):
+            tmx.gluon.utils.download(missing, path=d)
+        assert os.listdir(d) == []
     path = os.path.join(os.path.dirname(__file__), "test_torch_imports.py")
     import hashlib
     with open(path, "rb") as f:
