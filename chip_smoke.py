@@ -66,10 +66,10 @@ Drives incubator_mxnet_tpu_torch only (never JAX or the JAX package):
              operands upcast to f32) timed at the step's shape.
    train_bf16_profile — device time by kernel over one such step.
 8. kernel_conv — the fused 1x1-conv + BatchNorm-statistics kernel at the
-             12 shapes of a ResNet-50 step (bf16, batch 128), the tool's 5
-             shapes in f32 and ragged shapes, each with the kernel
-             instance it takes (every step shape must take the tensor
-             cores): its sums and f32 y against the plain version, and a
+             12 shapes of a ResNet-50 step and the 19 of a MobileNetV2
+             step (bf16, batch 128), the tool's 5 shapes in f32 and
+             ragged shapes, each with the kernel instance it takes (every
+             ResNet-50 shape must take the tensor cores): its sums and f32 y against the plain version, and a
              bf16 y, the kernel's and the plain version's, against the
              exact product; timed beside the plain version, the library
              route (cuDNN's 1x1 convolution, then the two f32 sums) and
@@ -305,6 +305,36 @@ Drives incubator_mxnet_tpu_torch only (never JAX or the JAX package):
              within 4 sigma of 0 and lr; each of the ten new losses as a
              hybridized block (eager, capture, replay) against the CPU,
              value and input gradients within 1e-5 of scale.
+13h. train_mobilenet — mobilenet_v2_1_0 (1000 classes) through the
+             Gluon loop of train_resnet_gluon: get_model with the widths
+             deferred, initialize(MSRAPrelu, ctx=gpu(0)), batch 128 x 3 x
+             224 x 224 bf16 from RandomState(0), NAG (lr 0.1, momentum
+             0.9, wd 4e-5, GluonCV's mobilenetv2_1.0) under the
+             warmup-cosine schedule, no wd on beta, gamma and bias; eager
+             and hybridized through the hybridize phase's run (bit for
+             bit, 34 conv launches a step by the counters and by the
+             profiler's kernel names, the timed steps only replaying);
+             before it, one f32 batch-2 step against a CPU copy
+             (gradients by the train_resnet spread rule), whose forward's
+             pointwise sites must be conv_stats.MOBILENET_V2_CONV_SHAPES;
+             from the hybridized step's profile, the depthwise
+             convolutions' device ms (torch's conv_depthwise2d kernels)
+             and share of the step, and the conv kernel's device ms;
+             step ms, images/s, busy share and peak memory with the
+             card's name and power limit.
+13i. zoo — resnet50_v2, vgg16_bn, alexnet, densenet121, squeezenet1_1,
+             mobilenet1_0, mobilenet_v3_large (224) and inception_v3
+             (299) at their published widths, hybridized: an eager, a
+             capturing and a replayed bf16 SGD step at batch 8 (losses
+             finite), a profiled replay whose conv launches by name equal
+             the net's fused pairs (gluon.nn.fused_pairs), the conv
+             kernel against its plain version at each distinct pair of
+             the eager step on the inputs it had there (y within
+             conv_stats.conv1x1_y_bound, the sums within 1e-5), and the
+             f32 logits of a batch-2 forward against a CPU copy.
+13j. layers — each new gluon.nn and gluon.contrib.nn layer and each new
+             ops/nn.py op, forward and backward on the card against a
+             CPU copy (f32, within 1e-4 of scale).
 14. kernels — one JSON line per the port's kernel table (5 rows), then the
              card's name and power limit, then the final {"ok": true, ...}
              line.
@@ -1042,6 +1072,11 @@ def _mode_run(torch, mx, att, cs, build, step, hybrid, units, trace=False):
     launches = dict(zip(keys, counts()))    # the path ends here
     device_us = sum(r[0] for r in rows)
     kernels = _port_kernel_calls(rows, PROFILE_STEPS)
+    port_us = collections.Counter()
+    for us, k, _ in rows:
+        m = _PORT_KERNEL.search(k)
+        if m:
+            port_us[m.group(1)] += us / PROFILE_STEPS
     out = dict(
         mode="hybridized" if hybrid else "eager",
         step_ms=[events[i].elapsed_time(events[i + 1])
@@ -1057,7 +1092,13 @@ def _mode_run(torch, mx, att, cs, build, step, hybrid, units, trace=False):
             nms=kernels.get("mxt_nms_mask_kernel", 0)),
         profile=dict(steps=PROFILE_STEPS, wall_us=wall_us,
                      device_us=device_us, busy_share=device_us / wall_us,
+                     # torch's depthwise convolution kernels (MobileNet's
+                     # grouped 3x3s), by name
+                     depthwise_us_per_step=sum(
+                         us for us, k, _ in rows if "conv_depthwise" in k)
+                     / PROFILE_STEPS,
                      port_kernels=kernels,
+                     port_kernel_us_per_step=dict(port_us),
                      top=[dict(kernel=k[:80], us=us, calls=n)
                           for us, k, n in rows[:8]]),
         programs=dict(after_warmup=warm, during_timed_steps={
@@ -1562,13 +1603,17 @@ def rcnn_conv_shapes(cs):
 
 def conv_cases(cs):
     """kernel_conv cases (N, C, HW, O, dtype): the resnet50_v1b step's
-    shapes in bf16 (`cs.RESNET_CONV_SHAPES`) and train_rcnn's
+    shapes in bf16 (`cs.RESNET_CONV_SHAPES`), train_mobilenet's
+    (`cs.MOBILENET_V2_CONV_SHAPES`: C 16, 24 and 144 on the CUDA cores,
+    O 16, 24 and 32 in partial column tiles) and train_rcnn's
     (`rcnn_conv_shapes`: partial column tiles at HW 30000, the CUDA-core
     instance at HW 7500 and 1900), the tool's five shapes in f32, ragged
     shapes in both dtypes, and the f16 instances at three step shapes
     (rows, and both slab tilings) and a ragged one."""
     return ([(RESNET_BATCH, C, HW, O, "bfloat16")
              for C, HW, O, _ in cs.RESNET_CONV_SHAPES]
+            + [(RESNET_BATCH, C, HW, O, "bfloat16")
+               for C, HW, O, _ in cs.MOBILENET_V2_CONV_SHAPES]
             + [(N, C, HW, O, "bfloat16")
                for N, C, HW, O, _ in rcnn_conv_shapes(cs)]
             + [(RESNET_BATCH, C, HW, O, "float32") for C, HW, O in (
@@ -1595,6 +1640,28 @@ def conv_y_errors(torch, cs, x, w, y, ref_y):
             for name, got in (("kernel", y), ("plain", ref_y))}
 
 
+def conv_check(torch, cs, x, w):
+    """The kernel on x (N, C, HW), w (O, C) against its plain version:
+    the instance it takes, y's largest error and its errors over their
+    bound (`conv_y_errors`), the sums' errors (Σy over sqrt(N·HW·Σy²),
+    Σy² relative), each within CONV_SUM_TOL, and whether all hold."""
+    N, C, HW = x.shape
+    path = cs.conv1x1_stats_path(N, C, HW, w.shape[0], x.dtype)
+    y, s1, s2 = cs.fused_conv1x1_stats(x, w)
+    torch.cuda.synchronize()
+    ref_y, ref_s1, ref_s2 = cs.fused_conv1x1_stats_plain(x, w)
+    y_over_bound = conv_y_errors(torch, cs, x, w, y, ref_y)
+    rel_s1 = ((s1 - ref_s1).abs()
+              / (N * HW * ref_s2).sqrt().clamp_min(1e-30)).max().item()
+    rel_s2 = ((s2 - ref_s2).abs() / ref_s2.clamp_min(1e-30)).max().item()
+    return dict(path=path,
+                err_y=(y.float() - ref_y.float()).abs().max().item(),
+                y_over_bound=y_over_bound, rel_err_s1=rel_s1,
+                rel_err_s2=rel_s2, tol_sums=CONV_SUM_TOL,
+                ok=(max(y_over_bound.values()) <= 1.0
+                    and rel_s1 <= CONV_SUM_TOL and rel_s2 <= CONV_SUM_TOL))
+
+
 def _conv_bound(N, C, HW, O, dtype):
     """Roofline of the fused call: the 2·N·HW·C·O product operations; x
     and w read, y written, and the two (O,) f32 sums written once."""
@@ -1606,15 +1673,17 @@ def _conv_bound(N, C, HW, O, dtype):
 
 def phase_kernel_conv(torch, cs):
     """The fused 1x1-conv + statistics kernel against its plain version
-    over `conv_cases`; returns the per-step sums over the 33 launch sites
-    of a bf16 resnet50_v1b step ("resnet") and of a train_rcnn step
-    ("rcnn")."""
+    over `conv_cases`; returns the per-step sums over the launch sites
+    of a bf16 resnet50_v1b step ("resnet", 33), a mobilenet_v2_1_0 step
+    ("mobilenet", 34) and a train_rcnn step ("rcnn", 33)."""
     import torch.nn.functional as F
     gen = torch.Generator(device="cuda")
     gen.manual_seed(2)
     sites = dict(
         resnet={(RESNET_BATCH, C, HW, O): k
                 for C, HW, O, k in cs.RESNET_CONV_SHAPES},
+        mobilenet={(RESNET_BATCH, C, HW, O): k
+                   for C, HW, O, k in cs.MOBILENET_V2_CONV_SHAPES},
         rcnn={(N, C, HW, O): k for N, C, HW, O, k in rcnn_conv_shapes(cs)})
     steps = {p: dict(ms=0.0, plain_ms=0.0, library_ms=0.0,
                      library_conv_ms=0.0, bound_ms=0.0, max_abs_err=0.0,
@@ -1625,18 +1694,7 @@ def phase_kernel_conv(torch, cs):
         x = torch.randn(N, C, HW, device="cuda", generator=gen).to(dtype)
         w = (torch.randn(O, C, device="cuda", generator=gen) * 0.05) \
             .to(dtype)
-        path = cs.conv1x1_stats_path(N, C, HW, O, dtype)
-        y, s1, s2 = cs.fused_conv1x1_stats(x, w)
-        torch.cuda.synchronize()
-        ref_y, ref_s1, ref_s2 = cs.fused_conv1x1_stats_plain(x, w)
-        err_y = (y.float() - ref_y.float()).abs().max().item()
-        y_over_bound = conv_y_errors(torch, cs, x, w, y, ref_y)
-        rel_s1 = ((s1 - ref_s1).abs()
-                  / (N * HW * ref_s2).sqrt().clamp_min(1e-30)).max().item()
-        rel_s2 = ((s2 - ref_s2).abs() / ref_s2.clamp_min(1e-30)) \
-            .max().item()
-        ok = (max(y_over_bound.values()) <= 1.0 and rel_s1 <= CONV_SUM_TOL
-              and rel_s2 <= CONV_SUM_TOL)
+        check = conv_check(torch, cs, x, w)
         ms = _time_ms(torch, lambda: cs.fused_conv1x1_stats(x, w))
         plain_ms = _time_ms(torch, lambda: cs.fused_conv1x1_stats_plain(
             x, w))
@@ -1653,16 +1711,15 @@ def phase_kernel_conv(torch, cs):
         library_conv_ms = _time_ms(torch, lambda: F.conv2d(x4, w4))
         bound = _conv_bound(N, C, HW, O, dt)
         row = dict(phase="kernel_conv", name="conv1x1_stats", N=N, C=C,
-                   HW=HW, O=O, dtype=dt, path=path, err_y=err_y,
-                   y_over_bound=y_over_bound, rel_err_s1=rel_s1,
-                   rel_err_s2=rel_s2, tol_sums=CONV_SUM_TOL, ok=ok, ms=ms,
+                   HW=HW, O=O, dtype=dt, **check, ms=ms,
                    plain_ms=plain_ms, library_ms=library_ms,
                    library="F.conv2d 1x1 + two f32 sums",
                    library_conv_ms=library_conv_ms, **bound,
                    bound_share=bound["bound_ms"] / ms)
         _emit(row)
-        _check(ok, "conv1x1_stats disagrees with its plain version or the "
-                   "exact product: %r" % (row,))
+        _check(row["ok"], "conv1x1_stats disagrees with its plain version "
+               "or the exact product: %r" % (row,))
+        path = row["path"]
         for p, by_shape in sites.items():
             k = by_shape.get((N, C, HW, O)) if dt == "bfloat16" else None
             if not k:
@@ -1674,11 +1731,12 @@ def phase_kernel_conv(torch, cs):
             for key in ("ms", "plain_ms", "library_ms", "library_conv_ms",
                         "bound_ms"):
                 step[key] += k * row[key]
-            step["max_abs_err"] = max(step["max_abs_err"], err_y)
+            step["max_abs_err"] = max(step["max_abs_err"], row["err_y"])
             step["paths"][path] = step["paths"].get(path, 0) + k
             bound_by_ms[p][row["bound_by"]] += k * row["bound_ms"]
             step["launches"] += k
-    for p, want in (("resnet", RESNET_SITES), ("rcnn", RCNN_SITES)):
+    for p, want in (("resnet", RESNET_SITES),
+                    ("mobilenet", MOBILENET_SITES), ("rcnn", RCNN_SITES)):
         _check(steps[p]["launches"] == want, "the %s step's conv shapes "
                "cover %d launch sites, not %d"
                % (p, steps[p]["launches"], want))
@@ -1890,21 +1948,22 @@ def _resnet_batch(torch):
             torch.from_numpy(labels).cuda())
 
 
-def _gluon_trainer(mx, net):
-    """No weight decay on beta, gamma and bias; NAG with a fresh
-    warmup-cosine scheduler."""
+def _gluon_trainer(mx, net, nag=GLUON_NAG):
+    """No weight decay on beta, gamma and bias; NAG (`nag`'s lr, momentum
+    and wd) with a fresh warmup-cosine scheduler."""
     net.collect_params(GLUON_NO_WD).setattr("wd_mult", 0.0)
     sched = mx.lr_scheduler.CosineScheduler(max_update=GLUON_MAX_UPDATE,
                                             **GLUON_LR)
     return mx.gluon.Trainer(net.collect_params(), "nag",
-                            dict(GLUON_NAG, lr_scheduler=sched))
+                            dict(nag, lr_scheduler=sched))
 
 
-def _gluon_net(mx, seen=None):
-    """resnet50_v1b as a Gluon user builds it: `get_model` with every
-    parameter waiting for `initialize`, then MSRAPrelu on the card (the
-    stem's width waits for the first forward).  `seen` gets the names
-    of the parameters without data before and after `initialize`."""
+def _gluon_net(mx, seen=None, name="resnet50_v1b"):
+    """`name` (resnet50_v1b) as a Gluon user builds it: `get_model` with
+    every parameter waiting for `initialize`, then MSRAPrelu on the card
+    (the widths the net is not given wait for the first forward).
+    `seen` gets the names of the parameters without data before and
+    after `initialize`."""
     from incubator_mxnet_tpu_torch.gluon.model_zoo.vision import get_model
     from incubator_mxnet_tpu_torch.gluon.parameter import is_deferred
 
@@ -1912,7 +1971,7 @@ def _gluon_net(mx, seen=None):
         return [n for n, p in net.collect_params().items()
                 if is_deferred(p)]
     mx.random.seed(0)
-    net = get_model("resnet50_v1b", classes=1000)
+    net = get_model(name, classes=1000)
     before = waiting()
     net.initialize(mx.init.MSRAPrelu(), ctx=mx.gpu(0))
     if seen is not None:
@@ -1932,12 +1991,13 @@ def _gluon_step(mx, net, trainer, loss_fn, x, y):
     return out, loss.detach().mean()
 
 
-def _gluon_build(mx):
-    """The Gluon loop's (net, loss, trainer), fresh from seed 0."""
+def _gluon_build(mx, name="resnet50_v1b", nag=GLUON_NAG):
+    """The Gluon loop's (net, loss, trainer) for model `name`, fresh from
+    seed 0."""
     def build():
-        net = _gluon_net(mx)
+        net = _gluon_net(mx, name=name)
         return net, mx.gluon.loss.SoftmaxCrossEntropyLoss(), \
-            _gluon_trainer(mx, net)
+            _gluon_trainer(mx, net, nag)
     return build
 
 
@@ -5241,6 +5301,403 @@ def phase_train_rcnn(torch, mx, att, cs):
                     out["profile"]["port_kernels"]))
 
 
+# -- the Gluon layers and the vision model zoo ------------------------------
+
+MOBILENET_SITES = 34    # pointwise conv + BN pairs of mobilenet_v2_1_0
+# GluonCV's mobilenetv2_1.0 ImageNet recipe
+# (scripts/classification/imagenet/train_imagenet.py) decays with wd
+# 4e-5; lr and momentum stay the Gluon loop's
+MOBILENET_NAG = dict(GLUON_NAG, wd=4e-5)
+# the other families, at their published widths and input sides: one
+# hybridized bf16 step at batch ZOO_BATCH, then a replayed one
+ZOO = (("resnet50_v2", 224), ("vgg16_bn", 224), ("alexnet", 224),
+       ("densenet121", 224), ("squeezenet1_1", 224), ("mobilenet1_0", 224),
+       ("mobilenet_v3_large", 224), ("inception_v3", 299))
+ZOO_BATCH = 8
+ZOO_SGD = {"learning_rate": 0.01, "momentum": 0.9, "wd": 1e-4}
+# f32 logits of a batch-2 inference forward against the CPU copy, as the
+# served logits are held: the same f32 network, cuDNN's and the CPU's
+# convolution sums in other orders (TF32 off)
+ZOO_TOL = SERVE_TOL
+# the layers phase: f32 outputs and gradients, card against a CPU copy,
+# each within LAYER_TOL of its scale (at least 1)
+LAYER_TOL = 1e-4
+
+
+def _spy(module, name, record):
+    """Wrap module.name so that each call first hands its arguments to
+    `record`; returns a function that restores it."""
+    orig = getattr(module, name)
+
+    def spied(*args, **kwargs):
+        record(*args, **kwargs)
+        return orig(*args, **kwargs)
+    setattr(module, name, spied)
+    return lambda: setattr(module, name, orig)
+
+
+def _mobilenet_parity(torch, mx):
+    """mobilenet_v2_1_0 (f32, widths deferred, MSRAPrelu on the card)
+    through one batch-2 training step against a CPU copy, as
+    train_resnet holds resnet50_v1b: the loss within SERVE_TOL, the
+    gradients by `_spread_parity` (held by `_spread_checks`), the running
+    statistics within RUNNING_TOL.  The card's forward also names the
+    step's pointwise sites, each (C, HW, O) with its count."""
+    from incubator_mxnet_tpu_torch.gluon.model_zoo.vision import get_model
+    from incubator_mxnet_tpu_torch.ops import nn as ops_nn
+    mx.random.seed(0)
+    net = get_model("mobilenet_v2_1_0", classes=1000)
+    net.initialize(mx.init.MSRAPrelu(), ctx=mx.gpu(0))
+    cpu = get_model("mobilenet_v2_1_0", classes=1000)
+    cpu.initialize(ctx="cpu")
+    rs = np.random.RandomState(0)
+    x = torch.from_numpy(rs.randn(RESNET_PARITY_BATCH, 3, 224, 224)
+                         .astype(np.float32))
+    y = torch.from_numpy(rs.randint(0, 1000, RESNET_PARITY_BATCH)
+                         .astype(np.float32))
+    _copy_to_cpu(mx, net, cpu, x[:1])
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    pointwise = collections.Counter()
+    undo = _spy(ops_nn, "conv1x1_bn_stats", lambda data, weight: pointwise.
+                update([(data.shape[1], data.shape[2] * data.shape[3],
+                         weight.shape[0])]))
+    try:
+        loss, grads, running = _resnet_grads(mx, net, loss_fn, x.cuda(),
+                                             y.cuda())
+    finally:
+        undo()
+    ref_loss, ref_grads, ref_running = _resnet_grads(mx, cpu, loss_fn, x, y)
+    _, spread_grads, _ = _resnet_grads(mx, cpu, loss_fn,
+                                       x * (1.0 + 2.0 ** -22), y)
+    row = dict(batch=RESNET_PARITY_BATCH, dtype="float32",
+               loss_max_abs_err=(loss - ref_loss).abs().max().item(),
+               loss_tol=SERVE_TOL,
+               **_spread_parity(torch, grads, ref_grads, spread_grads),
+               worst_running_err_over_scale=max(
+                   _scaled_err(running, ref_running).values()),
+               running_tol=RUNNING_TOL)
+    del net, cpu
+    return row, pointwise
+
+
+def phase_train_mobilenet(torch, mx, att, cs):
+    """mobilenet_v2_1_0 (1000 classes) trained as train_resnet_gluon
+    trains resnet50_v1b: get_model with the widths deferred,
+    initialize(MSRAPrelu, ctx=gpu(0)), batch 128 x 3 x 224 x 224 bf16
+    from RandomState(0), NAG (MOBILENET_NAG) under the warmup-cosine
+    schedule, no wd on beta, gamma and bias, hybridized; eager and
+    hybridized from the same weights and data through `phase_hybridize`
+    (bit for bit, 34 conv launches a step by the counters and by the
+    profiler's kernel names, the timed steps only replaying).  Before
+    it, one f32 batch-2 step against the CPU copy (`_mobilenet_parity`),
+    whose forward's pointwise sites must be `cs.MOBILENET_V2_CONV_SHAPES`;
+    from the hybridized step's profile, the depthwise convolutions'
+    device time (torch's conv_depthwise2d kernels) and share of the
+    step.  Returns the hybridized run."""
+    t0 = time.monotonic()
+    parity, pointwise = _mobilenet_parity(torch, mx)
+    want = {(C, HW, O): k for C, HW, O, k in cs.MOBILENET_V2_CONV_SHAPES}
+    gc.collect()
+    torch.cuda.empty_cache()
+    img, ilab = _resnet_batch(torch)
+    run = phase_hybridize(
+        torch, mx, att, cs, "train_mobilenet",
+        _gluon_build(mx, "mobilenet_v2_1_0", MOBILENET_NAG),
+        lambda n, h, t: _gluon_step(mx, n, t, h, img, ilab)[1],
+        RESNET_BATCH, (0,) * 6 + (MOBILENET_SITES, 0))
+    dw_ms = run["profile"]["depthwise_us_per_step"] / 1e3
+    conv_us = {k: us for k, us in run["profile"][
+        "port_kernel_us_per_step"].items()
+        if k.startswith("conv1x1") or k == "stats_reduce_kernel"}
+    out = dict(phase="train_mobilenet", model="mobilenet_v2_1_0",
+               classes=1000, dtype="bfloat16", batch=RESNET_BATCH,
+               image=[3, 224, 224], init="MSRAPrelu", no_wd=GLUON_NO_WD,
+               optimizer="nag", **MOBILENET_NAG,
+               lr_scheduler=dict(GLUON_LR, kind="CosineScheduler",
+                                 max_update=GLUON_MAX_UPDATE),
+               nvidia_smi=_nvidia_smi(), **_summary(run),
+               step_ms=run["step_ms"], losses=run["losses"],
+               eager_vs_hybridized=run["compare"],
+               conv_launches_per_replayed_step=run[
+                   "profiled_launches_per_step"]["conv"],
+               conv_device_ms_per_step=sum(conv_us.values()) / 1e3,
+               conv_kernel_us_per_step=conv_us,
+               pointwise_sites={"%d,%d,%d" % k: n
+                                for k, n in sorted(pointwise.items())},
+               pointwise_sites_match=dict(pointwise) == want,
+               depthwise_device_ms_per_step=dw_ms,
+               depthwise_share=dw_ms / run["step_ms_median"],
+               depthwise_share_of_device=dw_ms * 1e3 * run["profile"][
+                   "steps"] / run["profile"]["device_us"],
+               parity=parity,
+               wall_s=time.monotonic() - t0)
+    _emit(out)
+    cmp = run["compare"]
+    _check(cmp["losses_bit_equal"] and cmp["params_bit_equal"],
+           "train_mobilenet: eager and hybridized differ: %r" % (cmp,))
+    _check(out["pointwise_sites_match"], "train_mobilenet: the net's "
+           "pointwise sites %r are not MOBILENET_V2_CONV_SHAPES"
+           % (out["pointwise_sites"],))
+    _check(parity["loss_max_abs_err"] <= SERVE_TOL
+           and parity["worst_running_err_over_scale"] <= RUNNING_TOL,
+           "train_mobilenet: the f32 step's loss or running statistics "
+           "differ from the CPU copy's: %r" % (parity,))
+    _spread_checks("train_mobilenet", parity)
+    return out
+
+
+def _zoo_conv_checks(torch, cs, seen):
+    """`conv_check` at each distinct site of a zoo step: `seen` maps
+    (N, C, H, W, O) to the first (data, weight) that
+    `ops.nn.conv1x1_bn_stats` was given there, as that op hands them to
+    the kernel.  Returns the sites by instance, the largest errors over
+    their bounds, and whether every site holds."""
+    rows = []
+    for (N, C, H, W, O), (data, weight) in sorted(seen.items()):
+        rows.append(conv_check(torch, cs, data.reshape(N, C, H * W),
+                               weight.reshape(O, C).to(data.dtype)))
+    paths = collections.Counter(r["path"] for r in rows)
+    return dict(sites=len(rows), paths=dict(paths),
+                y_over_bound=max((max(r["y_over_bound"].values())
+                                  for r in rows), default=0.0),
+                rel_err_sums=max((max(r["rel_err_s1"], r["rel_err_s2"])
+                                  for r in rows), default=0.0),
+                tol_sums=CONV_SUM_TOL, ok=all(r["ok"] for r in rows),
+                failed=[dict(N=N, C=C, HW=H * W, O=O, **r) for (
+                    N, C, H, W, O), r in zip(sorted(seen), rows)
+                    if not r["ok"]])
+
+
+def phase_zoo(torch, mx, cs):
+    """Each family of `ZOO` at its published width (1000 classes,
+    MSRAPrelu on the card, hybridized with static_alloc and
+    static_shape): a bf16 batch of ZOO_BATCH from RandomState(0) through
+    an eager, a capturing and a replayed SGD step (ZOO_SGD), every loss
+    finite; a fourth, profiled, replayed step launching the conv kernel
+    as often as the block tree has fused pairs (`gluon.nn.fused_pairs`);
+    the kernel against its plain version at each distinct pair of the
+    eager step, on the inputs it had there (`_zoo_conv_checks`); then
+    the f32 logits of a batch-2 inference forward against the CPU
+    copy within ZOO_TOL of their scale.  Returns {family: launches}."""
+    from incubator_mxnet_tpu_torch.gluon.model_zoo.vision import get_model
+    from incubator_mxnet_tpu_torch.gluon.nn import fused_pairs
+    from incubator_mxnet_tpu_torch.ops import nn as ops_nn
+    t0 = time.monotonic()
+    rows, launches = [], {}
+    for name, side in ZOO:
+        t1 = time.monotonic()
+        mx.random.seed(0)
+        net = get_model(name, classes=1000)
+        net.initialize(mx.init.MSRAPrelu(), ctx=mx.gpu(0))
+        net.hybridize(static_alloc=True, static_shape=True)
+        loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+        trainer = mx.gluon.Trainer(net.collect_params(), "sgd",
+                                   dict(ZOO_SGD))
+        rs = np.random.RandomState(0)
+        x = torch.from_numpy(rs.randn(ZOO_BATCH, 3, side, side).astype(
+            np.float32)).cuda().to(torch.bfloat16)
+        y = torch.from_numpy(rs.randint(0, 1000, ZOO_BATCH).astype(
+            np.float32)).cuda()
+        step = lambda: _train_step(mx, net, loss_fn, trainer, (x,), y)  # noqa
+        pairs_seen = {}
+        undo = _spy(ops_nn, "conv1x1_bn_stats",
+                    lambda data, weight: pairs_seen.setdefault(
+                        tuple(data.shape) + (weight.shape[0],),
+                        (data.detach().clone(), weight.detach().clone())))
+        try:
+            losses = [step().mean().item()]     # eager: the wrappers run
+        finally:
+            undo()
+        losses += [step().mean().item() for _ in range(2)]
+        graph = net._cached_graph
+        programs = dict(captures=graph.captures, replays=graph.replays,
+                        trainer_captures=trainer.captures)
+        kernel_rows, _ = _device_kernels(torch, step, 1)
+        conv = _profiled_counts(_port_kernel_calls(kernel_rows))[3]
+        pairs = fused_pairs(net)
+        checks = _zoo_conv_checks(torch, cs, pairs_seen)
+        del pairs_seen
+        cpu = get_model(name, classes=1000)
+        cpu.initialize(ctx="cpu")
+        x2 = torch.from_numpy(rs.randn(2, 3, side, side).astype(np.float32))
+        _copy_to_cpu(mx, net, cpu, x2[:1])
+        with mx.autograd.pause():
+            got = net(x2.cuda()).float().cpu()
+            ref = cpu(x2)
+        err = (got - ref).abs().max().item() / max(
+            ref.abs().max().item(), 1e-30)
+        row = dict(family=name, image=[3, side, side], batch=ZOO_BATCH,
+                   losses=losses, programs=programs, fused_pairs=pairs,
+                   conv_launches_replayed_step=conv, conv_checks=checks,
+                   logits_err_over_scale=err, tol=ZOO_TOL,
+                   seconds=time.monotonic() - t1)
+        rows.append(row)
+        launches[name] = conv
+        del net, cpu, trainer, graph
+        gc.collect()
+        torch.cuda.empty_cache()
+        _check(all(math.isfinite(v) for v in losses),
+               "zoo %s: non-finite loss %r" % (name, losses))
+        _check(programs["replays"] >= 1, "zoo %s: no replayed step: %r"
+               % (name, programs))
+        _check(conv == pairs, "zoo %s: the replayed step launched the conv "
+               "kernel %d times, the block tree has %d fused pairs"
+               % (name, conv, pairs))
+        _check(checks["ok"], "zoo %s: conv1x1_stats disagrees with its "
+               "plain version at a site of the step: %r" % (name, checks))
+        _check(err <= ZOO_TOL, "zoo %s: logits differ from the CPU copy by "
+               "%g of their scale" % (name, err))
+    _emit(dict(phase="zoo", families=rows,
+               wall_s=time.monotonic() - t0))
+    return launches
+
+
+def _layer_cases(mx):
+    """(name, block, input shapes) of the layers phase: each new layer
+    and container of gluon.nn and gluon.contrib.nn, small; fresh blocks
+    at each call."""
+    nn, cnn = mx.gluon.nn, mx.gluon.contrib.nn
+
+    def seq(cls, *blocks):
+        net = cls()
+        net.add(*blocks)
+        return net
+
+    def concurrent():
+        net = cnn.HybridConcurrent(axis=1)
+        net.add(seq(nn.HybridSequential, nn.Conv2D(4, 1, use_bias=False),
+                    nn.BatchNorm()),
+                seq(nn.HybridSequential, nn.Conv2D(3, 1, use_bias=False),
+                    nn.BatchNorm()), cnn.Identity())
+        return net
+    return [
+        ("activations", seq(nn.HybridSequential, nn.LeakyReLU(0.1),
+                            nn.PReLU(alpha_initializer="ones"), nn.ELU(),
+                            nn.SELU(), nn.GELU(), nn.Swish()),
+         [(4, 6, 5)]),
+        ("conv1d", nn.Conv1D(8, 3, strides=2, padding=1, groups=2),
+         [(4, 6, 20)]),
+        ("conv3d", nn.Conv3D(4, 3, padding=1), [(2, 3, 6, 6, 6)]),
+        ("conv_transposes", seq(nn.HybridSequential, nn.Conv2DTranspose(
+            6, 3, strides=2, padding=1, output_padding=1),
+            nn.GroupNorm(num_groups=3), nn.InstanceNorm(scale=True)),
+         [(2, 4, 7, 7)]),
+        ("conv1d_transpose", nn.Conv1DTranspose(3, 4, strides=3),
+         [(2, 4, 9)]),
+        ("conv3d_transpose", nn.Conv3DTranspose(2, 2, strides=2),
+         [(2, 3, 3, 3, 3)]),
+        ("pools", seq(nn.HybridSequential, nn.MaxPool3D(2),
+                      nn.AvgPool3D(3, 1, 1, count_include_pad=False),
+                      nn.GlobalAvgPool3D()), [(2, 3, 6, 6, 6)]),
+        ("pools1d", seq(nn.HybridSequential, nn.MaxPool1D(3, 2, 1),
+                        nn.AvgPool1D(2, ceil_mode=True),
+                        nn.GlobalMaxPool1D()), [(2, 3, 15)]),
+        ("reflection_pad", nn.ReflectionPad2D(2), [(2, 3, 6, 5)]),
+        ("sequential_lambdas", seq(nn.Sequential, nn.Lambda("tanh"),
+                                   nn.HybridLambda("relu"),
+                                   nn.Dropout(0.3, axes=(1,))),
+         [(4, 5, 6)]),
+        ("hybrid_concurrent", concurrent(), [(2, 3, 8, 8)]),
+        ("sync_batch_norm", cnn.SyncBatchNorm(), [(4, 3, 5, 5)]),
+        ("pixel_shuffle1d", cnn.PixelShuffle1D(3), [(2, 6, 4)]),
+        ("pixel_shuffle2d", cnn.PixelShuffle2D(2), [(2, 8, 3, 3)]),
+        ("pixel_shuffle3d", cnn.PixelShuffle3D(2), [(1, 16, 2, 1, 3)]),
+    ]
+
+
+def phase_layers(torch, mx):
+    """Each layer of `_layer_cases` and each new registry op of ops/nn.py
+    forward and backward on the card (f32, TF32 off) against the same
+    call on a CPU copy: outputs and every input and parameter gradient
+    within LAYER_TOL of scale (Dropout at rate 0.3 shares one mask along
+    axis 1 on the card, checked by its pattern, and runs at rate 0 in
+    the comparison)."""
+    t0 = time.monotonic()
+    rs = np.random.RandomState(4)
+    rows = []
+
+    def compare(name, run, inputs):
+        """run(tensors) -> (output, parameters) on each device."""
+        worst = 0.0
+        got = []
+        for dev in ("cuda", "cpu"):
+            ts = [torch.from_numpy(a).to(dev).requires_grad_()
+                  for a in inputs]
+            out, params = run(ts)
+            cot = torch.from_numpy(np.random.RandomState(1).uniform(
+                -1, 1, tuple(out.shape)).astype(np.float32)).to(dev)
+            grads = torch.autograd.grad(out, ts + params, cot,
+                                        allow_unused=True)
+            got.append([out] + [g for g in grads if g is not None])
+        for a, b in zip(*got):
+            scale = max(1.0, b.abs().max().item())
+            worst = max(worst, (a.cpu() - b).abs().max().item() / scale)
+        rows.append(dict(name=name, err_over_scale=worst,
+                         tensors=len(got[1])))
+        _check(len(got[0]) == len(got[1]) and worst <= LAYER_TOL,
+               "layers %s: the card differs from the CPU by %g of scale"
+               % (name, worst))
+
+    for (name, block, shapes), (_, card, _) in zip(_layer_cases(mx),
+                                                   _layer_cases(mx)):
+        inputs = [rs.uniform(-1, 1, s).astype(np.float32) for s in shapes]
+        for net, dev in ((block, "cpu"), (card, "cuda")):
+            for m in net.modules():
+                if isinstance(m, mx.gluon.nn.Dropout) and m._rate:
+                    with mx.autograd.record():
+                        a = m(torch.ones(4, 50, 30, device=dev)).cpu()
+                    _check(bool((a == a[:, :1]).all()),
+                           "layers: Dropout(axes=(1,)) drew per element")
+                    m._rate = 0.0
+            net.initialize(mx.init.Xavier(), ctx=dev)
+            with mx.autograd.pause():
+                net(*[torch.from_numpy(a).to(dev) for a in inputs])
+        card.load_state_dict(block.state_dict())
+        nets = {"cuda": card, "cpu": block}
+
+        def run(ts, name=name):
+            net = nets[ts[0].device.type]
+            with mx.autograd.record():
+                out = net(*ts)
+            return out, [p for p in net.parameters() if p.requires_grad]
+        compare(name, run, inputs)
+
+    ops = mx.ops.nn
+    label = np.array([[1, 2, 2], [3, 0, 0]], np.float32)
+    op_cases = [
+        ("Deconvolution", lambda t: ops.deconvolution(
+            t[0], t[1], t[2], stride=(2, 2), pad=(1, 1), adj=(1, 1),
+            num_group=2, no_bias=False),
+         [(2, 4, 5, 5), (4, 3, 3, 3), (6,)]),
+        ("InstanceNorm", lambda t: ops.instance_norm(t[0], t[1], t[2]),
+         [(2, 3, 4, 5), (3,), (3,)]),
+        ("GroupNorm", lambda t: ops.group_norm(t[0], t[1], t[2],
+                                               num_groups=2),
+         [(2, 4, 3, 5), (4,), (4,)]),
+        ("LRN", lambda t: ops.lrn(t[0], nsize=3), [(2, 6, 4, 4)]),
+        ("UpSampling", lambda t: ops.upsampling(
+            t[0], t[1], scale=2, num_args=2), [(2, 3, 4, 4), (2, 2, 2, 2)]),
+        ("UpSampling_bilinear", lambda t: ops.upsampling(
+            t[0], scale=3, sample_type="bilinear"), [(2, 3, 4, 5)]),
+        ("GridGenerator", lambda t: ops.grid_generator(
+            t[0], target_shape=(4, 5)), [(2, 6)]),
+        ("GridGenerator_warp", lambda t: ops.grid_generator(
+            t[0], transform_type="warp"), [(2, 2, 4, 5)]),
+        ("CTCLoss", lambda t: ops.ctc_loss(
+            t[0], torch.from_numpy(label).to(t[0].device)), [(6, 2, 5)]),
+        ("SyncBatchNorm", lambda t: ops.sync_batch_norm(
+            t[0], t[1], t[2], t[1].detach() * 0, t[1].detach() * 0 + 1,
+            fix_gamma=False)[0], [(4, 3, 2, 2), (3,), (3,)]),
+        ("softmax_use_length", lambda t: ops.softmax(
+            t[0], length=None, use_length=True), [(3, 5)]),
+    ]
+    for name, fn, shapes in op_cases:
+        inputs = [rs.uniform(-1, 1, s).astype(np.float32) for s in shapes]
+        compare(name, lambda ts, fn=fn: (fn(ts), []), inputs)
+    _emit(dict(phase="layers", cases=rows, tol=LAYER_TOL,
+               wall_s=time.monotonic() - t0))
+
+
 def setup(torch):
     """What every run of the phases starts from, here and in
     `tools/chip_phases.py`: f32 products without TF32, the card's env
@@ -5308,6 +5765,9 @@ def main():
     rcnn = phase_train_rcnn(torch, mx, att, cs)
     lamb = phase_train_lamb(torch, mx, att, cs)
     phase_optimizers(torch, mx)
+    mobilenet = phase_train_mobilenet(torch, mx, att, cs)
+    zoo_launches = phase_zoo(torch, mx, cs)
+    phase_layers(torch, mx)
 
     def nmt(kernel):
         """A flash row's NMT-path and bf16-path launches and their shapes'
@@ -5385,7 +5845,15 @@ def main():
                  "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                  "max_abs_err", "launches", "paths")},
              train_rcnn_warmup_launches=rcnn["launches"]["conv"],
-             train_rcnn_launches_per_step=rcnn["profiled_conv_per_step"]),
+             train_rcnn_launches_per_step=rcnn["profiled_conv_per_step"],
+             train_mobilenet_step={k: conv_steps["mobilenet"][k] for k in (
+                 "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                 "library_conv_ms", "max_abs_err", "launches", "paths")},
+             train_mobilenet_launches_per_step=mobilenet[
+                 "conv_launches_per_replayed_step"],
+             train_mobilenet_device_ms_per_step=mobilenet[
+                 "conv_device_ms_per_step"],
+             zoo_launches_per_replayed_step=zoo_launches),
         dict(name="nms", route="cuda",
              source="incubator_mxnet_tpu_torch/ops/csrc/nms.cu",
              replaces="no TPU kernel: box_nms "

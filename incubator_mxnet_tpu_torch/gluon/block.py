@@ -87,7 +87,7 @@ from ..context import resolve_device
 from ..ndarray.ndarray import NDArray, _wrap, unwrap
 
 __all__ = ["Block", "HybridBlock", "new_parameter", "cast_parameter",
-           "materialize", "nameless_scope"]
+           "materialize", "nameless_scope", "call_on_ndarrays"]
 
 
 # -- names (ref: the JAX package's _gen_prefix and name_scope) ---------------
@@ -156,6 +156,21 @@ def _nd_call(call, args, kwargs):
     out, ospec = tree_flatten(call(*args, **kwargs))
     return tree_unflatten([_wrap(o) if isinstance(o, torch.Tensor) else o
                            for o in out], ospec)
+
+
+def call_on_ndarrays(fn, *args, **kwargs):
+    """`fn` over NDArrays: the tensor arguments come in wrapped, the
+    NDArrays it returns go out as their tensors, and its `nd` ops record
+    for autograd when torch's grad mode is on, as the port's other
+    layers do."""
+    def wrap(t):
+        return _wrap(t) if isinstance(t, torch.Tensor) else t
+    prev = _ag.set_recording(torch.is_grad_enabled())
+    try:
+        out = fn(*map(wrap, args), **{k: wrap(v) for k, v in kwargs.items()})
+    finally:
+        _ag.set_recording(prev)
+    return tree_map(unwrap, out)
 
 
 class Block(nn.Module):
@@ -411,18 +426,8 @@ class HybridBlock(Block):
         if not in_shape_pass() and any(map(is_deferred, params.values())):
             self._finish_deferred(x, *args)
             params = self._own_params()
-
-        def wrap(t):
-            return _wrap(t) if isinstance(t, torch.Tensor) else t
-        prev = _ag.set_recording(torch.is_grad_enabled())
-        try:
-            out = self.hybrid_forward(
-                F, wrap(x), *map(wrap, args),
-                **{k: wrap(v) for k, v in kwargs.items()},
-                **{k: wrap(p) for k, p in params.items()})
-        finally:
-            _ag.set_recording(prev)
-        return tree_map(unwrap, out)
+        return call_on_ndarrays(self.hybrid_forward, F, x, *args,
+                                **kwargs, **params)
 
     def hybrid_forward(self, F, x, *args, **kwargs):
         raise NotImplementedError

@@ -3,9 +3,10 @@ incubator_mxnet_tpu/gluon/loss.py): `L2Loss`, `L1Loss`,
 `SigmoidBinaryCrossEntropyLoss` (alias `SigmoidBCELoss`, with
 `pos_weight`), `SoftmaxCrossEntropyLoss` (alias `SoftmaxCELoss`),
 `KLDivLoss`, `HuberLoss`, `HingeLoss`, `SquaredHingeLoss`,
-`LogisticLoss` (`label_format` "signed" or "binary"), `TripletLoss` and
-`CosineEmbeddingLoss`, each with the JAX class's arguments, defaults and
-formula, written as a `forward` on tensors.  `CTCLoss` waits for its op.
+`LogisticLoss` (`label_format` "signed" or "binary"), `TripletLoss`,
+`CosineEmbeddingLoss` and `CTCLoss` (over the `CTCLoss` op, the blank
+last), each with the JAX class's arguments, defaults and formula,
+written as a `forward` on tensors.
 
 A loss returns one value per example: the mean over every axis but
 `batch_axis` (`TripletLoss` and `CosineEmbeddingLoss` reduce their own
@@ -23,7 +24,7 @@ from .block import HybridBlock
 __all__ = ["Loss", "L2Loss", "L1Loss", "SigmoidBinaryCrossEntropyLoss",
            "SigmoidBCELoss", "SoftmaxCrossEntropyLoss", "SoftmaxCELoss",
            "KLDivLoss", "HuberLoss", "HingeLoss", "SquaredHingeLoss",
-           "LogisticLoss", "TripletLoss", "CosineEmbeddingLoss"]
+           "LogisticLoss", "TripletLoss", "CosineEmbeddingLoss", "CTCLoss"]
 
 
 def _apply_weighting(loss, weight=None, sample_weight=None):
@@ -267,4 +268,27 @@ class CosineEmbeddingLoss(Loss):
         label = label.reshape((-1,))
         loss = torch.where(label == 1, 1.0 - cos,
                            torch.relu(cos - self._margin))
+        return _apply_weighting(loss, self._weight, sample_weight)
+
+
+class CTCLoss(Loss):
+    """ref: gluon.loss.CTCLoss: the CTC loss per example of pred
+    activations ("NTC" or "TNC") and labels ("NT" or "TN") whose blank is
+    the last class; `pred_lengths` and `label_lengths` bound each
+    example's steps and label."""
+
+    def __init__(self, layout="NTC", label_layout="NT", weight=None):
+        super().__init__(weight, label_layout.find("N"))
+        self._layout = layout
+
+    def forward(self, pred, label, pred_lengths=None, label_lengths=None,
+                sample_weight=None):
+        if self._layout == "NTC":
+            pred = pred.transpose(0, 1)
+        if self._batch_axis == 1:
+            label = label.transpose(0, 1)
+        loss = ops.ctc_loss(pred, label, pred_lengths, label_lengths,
+                            use_data_lengths=pred_lengths is not None,
+                            use_label_lengths=label_lengths is not None,
+                            blank_label="last")
         return _apply_weighting(loss, self._weight, sample_weight)

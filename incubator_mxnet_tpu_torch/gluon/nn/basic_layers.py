@@ -10,10 +10,10 @@ at once (`block.new_parameter`); without it, `initialize` does it.
 Dropout and BatchNorm follow `autograd.is_training()` (on inside
 `autograd.record()`), as the JAX ops do, not `Module.train()`.
 
-`HybridSequential` runs a pointwise `Conv2D` followed by a `BatchNorm`
-that takes batch statistics as one fused step: `ops.conv1x1_bn_stats`
-(`ops.conv_stats`' kernel) computes the product and the sums Σy, Σy² in
-one pass, and the BatchNorm normalizes with statistics from those sums
+`HybridSequential` (and `Sequential`) runs a pointwise `Conv2D` followed
+by a `BatchNorm` that takes batch statistics as one fused step:
+`ops.conv1x1_bn_stats` (`ops.conv_stats`' kernel) computes the product
+and the sums Σy, Σy² in one pass, and the BatchNorm normalizes with statistics from those sums
 instead of reading y again.  The children and their parameter names stay
 as they are.  A deferred width of either layer is materialised from `x`
 before the kernel reads the weight.  The product is called through the
@@ -27,7 +27,8 @@ import math
 
 import torch
 
-from ..block import HybridBlock, materialize, new_parameter
+from ..block import (Block, HybridBlock, call_on_ndarrays, materialize,
+                     new_parameter)
 from .conv_layers import Conv2D
 from ... import autograd as _ag
 from ... import config as _config
@@ -35,18 +36,37 @@ from ... import random as _rnd
 from ...ops import conv_stats as _conv_stats
 from ...ops import nn as ops
 
-__all__ = ["HybridSequential", "Dense", "Dropout", "Embedding", "LayerNorm",
-           "BatchNorm", "Flatten"]
+__all__ = ["Sequential", "HybridSequential", "Dense", "Dropout",
+           "Embedding", "LayerNorm", "BatchNorm", "Flatten", "InstanceNorm",
+           "GroupNorm", "Lambda", "HybridLambda", "fused_pairs"]
+
+
+def _pair(block, nxt):
+    """A pointwise Conv2D followed by a BatchNorm over its channels that
+    can take batch statistics."""
+    return (isinstance(block, Conv2D) and block.pointwise
+            and isinstance(nxt, BatchNorm) and nxt._axis == 1
+            and not nxt._use_global_stats)
 
 
 def _fuses(block, nxt, x):
-    """A pointwise Conv2D whose BatchNorm takes batch statistics in the
+    """A pair (`_pair`) whose BatchNorm now takes batch statistics in the
     one-pass form the kernel's sums give, over an activation `x` of a
     dtype the kernel has an instance for."""
-    return (isinstance(block, Conv2D) and block.pointwise
-            and isinstance(nxt, BatchNorm) and nxt.batch_stats
-            and nxt._axis == 1 and not _config.get("MXNET_BN_STABLE_VAR")
+    return (_pair(block, nxt) and nxt.batch_stats
+            and not _config.get("MXNET_BN_STABLE_VAR")
             and x.dtype in _conv_stats.KERNEL_DTYPES)
+
+
+def fused_pairs(net):
+    """The pointwise Conv2D → BatchNorm pairs of `net`'s sequential
+    blocks, as their forwards pair them, that run fused in a training
+    step (f32, bf16 or f16 activations, MXNET_BN_STABLE_VAR off): read
+    from the block tree.  A block that runs its children otherwise (a
+    HybridConcurrent's branches) pairs none of them."""
+    return sum(bn is not None for m in net.modules()
+               if isinstance(m, _Chain) and type(m).forward is _Chain.forward
+               for _, bn in m._steps(_pair))
 
 
 def _conv1x1_bn(conv, bn, x):
@@ -57,26 +77,34 @@ def _conv1x1_bn(conv, bn, x):
     return bn(y, sums=(s1, s2, N * H * W))
 
 
-class HybridSequential(HybridBlock):
-    """Children run in order; they are named "0", "1", ... as the JAX
-    package's `register_child` names them.  A pointwise Conv2D followed
-    by a BatchNorm taking batch statistics runs fused (module doc)."""
+class _Chain:
+    """The children of a sequential block run in order; they are named
+    "0", "1", ... as the JAX package's `register_child` names them.  A
+    pointwise Conv2D followed by a BatchNorm taking batch statistics runs
+    fused (module doc)."""
 
     def add(self, *blocks):
         for block in blocks:
             self.add_module(str(len(self._modules)), block)
 
-    def forward(self, x, *args):
+    def _steps(self, pairs):
+        """The children in order as (block, the BatchNorm it runs with, or
+        None): a child pairs with the next where `pairs(block, nxt)`
+        holds, asked only as the walk reaches it."""
         blocks = list(self._modules.values())
         i = 0
         while i < len(blocks):
-            nxt = blocks[i + 1] if i + 1 < len(blocks) else None
-            if _fuses(blocks[i], nxt, x):
-                x = _conv1x1_bn(blocks[i], nxt, x)
+            if i + 1 < len(blocks) and pairs(blocks[i], blocks[i + 1]):
+                yield blocks[i], blocks[i + 1]
                 i += 2
             else:
-                x = blocks[i](x)
+                yield blocks[i], None
                 i += 1
+
+    def forward(self, x, *args):
+        # the walk asks `_fuses` of each child with the x it gets
+        for block, bn in self._steps(lambda b, nxt: _fuses(b, nxt, x)):
+            x = block(x) if bn is None else _conv1x1_bn(block, bn, x)
         return x
 
     def __iter__(self):
@@ -85,8 +113,23 @@ class HybridSequential(HybridBlock):
     def __len__(self):
         return len(self._modules)
 
-    def __getitem__(self, i):
-        return list(self._modules.values())[i]
+    def __getitem__(self, key):
+        """The child at `key`, or for a slice a new block of the same type
+        holding those children."""
+        layers = list(self._modules.values())[key]
+        if not isinstance(layers, list):
+            return layers
+        net = type(self)()
+        net.add(*layers)
+        return net
+
+
+class Sequential(_Chain, Block):
+    """ref: nn.Sequential."""
+
+
+class HybridSequential(_Chain, HybridBlock):
+    """ref: nn.HybridSequential."""
 
 
 class Dense(HybridBlock):
@@ -124,19 +167,20 @@ class Dense(HybridBlock):
 
 class Dropout(HybridBlock):
     """Inverted dropout while `autograd.is_training()`, else the identity;
-    the mask comes from the input device's generator."""
+    the mask comes from the input device's generator and is shared along
+    `axes`."""
 
     def __init__(self, rate, axes=()):
         super().__init__()
-        if axes:
-            raise NotImplementedError("Dropout(axes=...) is not yet ported")
         self._rate = rate
+        self._axes = tuple(axes)
 
     def forward(self, x):
         if not _ag.is_training():
             return x
         return ops.dropout(x, self._rate, training=True,
-                           generator=_rnd.generator(x.device))
+                           generator=_rnd.generator(x.device),
+                           axes=self._axes)
 
 
 class Embedding(HybridBlock):
@@ -247,3 +291,94 @@ class Flatten(HybridBlock):
 
     def forward(self, x):
         return ops.flatten(x)
+
+
+class _ChannelNorm(HybridBlock):
+    """gamma and beta (C,) over the channel axis 1 of its input."""
+
+    def __init__(self, epsilon, center, scale, beta_initializer,
+                 gamma_initializer, in_channels, device, dtype):
+        super().__init__()
+        self._epsilon = epsilon
+        self.gamma = new_parameter("gamma", (in_channels,),
+                                   gamma_initializer, device, dtype,
+                                   grad_req="write" if scale else "null")
+        self.beta = new_parameter("beta", (in_channels,), beta_initializer,
+                                  device, dtype,
+                                  grad_req="write" if center else "null")
+
+    def infer_shape(self, x):
+        for p in (self.gamma, self.beta):
+            materialize(p, (x.shape[1],))
+
+
+class InstanceNorm(_ChannelNorm):
+    """ref: nn.InstanceNorm: each (example, channel) normalized over its
+    spatial axes; gamma learned only with `scale` (off by default)."""
+
+    def __init__(self, axis=1, epsilon=1e-5, center=True, scale=False,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 in_channels=0, device=None, dtype="float32"):
+        super().__init__(epsilon, center, scale, beta_initializer,
+                         gamma_initializer, in_channels, device, dtype)
+
+    def forward(self, x):
+        self.infer_shape(x)
+        return ops.instance_norm(x, self.gamma, self.beta,
+                                 eps=self._epsilon)
+
+
+class GroupNorm(_ChannelNorm):
+    """ref: nn.GroupNorm: each example's `num_groups` channel groups
+    normalized; gamma and beta per channel, as in the JAX package
+    (`ops.nn.group_norm`)."""
+
+    def __init__(self, num_groups=1, epsilon=1e-5, center=True, scale=True,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 in_channels=0, device=None, dtype="float32"):
+        super().__init__(epsilon, center, scale, beta_initializer,
+                         gamma_initializer, in_channels, device, dtype)
+        self._num_groups = num_groups
+
+    def forward(self, x):
+        self.infer_shape(x)
+        return ops.group_norm(x, self.gamma, self.beta,
+                              num_groups=self._num_groups,
+                              eps=self._epsilon)
+
+
+def _nd_function(function):
+    """`function`, or the `mx.nd` op a string names."""
+    if isinstance(function, str):
+        from ... import ndarray as nd
+        return getattr(nd, function)
+    return function
+
+
+class Lambda(Block):
+    """ref: nn.Lambda: a block over `function`, or over the `mx.nd` op a
+    string names, called with NDArrays."""
+
+    def __init__(self, function, prefix=None):
+        super().__init__(prefix=prefix)
+        self._func = _nd_function(function)
+
+    def forward(self, *args):
+        return call_on_ndarrays(self._func, *args)
+
+
+class HybridLambda(HybridBlock):
+    """ref: nn.HybridLambda: `function(x, *args)` over NDArrays, as the
+    JAX package calls it (upstream MXNet passes `F` first), or the `F`
+    op a string names."""
+
+    def __init__(self, function, prefix=None):
+        super().__init__(prefix=prefix)
+        if isinstance(function, str):
+            self._func_name, self._func = function, None
+        else:
+            self._func_name, self._func = function.__name__, function
+
+    def hybrid_forward(self, F, x, *args):
+        fn = self._func or getattr(F, self._func_name)
+        return fn(x, *args)

@@ -273,4 +273,7 @@ for _opname in ["box_iou", "box_nms", "box_encode", "box_decode",
                 "interleaved_matmul_selfatt_valatt"]:
     setattr(contrib, _opname, getattr(_this, _opname))
 contrib.flash_attention = getattr(_this, "_contrib_flash_attention")
+# upstream's contrib names of SyncBatchNorm and the CTC loss
+contrib.SyncBatchNorm = getattr(_this, "_contrib_SyncBatchNorm")
+contrib.CTCLoss = contrib.ctc_loss = getattr(_this, "CTCLoss")
 _sys.modules[contrib.__name__] = contrib

@@ -25,7 +25,8 @@ of 32 take the tensor cores, the rest scalar FMAs on the CUDA cores.
 
 `conv1x1_y_bound(x, w)` is the elementwise bound that a 16-bit y is held
 to, the kernel's and the plain version's alike; `RESNET_CONV_SHAPES`
-lists the pointwise convolutions of a resnet50_v1b step.
+and `MOBILENET_V2_CONV_SHAPES` list the pointwise convolutions of a
+resnet50_v1b and a mobilenet_v2_1_0 step.
 """
 from __future__ import annotations
 
@@ -35,7 +36,8 @@ from . import _kernels
 
 __all__ = ["fused_conv1x1_stats", "fused_conv1x1_stats_plain",
            "conv1x1_stats", "conv1x1_stats_path", "conv1x1_y_bound",
-           "PATHS", "RESNET_CONV_SHAPES", "KERNEL_DTYPES"]
+           "PATHS", "RESNET_CONV_SHAPES", "MOBILENET_V2_CONV_SHAPES",
+           "KERNEL_DTYPES"]
 
 #: operand dtypes the kernel has instances for
 KERNEL_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
@@ -52,6 +54,18 @@ RESNET_CONV_SHAPES = [
     (256, 3136, 128, 1), (128, 784, 512, 4), (512, 784, 128, 3),
     (512, 784, 256, 1), (256, 196, 1024, 6), (1024, 196, 256, 5),
     (1024, 196, 512, 1), (512, 49, 2048, 3), (2048, 49, 512, 2)]
+
+#: (C, HW, O, sites): the pointwise conv + BatchNorm pairs of one
+#: mobilenet_v2_1_0 step at 224 x 224 images: 16 expansions, 17
+#: projections and the 320 -> 1280 head
+MOBILENET_V2_CONV_SHAPES = [
+    (16, 12544, 96, 1), (24, 3136, 144, 2), (32, 784, 192, 3),
+    (64, 196, 384, 4), (96, 196, 576, 3), (160, 49, 960, 3),
+    (32, 12544, 16, 1), (96, 3136, 24, 1), (144, 3136, 24, 1),
+    (144, 784, 32, 1), (192, 784, 32, 2), (192, 196, 64, 1),
+    (384, 196, 64, 3), (384, 196, 96, 1), (576, 196, 96, 2),
+    (576, 49, 160, 1), (960, 49, 160, 2), (960, 49, 320, 1),
+    (320, 49, 1280, 1)]
 
 #: launches of the CUDA kernel in this process
 conv1x1_stats_launches = 0

@@ -20,6 +20,7 @@ master weights.
 """
 from __future__ import annotations
 
+import math
 import warnings
 
 import torch
@@ -28,10 +29,12 @@ import torch.nn.functional as F
 from . import conv_stats as _conv_stats
 from .. import config as _config
 from .. import random as _rnd
-from ..base import torch_dtype as _torch_dtype
+from ..base import MXNetError, torch_dtype as _torch_dtype
 
-__all__ = ["fully_connected", "convolution", "conv1x1_bn_stats",
-           "pooling", "activation",
+__all__ = ["fully_connected", "convolution", "deconvolution",
+           "conv1x1_bn_stats", "pooling", "activation", "instance_norm",
+           "group_norm", "lrn", "sync_batch_norm", "ctc_loss", "upsampling",
+           "grid_generator",
            "flatten", "batch_norm", "layer_norm", "embedding", "leaky_relu",
            "dropout", "softmax", "log_softmax", "softmin", "softmax_output",
            "smooth_l1", "make_loss", "fused_softmax_ce",
@@ -51,26 +54,78 @@ def fully_connected(data, weight, bias=None, num_hidden=0, no_bias=False,
     return F.linear(data, weight, bias.to(data.dtype))
 
 
+_CONV = {3: F.conv1d, 4: F.conv2d, 5: F.conv3d}
+_CONV_T = {3: F.conv_transpose1d, 4: F.conv_transpose2d,
+           5: F.conv_transpose3d}
+#: channel-first layouts by rank: the only ones the JAX ops compute
+_LAYOUTS = {3: "NCW", 4: "NCHW", 5: "NCDHW"}
+
+
+def _spatial_args(data, layout, what, *tuples):
+    """The number k of spatial axes of channel-first `data` (3-, 4- or
+    5-d, as the JAX ops take it), and each of `tuples` as a k-tuple
+    (1 or 0 for an empty one, per its position: stride and dilation 1,
+    padding 0).  The JAX ops read every layout as channel-first; a
+    channel-last one raises here instead."""
+    if data.ndim not in _LAYOUTS or layout not in (None,
+                                                   _LAYOUTS[data.ndim]):
+        raise NotImplementedError(
+            "%s over %d-d data with layout %r: the port computes the "
+            "channel-first layouts NCW, NCHW and NCDHW, as the JAX ops do"
+            % (what, data.ndim, layout))
+    k = data.ndim - 2
+    return (k,) + tuple(tuple(v) if v else (d,) * k for v, d in tuples)
+
+
+def _add_bias(out, bias, no_bias):
+    if no_bias or bias is None:
+        return out
+    return out + bias.to(out.dtype).reshape((1, -1) + (1,) * (out.ndim - 2))
+
+
 def convolution(data, weight, bias=None, kernel=(), stride=(), dilate=(),
                 pad=(), num_filter=0, num_group=1, no_bias=False,
                 workspace=1024, cudnn_tune=None, cudnn_off=False,
                 layout=None):
-    """2-D NCHW convolution, weight (num_filter, C/num_group, kh, kw); the
-    bias is added after the product, in the output dtype.  `workspace`
-    and `cudnn_*` are accepted and ignored, as in the JAX package."""
-    if data.ndim != 4 or layout not in (None, "NCHW"):
-        raise NotImplementedError("convolution over %d-d data, layout %r, "
-                                  "is not yet ported (2-D NCHW only)"
-                                  % (data.ndim, layout))
-    stride = tuple(stride) if stride else (1, 1)
-    dilate = tuple(dilate) if dilate else (1, 1)
-    pad = tuple(pad) if pad else (0, 0)
+    """1-, 2- or 3-D convolution of channel-first data (by its rank),
+    weight (num_filter, C/num_group, *kernel); the bias is added after
+    the product, in the output dtype.  `workspace` and `cudnn_*` are
+    accepted and ignored, as in the JAX package."""
+    _, stride, dilate, pad = _spatial_args(
+        data, layout, "convolution", (stride, 1), (dilate, 1), (pad, 0))
     if weight.dtype != data.dtype:      # amp: follow activation dtype
         weight = weight.to(data.dtype)
-    out = F.conv2d(data, weight, None, stride, pad, dilate, num_group)
-    if not no_bias and bias is not None:
-        out = out + bias.to(out.dtype).reshape(1, -1, 1, 1)
-    return out
+    out = _CONV[data.ndim](data, weight, None, stride, pad, dilate,
+                           num_group)
+    return _add_bias(out, bias, no_bias)
+
+
+def deconvolution(data, weight, bias=None, kernel=(), stride=(), dilate=(),
+                  pad=(), adj=(), target_shape=(), num_filter=0,
+                  num_group=1, no_bias=True, workspace=512,
+                  cudnn_tune=None, cudnn_off=False, layout=None):
+    """Transposed convolution (the gradient of `convolution` in its
+    input) of channel-first data, weight (C, num_filter/num_group,
+    *kernel), as the JAX op computes it: each spatial size becomes
+    (in - 1) stride - 2 pad + (k - 1) dilate + 1 + adj.  The full
+    product (no padding) is cut by `pad` at both ends and grown by `adj`
+    at the high end, with zeros where no input reaches, so any `adj`
+    works (torch's `output_padding` takes only adj < stride or
+    dilation).  `target_shape` is accepted and, as in the JAX op, not
+    used."""
+    k, stride, dilate, pad, adj = _spatial_args(
+        data, layout, "deconvolution", (stride, 1), (dilate, 1), (pad, 0),
+        (adj, 0))
+    weight = weight.to(data.dtype)      # amp: follow activation dtype
+    out = _CONV_T[data.ndim](data, weight, None, stride, 0, 0, num_group,
+                             dilate)
+    if any(pad) or any(adj):
+        # F.pad takes (low, high) of the last axis first; negative cuts
+        widths = []
+        for i in reversed(range(k)):
+            widths += [-pad[i], adj[i] - pad[i]]
+        out = F.pad(out, widths)
+    return _add_bias(out, bias, no_bias)
 
 
 def conv1x1_bn_stats(data, weight):
@@ -89,44 +144,53 @@ def conv1x1_bn_stats(data, weight):
     return y.reshape(N, -1, H, W), s1, s2
 
 
+_MAX_POOL = {2: F.max_pool2d, 3: F.max_pool3d}
+_AVG_POOL = {2: F.avg_pool2d, 3: F.avg_pool3d}
+
+
 def pooling(data, kernel=(), pool_type="max", global_pool=False,
             cudnn_off=False, pooling_convention="valid", stride=(), pad=(),
             p_value=2, count_include_pad=True, layout=None):
-    """2-D pooling over NCHW data: max (padding is -inf), avg or sum.
-    `pooling_convention='full'` pads the high edge so that the output
-    size is the ceiling; avg divides by the window size with
-    `count_include_pad`, else by the count of real elements."""
-    if data.ndim != 4 or layout not in (None, "NCHW"):
-        raise NotImplementedError("pooling over %d-d data, layout %r, is "
-                                  "not yet ported (2-D NCHW only)"
-                                  % (data.ndim, layout))
+    """1-, 2- or 3-D pooling of channel-first data (by its rank): max
+    (padding is -inf), avg, sum or lp.  `pooling_convention='full'` pads
+    the high edge so that the output size is the ceiling; avg divides by
+    the window size with `count_include_pad`, else by the count of real
+    elements.  1-D data runs as 2-D with a height of 1."""
+    k, stride, pad = _spatial_args(data, layout, "pooling", (stride, 1),
+                                   (pad, 0))
     if global_pool:
-        kernel, stride, pad = tuple(data.shape[2:]), (1, 1), (0, 0)
+        kernel, stride, pad = tuple(data.shape[2:]), (1,) * k, (0,) * k
     kernel = tuple(kernel)
-    stride = tuple(stride) if stride else (1, 1)
-    pad = tuple(pad) if pad else (0, 0)
-    extra = [0, 0]
+    if k == 1:
+        return pooling(data.unsqueeze(2), (1,) + kernel, pool_type,
+                       pooling_convention=pooling_convention,
+                       stride=(1,) + stride, pad=(0,) + pad,
+                       p_value=p_value,
+                       count_include_pad=count_include_pad).squeeze(2)
+    extra = [0] * k
     if pooling_convention == "full":
-        for i in range(2):
+        for i in range(k):
             in_sz = data.shape[2 + i] + 2 * pad[i]
             out_sz = -(-(in_sz - kernel[i]) // stride[i]) + 1
             extra[i] = max(0, (out_sz - 1) * stride[i] + kernel[i] - in_sz)
-    # F.pad takes (left, right) of the last axis first
-    widths = (pad[1], pad[1] + extra[1], pad[0], pad[0] + extra[0])
+    # F.pad takes (low, high) of the last axis first
+    widths = []
+    for i in reversed(range(k)):
+        widths += [pad[i], pad[i] + extra[i]]
 
     def window_sum(t):
-        return F.avg_pool2d(F.pad(t, widths), kernel, stride,
+        return _AVG_POOL[k](F.pad(t, widths), kernel, stride,
                             divisor_override=1)
 
     if pool_type == "max":
-        return F.max_pool2d(F.pad(data, widths, value=float("-inf")),
+        return _MAX_POOL[k](F.pad(data, widths, value=float("-inf")),
                             kernel, stride)
     if pool_type in ("avg", "sum"):
         summed = window_sum(data)
         if pool_type == "sum":
             return summed
         if count_include_pad:
-            return summed / (kernel[0] * kernel[1])
+            return summed / math.prod(kernel)
         return summed / window_sum(torch.ones_like(data))
     if pool_type == "lp":
         summed = window_sum(data.abs().pow(p_value))
@@ -268,6 +332,68 @@ def layer_norm(data, gamma, beta, axis=-1, eps=1e-5):
     return out if ax == data.ndim - 1 else out.movedim(-1, ax)
 
 
+def _normalize(x, red, eps):
+    """(x - mean) / sqrt(var + eps) over the axes `red`, with the biased
+    variance, in x's dtype (jnp.mean and jnp.var)."""
+    mean = x.mean(dim=red, keepdim=True)
+    var = (x - mean).square().mean(dim=red, keepdim=True)
+    return (x - mean) * torch.rsqrt(var + eps)
+
+
+def _channel_affine(x, gamma, beta):
+    bshape = (1, -1) + (1,) * (x.ndim - 2)
+    return x * gamma.reshape(bshape) + beta.reshape(bshape)
+
+
+def instance_norm(data, gamma, beta, eps=1e-3):
+    """Normalize each (example, channel) over its spatial axes, then scale
+    and shift per channel."""
+    out = _normalize(data, tuple(range(2, data.ndim)), eps)
+    return _channel_affine(out, gamma, beta)
+
+
+def group_norm(data, gamma, beta, num_groups=1, eps=1e-5):
+    """Normalize each example's `num_groups` groups of channels over the
+    group's channels and spatial axes, then scale and shift per channel:
+    gamma and beta are (C,), as in the JAX package (upstream MXNet's are
+    (num_groups,))."""
+    n, c = data.shape[:2]
+    x = data.reshape((n, num_groups, c // num_groups) + data.shape[2:])
+    x = _normalize(x, tuple(range(2, x.ndim)), eps).reshape(data.shape)
+    return _channel_affine(x, gamma, beta)
+
+
+def lrn(data, alpha=1e-4, beta=0.75, knorm=2.0, nsize=5):
+    """Local response normalization across channels: data over
+    (knorm + alpha / nsize * the sum of squares in a window of `nsize`
+    channels centred on each) ** beta."""
+    half = nsize // 2
+    sq = F.pad(data.square(), (0, 0) * (data.ndim - 2) + (half, half))
+    c = data.shape[1]
+    acc = torch.zeros_like(data)
+    for i in range(nsize):
+        acc = acc + sq[:, i:i + c]
+    return data / torch.pow(knorm + alpha * acc / nsize, beta)
+
+
+def sync_batch_norm(data, gamma, beta, moving_mean, moving_var, eps=1e-3,
+                    momentum=0.9, fix_gamma=True, use_global_stats=False,
+                    axis=1, ndev=1, axis_name="", training=True):
+    """BatchNorm whose batch statistics span every device of a
+    data-parallel group.  On one device (`ndev` 1 and no `axis_name`) it
+    is `batch_norm`, as upstream MXNet degrades at ndev=1; across devices
+    it raises: the port's multi-device training (ROADMAP Queue 1, item 7)
+    is not yet written."""
+    if ndev > 1 or axis_name:
+        raise MXNetError(
+            "SyncBatchNorm across %s devices (axis_name %r) needs the "
+            "port's multi-device training, ROADMAP Queue 1 item 7, which "
+            "is not yet ported; on one device it is BatchNorm"
+            % (ndev, axis_name))
+    return batch_norm(data, gamma, beta, moving_mean, moving_var, eps,
+                      momentum, fix_gamma, use_global_stats, axis, training)
+
+
 def embedding(data, weight):
     """Rows of `weight` at the indices `data`.  Out-of-range indices are
     clamped into the table (the JAX package's gather clamps too), so a bad
@@ -313,9 +439,7 @@ def dropout(data, p=0.5, training=False, generator=None, axes=()):
     return data * mask.to(data.dtype) / keep
 
 
-def _softmax_input(data, axis, temperature, use_length):
-    if use_length:
-        raise NotImplementedError("softmax use_length is not yet ported")
+def _softmax_input(data, axis, temperature):
     if temperature is not None and temperature != 1.0:
         data = data / temperature
     return data, axis % data.ndim
@@ -324,22 +448,24 @@ def _softmax_input(data, axis, temperature, use_length):
 def softmax(data, axis=-1, temperature=None, length=None, use_length=False,
             dtype=None):
     """softmax along `axis` in data's dtype, over data / temperature; the
-    result cast to `dtype` if given."""
-    data, ax = _softmax_input(data, axis, temperature, use_length)
+    result cast to `dtype` if given.  `length` and `use_length` are
+    accepted and, as in the JAX op, not used: every position takes part
+    (upstream MXNet masks the positions past `length`)."""
+    data, ax = _softmax_input(data, axis, temperature)
     out = torch.softmax(data, dim=ax)
     return out if dtype is None else out.to(_torch_dtype(dtype))
 
 
 def log_softmax(data, axis=-1, temperature=None, dtype=None):
     """log softmax along `axis`, as `softmax`."""
-    data, ax = _softmax_input(data, axis, temperature, False)
+    data, ax = _softmax_input(data, axis, temperature)
     out = torch.log_softmax(data, dim=ax)
     return out if dtype is None else out.to(_torch_dtype(dtype))
 
 
 def softmin(data, axis=-1, temperature=None, dtype=None):
     """softmax of -data along `axis`, as `softmax`."""
-    data, ax = _softmax_input(data, axis, temperature, False)
+    data, ax = _softmax_input(data, axis, temperature)
     out = torch.softmax(-data, dim=ax)
     return out if dtype is None else out.to(_torch_dtype(dtype))
 
@@ -408,6 +534,134 @@ def smooth_l1(data, scalar=1.0):
 def make_loss(data, grad_scale=1.0, valid_thresh=0.0, normalization="null"):
     """The identity; marks its input as a loss head (ref: MakeLoss)."""
     return data
+
+
+class _LogAddExp(torch.autograd.Function):
+    """log(exp(a) + exp(b)) with the JAX op's derivative, exp(a - out) and
+    exp(b - out): where both are the -1e30 that stands for log 0, out
+    rounds to -1e30 too and each input takes the whole cotangent
+    (torch.logaddexp's derivative gives each half of it)."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        out = torch.logaddexp(a, b)
+        ctx.save_for_backward(a, b, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b, out = ctx.saved_tensors
+        return g * torch.exp(a - out), g * torch.exp(b - out)
+
+
+def _ctc_logaddexp3(a, b, c):
+    return _LogAddExp.apply(_LogAddExp.apply(a, b), c)
+
+
+def ctc_loss(data, label, data_lengths=None, label_lengths=None,
+             use_data_lengths=False, use_label_lengths=False,
+             blank_label="first"):
+    """Per-example CTC loss -log p(label | data) of data (T, B, A)
+    activations (softmaxed here) and label (B, L), by the forward
+    recursion in log space over the extended sequence blank, l1, blank,
+    ..., lL, blank, one time step at a time, as the JAX op's scan runs
+    it (-1e30 stands for log 0, so an impossible alignment gives about
+    1e30).  The blank is symbol 0 ("first") or A - 1 ("last").  Without
+    `use_label_lengths` a label's length is its count of symbols > 0
+    ("first") or >= 0 ("last"); with `use_data_lengths` example b stops
+    after data_lengths[b] steps."""
+    T, B, A = data.shape
+    logp = torch.log_softmax(data, dim=-1)
+    L = label.shape[1]
+    blank = 0 if blank_label == "first" else A - 1
+    lab = label.long()
+    lab = torch.where(lab < 0, lab + A, lab)    # jnp's negative indexing
+    ext = torch.full((B, 2 * L + 1), blank, dtype=torch.long,
+                     device=data.device)
+    ext[:, 1::2] = lab
+    if use_label_lengths and label_lengths is not None:
+        lab_len = label_lengths.long()
+    elif blank == 0:
+        lab_len = (label > 0).sum(dim=1)
+    else:
+        lab_len = (label >= 0).sum(dim=1)
+    ninf = torch.tensor(-1e30, dtype=logp.dtype, device=data.device)
+    same = torch.cat([torch.zeros((B, 2), dtype=torch.bool,
+                                  device=data.device),
+                      ext[:, 2:] == ext[:, :-2]], dim=1)
+    alpha = torch.full((B, 2 * L + 1), -1e30, dtype=logp.dtype,
+                       device=data.device)
+    alpha = torch.cat([logp[0, :, blank:blank + 1],
+                       logp[0].gather(1, ext[:, 1:2]), alpha[:, 2:]], dim=1)
+    pad1 = ninf.expand(B, 1)
+    pad2 = ninf.expand(B, 2)
+    dl = data_lengths.long() if use_data_lengths \
+        and data_lengths is not None else None
+    for t in range(1, T):
+        shift1 = torch.cat([pad1, alpha[:, :-1]], dim=1)
+        shift2 = torch.where(same, ninf,
+                             torch.cat([pad2, alpha[:, :-2]], dim=1))
+        new = _ctc_logaddexp3(alpha, shift1, shift2) \
+            + logp[t].gather(1, ext)
+        alpha = new if dl is None else torch.where((t < dl)[:, None], new,
+                                                   alpha)
+    send = 2 * lab_len
+    p_end = alpha.gather(1, send[:, None])[:, 0]
+    p_end1 = alpha.gather(1, torch.clamp_min(send - 1, 0)[:, None])[:, 0]
+    return -_LogAddExp.apply(p_end, p_end1)
+
+
+def upsampling(*data, scale=1, sample_type="nearest", num_args=1,
+               num_filter=0, multi_input_mode="concat", workspace=512):
+    """NCHW data[0] upsampled by the integer `scale`: each pixel repeated
+    (nearest) or bilinearly interpolated with half-pixel centres (the
+    JAX op's `jax.image.resize`; `F.interpolate` with align_corners
+    False computes the same for an upscale).  Further inputs are
+    repeated up to the first one's size and concatenated on the channel
+    axis; as in the JAX op, `multi_input_mode` is not read (upstream
+    MXNet's "sum" adds them instead)."""
+    x = data[0]
+    h = x.shape[2]
+    if sample_type == "nearest":
+        out = x.repeat_interleave(scale, dim=2).repeat_interleave(scale,
+                                                                  dim=3)
+    else:
+        out = F.interpolate(x, scale_factor=scale, mode="bilinear",
+                            align_corners=False)
+    if len(data) > 1:
+        outs = [out]
+        for d in data[1:]:
+            s = h * scale // d.shape[2]
+            outs.append(d.repeat_interleave(s, dim=2)
+                        .repeat_interleave(s, dim=3))
+        out = torch.cat(outs, dim=1)
+    return out
+
+
+def grid_generator(data, transform_type="affine", target_shape=(0, 0)):
+    """Sampling grids in [-1, 1] for BilinearSampler: "affine" maps the
+    (N, 6) matrices over a target_shape (h, w) grid of normalized
+    coordinates to (N, 2, h, w); "warp" adds an (N, 2, H, W) flow field
+    to the pixel grid and normalizes x by (W - 1) / 2, y by (H - 1) / 2."""
+    if transform_type == "affine":
+        h, w = target_shape
+        ys = torch.linspace(-1, 1, h, dtype=data.dtype, device=data.device)
+        xs = torch.linspace(-1, 1, w, dtype=data.dtype, device=data.device)
+        gy, gx = torch.meshgrid(ys, xs, indexing="ij")
+        grid = torch.stack([gx.reshape(-1), gy.reshape(-1),
+                            torch.ones_like(gx).reshape(-1)])
+        out = torch.matmul(data.reshape(-1, 2, 3), grid)
+        return out.reshape(-1, 2, h, w)
+    if transform_type == "warp":
+        _, _, fh, fw = data.shape
+        ys = torch.arange(fh, dtype=torch.float32, device=data.device)
+        xs = torch.arange(fw, dtype=torch.float32, device=data.device)
+        gy, gx = torch.meshgrid(ys, xs, indexing="ij")
+        nx = (data[:, 0] + gx) * 2.0 / max(fw - 1, 1) - 1.0
+        ny = (data[:, 1] + gy) * 2.0 / max(fh - 1, 1) - 1.0
+        return torch.stack([nx, ny], dim=1)
+    raise ValueError("GridGenerator: unknown transform_type %r"
+                     % (transform_type,))
 
 
 class _SoftmaxCE(torch.autograd.Function):
@@ -551,7 +805,7 @@ def fused_linear_softmax_ce(hidden, weight, bias, label, num_chunks=0):
 # entry calls its function through this module's namespace when it runs,
 # so `contrib.amp`'s rebinding of a module attribute covers the entry too.
 
-from .registry import register  # noqa: E402
+from .registry import alias, register  # noqa: E402
 
 
 @register("FullyConnected", ndarray_inputs=("data", "weight", "bias"))
@@ -569,6 +823,17 @@ def _convolution_op(data, weight, bias=None, kernel=(), stride=(),
     return convolution(data, weight, bias, kernel, stride, dilate, pad,
                        num_filter, num_group, no_bias, workspace,
                        cudnn_tune, cudnn_off, layout)
+
+
+@register("Deconvolution", ndarray_inputs=("data", "weight", "bias"))
+def _deconvolution_op(data, weight, bias=None, kernel=(), stride=(),
+                      dilate=(), pad=(), adj=(), target_shape=(),
+                      num_filter=0, num_group=1, no_bias=True,
+                      workspace=512, cudnn_tune=None, cudnn_off=False,
+                      layout=None):
+    return deconvolution(data, weight, bias, kernel, stride, dilate, pad,
+                         adj, target_shape, num_filter, num_group, no_bias,
+                         workspace, cudnn_tune, cudnn_off, layout)
 
 
 @register("Pooling", ndarray_inputs=("data",))
@@ -629,6 +894,37 @@ def _layer_norm_op(data, gamma, beta, axis=-1, eps=1e-5,
     return layer_norm(data, gamma, beta, axis, eps)
 
 
+@register("InstanceNorm", ndarray_inputs=("data", "gamma", "beta"))
+def _instance_norm_op(data, gamma, beta, eps=1e-3):
+    return instance_norm(data, gamma, beta, eps)
+
+
+@register("GroupNorm", ndarray_inputs=("data", "gamma", "beta"))
+def _group_norm_op(data, gamma, beta, num_groups=1, eps=1e-5):
+    return group_norm(data, gamma, beta, num_groups, eps)
+
+
+@register("LRN", ndarray_inputs=("data",))
+def _lrn_op(data, alpha=1e-4, beta=0.75, knorm=2.0, nsize=5):
+    return lrn(data, alpha, beta, knorm, nsize)
+
+
+@register("_contrib_SyncBatchNorm",
+          ndarray_inputs=("data", "gamma", "beta", "moving_mean",
+                          "moving_var"),
+          num_outputs=3, visible_outputs=1)
+def _sync_batch_norm_op(data, gamma, beta, moving_mean, moving_var,
+                        eps=1e-3, momentum=0.9, fix_gamma=True,
+                        use_global_stats=False, output_mean_var=False,
+                        axis=1, ndev=1, key="", axis_name="",
+                        _training=True):
+    """BatchNorm on one device; across devices it raises
+    (`sync_batch_norm`)."""
+    return sync_batch_norm(data, gamma, beta, moving_mean, moving_var, eps,
+                           momentum, fix_gamma, use_global_stats, axis,
+                           ndev, axis_name, training=_training)
+
+
 @register("Dropout", ndarray_inputs=("data",), needs_rng=True)
 def _dropout_op(data, p=0.5, mode="training", axes=(), cudnn_off=False,
                 _training=True, _rng_key=None):
@@ -680,3 +976,28 @@ def _smooth_l1_op(data, scalar=1.0):
 def _make_loss_op(data, grad_scale=1.0, valid_thresh=0.0,
                   normalization="null"):
     return make_loss(data, grad_scale, valid_thresh, normalization)
+
+
+@register("CTCLoss", ndarray_inputs=("data", "label"), nograd_argnums=(1,))
+def _ctc_loss_op(data, label, data_lengths=None, label_lengths=None,
+                 use_data_lengths=False, use_label_lengths=False,
+                 blank_label="first"):
+    return ctc_loss(data, label, data_lengths, label_lengths,
+                    use_data_lengths, use_label_lengths, blank_label)
+
+
+alias("CTCLoss", "ctc_loss")
+
+
+@register("UpSampling", ndarray_inputs=None)
+def _upsampling_op(*data, scale=1, sample_type="nearest", num_args=1,
+                   num_filter=0, multi_input_mode="concat", workspace=512):
+    return upsampling(*data, scale=scale, sample_type=sample_type,
+                      num_args=num_args, num_filter=num_filter,
+                      multi_input_mode=multi_input_mode,
+                      workspace=workspace)
+
+
+@register("GridGenerator", ndarray_inputs=("data",))
+def _grid_generator_op(data, transform_type="affine", target_shape=(0, 0)):
+    return grid_generator(data, transform_type, target_shape)

@@ -32,6 +32,7 @@ from __future__ import annotations
 import functools
 import math
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -58,11 +59,23 @@ def _norm_axis(axis, ndim, exclude=False):
 
 def _scalar(data, value):
     """`value` as the JAX package's `jnp.asarray(value, data.dtype)` has
-    it, as a Python number torch combines with `data` in data's dtype."""
+    it, as a Python number torch combines with `data` in data's dtype.
+    A 16-bit float is rounded (to nearest, ties to even) without a torch
+    op, so that a captured program, which may read no tensor on the
+    host, can call it."""
     dt = data.dtype
     if dt.is_floating_point:
         if dt in (torch.float32, torch.float64):
             return float(value)
+        if dt in (torch.float16, torch.bfloat16):
+            # through f32, as torch converts a Python float
+            with np.errstate(over="ignore"):
+                v32 = np.float32(value)
+                if dt == torch.float16:
+                    return float(np.float16(v32))
+            bits = int(v32.view(np.uint32))
+            bits = (bits + 0x7FFF + ((bits >> 16) & 1)) & 0xFFFF0000
+            return float(np.uint32(bits).view(np.float32))
         return torch.tensor(float(value), dtype=dt).item()
     if dt == torch.bool:
         return bool(value)

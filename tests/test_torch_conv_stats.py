@@ -71,7 +71,12 @@ def _f32(a):
 
 # (N, C, HW, O, thw): O a multiple of min(256, O) and HW of thw, as the
 # TPU kernel needs; HW > thw sums the statistics across the h grid axis
-KERNEL_CASES = [(2, 8, 16, 32, 16), (2, 16, 64, 48, 32), (3, 24, 32, 64, 16)]
+KERNEL_CASES = [(2, 8, 16, 32, 16), (2, 16, 64, 48, 32), (3, 24, 32, 64, 16),
+                # MobileNetV2's channel counts off a multiple of 32, which
+                # the card's CUDA-core instance takes: 16 -> 96, 24 -> 144,
+                # 144 -> 24
+                (2, 16, 32, 96, 16), (2, 24, 32, 144, 16),
+                (2, 144, 32, 24, 16)]
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])

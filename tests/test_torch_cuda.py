@@ -1616,3 +1616,64 @@ def test_sgld_replays_draw_new_noise_on_card(card):
     for a, b in zip(eager, graphed):
         for x, y in zip(a, b):
             assert torch.equal(x, y)
+
+
+# mobilenet_v2_1_0's pointwise sites that take the CUDA-core instance (C
+# not a multiple of 32: 16, 24, 144), at their full HW and a small batch
+@pytest.mark.parametrize("C,HW,O", [(16, 12544, 96), (24, 3136, 144),
+                                    (144, 3136, 24), (144, 784, 32)])
+def test_conv1x1_stats_kernel_at_mobilenet_cuda_core_sites(card, C, HW, O):
+    N = 4
+    assert tcs.conv1x1_stats_path(N, C, HW, O, torch.bfloat16) == \
+        "cuda_cores"
+    x, w = _conv_inputs(card, N, C, HW, O, torch.bfloat16)
+    y, s1, s2 = tcs.fused_conv1x1_stats(x, w)
+    ref_y, ref_s1, ref_s2 = tcs.fused_conv1x1_stats_plain(x, w)
+    # as test_conv1x1_stats_kernel_matches_plain_version holds bf16
+    exact, bound = tcs.conv1x1_y_bound(x, w)
+    for got in (y, ref_y):
+        assert bool(((got.double() - exact).abs() <= bound).all())
+    n = N * HW
+    assert bool(((s1 - ref_s1).abs() <= 1e-5 * (n * ref_s2).sqrt()).all())
+    assert bool(((s2 - ref_s2).abs() <= 1e-5 * ref_s2).all())
+
+
+def test_hybrid_concurrent_fuses_within_branches_on_card(card):
+    """A HybridConcurrent whose branches each start with a pointwise
+    Conv2D → BatchNorm: one kernel launch per branch in a training
+    forward (no pair across two branches), and the output and gradients
+    of the CPU copy."""
+    nn, cnn = tmx.gluon.nn, tmx.gluon.contrib.nn
+
+    def build():
+        net = cnn.HybridConcurrent(axis=1)
+        for c in (8, 6):
+            branch = nn.HybridSequential()
+            branch.add(nn.Conv2D(c, 1, use_bias=False), nn.BatchNorm(),
+                       nn.Activation("relu"))
+            net.add(branch)
+        net.add(cnn.Identity())
+        return net
+    x = torch.from_numpy(np.random.RandomState(0).randn(
+        4, 5, 6, 6).astype(np.float32))
+    nets = {}
+    for dev in (card, "cpu"):
+        nets[dev] = build()
+        nets[dev].initialize(ctx=dev)
+        with tmx.autograd.pause():
+            nets[dev](x.to(dev))
+    nets[card].load_state_dict(nets["cpu"].state_dict())
+    assert tmx.gluon.nn.fused_pairs(nets[card]) == 2
+    outs = {}
+    for dev, net in nets.items():
+        xd = x.to(dev).requires_grad_()
+        before = tcs.conv1x1_stats_launches
+        with tmx.autograd.record():
+            out = net(xd)
+        out.sum().backward()
+        outs[dev] = (out.detach().cpu(), xd.grad.cpu(),
+                     tcs.conv1x1_stats_launches - before)
+    assert outs[card][2] == 2 and outs["cpu"][2] == 0
+    assert outs[card][0].shape == (4, 8 + 6 + 5, 6, 6)
+    for a, b in zip(outs[card][:2], outs["cpu"][:2]):
+        assert (a - b).abs().max() <= 1e-4 * max(1.0, b.abs().max())

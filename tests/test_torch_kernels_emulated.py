@@ -13,6 +13,7 @@ ordering of the cp.async stages and the speed only the card shows
 (tests/test_torch_cuda.py, chip_smoke.py).
 """
 import shutil
+import types
 
 import numpy as np
 import pytest
@@ -484,6 +485,42 @@ def test_emulated_nms_scratch_is_at_most_the_full_mask(nms_lib):
         words = nms_lib.mxt_nms_mask_words(N)
         assert _triangle_words(N) + nb <= words <= N * nb, N
     assert nms_lib.mxt_nms_mask_words(24564) / (24564 * 384) < 0.51
+
+
+def test_zoo_conv_checks_hold_the_kernel_and_fail_planted_faults(
+        conv_lib, monkeypatch):
+    """chip_smoke's check of the conv kernel at a zoo step's sites
+    (`_zoo_conv_checks` over `conv_check`) passes the kernel, here
+    emulated, at sites with C off a multiple of 32 (the CUDA-core
+    instance) and with O in partial column tiles, and fails a kernel
+    whose y is two bf16 ulps off or whose Σy² is 1e-4 off."""
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+
+    def path(N, C, HW, O, dtype):
+        return tcs.PATHS[conv_lib.mxt_conv1x1_stats_path(
+            N, C, HW, O, tcs._KERNEL_DTYPES[dtype])]
+
+    def cs(kernel):
+        return types.SimpleNamespace(
+            conv1x1_stats_path=path, fused_conv1x1_stats=kernel,
+            fused_conv1x1_stats_plain=tcs.fused_conv1x1_stats_plain,
+            conv1x1_y_bound=tcs.conv1x1_y_bound)
+
+    seen = {}
+    for N, C, H, W, O in ((2, 40, 3, 5, 40), (2, 72, 4, 4, 80),
+                          (2, 64, 2, 7, 112)):
+        x, w = _conv_inputs(N, C, H * W, O, torch.bfloat16, seed=C)
+        seen[(N, C, H, W, O)] = (x.reshape(N, C, H, W),
+                                 w.float().reshape(O, C, 1, 1))
+    got = chip_smoke._zoo_conv_checks(
+        torch, cs(lambda x, w: _conv_emulated(conv_lib, x, w)), seen)
+    assert got["ok"] and got["sites"] == 3, got
+    assert got["paths"] == {"cuda_cores": 2, "tensor_cores_slabs": 1}, got
+    for fault in (lambda y, s1, s2: (y * (1 + 2.0 ** -6), s1, s2),
+                  lambda y, s1, s2: (y, s1, s2 * (1 + 1e-4))):
+        planted = chip_smoke._zoo_conv_checks(torch, cs(
+            lambda x, w: fault(*_conv_emulated(conv_lib, x, w))), seen)
+        assert not planted["ok"] and len(planted["failed"]) == 3, planted
 
 
 def test_nms_bound_counts_only_the_boxes_that_take_part():

@@ -65,9 +65,6 @@ NOT_YET_PORTED = {
     "_contrib_requantize",
     # ops/rnn.py
     "RNN", "RNN_varlen",
-    # ops/nn.py
-    "Deconvolution", "GridGenerator", "GroupNorm", "InstanceNorm", "LRN",
-    "UpSampling", "CTCLoss", "ctc_loss", "_contrib_SyncBatchNorm",
 }
 
 # ---------------------------------------------------------------------------
@@ -179,6 +176,80 @@ case("_arange", [], {"start": 2, "stop": 11, "step": 3, "dtype": "int32"},
      grad=False)
 case("_arange", [], {"start": 0.0, "stop": 3.0, "repeat": 2}, grad=False)
 
+# ops/nn.py beyond the JAX sweep's cases: 1-D and 3-D convolution and
+# pooling, the transposed convolution's options, the norms, both
+# GridGenerator transforms, bilinear and multi-input UpSampling, CTC and
+# SyncBatchNorm on one device
+_X3, _X5 = U(-1, 1, 2, 4, 9), U(-1, 1, 2, 3, 5, 6, 4)
+case("Convolution", [_X3, U(-1, 1, 6, 2, 3), U(-1, 1, 6)],
+     {"kernel": (3,), "num_filter": 6, "num_group": 2, "stride": (2,),
+      "pad": (1,), "dilate": (2,)})
+case("Convolution", [_X5, U(-1, 1, 4, 3, 3, 2, 3)],
+     {"kernel": (3, 2, 3), "num_filter": 4, "pad": (1, 0, 1),
+      "no_bias": True})
+for _kw in ({"kernel": (3,), "stride": (2,), "pad": (1,),
+             "pool_type": "max"},
+            {"kernel": (2,), "stride": (2,), "pool_type": "avg",
+             "pooling_convention": "full"},
+            {"global_pool": True, "pool_type": "max"}):
+    case("Pooling", [_X3], _kw)
+for _kw in ({"kernel": (2, 2, 2), "stride": (2, 2, 2), "pool_type": "max"},
+            {"kernel": (3, 3, 3), "stride": (2, 2, 2), "pad": (1, 1, 1),
+             "pool_type": "avg", "count_include_pad": False},
+            {"global_pool": True, "pool_type": "avg"}):
+    case("Pooling", [_X5], _kw)
+case("Deconvolution", [_X4, U(-1, 1, 3, 2, 3, 3), U(-1, 1, 6)],
+     {"kernel": (3, 3), "stride": (2, 2), "pad": (1, 1), "adj": (1, 1),
+      "num_filter": 6, "num_group": 3, "no_bias": False})
+case("Deconvolution", [_X4, U(-1, 1, 3, 4, 2, 3)],
+     {"kernel": (2, 3), "stride": (1, 2), "dilate": (2, 1), "adj": (3, 0),
+      "num_filter": 4})
+case("Deconvolution", [_X3, U(-1, 1, 4, 3, 4)],
+     {"kernel": (4,), "stride": (3,), "pad": (2,), "num_filter": 3})
+case("Deconvolution", [U(-1, 1, 1, 2, 3, 4, 3), U(-1, 1, 2, 3, 2, 2, 2)],
+     {"kernel": (2, 2, 2), "stride": (2, 1, 2), "num_filter": 3})
+case("InstanceNorm", [_X4 + 0.5, U(0.5, 1.5, 3), U(-0.5, 0.5, 3)], {})
+case("InstanceNorm", [_X3, U(0.5, 1.5, 4), U(-0.5, 0.5, 4)],
+     {"eps": 1e-5})
+case("GroupNorm", [U(-1, 1, 2, 6, 3, 4) + 0.5, U(0.5, 1.5, 6),
+                   U(-0.5, 0.5, 6)], {"num_groups": 3})
+case("GroupNorm", [_X3, U(0.5, 1.5, 4), U(-0.5, 0.5, 4)],
+     {"num_groups": 1, "eps": 1e-3})
+case("LRN", [U(-1, 1, 2, 6, 3, 3)], {"nsize": 3, "alpha": 0.1,
+                                     "beta": 0.5, "knorm": 1.0})
+case("UpSampling", [U(-1, 1, 2, 3, 4, 5)],
+     {"scale": 2, "sample_type": "bilinear", "num_args": 1})
+case("UpSampling", [U(-1, 1, 1, 2, 3, 3)],
+     {"scale": 3, "sample_type": "bilinear", "num_args": 1})
+case("UpSampling", [U(-1, 1, 2, 3, 4, 4), U(-1, 1, 2, 2, 2, 2)],
+     {"scale": 2, "num_args": 2})
+case("GridGenerator", [U(-1, 1, 2, 2, 3, 4)],
+     {"transform_type": "warp"})
+_CTC = U(-1, 1, 6, 3, 5)
+case("CTCLoss", [_CTC, np.array([[1, 2, 2], [3, 0, 0], [4, 4, 1]],
+                                np.float32)], {}, grad_argnums=(0,))
+case("CTCLoss", [_CTC, np.array([[0, 1, 1], [2, -1, -1], [3, 2, 1]],
+                                np.float32),
+                 np.array([6, 4, 5], np.float32),
+                 np.array([3, 1, 2], np.float32)],
+     {"use_data_lengths": True, "use_label_lengths": True,
+      "blank_label": "last"}, grad_argnums=(0,))
+# the third example needs 5 steps (1, 1 and a blank between, 2, 2 and a
+# blank between) and has 3: no alignment, a loss of about 1e30
+case("CTCLoss", [_CTC, np.array([[1, 2, 2], [3, 0, 0], [1, 1, 2]],
+                                np.float32),
+                 np.array([6, 6, 3], np.float32)],
+     {"use_data_lengths": True}, grad_argnums=(0,))
+ALIASES["ctc_loss"] = "CTCLoss"
+assert treg.get("ctc_loss") is treg.get("CTCLoss")
+CASES["ctc_loss"] = CASES["CTCLoss"]
+case("_contrib_SyncBatchNorm", _BN, {"fix_gamma": False, "_training": True},
+     grad_argnums=(0, 1, 2))
+case("_contrib_SyncBatchNorm", _BN, {"fix_gamma": False, "_training": False,
+                                     "ndev": 1}, grad_argnums=(0, 1, 2))
+case("softmax", [U(-2, 2, 3, 5)], {"length": np.array([2, 5, 3], np.float32),
+                                   "use_length": True, "axis": -1})
+
 
 # the detection ops (ops/contrib.py, ops/rcnn.py), which the JAX sweep
 # leaves to its own files (test_contrib_ops.py, test_rcnn.py)
@@ -271,6 +342,8 @@ SCALED = {"sum", "sum_axis", "mean", "prod", "nansum", "nanprod", "norm",
           "log_softmax", "softmin", "LayerNorm", "BatchNorm",
           "SoftmaxOutput", "_fused_softmax_ce", "_fused_linear_softmax_ce",
           "ROIAlign", "BilinearResize2D", "AdaptiveAvgPooling2D",
+          "Deconvolution", "InstanceNorm", "GroupNorm", "LRN", "UpSampling",
+          "GridGenerator", "CTCLoss", "ctc_loss", "_contrib_SyncBatchNorm",
           "interleaved_matmul_selfatt_qk",
           "interleaved_matmul_selfatt_valatt"}
 EXACT = {"argmax", "argmin", "argmax_channel", "argsort", "topk", "sort",

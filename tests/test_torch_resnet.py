@@ -258,8 +258,16 @@ def test_resnet_surface():
         tres.resnet18_v1b(pretrained=True, device="cpu")
     with pytest.raises(MXNetError, match="invalid resnet depth"):
         tres.get_resnet(1, 20, device="cpu")
-    with pytest.raises(NotImplementedError, match="v2"):
-        tres.get_resnet(2, 18, device="cpu")
+    # v2 builds, with the JAX net's structural names and known widths
+    net2 = tres.get_resnet(2, 18, device="cpu")
+    ref2 = jres.get_resnet(2, 18)._collect_params_with_prefix()
+    got2 = net2.collect_params()
+    assert set(got2) == set(ref2)
+    for n, p in ref2.items():
+        if all(p.shape):
+            assert tuple(got2[n].shape) == tuple(p.shape), n
+    with pytest.raises(MXNetError, match="version must be 1 or 2"):
+        tres.get_resnet(3, 18, device="cpu")
     net = tres.resnet50_v1b(device="cpu")
     params = net.collect_params()
     assert len(params) == 267
