@@ -335,6 +335,35 @@ Drives incubator_mxnet_tpu_torch only (never JAX or the JAX package):
 13j. layers — each new gluon.nn and gluon.contrib.nn layer and each new
              ops/nn.py op, forward and backward on the card against a
              CPU copy (f32, within 1e-4 of scale).
+13k. train_gnmt — gnmt_large (4 x 1024 encoder with a bidirectional
+             bottom layer, 4 x 1024 decoder, 1024 embeddings, vocab 32000)
+             as bench.py's run_gnmt trains it: output_hidden +
+             FusedMLMCELoss(32000, 1024), both cast to bf16, hybridized
+             (static_alloc, static_shape), Adam lr 1e-3, batch 128 x 50 /
+             50 from RandomState(0); eager and hybridized through the
+             hybridize phase's run (bit for bit, the timed steps only
+             replaying, 0 captures in them): step ms, target tokens/s,
+             busy share, peak memory, the kernels a replayed step
+             launches by the profiler's names and the costliest; none of
+             the port's five kernels launches on this path.  Before it,
+             one f32 batch-2 step against a CPU copy (gradients by the
+             train_resnet spread rule, the spread from every weight of the
+             CPU copy nudged by 1 +- 2**-22).
+13l. generate_seq2seq — bench.py's generation workload (its Seq2Seq:
+             vocab 31, embed 24, hidden 32, 2 layers) behind
+             GenerationEngine (4 slots, max_len 24, buckets 4 and 8):
+             warmup's 4 captures and none in traffic, the tokens of six
+             prompts (on and off a bucket) against the eager greedy loop
+             (near-tie rule), the replayed decode step against eager.
+13m. rnn — every mode of the fused RNN op x {uni, bi} x {dense, varlen}
+             through nd.RNN / nd.RNN_varlen on the card against a CPU
+             copy, forward and every gradient, f32 (within 1e-4 of scale)
+             and bf16 (the train_bf16 rule); then the yardstick, not a
+             path: one GNMT encoder layer (T 50, B 128, 1024 -> 1024) of
+             the port's LSTM against torch.nn.LSTM (cuDNN) on the same
+             weights, f32 within 1e-4 of scale, bf16 forward + backward ms
+             of each (the port's layer eager and hybridized), with their
+             kernels a call and the bound.
 14. kernels — one JSON line per the port's kernel table (5 rows), then the
              card's name and power limit, then the final {"ok": true, ...}
              line.
@@ -345,6 +374,7 @@ nothing on standard output.
 """
 import collections
 import contextlib
+import functools
 import gc
 import json
 import logging
@@ -1092,6 +1122,8 @@ def _mode_run(torch, mx, att, cs, build, step, hybrid, units, trace=False):
             nms=kernels.get("mxt_nms_mask_kernel", 0)),
         profile=dict(steps=PROFILE_STEPS, wall_us=wall_us,
                      device_us=device_us, busy_share=device_us / wall_us,
+                     kernels_per_step=sum(n for _, _, n in rows)
+                     / PROFILE_STEPS,
                      # torch's depthwise convolution kernels (MobileNet's
                      # grouped 3x3s), by name
                      depthwise_us_per_step=sum(
@@ -3818,15 +3850,16 @@ def phase_decode_nmt(torch, mx, att):
            "kernels: %r" % (launches,))
 
 
-def _greedy(torch, net, prompt, steps, device, feed=None):
+def _greedy(torch, net, prompt, steps, device, feed=None,
+            max_len=GEN_MAX_LEN, mem_len=max(GEN_BUCKETS)):
     """One request alone through the eager cached decode (init_cache at
-    the engine's max_len and memory length, then decode_steps from
-    NMT_BOS): each step's argmax, logits (on the CPU) and top-2 gap.
+    the engine's `max_len` and memory length `mem_len`, then decode_steps
+    from NMT_BOS): each step's argmax, logits (on the CPU) and top-2 gap.
     With `feed`, step i + 1 is fed feed[i] instead of step i's argmax.
     Stops after an eos argmax."""
     src = torch.from_numpy(prompt[None]).to(device)
     cache = net.init_cache(src, torch.tensor([prompt.size], device=device),
-                           max_len=GEN_MAX_LEN, mem_len=max(GEN_BUCKETS))
+                           max_len=max_len, mem_len=mem_len)
     tok = torch.tensor([NMT_BOS], device=device)
     toks, logits, gaps = [], [], []
     for i in range(steps):
@@ -5698,6 +5731,465 @@ def phase_layers(torch, mx):
                wall_s=time.monotonic() - t0))
 
 
+# -- slice 19: recurrent networks and GNMT ----------------------------------
+
+# bench.py's config 4 (run_gnmt): gnmt_large, batch 128, source and target
+# 50, vocab 32000, bf16, Adam lr 1e-3
+GNMT_VOCAB = 32000
+GNMT_UNITS = 1024
+GNMT_BATCH = 128
+GNMT_SEQ = 50
+GNMT_LR = 1e-3
+GNMT_PARITY_BATCH = 2
+# the GNMT step's gradients are a smooth function of the weights, so the
+# CPU copy's spread is its gradients with every weight nudged by
+# 1 +- 2**-22 (random signs): a rounding-level change in every GEMM, as the
+# card's other order of sums is.  The card's largest and median gradient
+# errors are held to RESNET_SPREAD_FACTOR x that spread (`_spread_checks`);
+# a wrong gate or a dropped freeze moves its layer's gradients by O(1)
+GNMT_NUDGE = 2.0 ** -22
+# bench.py's generation workload: build_generation_model's Seq2Seq (vocab
+# 31, embed 24, hidden 32, 2 layers) behind run_generate's engine
+S2S_VOCAB = 31
+S2S_SLOTS = 4
+S2S_MAX_LEN = 24
+S2S_BUCKETS = (4, 8)
+S2S_MAX_NEW = 12
+S2S_PROMPT_LENGTHS = (3, 4, 5, 6, 7, 8)     # on a bucket: 4 and 8
+S2S_TIMED_STEPS = 50
+S2S_INIT_SIGMA = 0.5
+# the rnn phase: every mode x {uni, bi} x {dense, varlen} through nd.RNN /
+# nd.RNN_varlen, 2 layers, card against a CPU copy.  f32 outputs and
+# gradients within RNN_TOL of scale (the same f32 sums in another order
+# through 12 steps of 2 layers).  bf16 ones by the train_bf16 rule with
+# train_resnet's spread in it (`rnn_bf16_over_rule`): each tensor's error
+# against an f32 CPU run of the same bf16 values within BF16_ROUTE_FACTOR
+# x the larger of the CPU's own bf16 error and that error at inputs
+# nudged by one rounding (RNN_NUDGE), + one bf16 ulp
+RNN_T, RNN_B, RNN_I, RNN_H, RNN_LAYERS = 12, 4, 16, 32, 2
+RNN_LENGTHS = (12, 9, 5, 1)
+RNN_TOL = 1e-4
+RNN_NUDGE = 2.0 ** -8
+# the yardstick: one GNMT encoder layer (T 50, B 128, 1024 -> 1024),
+# forward + backward of the port's LSTM against torch.nn.LSTM (cuDNN) on
+# the same weights; f32 outputs and gradients held to each other within
+# RNN_TOL of scale, bf16 timed (CUDA events, median of YARD_REPS)
+YARD_T, YARD_B, YARD_H = 50, 128, 1024
+YARD_REPS = 10
+
+
+def _gnmt_data(batch=GNMT_BATCH):
+    """run_gnmt's src, tgt and labels, drawn in that order from
+    RandomState(0) at batch 128; the first `batch` rows."""
+    rs = np.random.RandomState(0)
+    shape = (GNMT_BATCH, GNMT_SEQ)
+    src = rs.randint(0, GNMT_VOCAB, shape).astype(np.int32)
+    tgt = rs.randint(0, GNMT_VOCAB, shape).astype(np.int32)
+    lab = rs.randint(0, GNMT_VOCAB, shape).astype(np.float32)
+    return src[:batch], tgt[:batch], lab[:batch]
+
+
+def gnmt_grads(mx, net, head, src, tgt, lab):
+    """One recorded step of `net` + `head`: the loss and every gradient
+    (f32, on the CPU) by structural name, the head's under "loss."."""
+    with mx.autograd.record():
+        loss = head(net(src, tgt), lab)
+    mx.autograd.backward(loss)
+    params = dict(net.collect_params())
+    params.update({"loss." + n: p for n, p in head.collect_params().items()})
+    return loss.detach().float().cpu(), {
+        n: p.grad.detach().float().cpu().clone() for n, p in params.items()}
+
+
+def nudge_weights(torch, blocks, rel, seed=1):
+    """Scale every weight of `blocks` by 1 + rel or 1 - rel, the sign
+    drawn per element from `seed`."""
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for blk in blocks:
+            for p in blk.parameters():
+                sign = torch.randint(0, 2, p.shape, generator=gen) * 2 - 1
+                p.mul_(1 + rel * sign.to(p.device, p.dtype))
+
+
+def _gnmt_parity(torch, mx):
+    """gnmt_large (f32, output_hidden) + FusedMLMCELoss through one
+    batch-2 step on the card against a CPU copy: the loss within
+    SERVE_TOL, the gradients by `_spread_parity` against the CPU copy's
+    spread under GNMT_NUDGE."""
+    def build(device):
+        return (mx.models.gnmt_large(output_hidden=True, device=device),
+                mx.models.FusedMLMCELoss(GNMT_VOCAB, GNMT_UNITS,
+                                         device=device))
+    mx.random.seed(0)
+    net, head = build("cuda:0")
+    cpu_net, cpu_head = build("cpu")
+    for a, b in ((net, cpu_net), (head, cpu_head)):
+        b.load_state_dict({k: v.detach().cpu()
+                           for k, v in a.state_dict().items()})
+    data = [torch.from_numpy(a) for a in _gnmt_data(GNMT_PARITY_BATCH)]
+    loss, grads = gnmt_grads(mx, net, head, *(t.cuda() for t in data))
+    del net, head
+    ref_loss, ref_grads = gnmt_grads(mx, cpu_net, cpu_head, *data)
+    nudge_weights(torch, (cpu_net, cpu_head), GNMT_NUDGE)
+    _, spread = gnmt_grads(mx, cpu_net, cpu_head, *data)
+    return dict(parameters=sum(t.numel() for t in spread.values()),
+                batch=GNMT_PARITY_BATCH, dtype="float32", nudge=GNMT_NUDGE,
+                loss_max_abs_err=(loss - ref_loss).abs().max().item(),
+                loss_tol=SERVE_TOL,
+                **_spread_parity(torch, grads, ref_grads, spread))
+
+
+def phase_train_gnmt(torch, mx, att, cs):
+    """gnmt_large trained as bench.py's run_gnmt: output_hidden +
+    FusedMLMCELoss(32000, 1024), both cast to bf16, Adam lr 1e-3, batch
+    128 x 50 / 50 from RandomState(0); eager and hybridized (net
+    static_alloc/static_shape) from the same weights and data through
+    `phase_hybridize`: bit for bit, the timed steps only replaying, no
+    port kernel launched (the recurrence, the attention and the fused CE
+    are cuBLAS GEMMs and elementwise kernels).  Before it, one f32
+    batch-2 step against a CPU copy (`_gnmt_parity`).  Prints step ms,
+    target tokens/s, busy share, peak memory, the kernels a replayed step
+    launches by the profiler's names and the costliest of them."""
+    t0 = time.monotonic()
+    parity = _gnmt_parity(torch, mx)
+    gc.collect()
+    torch.cuda.empty_cache()
+    src, tgt, lab = (torch.from_numpy(a).cuda() for a in _gnmt_data())
+    run = phase_hybridize(
+        torch, mx, att, cs, "train_gnmt",
+        _mlm_build(mx, lambda: mx.models.gnmt_large(output_hidden=True,
+                                                    device="cuda:0"),
+                   GNMT_VOCAB, GNMT_UNITS, "bfloat16",
+                   optimizer_params={"learning_rate": GNMT_LR}),
+        lambda n, h, t: _train_step(mx, n, h, t, (src, tgt), lab).mean(),
+        GNMT_BATCH * GNMT_SEQ, (0,) * 8)
+    out = dict(phase="train_gnmt", model="gnmt_large", vocab=GNMT_VOCAB,
+               dtype="bfloat16", batch=GNMT_BATCH, src_len=GNMT_SEQ,
+               tgt_len=GNMT_SEQ, optimizer="adam", learning_rate=GNMT_LR,
+               parameters=parity.pop("parameters"),
+               nvidia_smi=_nvidia_smi(), **_summary(run),
+               target_tokens_per_s=run["units_per_s"],
+               step_ms=run["step_ms"], losses=run["losses"],
+               eager_vs_hybridized=run["compare"],
+               kernels_per_replayed_step=run["profile"]["kernels_per_step"],
+               top_kernels=run["profile"]["top"],
+               captures_in_timed_steps=run["programs"][
+                   "during_timed_steps"]["captures"],
+               port_kernels="none of the five launches on this path",
+               parity=parity, wall_s=time.monotonic() - t0)
+    _emit(out)
+    cmp = run["compare"]
+    _check(cmp["losses_bit_equal"] and cmp["params_bit_equal"],
+           "train_gnmt: eager and hybridized differ: %r" % (cmp,))
+    _check(parity["loss_max_abs_err"] <= SERVE_TOL,
+           "train_gnmt: the f32 step's loss differs from the CPU copy's: %r"
+           % (parity,))
+    _spread_checks("train_gnmt", parity)
+    return out
+
+
+def phase_generate_seq2seq(torch, mx, att, cs):
+    """bench.py's generation workload: Seq2Seq (vocab 31, embed 24,
+    hidden 32, 2 layers, seed 0) behind GenerationEngine with
+    run_generate's settings (4 slots, max_len 24, prompt buckets 4 and 8,
+    bos 1, eos 2): warmup's captures (buckets + 2), none in traffic; the
+    tokens of prompts on and off a bucket against the port's eager greedy
+    loop (`_greedy`, near-tie rule); the replayed decode step against the
+    same function run eagerly (CUDA events, median of 50); no port kernel
+    launched."""
+    from incubator_mxnet_tpu_torch.monitor import events
+    from incubator_mxnet_tpu_torch.ops import nms
+    from incubator_mxnet_tpu_torch.serving import GenerationEngine
+    t0 = time.monotonic()
+    mx.random.seed(0)
+    net = mx.models.Seq2Seq(S2S_VOCAB, S2S_VOCAB, embed_dim=24, hidden=32,
+                            num_layers=2, device="cuda:0")
+    # bench.py's default Uniform(0.07) makes every prompt decode to the
+    # same tokens; at this scale they depend on the prompt
+    net.initialize(mx.init.Normal(S2S_INIT_SIGMA), ctx="cuda:0",
+                   force_reinit=True)
+    _reset_counts(att)                  # the phase's path starts here
+    conv0, nms0 = cs.conv1x1_stats_launches, nms.nms_launches
+    eng = GenerationEngine(net, bos=NMT_BOS, eos=GEN_EOS, slots=S2S_SLOTS,
+                           max_len=S2S_MAX_LEN, prompt_buckets=S2S_BUCKETS,
+                           queue_cap=64)
+    try:
+        c0 = events.get("serve.traces")
+        warm = eng.warmup()
+        captures = events.get("serve.traces") - c0
+        rs = np.random.RandomState(0)
+        prompts = [rs.randint(3, S2S_VOCAB, (n,)).astype(np.int32)
+                   for n in S2S_PROMPT_LENGTHS]
+        c1 = events.get("serve.traces")
+        streams = [eng.submit(p, max_new_tokens=S2S_MAX_NEW)
+                   for p in prompts]
+        got = [s.result(timeout=GEN_RESULT_TIMEOUT) for s in streams]
+        traffic_captures = events.get("serve.traces") - c1
+        requests = []
+        with torch.no_grad():
+            for p, g in zip(prompts, got):
+                ref, _, gaps = _greedy(torch, net, p, S2S_MAX_NEW, "cuda:0",
+                                       max_len=S2S_MAX_LEN,
+                                       mem_len=max(S2S_BUCKETS))
+                requests.append(dict(
+                    prompt_len=int(p.size), tokens=[int(t) for t in g],
+                    on_bucket=int(p.size) in S2S_BUCKETS,
+                    **_near_tie_compare(g, ref, gaps, SERVE_TOL)))
+        with eng._exec_lock, torch.no_grad():
+            prog, eager_fn = eng._programs["decode"], eng._decode_fn()
+            replay_ms = _event_ms(torch, prog.replay, S2S_TIMED_STEPS)
+            eager_ms = _event_ms(torch, eager_fn, S2S_TIMED_STEPS)
+    finally:
+        eng.close()
+    launches = dict(zip(_COUNT_KEYS, _all_counts(att)),
+                    conv=cs.conv1x1_stats_launches - conv0,
+                    nms=nms.nms_launches - nms0)
+    out = dict(phase="generate_seq2seq", model="Seq2Seq(31, 31, embed 24, "
+               "hidden 32, 2 layers)", dtype="float32", slots=S2S_SLOTS,
+               max_len=S2S_MAX_LEN, prompt_buckets=list(S2S_BUCKETS),
+               warmup_captures=captures, traffic_captures=traffic_captures,
+               warmup_wall_s=warm["wall_s"], kv_cache_bytes=warm["kv_cache"],
+               requests=requests, tol=SERVE_TOL,
+               decode_step=dict(replay_ms=replay_ms, eager_ms=eager_ms,
+                                eager_over_replay=eager_ms / replay_ms,
+                                steps=S2S_TIMED_STEPS),
+               launches=launches, nvidia_smi=_nvidia_smi(),
+               wall_s=time.monotonic() - t0)
+    _emit(out)
+    _check(captures == len(S2S_BUCKETS) + 2, "generate_seq2seq: warmup made "
+           "%d captures, want %d" % (captures, len(S2S_BUCKETS) + 2))
+    _check(traffic_captures == 0, "generate_seq2seq: traffic captured %d "
+           "programs" % traffic_captures)
+    for p, g in zip(prompts, got):
+        _check(1 <= g.size <= S2S_MAX_NEW and (g.size == S2S_MAX_NEW
+                                                or g[-1] == GEN_EOS),
+               "generate_seq2seq: a request of budget %d returned %d "
+               "tokens" % (S2S_MAX_NEW, g.size))
+    _check(not any(launches.values()), "generate_seq2seq launched port "
+           "kernels: %r" % (launches,))
+    return out
+
+
+def _rnn_case_inputs(mode, bi, varlen, rs):
+    """(data, flat vector, h0[, c0]) as f32 arrays, and the lengths for
+    a varlen case."""
+    from incubator_mxnet_tpu_torch.ops.rnn import rnn_param_size
+    d = 2 if bi else 1
+    n = rnn_param_size(mode, RNN_LAYERS, RNN_I, RNN_H, bi)
+    arrays = [rs.randn(RNN_T, RNN_B, RNN_I), rs.uniform(-0.2, 0.2, n),
+              rs.randn(RNN_LAYERS * d, RNN_B, RNN_H) * 0.5]
+    if mode == "lstm":
+        arrays.append(rs.randn(RNN_LAYERS * d, RNN_B, RNN_H) * 0.5)
+    arrays = [a.astype(np.float32) for a in arrays]
+    lengths = np.array(RNN_LENGTHS, np.int32) if varlen else None
+    return arrays, lengths
+
+
+def _rnn_cotangents(mode, bi, rs):
+    """Seeded cotangents of the op's outputs: y, h (and c)."""
+    d = 2 if bi else 1
+    shapes = [(RNN_T, RNN_B, RNN_H * d)] + [
+        (RNN_LAYERS * d, RNN_B, RNN_H)] * (2 if mode == "lstm" else 1)
+    return [rs.uniform(-1, 1, s).astype(np.float32) for s in shapes]
+
+
+def _rnn_run(torch, mx, mode, bi, arrays, lengths, cots, dev, dtype):
+    """nd.RNN (nd.RNN_varlen with `lengths`) on `dev` in `dtype`: the
+    outputs and the gradients of every input for the cotangents `cots`,
+    as f32 CPU tensors."""
+    nds = [mx.nd.array(torch.from_numpy(a).to(dtype), ctx=dev)
+           for a in arrays]
+    for a in nds:
+        a.attach_grad()
+    kw = dict(state_size=RNN_H, num_layers=RNN_LAYERS, bidirectional=bi,
+              mode=mode)
+    with mx.autograd.record():
+        if lengths is None:
+            outs = mx.nd.RNN(*nds, **kw)
+        else:
+            args = nds + ([] if mode == "lstm" else [None])
+            outs = mx.nd.RNN_varlen(*args, mx.nd.array(lengths, ctx=dev,
+                                                       dtype="int32"), **kw)
+    outs = list(outs)
+    heads = [mx.nd.array(torch.from_numpy(c).to(dtype), ctx=dev)
+             for c in cots]
+    grads = mx.autograd.grad(outs, nds, head_grads=heads)
+    return [t._data.detach().float().cpu() for t in outs + list(grads)]
+
+
+def rnn_bf16_over_rule(torch, mx, mode, bi, arrays, lengths, cots, dev):
+    """The bf16 op on `dev` against an f32 CPU run of the same bf16
+    values: each output's and gradient's error over its bound, the
+    largest (the check holds at <= 1).  The bound is BF16_ROUTE_FACTOR x
+    the larger of the CPU's own bf16 error and that error with every
+    input nudged by 1 +- RNN_NUDGE (a rounding of each), plus one bf16 ulp of
+    the tensor's scale.  The nudge is what makes it hold rnn_relu too:
+    there a pre-activation a rounding away from 0 switches the ReLU's
+    gradient, and its data and weight gradients move by 0.1-0.6 of
+    their scale (train_resnet's spread rule, in bf16); in the smooth
+    modes the nudged error is 1-3x the plain one."""
+    def bf16_values(a):
+        return torch.from_numpy(a).bfloat16().float().numpy()
+    r16, c16 = [bf16_values(a) for a in arrays], [bf16_values(c)
+                                                   for c in cots]
+    gen = np.random.RandomState(1)
+    nudged = [(a * (1 + RNN_NUDGE * (gen.randint(0, 2, a.shape) * 2 - 1)))
+              .astype(np.float32) for a in r16]
+
+    def run(inputs, cot, device, dtype):
+        return _rnn_run(torch, mx, mode, bi, inputs, lengths, cot, device,
+                        dtype)
+    ref = run(r16, c16, "cpu", torch.float32)
+    worst = 0.0
+    for a, b, n, r in zip(run(arrays, cots, dev, torch.bfloat16),
+                          run(arrays, cots, "cpu", torch.bfloat16),
+                          run(nudged, cots, "cpu", torch.bfloat16), ref):
+        scale = max(r.abs().max().item(), 1e-30)
+        e_cpu = max((b - r).abs().max().item(),
+                    (n - r).abs().max().item()) / scale
+        worst = max(worst, (a - r).abs().max().item() / scale / (
+            BF16_ROUTE_FACTOR * e_cpu + _bf16_ulp_share(scale)))
+    return worst
+
+
+def _rnn_yardstick(torch, mx):
+    """One GNMT encoder layer (T 50, B 128, 1024 -> 1024): the port's
+    LSTM against torch.nn.LSTM on the same weights.  f32: outputs, final
+    states and the gradients of the input and the weights within RNN_TOL
+    of scale.  bf16: forward + backward ms by CUDA events (median of
+    YARD_REPS) of the port's layer eager and hybridized and of cuDNN's,
+    each with its kernels a call and device ms by the profiler, beside
+    the bound (the GEMMs' operations at the bf16 peak)."""
+    T, B, H = YARD_T, YARD_B, YARD_H
+    rs = np.random.RandomState(7)
+    x0 = torch.from_numpy(rs.randn(T, B, H).astype(np.float32)).cuda()
+    gy0 = torch.from_numpy(rs.uniform(-1, 1, (T, B, H)).astype(
+        np.float32)).cuda()
+
+    def pair(dtype):
+        mx.random.seed(0)
+        port = mx.gluon.rnn.LSTM(H, input_size=H, device="cuda:0")
+        ref = torch.nn.LSTM(H, H).cuda()
+        flat = port.flat_param.detach()
+        n = 4 * H * H
+        with torch.no_grad():
+            for w, src in ((ref.weight_ih_l0, flat[:n]),
+                           (ref.weight_hh_l0, flat[n:2 * n]),
+                           (ref.bias_ih_l0, flat[2 * n:2 * n + 4 * H]),
+                           (ref.bias_hh_l0, flat[2 * n + 4 * H:])):
+                w.copy_(src.reshape(w.shape))
+        port.cast(dtype)
+        ref = ref.to(dtype)
+        ref.flatten_parameters()
+        return port, ref
+
+    def port_step(port, x, gy):
+        with mx.autograd.record():
+            y = port(x)
+        mx.autograd.backward(y, gy)
+        return y
+
+    def ref_step(ref, x, gy):
+        x.grad = None
+        ref.zero_grad(set_to_none=True)
+        y, _ = ref(x)
+        y.backward(gy)
+        return y
+
+    port, ref = pair(torch.float32)
+    grads = []
+    for fn, m, wts in ((port_step, port, [port.flat_param]),
+                       (ref_step, ref, [ref.weight_ih_l0, ref.weight_hh_l0,
+                                        ref.bias_ih_l0])):
+        x = x0.clone().requires_grad_()
+        y = fn(m, x, gy0)
+        grads.append([y.detach()] + [x.grad] + [w.grad.clone()
+                                                for w in wts])
+    pg = grads[0][2]
+    n = 4 * H * H
+    port_side = [grads[0][0], grads[0][1], pg[:n].reshape(4 * H, H),
+                 pg[n:2 * n].reshape(4 * H, H), pg[2 * n:2 * n + 4 * H]]
+    f32_err = max((a - b).abs().max().item() / max(b.abs().max().item(),
+                                                   1.0)
+                  for a, b in zip(port_side, grads[1]))
+    del port, ref, grads, pg, port_side
+    torch.cuda.empty_cache()
+
+    port, ref = pair(torch.bfloat16)
+    hyb, _ = pair(torch.bfloat16)
+    hyb.hybridize(static_alloc=True, static_shape=True)
+    x16, gy16 = x0.bfloat16().requires_grad_(), gy0.bfloat16()
+    rows = {}
+    for name, fn, m in (("port_eager", port_step, port),
+                        ("port_hybridized", port_step, hyb),
+                        ("cudnn", ref_step, ref)):
+        call = lambda fn=fn, m=m: fn(m, x16, gy16)      # noqa: E731
+        for _ in range(2):      # eager, and the capture when hybridized
+            call()
+        ms = _event_ms(torch, call, YARD_REPS)
+        kern, wall_us = _device_kernels(torch, call, 2)
+        rows[name] = dict(ms=ms, kernels_per_call=sum(
+            k[2] for k in kern) / 2, device_ms=sum(k[0] for k in kern)
+            / 2e3, busy_share=sum(k[0] for k in kern) / wall_us,
+            top=[dict(kernel=k[:80], us=us / 2, calls=c / 2)
+                 for us, k, c in kern[:4]])
+    flops = 3 * 2 * T * B * 4 * H * (2 * H)     # forward and 2x backward
+    bound_ms = flops / 989e12 * 1e3
+    out = dict(shape=dict(T=T, B=B, I=H, H=H), dtype="bfloat16",
+               f32_err_over_scale=f32_err, f32_tol=RNN_TOL,
+               bound_ms=bound_ms, bound_by="operations", **rows,
+               port_eager_over_cudnn=rows["port_eager"]["ms"]
+               / rows["cudnn"]["ms"],
+               port_hybridized_over_cudnn=rows["port_hybridized"]["ms"]
+               / rows["cudnn"]["ms"])
+    del port, ref, hyb
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_rnn(torch, mx):
+    """Each mode (lstm, gru, rnn_tanh, rnn_relu) x {uni, bi} x {dense,
+    varlen} through nd.RNN / nd.RNN_varlen (2 layers, T 12, B 4, 16 ->
+    32, lengths 12, 9, 5, 1), forward and the gradients of data, flat
+    vector and states, on the card against a CPU copy: f32 within RNN_TOL
+    of scale, bf16 by the train_bf16 rule against an f32 CPU run.  Then
+    the yardstick (`_rnn_yardstick`), which is not on any path."""
+    t0 = time.monotonic()
+    rs = np.random.RandomState(5)
+    rows, failed = [], []
+    for mode in ("lstm", "gru", "rnn_tanh", "rnn_relu"):
+        for bi in (False, True):
+            for varlen in (False, True):
+                arrays, lengths = _rnn_case_inputs(mode, bi, varlen, rs)
+                cots = _rnn_cotangents(mode, bi, rs)
+                run = functools.partial(_rnn_run, torch, mx, mode, bi,
+                                        arrays, lengths, cots)
+                row = dict(mode=mode, bi=bi, varlen=varlen)
+                card, cpu = run("cuda:0", torch.float32), \
+                    run("cpu", torch.float32)
+                row["f32_err_over_scale"] = max(
+                    (a - b).abs().max().item() / max(b.abs().max().item(),
+                                                     1.0)
+                    for a, b in zip(card, cpu))
+                worst = rnn_bf16_over_rule(torch, mx, mode, bi, arrays,
+                                           lengths, cots, "cuda:0")
+                row["bf16_err_over_rule"] = worst
+                rows.append(row)
+                if row["f32_err_over_scale"] > RNN_TOL or worst > 1.0:
+                    failed.append(row)
+    yard = _rnn_yardstick(torch, mx)
+    _emit(dict(phase="rnn", cases=rows, f32_tol=RNN_TOL,
+               bf16_rule="e_card <= %g max(e_cpu_bf16, e_cpu_bf16_nudged) "
+               "+ ulp" % BF16_ROUTE_FACTOR, nudge=RNN_NUDGE,
+               yardstick=yard, nvidia_smi=_nvidia_smi(),
+               wall_s=time.monotonic() - t0))
+    _check(not failed, "rnn: cases differ from the CPU copy: %r" % failed)
+    _check(yard["f32_err_over_scale"] <= RNN_TOL, "rnn: the port's LSTM "
+           "differs from torch.nn.LSTM at the GNMT layer shape by %g of "
+           "scale" % yard["f32_err_over_scale"])
+
+
 def setup(torch):
     """What every run of the phases starts from, here and in
     `tools/chip_phases.py`: f32 products without TF32, the card's env
@@ -5768,6 +6260,9 @@ def main():
     mobilenet = phase_train_mobilenet(torch, mx, att, cs)
     zoo_launches = phase_zoo(torch, mx, cs)
     phase_layers(torch, mx)
+    phase_train_gnmt(torch, mx, att, cs)
+    phase_generate_seq2seq(torch, mx, att, cs)
+    phase_rnn(torch, mx)
 
     def nmt(kernel):
         """A flash row's NMT-path and bf16-path launches and their shapes'

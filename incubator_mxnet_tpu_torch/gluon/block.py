@@ -196,15 +196,31 @@ class Block(nn.Module):
         self._reg_params = OrderedDict()
 
     def __setattr__(self, name, value):
-        if isinstance(value, Parameter):
-            reg = self.__dict__.get("_reg_params")
-            if reg is not None:
-                if value.__dict__.pop("_unscoped", False):
-                    value.name = self._prefix + value.name
-                reg[name] = value
-                if value.name not in self._params:
-                    OrderedDict.__setitem__(self._params, value.name, value)
+        if isinstance(value, Parameter) and "_reg_params" in self.__dict__:
+            self._scope_param(name, value)
         super().__setattr__(name, value)
+
+    def _scope_param(self, name, value):
+        if value.__dict__.pop("_unscoped", False):
+            value.name = self._prefix + value.name
+        self._reg_params[name] = value
+        if value.name not in self._params:
+            OrderedDict.__setitem__(self._params, value.name, value)
+
+    def _register_shadowed(self, name, value):
+        """Register the `Parameter` `value` under `name` as an attribute
+        assignment would, where `name` is an attribute of `nn.Module`
+        itself (the JAX RNN layers' flat vector is `parameters`, torch's
+        method): it is this block's `name` in `named_parameters()`,
+        `collect_params()`, `state_dict()` and `hybrid_forward`'s
+        arguments, while `getattr(self, name)` stays torch's."""
+        self._scope_param(name, value)
+        self._parameters[name] = value
+
+    def register_child(self, block, name=None):
+        """Add `block` as a child named `name`, by default its index among
+        the children ("0", "1", ...), as the JAX package names them."""
+        self.add_module(name or str(len(self._modules)), block)
 
     def name_scope(self):
         """`with self.name_scope():` around the children's construction;
@@ -230,8 +246,9 @@ class Block(nn.Module):
         """{attribute name: parameter} of the parameters assigned to this
         block's attributes, in order (what `hybrid_forward` receives)."""
         out = OrderedDict()
+        own = self._parameters
         for n in self.__dict__.get("_reg_params", ()):
-            p = getattr(self, n, None)
+            p = own[n] if n in own else getattr(self, n, None)
             if p is not None:
                 out[n] = p
         return out

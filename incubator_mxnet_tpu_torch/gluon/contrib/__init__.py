@@ -1,4 +1,5 @@
 """`gluon.contrib` of the PyTorch port (counterpart of
-incubator_mxnet_tpu/gluon/contrib/): its `nn` layers.  The contrib
-`rnn` cells and `estimator` are not yet ported."""
+incubator_mxnet_tpu/gluon/contrib/): its `nn` layers and `rnn` cells.
+The contrib `estimator` is not yet ported."""
 from . import nn
+from . import rnn

@@ -10,3 +10,4 @@ from .ssd import (SSD, ssd_300, ssd_512, ssd_512_vgg16, ssd_toy,
 from .faster_rcnn import (FasterRCNN, faster_rcnn_toy,
                           faster_rcnn_resnet50_v1b, rcnn_training_targets,
                           RCNNTrainLoss)
+from .seq2seq import Seq2Seq, GNMT, gnmt_large

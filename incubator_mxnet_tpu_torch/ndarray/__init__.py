@@ -37,6 +37,7 @@ from ..ops import registry as _registry
 from ..ops import tensor as _tensor, nn as _nn, optimizer as _optimizer  # noqa: F401
 from ..ops import random as _random_ops, attention as _attention  # noqa: F401
 from ..ops import contrib as _contrib_ops, rcnn as _rcnn  # noqa: F401
+from ..ops import rnn as _rnn_ops  # noqa: F401
 from .ndarray import NDArray, invoke, apply_fn, array, unwrap, _wrap
 
 __all__ = ["NDArray", "array", "invoke", "apply_fn", "zeros", "ones",

@@ -12,3 +12,4 @@ from . import random
 from . import nms
 from . import contrib
 from . import rcnn
+from . import rnn

@@ -65,11 +65,13 @@ work while another's capture is open.  Each program files a
 growth) under ``cost_label``.  The step's one host sync is the read of
 its (slots,) tokens through a pinned buffer and an event.
 
-Model contract (`models.TransformerNMT`):
+Model contract (`models.TransformerNMT`, `models.Seq2Seq`):
 
 - ``init_cache(src, src_valid_len, max_len=, mem_len=)`` -> dict of
   slot-major tensors whose shapes are a function of (prompt bucket,
-  max_len, mem_len);
+  max_len, mem_len): the Transformer's per-layer K/V caches, or
+  Seq2Seq's enc_k (B, M, H), src_len (B,) and LSTM h/c (B, L, H).  It
+  runs once on meta tensors (`_leaf_specs`) as well;
 - ``decode_step(tok, pos, cache)`` -> (next-token logits (B, V), updated
   cache), one token per slot per call, position as data.
 
@@ -323,7 +325,8 @@ class GenerationEngine:
     fixed slot set.
 
     block: a model implementing ``init_cache``/``decode_step``
-        (`models.TransformerNMT`), its parameters on the engine's device.
+        (`models.TransformerNMT`, `models.Seq2Seq`), its parameters on
+        the engine's device.
     bos / eos: special token ids (decode starts from bos; an emitted eos
         retires the sequence).
     ctx: the device, `gpu(i)`, `cpu()` or a device string (default
@@ -349,7 +352,7 @@ class GenerationEngine:
                 raise TypeError(
                     "generation needs a model with the explicit-cache "
                     "decode contract (missing %r) — see "
-                    "models/transformer.py" % m)
+                    "models/transformer.py and models/seq2seq.py" % m)
         self._device = resolve_device(ctx)
         self._block = block
         self._bos, self._eos = int(bos), int(eos)

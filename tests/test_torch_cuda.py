@@ -1677,3 +1677,125 @@ def test_hybrid_concurrent_fuses_within_branches_on_card(card):
     assert outs[card][0].shape == (4, 8 + 6 + 5, 6, 6)
     for a, b in zip(outs[card][:2], outs["cpu"][:2]):
         assert (a - b).abs().max() <= 1e-4 * max(1.0, b.abs().max())
+
+
+# -- slice 19: the fused RNN op, GNMT and Seq2Seq generation on the card -----
+
+@pytest.mark.parametrize("mode", ["lstm", "gru", "rnn_tanh", "rnn_relu"])
+@pytest.mark.parametrize("bi", [False, True], ids=["uni", "bi"])
+@pytest.mark.parametrize("varlen", [False, True], ids=["dense", "varlen"])
+def test_rnn_op_on_card_matches_cpu(card, mode, bi, varlen):
+    """chip_smoke.py's rnn phase, one case: nd.RNN / nd.RNN_varlen on the
+    card against the CPU, f32 outputs and every input's gradient within
+    1e-4 of scale, and bf16 by `rnn_bf16_over_rule`."""
+    from chip_smoke import (RNN_TOL, _rnn_case_inputs, _rnn_cotangents,
+                            _rnn_run, rnn_bf16_over_rule)
+    rs = np.random.RandomState(5)
+    arrays, lengths = _rnn_case_inputs(mode, bi, varlen, rs)
+    cots = _rnn_cotangents(mode, bi, rs)
+    card_f32 = _rnn_run(torch, tmx, mode, bi, arrays, lengths, cots, card,
+                        torch.float32)
+    cpu_f32 = _rnn_run(torch, tmx, mode, bi, arrays, lengths, cots, "cpu",
+                       torch.float32)
+    for a, b in zip(card_f32, cpu_f32):
+        assert (a - b).abs().max() <= RNN_TOL * max(b.abs().max(), 1.0)
+    assert rnn_bf16_over_rule(torch, tmx, mode, bi, arrays, lengths, cots,
+                              card) <= 1.0
+
+
+def test_lstm_layer_matches_cudnn_lstm_on_card(card):
+    """The port's LSTM layer (2 layers, bidirectional) against
+    torch.nn.LSTM on the same weights, f32 on the card: outputs and
+    final states within 1e-4 of scale."""
+    T, B, I, H = 9, 3, 12, 16
+    tmx.random.seed(3)
+    port = tmx.gluon.rnn.LSTM(H, num_layers=2, bidirectional=True,
+                              input_size=I, device=card)
+    ref = torch.nn.LSTM(I, H, num_layers=2, bidirectional=True).to(card)
+    flat, off = port.flat_param.detach(), 0
+    with torch.no_grad():
+        for layer in range(2):
+            for sfx in ("", "_reverse"):
+                for kind in ("weight_ih", "weight_hh"):
+                    w = getattr(ref, "%s_l%d%s" % (kind, layer, sfx))
+                    w.copy_(flat[off:off + w.numel()].reshape(w.shape))
+                    off += w.numel()
+        for layer in range(2):
+            for sfx in ("", "_reverse"):
+                for kind in ("bias_ih", "bias_hh"):
+                    b = getattr(ref, "%s_l%d%s" % (kind, layer, sfx))
+                    b.copy_(flat[off:off + b.numel()])
+                    off += b.numel()
+    assert off == flat.numel()
+    x = torch.randn(T, B, I, device=card)
+    with torch.no_grad():
+        y, (h, c) = port(x, port.begin_state(batch_size=B))
+        ry, (rh, rc) = ref(x)
+    for a, b in ((y, ry), (h, rh), (c, rc)):
+        assert (a - b).abs().max() <= 1e-4 * max(b.abs().max(), 1.0)
+
+
+def test_gnmt_small_hybridized_step_on_card(card):
+    """A small GNMT + FusedMLMCELoss trained 3 Adam steps on the card,
+    eager and hybridized (eager, capture, replay): bit for bit."""
+    V, E, H = 40, 16, 32
+
+    def run(hybrid):
+        tmx.random.seed(0)
+        net = tmx.models.GNMT(V, V, embed_dim=E, hidden=H, enc_layers=3,
+                              dec_layers=2, output_hidden=True, device=card)
+        head = tmx.models.FusedMLMCELoss(V, H, device=card)
+        if hybrid:
+            net.hybridize(static_alloc=True, static_shape=True)
+        params = dict(net.collect_params())
+        params.update({"loss." + n: p
+                       for n, p in head.collect_params().items()})
+        trainer = tmx.gluon.Trainer(params, "adam", {"learning_rate": 1e-3})
+        rs = np.random.RandomState(0)
+        src, tgt = (torch.from_numpy(rs.randint(0, V, (4, 7))).to(card)
+                    for _ in range(2))
+        lab = torch.from_numpy(rs.randint(0, V, (4, 7)).astype(
+            np.float32)).to(card)
+        losses = []
+        for _ in range(3):
+            with tmx.autograd.record():
+                loss = head(net(src, tgt), lab)
+            tmx.autograd.backward(loss)
+            trainer.step(4)
+            losses.append(loss.detach().cpu())
+        return losses, [p.detach().cpu() for p in params.values()], net
+
+    eager, hyb = run(False), run(True)
+    assert all(torch.equal(a, b) for a, b in zip(eager[0], hyb[0]))
+    assert all(torch.equal(a, b) for a, b in zip(eager[1], hyb[1]))
+    assert hyb[2]._cached_graph.replays >= 1
+
+
+def test_seq2seq_generation_on_card_equals_eager_greedy(card):
+    """GenerationEngine over a Seq2Seq on the card: warmup captures
+    buckets + 2 programs, traffic none, and each prompt's tokens equal
+    the eager greedy loop's."""
+    from chip_smoke import _greedy, _near_tie_compare
+    tmx.random.seed(0)
+    net = tmx.models.Seq2Seq(31, 31, embed_dim=24, hidden=32, device=card)
+    net.initialize(tmx.init.Normal(0.5), ctx=card, force_reinit=True)
+    eng = tmx.serving.GenerationEngine(net, bos=1, eos=2, ctx=card, slots=2,
+                                       max_len=16, prompt_buckets=(4, 8))
+    try:
+        t0 = events.get("serve.traces")
+        eng.warmup()
+        assert events.get("serve.traces") - t0 == 4
+        rs = np.random.RandomState(1)
+        prompts = [rs.randint(3, 31, (n,)).astype(np.int32)
+                   for n in (3, 8, 5)]
+        t1 = events.get("serve.traces")
+        got = [eng.submit(p, max_new_tokens=10).result(timeout=60)
+               for p in prompts]
+        assert events.get("serve.traces") == t1
+    finally:
+        eng.close()
+    with torch.no_grad():
+        for p, g in zip(prompts, got):
+            ref, _, gaps = _greedy(torch, net, p, 10, card, max_len=16,
+                                   mem_len=8)
+            _near_tie_compare(g, ref, gaps, 2e-3)

@@ -63,8 +63,6 @@ NOT_YET_PORTED = {
     "_contrib_quantized_elemwise_add", "_contrib_quantized_flatten",
     "_contrib_quantized_fully_connected", "_contrib_quantized_pooling",
     "_contrib_requantize",
-    # ops/rnn.py
-    "RNN", "RNN_varlen",
 }
 
 # ---------------------------------------------------------------------------
@@ -250,6 +248,36 @@ case("_contrib_SyncBatchNorm", _BN, {"fix_gamma": False, "_training": False,
 case("softmax", [U(-2, 2, 3, 5)], {"length": np.array([2, 5, 3], np.float32),
                                    "use_length": True, "axis": -1})
 
+# the fused RNN ops (ops/rnn.py): (T, B, I) data, the flat vector, the
+# states; the length vector of RNN_varlen takes no gradient
+_RNN_X = U(-1, 1, 4, 2, 3)
+
+
+def _rnn_args(mode, layers, bi, hidden=5, lengths=None):
+    from incubator_mxnet_tpu_torch.ops.rnn import rnn_param_size
+    d = 2 if bi else 1
+    args = [_RNN_X, U(-0.5, 0.5, rnn_param_size(mode, layers, 3, hidden,
+                                                bi)),
+            U(-0.5, 0.5, layers * d, 2, hidden)]
+    if mode == "lstm":
+        args.append(U(-0.5, 0.5, layers * d, 2, hidden))
+    return args + ([] if lengths is None else [np.array(lengths,
+                                                        np.float32)])
+
+
+case("RNN", _rnn_args("lstm", 2, True),
+     {"state_size": 5, "num_layers": 2, "bidirectional": True,
+      "mode": "lstm"})
+case("RNN", _rnn_args("gru", 1, False), {"state_size": 5, "mode": "gru"})
+case("RNN", _rnn_args("rnn_relu", 2, False),
+     {"state_size": 5, "num_layers": 2, "mode": "rnn_relu",
+      "state_outputs": False})
+case("RNN", _rnn_args("rnn_tanh", 1, True),
+     {"state_size": 5, "bidirectional": True, "mode": "rnn_tanh"})
+case("RNN_varlen", _rnn_args("lstm", 2, True, lengths=[4, 2]),
+     {"state_size": 5, "num_layers": 2, "bidirectional": True,
+      "mode": "lstm"}, grad_argnums=(0, 1, 2, 3))
+
 
 # the detection ops (ops/contrib.py, ops/rcnn.py), which the JAX sweep
 # leaves to its own files (test_contrib_ops.py, test_rcnn.py)
@@ -345,7 +373,7 @@ SCALED = {"sum", "sum_axis", "mean", "prod", "nansum", "nanprod", "norm",
           "Deconvolution", "InstanceNorm", "GroupNorm", "LRN", "UpSampling",
           "GridGenerator", "CTCLoss", "ctc_loss", "_contrib_SyncBatchNorm",
           "interleaved_matmul_selfatt_qk",
-          "interleaved_matmul_selfatt_valatt"}
+          "interleaved_matmul_selfatt_valatt", "RNN", "RNN_varlen"}
 EXACT = {"argmax", "argmin", "argmax_channel", "argsort", "topk", "sort",
          "shape_array", "size_array", "one_hot", "boolean_mask", "where",
          "take", "pick", "gather_nd", "scatter_nd", "_scatter_set_nd",
