@@ -105,6 +105,30 @@ Drives incubator_mxnet_tpu_torch only (never JAX or the JAX package):
              stay within the loss spread of two uninterrupted runs.
    train_resnet_gluon_profile — device time and launches by kernel
              over one such step.
+   train_resnet_fed — bench.py's run_cachedop fed from a file: 512
+             random 256 x 313 images (RandomState(0), JPEG quality 90,
+             label i % 1000) written to a temporary RecordIO file; the
+             decode service alone (start-up, images/s over an epoch, its
+             workers and the host's cores); resnet50_v1b hybridized with
+             normalize_transform(127.5, 64, bf16) installed by
+             set_input_transform, fed by ImageRecordIter(workers=
+             min(4, cores), dtype uint8, ctx=gpu(0)), which must run that
+             many workers: the first fed batch read back equal byte for
+             byte to the host decode_record of its records with the
+             workers' per-record RNG (labels and pad too); 2 warm-up steps
+             (eager, then the capture: 33 conv launches each) and 2 epochs
+             (8 steps) timed that only replay, the transform never called
+             in them; images/s fed and on a batch already on the card,
+             the feed's per-batch counters and the decode wait; 33 conv
+             launches a replayed fed step by name, the busy share of an
+             epoch's 4 fed steps from its start; the parent's ms an image
+             of the JPEG decode, the resize and decode_record; 4 batches
+             through a DeviceFeed and by a synchronous copy from the same
+             state, losses and every parameter and momentum bit for bit;
+             H2D GB/s from pinned and pageable memory; a batch-2 f32 fed
+             step against a CPU copy by train_resnet's spread rule, and a
+             normalize with mean and std swapped, which that rule must
+             refuse.
 10. train_nmt — transformer_nmt_base (6 + 6 layers, 512 units, 8 heads,
              vocab 32000, dropout 0, output_hidden + FusedMLMCELoss, Adam
              lr 1e-4, f32) as bench.py's run_transformer_nmt (config 4b):
@@ -2338,6 +2362,510 @@ def phase_train_resnet_gluon(torch, mx, cs, resnet_row):
            "a replayed Gluon-loop step launched %r of the port's kernels, "
            "not %d conv" % (kernels, RESNET_SITES))
     return launches
+
+
+# resnet50_v1b fed from a JPEG RecordIO file (bench.py's run_cachedop,
+# its input-fed half: _ensure_rec's corpus, the decode service, the device
+# feed with uint8 on the wire, the normalize captured into the step)
+FED_IMAGES = 512
+FED_IMAGE_HW = (256, 313)
+FED_QUALITY = 90
+FED_RESIZE = 256
+FED_SHAPE = (3, 224, 224)
+FED_EPOCHS = 2              # timed: 2 x 4 steps of 128
+FED_DECODE_EPOCHS = 3       # the decode service alone, timed
+FED_HOST_IMAGES = 16        # decode and resize timed on the parent
+FED_COPY_STEPS = 4          # the feed against a synchronous copy
+FED_MEAN, FED_STD = 127.5, 64.0
+
+
+def _fed_planted(mx):
+    """Wrong transforms the fed parity check must refuse: mean and std
+    swapped, and the mean off by half a pixel level."""
+    return dict(
+        planted_swap=mx.io.normalize_transform(FED_STD, FED_MEAN, "float32"),
+        planted_mean_off_half=mx.io.normalize_transform(
+            FED_MEAN + 0.5, FED_STD, "float32"))
+
+
+def _fed_corpus(mx, path, n=FED_IMAGES, hw=FED_IMAGE_HW):
+    """bench.py's `_ensure_rec` corpus, written by the port's recordio:
+    `n` images of hw x 3 random uint8 from RandomState(0), JPEG quality
+    90 (the RAWI frame where the host has no PIL), label i % 1000.
+    Returns the codec."""
+    try:
+        import PIL              # noqa: F401
+        codec = "jpeg"
+    except ImportError:
+        codec = "rawi"
+    rs = np.random.RandomState(0)
+    rec = mx.recordio.MXRecordIO(path, "w")
+    for i in range(n):
+        img = rs.randint(0, 255, hw + (3,), dtype=np.uint8)
+        rec.write(mx.recordio.pack_img(
+            mx.recordio.IRHeader(0, float(i % 1000), i, 0), img,
+            quality=FED_QUALITY))
+    rec.close()
+    return codec
+
+
+def _fed_decode_alone(mx, path, batch, workers, epochs=FED_DECODE_EPOCHS):
+    """The decode service with no consumer: its start-up (the workers'
+    handshake), a first epoch whose batches are copied out and returned
+    (host (data, label) pairs), then `epochs` epochs timed, together and
+    each on its own: an epoch is one batch a worker, too short a window
+    to read a steady rate from."""
+    t0 = time.perf_counter()
+    svc = mx.io.DecodeService(path, batch, FED_SHAPE, workers=workers,
+                              resize=FED_RESIZE, rand_crop=True,
+                              rand_mirror=True, shuffle=True, dtype="uint8")
+    svc.reset()
+    startup = time.perf_counter() - t0
+    try:
+        host = [(sb.data.copy(), sb.label[:, 0].copy()) for sb in svc]
+        n, per_epoch = 0, []
+        t0 = time.perf_counter()
+        for _ in range(epochs):
+            e0, m = time.perf_counter(), 0
+            for sb in svc:
+                m += sb.count
+            per_epoch.append(m / (time.perf_counter() - e0))
+            n += m
+        wall = time.perf_counter() - t0
+    finally:
+        svc.close()
+    return dict(io_workers=svc.workers, cpu_count=os.cpu_count(),
+                start_method=mx.config.get("MXNET_IO_MP_START"),
+                startup_s=startup, epochs=epochs, images=n, wall_s=wall,
+                images_per_s=n / wall,
+                epoch_images_per_s=per_epoch), host
+
+
+def _fed_host_costs(path, n=FED_HOST_IMAGES):
+    """ms per image, on the parent's one thread, of a worker's decode
+    stages over the file's first `n` records: the JPEG decode, the numpy
+    resize of the short side to FED_RESIZE, and the whole
+    `decode_record` (crop, mirror and the CHW uint8 copy too)."""
+    from incubator_mxnet_tpu_torch.io import decode_service as ds
+    from incubator_mxnet_tpu_torch.io import recordio
+    rec = recordio.MXRecordIO(path, "r")
+    raws = [rec.read() for _ in range(n)]
+    rec.close()
+    t0 = time.perf_counter()
+    imgs = [recordio.unpack_img(r)[1] for r in raws]
+    t1 = time.perf_counter()
+    for img in imgs:
+        scale = FED_RESIZE / min(img.shape[:2])
+        ds._resize_linear(img, (int(round(img.shape[1] * scale)),
+                                int(round(img.shape[0] * scale))))
+    t2 = time.perf_counter()
+    for j, r in enumerate(raws):
+        ds.decode_record(r, FED_SHAPE, FED_RESIZE, True, True,
+                         ds._record_rng(0, 0, 0, 0, j))
+    t3 = time.perf_counter()
+    return dict(images=n, decode_ms=(t1 - t0) / n * 1e3,
+                resize_ms=(t2 - t1) / n * 1e3,
+                decode_record_ms=(t3 - t2) / n * 1e3)
+
+
+def _fed_busy(torch, fn, steps):
+    """The card's busy share over `steps` calls of `fn`: the device time of
+    every kernel, copy and fill torch.profiler records over the host wall
+    of the window."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    events = prof.key_averages()
+    host = {ev.key for ev in events if ev.device_type != DeviceType.CUDA}
+    device_us = sum(ev.self_device_time_total for ev in events
+                    if ev.device_type == DeviceType.CUDA
+                    and ev.key not in host)
+    return dict(steps=steps, wall_us=wall_us, device_us=device_us,
+                busy_share=device_us / wall_us)
+
+
+def _fed_expected(path, ids, batch, workers, epoch=0, seed=0):
+    """The host decode of the batch whose record ids are `ids`:
+    `decode_record` of each record with the worker's per-record RNG, the
+    (wid, seq) found from `shard_records`.  (None, None) when no worker's
+    shard holds that batch."""
+    from incubator_mxnet_tpu_torch.io import decode_service as ds
+    from incubator_mxnet_tpu_torch.io import recordio
+    offsets = recordio.list_record_offsets(path)
+    for wid in range(workers):
+        order = ds.shard_records(len(offsets), workers, wid, epoch=epoch,
+                                 shuffle=True, seed=seed, batch_size=batch)
+        for seq, s in enumerate(range(0, len(order), batch)):
+            if order[s:s + batch].tolist() != ids:
+                continue
+            out = []
+            with open(path, "rb") as fh:
+                for j, ri in enumerate(ids):
+                    fh.seek(offsets[ri])
+                    rng = ds._record_rng(seed, epoch, wid, seq, j)
+                    out.append(ds.decode_record(
+                        recordio.read_record(fh), FED_SHAPE, FED_RESIZE,
+                        True, True, rng, dtype="uint8")[0])
+            return np.stack(out), (wid, seq)
+    return None, None
+
+
+def _fed_step(mx, net, loss_fn, trainer, data, label):
+    """A user's step on NDArrays: record, loss, backward, update; the
+    batch's mean loss (on the card)."""
+    with mx.autograd.record():
+        loss = loss_fn(net(data), label)
+    loss.backward()
+    trainer.step(data.shape[0])
+    return loss._data.detach().mean()
+
+
+def _fed_state(torch, net, trainer):
+    """The tensors a step reads and writes: every parameter (running
+    statistics included) and every optimizer state."""
+    from incubator_mxnet_tpu_torch.optimizer.optimizer import _map_state
+    out = [p for p in net.collect_params().values()]
+    for i in sorted(trainer._updater.states):
+        _map_state(out.append, trainer._updater.states[i])
+    return out
+
+
+def _fed_against_copy(torch, mx, net, loss_fn, trainer, host):
+    """The same uint8 batches two ways from the same state: through a
+    DeviceFeed (pinned staging, its side stream, the consumer waiting on
+    its events) and by a synchronous `.cuda()` copy, into the same
+    hybridized net; their losses and the state after must be equal bit
+    for bit."""
+    state = _fed_state(torch, net, trainer)
+    start = [t.detach().clone() for t in state]
+
+    def restore():
+        with torch.no_grad():
+            for t, s in zip(state, start):
+                t.copy_(s)
+
+    def run(batches):
+        restore()
+        losses = [_fed_step(mx, net, loss_fn, trainer, d, l)
+                  for d, l in batches]
+        torch.cuda.synchronize()
+        return ([v.item() for v in losses],
+                [t.detach().cpu().clone() for t in state])
+    fed = run(mx.io.DeviceFeed(host, ctx=mx.gpu(0)))
+    copied = run([(mx.nd.NDArray(torch.from_numpy(d).cuda()),
+                   mx.nd.NDArray(torch.from_numpy(l).cuda()))
+                  for d, l in host])
+    same = sum(_same_bits(torch, a, b) for a, b in zip(fed[1], copied[1]))
+    return dict(steps=len(host), losses_feed=fed[0], losses_copy=copied[0],
+                losses_bit_equal=fed[0] == copied[0],
+                tensors=len(state), tensors_bit_equal=same)
+
+
+def _fed_parity(torch, mx, x_u8, y, planted):
+    """One batch-2 f32 step fed through a DeviceFeed on the card against a
+    CPU copy with the transform installed, under train_resnet's rules:
+    the loss within SERVE_TOL, every running statistic within RUNNING_TOL
+    of its scale, and the gradients within the spread rule (the copy's
+    own spread: its input nudged by 1 + 2**-22 after the normalize).
+    The same step with each of `planted` ({name: wrong transform})
+    installed on the card must break at least one of them.  Every card
+    step starts from the same running statistics."""
+    from incubator_mxnet_tpu_torch.gluon.model_zoo.vision import \
+        resnet50_v1b
+    norm = mx.io.normalize_transform(FED_MEAN, FED_STD, "float32")
+    mx.random.seed(0)
+    net = resnet50_v1b(classes=1000, device="cuda:0")
+    cpu = resnet50_v1b(classes=1000, device="cpu")
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    xf = (torch.from_numpy(x_u8).float() - FED_MEAN) / FED_STD
+    _copy_to_cpu(mx, net, cpu, xf[:1])
+    start = {k: v.clone() for k, v in net.state_dict().items()}
+    yt = torch.from_numpy(y)
+    cpu.set_input_transform(norm)
+    ref_loss, ref, ref_running = _resnet_grads(
+        mx, cpu, loss_fn, torch.from_numpy(x_u8), yt)
+    cpu.set_input_transform(None)
+    _, spread_grads, _ = _resnet_grads(mx, cpu, loss_fn,
+                                       xf * (1.0 + 2.0 ** -22), yt)
+    spread = _scaled_err(spread_grads, ref)
+    rows = {}
+    for name, tr in [("normalize", norm)] + sorted(planted.items()):
+        net.load_state_dict(start)
+        net.set_input_transform(tr)
+        fed_x, fed_y = next(iter(mx.io.DeviceFeed([(x_u8, y)],
+                                                  ctx=mx.gpu(0))))
+        loss, grads, running = _resnet_grads(mx, net, loss_fn, fed_x._data,
+                                             fed_y._data)
+        err = _scaled_err(grads, ref)
+        run_err = _scaled_err(running, ref_running)
+        worst = max(err, key=err.get)
+        worst_run = max(run_err, key=run_err.get)
+        row = dict(loss_max_abs_err=(loss - ref_loss).abs().max().item(),
+                   worst_running_err_over_scale=run_err[worst_run],
+                   worst_running=worst_run, running_tensors=len(run_err),
+                   grad_err_over_scale_max=dict(
+                       card=err[worst], cpu_spread=max(spread.values())),
+                   grad_err_over_scale_median=dict(
+                       card=statistics.median(err.values()),
+                       cpu_spread=statistics.median(spread.values())),
+                   worst_grad=worst, gradients=len(err))
+        row["within_loss_tol"] = row["loss_max_abs_err"] <= SERVE_TOL
+        row["within_running_tol"] = run_err[worst_run] <= RUNNING_TOL
+        row["within_spread_rule"] = all(
+            v["card"] <= RESNET_SPREAD_FACTOR * v["cpu_spread"]
+            for v in (row["grad_err_over_scale_max"],
+                      row["grad_err_over_scale_median"]))
+        row["passes"] = (row["within_loss_tol"] and row["within_running_tol"]
+                         and row["within_spread_rule"])
+        rows[name] = row
+    return dict(batch=len(y), dtype="float32", loss_tol=SERVE_TOL,
+                running_tol=RUNNING_TOL,
+                spread_factor=RESNET_SPREAD_FACTOR, **rows)
+
+
+def _h2d(torch, host):
+    """Host-to-card copy rate (GB/s, CUDA events) of one uint8 batch from
+    pinned and from pageable memory, and the host copy into a pinned
+    buffer that the feed's staging makes (host clock, median of 10)."""
+    src = torch.from_numpy(host)
+    pinned = src.pin_memory()
+    dev = torch.empty(src.shape, dtype=src.dtype, device="cuda:0")
+    nbytes = src.numel()
+    pinned_ms = _time_ms(torch, lambda: dev.copy_(pinned, non_blocking=True),
+                         reps=10, rounds=3)
+    pageable_ms = _time_ms(torch, lambda: dev.copy_(src), reps=10, rounds=3)
+    view = pinned.numpy()
+    staging = []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        view[...] = host
+        staging.append((time.perf_counter() - t0) * 1e3)
+    staging_ms = statistics.median(staging)
+    return dict(bytes=nbytes, pinned_ms=pinned_ms, pageable_ms=pageable_ms,
+                pinned_gb_s=nbytes / pinned_ms / 1e6,
+                pageable_gb_s=nbytes / pageable_ms / 1e6,
+                staging_ms=staging_ms,
+                staging_gb_s=nbytes / staging_ms / 1e6)
+
+
+def phase_train_resnet_fed(torch, mx, cs):
+    """resnet50_v1b trained from a JPEG RecordIO file through the port's
+    user entry points, as bench.py's run_cachedop feeds it: ImageRecordIter
+    with the decode service's workers and ctx=gpu(0) (its DeviceFeed),
+    uint8 on the wire, the normalize installed with set_input_transform
+    and captured into the hybridized step.  Returns the conv kernel's
+    launches by the counters (the eager and the capturing warm-up steps)
+    and per replayed step by name."""
+    import shutil
+    from incubator_mxnet_tpu_torch.gluon.model_zoo.vision import \
+        resnet50_v1b
+    from incubator_mxnet_tpu_torch.monitor import events
+    batch = RESNET_BATCH
+    workers = min(4, os.cpu_count() or 1)
+    tmp = tempfile.mkdtemp(prefix="mxt-fed-")
+    it = None
+    phase_t0 = time.perf_counter()
+    try:
+        path = os.path.join(tmp, "fed.rec")
+        t0 = time.perf_counter()
+        codec = _fed_corpus(mx, path)
+        corpus_s = time.perf_counter() - t0
+        decode, host = _fed_decode_alone(mx, path, batch, workers)
+        decode["host_costs"] = _fed_host_costs(path)
+
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        mx.random.seed(0)
+        net = resnet50_v1b(classes=1000, device="cuda:0")
+        loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+        trainer = mx.gluon.Trainer(net.collect_params(), "sgd", {
+            "learning_rate": 0.1, "momentum": 0.9, "wd": 1e-4})
+        net.hybridize(static_alloc=True, static_shape=True)
+        calls = [0]             # the transform's Python calls
+        norm = mx.io.normalize_transform(FED_MEAN, FED_STD, "bfloat16")
+
+        def transform(x):
+            calls[0] += 1
+            return norm(x)
+        net.set_input_transform(transform)
+        it = mx.io.ImageRecordIter(
+            path, FED_SHAPE, batch, resize=FED_RESIZE, rand_crop=True,
+            rand_mirror=True, shuffle=True, dtype="uint8", workers=workers,
+            ctx=mx.gpu(0))
+        _check(it.io_workers == workers, "ImageRecordIter runs %d decode "
+               "workers, not the %d asked for: the decode service did not "
+               "start" % (it.io_workers, workers))
+
+        def step(b):
+            return _fed_step(mx, net, loss_fn, trainer, b.data[0],
+                             b.label[0])
+        cs.conv1x1_stats_launches = 0       # the main path starts here
+        first = next(it)
+        data0 = first.data[0].asnumpy()
+        label0 = first.label[0].asnumpy()
+        ids = [int(v) for v in label0]
+        expected, wid_seq = _fed_expected(path, ids, batch, workers)
+        bytes_row = dict(
+            wid_seq=wid_seq, dtype=str(data0.dtype), shape=list(data0.shape),
+            device=str(first.data[0].context), pad=first.pad,
+            labels_equal=ids == [i % 1000 for i in ids]
+            and len(set(ids)) == batch,
+            bytes_equal=expected is not None
+            and np.array_equal(data0, expected),
+            bytes_differing=None if expected is None
+            else int((data0 != expected).sum()))
+        warm = []
+        for b in (first, next(it)):
+            g0, c0 = _graph_counts((net,), trainer), cs.conv1x1_stats_launches
+            step(b)
+            g1 = _graph_counts((net,), trainer)
+            warm.append(dict(conv=cs.conv1x1_stats_launches - c0,
+                             **{k: g1[k] - g0[k] for k in g1}))
+        torch.cuda.synchronize()
+        warm_calls = calls[0]
+
+        # the timed steps: two epochs from the file
+        f0, wait0 = mx.io.feed_counters(), events.get("io.decode.wait_us")
+        g0, c0 = _graph_counts((net,), trainer), cs.conv1x1_stats_launches
+        ev = [torch.cuda.Event(enable_timing=True)]
+        losses = []
+        t0 = time.perf_counter()
+        ev[0].record()
+        for _ in range(FED_EPOCHS):
+            it.reset()
+            for b in it:
+                losses.append(step(b))
+                ev.append(torch.cuda.Event(enable_timing=True))
+                ev[-1].record()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = cs.conv1x1_stats_launches    # the main path ends here
+        steps = len(losses)
+        g1 = _graph_counts((net,), trainer)
+        f1 = mx.io.feed_counters()
+        timed = dict(steps=steps, images=steps * batch,
+                     transform_calls=calls[0] - warm_calls,
+                     conv_counter=launches - c0,
+                     **{k: g1[k] - g0[k] for k in g1})
+        per_batch = {k: (f1.get(k, 0) - f0.get(k, 0)) / steps for k in (
+            "feed.read_us", "feed.transfer_us", "feed.stall_us",
+            "feed.step_us", "feed.bytes")}
+        per_batch["io.decode.wait_us"] = \
+            (events.get("io.decode.wait_us") - wait0) / steps
+        step_ms = [ev[i].elapsed_time(ev[i + 1]) for i in range(steps)]
+        fed_rate = steps * batch / wall
+        losses = [v.item() for v in losses]
+
+        # the same step on a batch already on the card
+        x_dev, y_dev = first.data[0], first.label[0]
+        _fed_step(mx, net, loss_fn, trainer, x_dev, y_dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            _fed_step(mx, net, loss_fn, trainer, x_dev, y_dev)
+        torch.cuda.synchronize()
+        synth_rate = steps * batch / (time.perf_counter() - t0)
+
+        # a fed step's busy share and launches by name
+        def fed_next():
+            try:
+                b = next(it)
+            except StopIteration:
+                it.reset()
+                b = next(it)
+            return step(b)
+        rows, prof_wall = _device_kernels(torch, fed_next, PROFILE_STEPS)
+        device_us = sum(r[0] for r in rows)
+        kernels = _port_kernel_calls(rows, PROFILE_STEPS)
+        conv_per_step = _profiled_counts(kernels)[3]
+        # an epoch from its start, as the timed steps ran it
+        it.reset()
+        busy = _fed_busy(torch, fed_next, FED_IMAGES // batch)
+        it.close()
+        it = None
+        peak = torch.cuda.max_memory_allocated()
+
+        copy_row = _fed_against_copy(torch, mx, net, loss_fn, trainer,
+                                     host[:FED_COPY_STEPS])
+        h2d = _h2d(torch, host[0][0])
+        del net, trainer
+        torch.cuda.empty_cache()
+        parity = _fed_parity(
+            torch, mx, host[0][0][:RESNET_PARITY_BATCH],
+            host[0][1][:RESNET_PARITY_BATCH], _fed_planted(mx))
+    finally:
+        if it is not None:
+            it.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+    out = dict(phase="train_resnet_fed", model="resnet50_v1b", classes=1000,
+               batch=batch, image=list(FED_SHAPE), wire_dtype="uint8",
+               compute_dtype="bfloat16", optimizer="sgd", lr=0.1,
+               momentum=0.9, wd=1e-4, codec=codec, corpus=dict(
+                   images=FED_IMAGES, hw=list(FED_IMAGE_HW),
+                   quality=FED_QUALITY, seconds=corpus_s),
+               decode_alone=decode, io_workers=workers,
+               cpu_count=os.cpu_count(), first_batch=bytes_row,
+               warmup_steps=warm, timed=timed, step_ms=step_ms,
+               step_ms_median=statistics.median(step_ms), wall_s=wall,
+               fed_images_per_s=fed_rate,
+               synthetic_images_per_s=synth_rate,
+               fraction_of_synthetic=fed_rate / synth_rate,
+               decode_alone_over_synthetic=decode["images_per_s"]
+               / synth_rate,
+               per_batch=per_batch, losses=losses,
+               busy_epoch=busy,
+               profile=dict(steps=PROFILE_STEPS, wall_us=prof_wall,
+                            device_us=device_us,
+                            busy_share=device_us / prof_wall,
+                            port_kernels=kernels,
+                            top=[dict(kernel=k[:80], us=us, calls=n)
+                                 for us, k, n in rows[:8]]),
+               conv1x1_stats_launches=launches,
+               conv_launches_per_replayed_step=conv_per_step,
+               max_memory_allocated=peak, feed_against_copy=copy_row,
+               h2d=h2d, parity=parity,
+               seconds=time.perf_counter() - phase_t0)
+    _emit(out)
+    _check(bytes_row["bytes_equal"] and bytes_row["labels_equal"]
+           and bytes_row["pad"] == 0,
+           "the first fed batch differs from the host decode: %r"
+           % (bytes_row,))
+    _check(copy_row["losses_bit_equal"]
+           and copy_row["tensors_bit_equal"] == copy_row["tensors"],
+           "the fed steps differ from the copied ones: %r" % (copy_row,))
+    _check(parity["normalize"]["passes"],
+           "the fed f32 step differs from the CPU copy's (loss within %g, "
+           "running statistics within %g of scale, gradients within %g x "
+           "the copy's spread): %r" % (SERVE_TOL, RUNNING_TOL,
+                                       RESNET_SPREAD_FACTOR,
+                                       parity["normalize"]))
+    for name in _fed_planted(mx):
+        _check(not parity[name]["passes"], "the parity check passed the "
+               "planted transform %s: %r" % (name, parity[name]))
+    _check([w["conv"] for w in warm] == [RESNET_SITES, RESNET_SITES]
+           and [w["captures"] > 0 for w in warm] == [False, True],
+           "the warm-up steps (eager, then the capture) did %r" % (warm,))
+    _check(timed["captures"] == timed["eager_calls"] ==
+           timed["eager_updates"] == timed["transform_calls"] ==
+           timed["conv_counter"] == 0 and timed["replays"] > 0,
+           "the timed fed steps did not only replay (the normalize inside "
+           "the replay): %r" % (timed,))
+    _check(steps == FED_EPOCHS * FED_IMAGES // batch,
+           "%d timed steps, not %d" % (steps,
+                                       FED_EPOCHS * FED_IMAGES // batch))
+    _check(conv_per_step == RESNET_SITES, "a replayed fed step launched "
+           "the conv kernel %d times by name, not %d"
+           % (conv_per_step, RESNET_SITES))
+    _check(all(math.isfinite(v) for v in losses),
+           "non-finite fed training loss: %r" % (losses,))
+    return dict(launches=launches, per_replayed_step=conv_per_step)
 
 
 def _window(eng, rs, vocab):
@@ -6245,6 +6773,7 @@ def main():
     resnet_row = phase_train_resnet(torch, mx, cs)
     conv_launches = resnet_row["launches"]
     gluon_launches = phase_train_resnet_gluon(torch, mx, cs, resnet_row)
+    fed = phase_train_resnet_fed(torch, mx, cs)
     nmt_launches = phase_train_nmt(torch, mx, att)
     phase_decode_nmt(torch, mx, att)
     phase_generate_nmt(torch, mx, att, cs)
@@ -6325,6 +6854,8 @@ def main():
              source="incubator_mxnet_tpu_torch/ops/csrc/conv1x1_stats.cu",
              replaces="tools/conv_stats_pallas_experiment.py:9",
              launches=conv_launches, gluon_launches=gluon_launches,
+             fed_launches=fed["launches"],
+             fed_launches_per_replayed_step=fed["per_replayed_step"],
              hybridized_launches_per_step=dict(
                  train_resnet_gluon=hyb["train_resnet_gluon"]
                  ["profiled_launches_per_step"]["conv"]),

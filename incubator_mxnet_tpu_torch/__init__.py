@@ -8,8 +8,10 @@ one function per registered operator (`ops.registry`) and `autograd`
 over torch's.  Plain tensor code is PyTorch; every kernel that the JAX
 package wrote in Pallas for the TPU is a CUDA kernel written by hand
 (`ops/csrc/`), built with nvcc at first use.  Entry points run on
-`cuda:0` unless the caller passes `device="cpu"`.  This package imports
-neither JAX nor the JAX package.
+`cuda:0` unless the caller passes `device="cpu"`; the host image
+functions (`mx.image`, `gluon.data.vision.transforms`) return NDArrays on
+the CPU, as MXNet's image operators do.  This package imports neither
+JAX nor the JAX package.
 """
 from __future__ import annotations
 
@@ -32,6 +34,9 @@ from . import optimizer
 from . import metric
 from . import callback
 from . import gluon
+from . import io
+from .io import recordio
+from . import image
 from . import contrib
 from . import models
 from . import serving

@@ -187,6 +187,42 @@ register("MXNET_FAULT_PLAN", str, "",
          "'site@step' / 'site#call' entries with optional xN repeat and "
          "~S stall seconds, e.g. 'serve.infer@3;serve.enqueue#2'. "
          "Empty = no faults. Armed via fault.reset_from_config()")
+register("MXNET_IO_CORRUPT_BUDGET", int, 16,
+         "Corrupt RecordIO records tolerated (quarantined: skipped, "
+         "counted on io.decode.records_corrupt, ring-evented and "
+         "appended to the io-quarantine JSONL) per epoch per "
+         "reader/service before the epoch fails with "
+         "CorruptRecordBudgetExceeded.  Negative = unlimited "
+         "quarantine; 0 = the first corrupt record fails the epoch")
+register("MXNET_IO_WORKER_RESTARTS", int, 2,
+         "DecodeService: dead decode-worker respawns allowed per service "
+         "(pool-wide).  A respawned worker resumes its (wid, epoch) "
+         "shard slice at the first undelivered batch, bit for bit the "
+         "stream of an uninterrupted run (per-record RNG).  Counted on "
+         "io.decode.worker_restarts; past the budget a dead worker is a "
+         "mid-epoch error.  0 disables respawn")
+register("MXNET_IO_WORKERS", int, 0,
+         "Multi-process decode service (io.decode_service): worker "
+         "processes behind ImageRecordIter(workers=), decoding sharded "
+         "RecordIO readers into a shared-memory slab ring.  0 = disabled "
+         "(the native or threaded pipeline)")
+register("MXNET_IO_RING_SLOTS", int, 0,
+         "Decode-service shared-memory ring size in batch slabs (shared "
+         "by all workers; each slab is one full batch).  0 = auto "
+         "(2*workers + 2)")
+register("MXNET_IO_MP_START", str, "fork",
+         "Decode-service process start method.  'fork' is the fast "
+         "default: a worker runs numpy, PIL and the recordio framing "
+         "only and never calls torch, so forking a parent that holds a "
+         "CUDA context is safe; 'spawn' and 'forkserver' pay a fresh "
+         "interpreter and the package's import (torch) per worker")
+register("MXNET_FEED_DEPTH", int, 2,
+         "DeviceFeed (io.device_feed) prefetch depth: batches in flight "
+         "between the background transfer thread and the consumer, and "
+         "the number of pinned staging buffers (2 = double buffer)")
+register("MXNET_FEED_ASYNC", bool, True,
+         "DeviceFeed background transfer thread; 0 = synchronous read "
+         "and copy in the consumer (debugging; same counters)")
 register("MXNET_RETRY_MAX", int, 3,
          "Retry budget for transient failures (parallel.resilience."
          "retry_transient; exponential backoff between attempts)")

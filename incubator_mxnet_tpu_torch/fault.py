@@ -15,6 +15,15 @@ CPU.  The sites the port reads:
                         `seconds` but succeeds (deadline tests)
     serve.oom           GenerationEngine.warmup: raises TransientFault
                         with a "RESOURCE_EXHAUSTED" message
+    io.read             RecordIO and reader paths (`MXRecordIO.read`,
+                        the native reader, the decode service's pull):
+                        raises InjectedIOError
+    io.slow             the same reader paths: sleeps `seconds`
+    io.corrupt          record readers (decode-service workers and the
+                        threaded ImageRecordIter path; call ordinal =
+                        record read): the payload gets one bit flipped
+                        in flight (`flip_bits`), which the CRC sidecar
+                        or the decoder catches and quarantines
 
 Faults install programmatically::
 
@@ -32,9 +41,8 @@ seconds::
 The registry is process-local, thread-safe, and off unless something was
 installed.
 
-Left out: the JAX package's training, I/O, mesh and checkpoint sites
-and its corruption injectors (`flip_bits`, `flip_file_bit`), which wait
-on the modules that read them.
+Left out: the JAX package's training, mesh and checkpoint sites and
+`flip_file_bit`, which wait on the modules that read them.
 """
 from __future__ import annotations
 
@@ -42,9 +50,9 @@ import threading
 import time
 from typing import Dict, List, Optional
 
-__all__ = ["InjectedFault", "TransientFault", "install", "clear",
-           "reset_from_config", "should_fire", "maybe_raise",
-           "maybe_slow", "fired_count", "active_sites"]
+__all__ = ["InjectedFault", "TransientFault", "InjectedIOError", "install",
+           "clear", "reset_from_config", "should_fire", "maybe_raise",
+           "maybe_slow", "fired_count", "active_sites", "flip_bits"]
 
 
 class InjectedFault(Exception):
@@ -53,6 +61,11 @@ class InjectedFault(Exception):
 
 class TransientFault(InjectedFault):
     """A failure the caller is expected to survive by retrying."""
+
+
+class InjectedIOError(TransientFault, IOError):
+    """An injected I/O failure: an IOError, so that `except (IOError,
+    OSError)` handlers treat it as a real one."""
 
 
 class _Fault:
@@ -221,3 +234,15 @@ def maybe_slow(site: str, step: Optional[int] = None):
     """Stall if a slow-I/O fault at `site` fires (its `seconds` already
     elapsed inside should_fire)."""
     should_fire(site, step)
+
+
+def flip_bits(buf: bytes, seed: int = 0) -> bytes:
+    """`buf` with one bit flipped at a deterministic position (the
+    middle of the payload, moved by `seed`); empty input comes back
+    empty."""
+    if not buf:
+        return buf
+    b = bytearray(buf)
+    pos = (len(b) // 2 + int(seed)) % len(b)
+    b[pos] ^= 1 << (int(seed) % 8)
+    return bytes(b)

@@ -60,7 +60,9 @@ runs the forward under `torch.utils.checkpoint` (non-reentrant), its
 dropout masks kept for the recompute (`random.remat_contexts`), as the
 JAX package wraps it in `jax.checkpoint`; `remat_policy` names a JAX
 policy and raises.  `hybridize(active=False)` makes the block eager
-again.  A parameter that `cast`, `initialize`, `load_parameters` or
+again.  `set_input_transform(fn)` installs a function of the first input
+(a uint8 batch to its normalized bf16, say) that runs inside the
+forward the block captures, and before `forward` in an eager call.  A parameter that `cast`, `initialize`, `load_parameters` or
 `set_data` replaced or rewrote is marked (`parameter.touch`), which
 changes the parameters' key and drops the block's programs.
 """
@@ -421,9 +423,39 @@ class HybridBlock(Block):
         if out is not None:
             return out
         cached = self.__dict__.get("_cached_graph")
-        if cached is None or _in_program() or in_shape_pass():
+        if in_shape_pass():         # its inputs are transformed already
             return nn.Module.__call__(self, *args, **kwargs)
+        if cached is None or _in_program():
+            return nn.Module.__call__(
+                self, *self._apply_input_transform(args), **kwargs)
         return cached(args, kwargs)
+
+    def set_input_transform(self, fn):
+        """Install a preprocessing function of NDArrays applied to the
+        first positional input (uint8 pixels to the normalized compute
+        dtype: `io.device_feed.normalize_transform`); None removes it.
+        A hybridized block applies it inside the forward it captures, so
+        the program's static input is the uint8 batch and the float
+        tensor exists only inside the replay; an eager call applies it
+        before `forward`.  Deferred widths are inferred from its output.
+        Installing or removing one drops the block's programs."""
+        self._input_transform = fn
+        cached = self.__dict__.get("_cached_graph")
+        if cached is not None:
+            cached.clear()
+
+    def _apply_input_transform(self, args):
+        """`args` with the input transform applied to the first, a
+        tensor or an NDArray (which comes back as the same kind)."""
+        fn = getattr(self, "_input_transform", None)
+        if fn is None or not args:
+            return args
+        x = args[0]
+        if isinstance(x, NDArray):
+            return (fn(x),) + tuple(args[1:])
+        if isinstance(x, torch.Tensor):
+            return (unwrap(fn(_wrap(x))),) + tuple(args[1:])
+        return args
 
     def forward(self, x, *args, **kwargs):
         """The forward of a block written as `hybrid_forward(self, F, x,
@@ -576,7 +608,9 @@ class _CachedGraph:
         def run(*a, **kw):
             with _ProgramScope(training, recording):
                 if params is None:
-                    return self.block.forward(*a, **kw)
+                    return self.block.forward(
+                        *self.block._apply_input_transform(a), **kw)
+                # the block's __call__ applies its input transform
                 return torch.func.functional_call(self.block, params, a, kw)
         if self.remat and recording:
             return torch.utils.checkpoint.checkpoint(

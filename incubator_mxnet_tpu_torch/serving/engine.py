@@ -459,10 +459,11 @@ class InferenceEngine:
             raise ValueError("pass device= or devices=, not both")
         if not devices:
             raise ValueError("need at least one serving device")
-        if getattr(block, "_apply_input_transform", None) is not None:
+        if getattr(block, "_input_transform", None) is not None:
             raise NotImplementedError(
-                "the input transform (set_input_transform) is not yet "
-                "ported: serve a block without one")
+                "serving a block with an input transform "
+                "(set_input_transform) is not yet ported: serve a block "
+                "without one")
         self._block = block.eval()
         self._devices = [resolve_device(d) for d in devices]
         self._reps = [_Replica(d) for d in self._devices]

@@ -3,7 +3,8 @@ incubator_mxnet_tpu/telemetry/ that the generation engine reports to):
 
 - `telemetry.span(name, parent=ctx)`: thread-safe spans with explicit
   cross-thread parent propagation, into the profiler's trace sink and
-  the flight recorder's ring (spans.py);
+  the flight recorder's ring; `TraceContext`, the global step and
+  `emit_foreign` for spans of other processes (spans.py);
 - `telemetry.flightrec`: the always-on bounded event ring and the
   black-box JSON dumps (flightrec.py);
 - `telemetry.reqtrace`: per-request lifecycle journals with tail-based
@@ -24,7 +25,8 @@ registry (`MeteredJit`) and fleet views.
 """
 from __future__ import annotations
 
-from .spans import SpanContext, current, enable, enabled, span
+from .spans import (SpanContext, TraceContext, current, emit_foreign, enable,
+                    enabled, get_global_step, set_global_step, span)
 from . import flightrec
 from . import reqtrace
 from . import costs
@@ -34,7 +36,8 @@ from . import slo
 from .export import MetricsExporter
 from .flightrec import dump_blackbox, install_crash_hooks
 
-__all__ = ["SpanContext", "span", "current", "enable", "enabled",
+__all__ = ["SpanContext", "TraceContext", "span", "current", "enable",
+           "enabled", "emit_foreign", "set_global_step", "get_global_step",
            "flightrec", "reqtrace", "costs", "history", "memwatch", "slo",
            "MetricsExporter", "dump_blackbox",
            "install_crash_hooks"]

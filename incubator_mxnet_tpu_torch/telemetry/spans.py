@@ -21,9 +21,15 @@ to the profiler's chrome-trace sink while it collects
 (`profiler.set_state("run")`) and to the flight recorder's ring
 whenever the recorder is armed.
 
-Left out: the JAX package's cross-process `TraceContext`, `propagate`,
-the global step stamp and `emit_foreign`, which serve its multi-process
-fleet.
+Across processes: `TraceContext` is the serializable form of a span
+context (trace id, span id, global step; `to_wire()`/`from_wire()`),
+`set_global_step(step)` stamps every span completed while it is set, and
+`emit_foreign(...)` records a completed span on behalf of another
+process: a decode worker, which runs no telemetry, reports its decode
+interval's wall clock in its batch message, and the consumer emits it
+with the worker's pid, under the consumer's innermost open span.
+
+Left out: `propagate` and `wall_of`, which serve the JAX package's fleet.
 """
 from __future__ import annotations
 
@@ -36,7 +42,8 @@ from .. import config as _cfg
 from .. import profiler as _prof
 from . import flightrec as _bb
 
-__all__ = ["SpanContext", "enabled", "enable", "span", "current"]
+__all__ = ["SpanContext", "TraceContext", "enabled", "enable", "span",
+           "current", "set_global_step", "get_global_step", "emit_foreign"]
 
 _ids = itertools.count(1)       # CPython-atomic next(); no lock needed
 _tls = threading.local()
@@ -85,6 +92,52 @@ class SpanContext:
     def __repr__(self):
         return "SpanContext(trace=%s, span=%s)" % (self.trace_id,
                                                    self.span_id)
+
+
+class TraceContext(SpanContext):
+    """A span context that crosses a process boundary: (trace_id,
+    span_id, global step).  `to_wire()` is a tuple of primitives, for a
+    queue message or JSON; `from_wire()` rebuilds it, a valid `parent=`
+    for `span()` and `emit_foreign()`."""
+
+    __slots__ = ("step",)
+
+    def __init__(self, trace_id: str, span_id: str, step=None):
+        super().__init__(trace_id, span_id)
+        self.step = None if step is None else int(step)
+
+    def to_wire(self):
+        return (self.trace_id, self.span_id, self.step)
+
+    @classmethod
+    def from_wire(cls, wire):
+        """From `to_wire()`'s tuple (or a 2-tuple); None gives None."""
+        if wire is None:
+            return None
+        t = tuple(wire)
+        return cls(str(t[0]), str(t[1]), t[2] if len(t) > 2 else None)
+
+    def __repr__(self):
+        return "TraceContext(trace=%s, span=%s, step=%s)" % (
+            self.trace_id, self.span_id, self.step)
+
+
+# the process's global step id: every span completed while it is set
+# carries it, so that traces of different processes meet on a step
+_GSTEP = {"step": None}
+
+
+def set_global_step(step):
+    """Stamp `step` on every span completed from now on (None clears
+    it); returns the previous value."""
+    prev = _GSTEP["step"]
+    _GSTEP["step"] = None if step is None else int(step)
+    return prev
+
+
+def get_global_step():
+    """The current global step id (None when unset)."""
+    return _GSTEP["step"]
 
 
 def _stack():
@@ -170,6 +223,9 @@ class _Span:
                 "span_id": self.ctx.span_id}
         if self.parent_id is not None:
             args["parent_id"] = self.parent_id
+        step = _GSTEP["step"]
+        if step is not None:
+            args["step"] = step
         if self.tags:
             args.update(self.tags)
         # chrome sink: add_trace_event self-gates on the profiler state
@@ -179,6 +235,8 @@ class _Span:
         # flight-recorder ring: bounded, so span completions survive
         # into black-box dumps with no profiler running
         extra = dict(self.tags) if self.tags else {}
+        if step is not None:
+            extra["step"] = step
         _bb.record("span", self.name, dur_us=int(dur * 1e6),
                    trace=self.ctx.trace_id, span=self.ctx.span_id,
                    parent=self.parent_id, **extra)
@@ -195,3 +253,44 @@ def span(name: str, parent: SpanContext = None, **tags):
     if not enabled():
         return _NULL
     return _Span(name, parent, tags or None)
+
+
+def emit_foreign(name, t0_wall, dur_s, parent=None, pid=None, tid=None,
+                 **tags):
+    """Record a completed span on behalf of another process: `t0_wall`
+    is that process's `time.time()` at the start (wall time compares
+    across processes of one host), `dur_s` seconds.  The span goes to
+    the chrome sink in the process row `pid`, under `parent` (default:
+    this thread's innermost open span), stamped with the global step,
+    and to the ring at the interval's end.  Returns its `SpanContext`
+    (None when telemetry is off)."""
+    if not enabled():
+        return None
+    if parent is None:
+        parent = current()
+    if parent is not None:
+        trace, parent_id = parent.trace_id, parent.span_id
+    else:
+        trace, parent_id = _new_id("t"), None
+    ctx = SpanContext(trace, _new_id("s"))
+    args = {"trace_id": trace, "span_id": ctx.span_id}
+    if parent_id is not None:
+        args["parent_id"] = parent_id
+    step = _GSTEP["step"]
+    if step is not None:
+        args["step"] = step
+    if tags:
+        args.update(tags)
+    # the foreign wall stamp on this process's perf_counter origin (the
+    # chrome sink's time base): both clocks run at wall rate
+    t0_perf = time.perf_counter() - max(0.0, time.time() - t0_wall)
+    _prof.add_trace_event(name, "span", t0_perf, dur_s, args=args,
+                          pid=pid, tid=tid)
+    extra = dict(tags) if tags else {}
+    if step is not None:
+        extra["step"] = step
+    if pid is not None:
+        extra["pid"] = int(pid)
+    _bb.record_at(t0_wall + dur_s, "span", name, dur_us=int(dur_s * 1e6),
+                  trace=trace, span=ctx.span_id, parent=parent_id, **extra)
+    return ctx

@@ -1799,3 +1799,98 @@ def test_seq2seq_generation_on_card_equals_eager_greedy(card):
             ref, _, gaps = _greedy(torch, net, p, 10, card, max_len=16,
                                    mem_len=8)
             _near_tie_compare(g, ref, gaps, 2e-3)
+
+
+# -- the input pipeline ----------------------------------------------------
+
+def test_feed_delivers_equal_bytes_behind_a_busy_stream(card):
+    """Each batch the DeviceFeed delivers while the consumer's stream is
+    held by a long kernel reads back, on that stream after the kernel,
+    as the host bytes: the copies ran on the feed's side stream, the
+    consumer waited on their events, and the two pinned staging slots
+    were refilled only after their copies ended."""
+    rs = np.random.RandomState(0)
+    host = [(rs.randint(0, 256, (32, 3, 64, 64), dtype=np.uint8),
+             rs.rand(32).astype(np.float32)) for _ in range(6)]
+    feed = tmx.io.DeviceFeed(host, ctx=card, depth=2)
+    sums = []
+    for x, y in feed:
+        assert x.context == card and x._data.dtype == torch.uint8
+        torch.cuda._sleep(20_000_000)
+        sums.append((x._data.to(torch.int64).sum(), y._data.sum()))
+        np.testing.assert_array_equal(x.asnumpy(), host[len(sums) - 1][0])
+    torch.cuda.synchronize()
+    assert len(sums) == 6
+    for (s, t), (d, l) in zip(sums, host):
+        assert s.item() == int(d.astype(np.int64).sum())
+        assert t.item() == pytest.approx(float(l.sum()), rel=1e-6)
+
+
+def test_feed_tensor_carries_record_stream(card):
+    """A delivered tensor freed while the consumer's stream still reads it
+    is not handed to the feed's stream: its block waits for the
+    consumer's work (record_stream), so a new tensor there gets other
+    memory; a tensor of that stream freed the same way without the mark
+    gives its block back at once (the control)."""
+    n = 1 << 22
+    feed = tmx.io.DeviceFeed([(np.full((n,), 7, np.uint8),)], ctx=card,
+                             depth=1)
+    side = None
+
+    def reused(box):
+        t = box.pop()                       # the only reference
+        ptr = t.data_ptr()
+        torch.cuda._sleep(1_000_000_000)    # the consumer's stream is held
+        s = t.to(torch.int64).sum()         # reads t after the kernel
+        del t
+        with torch.cuda.stream(side):
+            u = torch.empty(n, dtype=torch.uint8, device=card)
+        again = u.data_ptr() == ptr
+        torch.cuda.synchronize()
+        return again, s.item()
+    (x,) = next(iter(feed))
+    side = feed._stager.stream
+    box = [x._data]
+    del x
+    again, total = reused(box)
+    assert not again and total == 7 * n
+    with torch.cuda.stream(side):
+        box = [torch.full((n,), 7, dtype=torch.uint8, device=card)]
+    torch.cuda.current_stream(card).wait_stream(side)
+    again, total = reused(box)
+    assert again and total == 7 * n
+
+
+def test_input_transform_is_captured_on_card(card):
+    """A hybridized ResNet v1b with the normalize installed: the replayed
+    call runs it inside the graph (one cudaGraphLaunch, no kernel launch,
+    the transform not called), equal to the eager call's output."""
+    from torch.profiler import ProfilerActivity, profile
+    from incubator_mxnet_tpu_torch.gluon.model_zoo.vision import resnet
+    tmx.random.seed(0)
+    net = resnet.ResNetV1(resnet.BottleneckV1, [1, 1, 1, 1],
+                          [8, 16, 32, 64, 128], classes=10, device=card)
+    calls = [0]
+    norm = tmx.io.normalize_transform(127.5, 64.0, "bfloat16")
+
+    def transform(x):
+        calls[0] += 1
+        return norm(x)
+    net.set_input_transform(transform)
+    x = torch.from_numpy(np.random.RandomState(1).randint(
+        0, 256, (8, 3, 32, 32)).astype(np.uint8)).to(card)
+    with tmx.autograd.pause():
+        eager = net(x)
+        net.hybridize(static_alloc=True, static_shape=True)
+        net(x)
+        net(x)                          # eager warm-up, then the capture
+        assert calls[0] == 3
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            out = net(x)
+            torch.cuda.synchronize()
+    names = [e.name for e in prof.events()]
+    assert calls[0] == 3
+    assert names.count("cudaGraphLaunch") == 1
+    assert not [n for n in names if n.startswith("cudaLaunchKernel")]
+    assert net._cached_graph.replays == 1
+    assert torch.equal(out, eager)

@@ -152,3 +152,41 @@ def test_serving_tier_modules_load_no_jax(tmp_path):
                          timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+# the input pipeline's modules: importing them loads neither JAX nor the
+# JAX package, and builds nothing (the native reader compiles at first
+# use)
+INPUT_PIPELINE_MODULES = (
+    "integrity", "io", "io.recordio", "io.decode_service", "io.device_feed",
+    "io.native", "io.resilient", "io.io", "image", "image.image",
+    "image.detection", "gluon.data", "gluon.data.dataset",
+    "gluon.data.sampler", "gluon.data.dataloader", "gluon.data.vision",
+    "gluon.data.vision.datasets", "gluon.data.vision.transforms")
+
+
+def test_input_pipeline_modules_load_no_jax(tmp_path):
+    env = dict(os.environ, PATH=str(tmp_path), CUDA_HOME=str(tmp_path),
+               PYTHONPATH=str(ROOT))
+    code = ("import importlib, sys\n"
+            "for n in %r:\n"
+            "    importlib.import_module('incubator_mxnet_tpu_torch.' + n)\n"
+            "import incubator_mxnet_tpu_torch as mx\n"
+            "mx.io.ImageRecordIter, mx.io.DeviceFeed, mx.recordio.pack_img\n"
+            "mx.image.CreateAugmenter, mx.image.CreateDetAugmenter\n"
+            "mx.gluon.data.DataLoader, mx.gluon.data.vision.CIFAR10\n"
+            "mx.gluon.HybridBlock.set_input_transform\n"
+            "from incubator_mxnet_tpu_torch.telemetry import (\n"
+            "    TraceContext, emit_foreign, set_global_step)\n"
+            "from incubator_mxnet_tpu_torch.fault import InjectedIOError\n"
+            "from incubator_mxnet_tpu_torch.io import native\n"
+            "assert native._LIB is None and not native._TRIED\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in\n"
+            "       ('jax', 'jaxlib', 'incubator_mxnet_tpu')]\n"
+            "assert not bad, bad\n"
+            "print('ok')" % (INPUT_PIPELINE_MODULES,))
+    out = subprocess.run([sys.executable, "-c", code], cwd=str(tmp_path),
+                         env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"

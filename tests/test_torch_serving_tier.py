@@ -517,6 +517,7 @@ def test_engine_surface_sigterm_degrade_and_faults(jax_bert, no_retry):
     with pytest.raises(NotImplementedError, match="not yet ported"):
         tregistry_mod.ModelRegistry(devices=["cpu"]).register_quantized(
             "q", net)
-    net._apply_input_transform = lambda xs: xs
+    net.set_input_transform(lambda x: x)
     with pytest.raises(NotImplementedError, match="not yet ported"):
         _port_engine(net)
+    net.set_input_transform(None)
