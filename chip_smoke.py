@@ -388,6 +388,28 @@ Drives incubator_mxnet_tpu_torch only (never JAX or the JAX package):
              weights, f32 within 1e-4 of scale, bf16 forward + backward ms
              of each (the port's layer eager and hybridized), with their
              kernels a call and the bound.
+13n. train_wide_deep — bench.py's config 5 (Wide&Deep: 100,000 features
+             in 16 fields, embed 16, MLP 64-32, 2 classes, Adam lr 1e-3,
+             data from RandomState(0)): (a) run_wide_deep's dense
+             headline at batch 32,768, net and loss hybridized, eager and
+             hybridized through the hybridize phase's run (bit for bit,
+             the timed steps only replaying, no port kernel), step ms,
+             samples/s, busy share, launches a replayed step by name,
+             peak memory and the step's bound, after one f32 batch-512
+             step against a CPU copy (the spread rule, every weight of
+             the copy nudged by 1 +- 2**-22); (b) the row_sparse path,
+             contrib.sparse_jit.BucketedSparseTrainer at batch 2,048: one
+             eager step, one capture of its one key, then replays only;
+             step ms, samples/s, unique rows a step, 0 overflow steps;
+             (c) the Gluon user's eager sparse path
+             (Embedding(sparse_grad=True), the net hybridized but its
+             recorded calls eager, Trainer Adam's lazy update) against
+             (b) over four batches of 50 to 20,000 pooled rows: losses,
+             parameters, rows no batch touched bit for bit; a dense Adam
+             and an off-by-one sentinel, planted here only, must each
+             fail that check; (d) bucket_rows 4,096 under a batch of
+             ~28,000 unique rows: the step skipped on the card, the
+             state bit for bit, the previous loss returned.
 14. kernels — one JSON line per the port's kernel table (5 rows), then the
              card's name and power limit, then the final {"ok": true, ...}
              line.
@@ -6718,6 +6740,442 @@ def phase_rnn(torch, mx):
            "scale" % yard["f32_err_over_scale"])
 
 
+# -- train_wide_deep: Wide&Deep, dense and row_sparse ------------------------
+
+# bench.py's config 5 (run_wide_deep, bench.py:547-608): 100,000 features
+# in 16 fields, embed 16, MLP 64-32, 2 classes, Adam lr 1e-3; the dense
+# headline at the first rung of _cfg_wide_deep's ladder (bench.py:3232),
+# the row_sparse path at the batch of bench.py:3270
+WD_FEATURES = 100_000
+WD_FIELDS = 16
+WD_EMBED = 16
+WD_HIDDEN = (64, 32)
+WD_CLASSES = 2
+WD_LR = 1e-3
+WD_BATCH = 32768
+WD_SPARSE_BATCH = 2048
+WD_PARITY_BATCH = 512       # the f32 step held against the CPU copy
+WD_NUDGE = 2.0 ** -22       # the CPU copy's spread: every weight nudged
+WD_SPARSE_WARMUP = 3        # bench.py's: eager, capturing, replayed
+# the eager sparse path against the bucketed one: four batches whose ids
+# come from pools of these sizes, so that their unique counts differ
+# widely (tests/python/unittest/test_sparse.py:280-353 at full width);
+# the first pool holds the last row, the others do not
+WD_POOLS = (50, 2000, 20000, 300)
+# Both paths compute the same lazy Adam (the JAX package's sparse update
+# and sparse_jit.BucketedSparseTrainer) and differ in the lr's rounding
+# (f64 on the host against f32 on the card), the order of the update's
+# operations and of the gradient's sums (torch's coalesce against
+# index_add_, the batch mean before or after the sum).  Where a gradient
+# element is a near-cancelling sum (a bias's mean over the batch) its few
+# rounding-level bits of difference reach the update through Adam's eps
+# zone (sqrt(v) near eps), which the CPU at test sizes shows at 8e-6 of a
+# bias's scale; so each tensor is held to 1e-3 of its scale (max-abs
+# error over max-abs value) and the losses within 1e-5.  The wide table's
+# gradient is 0 in exact arithmetic (its term adds the same value to both
+# logits, which the softmax ignores): its rounding noise sits far below
+# eps, so Adam moves it by about lr * noise / eps, and it is held to the
+# same limit.  A lazy-update fault (a row updated that the batch did not
+# touch, or left out) moves a row by about lr, 1e-2 of the tables' scale
+# (Uniform(0.07)), 10x the limit.
+WD_SPARSE_TOL = 1e-3
+WD_LOSS_TOL = 1e-5
+WD_OVERFLOW_BUCKET = 4096   # (d): bucket_rows below the big batch's ~28k
+WD_FIT_POOL = 1000          # (d): a batch that fits the bucket
+# the card; the CPU tests run (c) and (d) with the CPU in its place
+WD_DEVICE = "cuda:0"
+
+
+def _wd_net(mx, sparse_grad, device=None):
+    """bench.py's `wide_deep` at config 5's widths, initialized on
+    `device` from seed 0, its widths still deferred."""
+    device = device or WD_DEVICE
+    mx.random.seed(0)
+    net = mx.models.wide_deep(num_features=WD_FEATURES, embed_dim=WD_EMBED,
+                              hidden=WD_HIDDEN, classes=WD_CLASSES,
+                              sparse_grad=sparse_grad)
+    net.initialize(ctx=device)
+    return net
+
+
+def _wd_data(torch, batch, device=None):
+    """run_wide_deep's indices, values and labels, drawn in that order
+    from RandomState(0)."""
+    rs = np.random.RandomState(0)
+    idx = rs.randint(0, WD_FEATURES, (batch, WD_FIELDS)).astype(np.int32)
+    vals = rs.rand(batch, WD_FIELDS).astype(np.float32)
+    y = rs.randint(0, 2, batch).astype(np.float32)
+    return [torch.from_numpy(a).to(device or WD_DEVICE)
+            for a in (idx, vals, y)]
+
+
+def _wd_materialize(mx, net, idx, vals):
+    """The MLP's deferred widths, from one inference forward."""
+    with mx.autograd.pause():
+        net(idx[:2], vals[:2])
+    return net
+
+
+def _wd_bound(batch):
+    """The least time of one dense step (ms, and what bounds it): the
+    gathered embeddings written and read in the forward and their
+    gradient in the backward, every parameter's weight, gradient and two
+    Adam states read and written once, over HBM's rate; the MLP's
+    forward and backward products on the CUDA cores (TF32 off)."""
+    params = WD_FEATURES * (WD_EMBED + 1)
+    width = WD_FIELDS * WD_EMBED
+    mlp = 0
+    for n in WD_HIDDEN + (WD_CLASSES,):
+        mlp += width * n + n
+        width = n
+    params += mlp
+    nbytes = 4 * (4 * batch * WD_FIELDS * WD_EMBED) + 8 * 4 * params
+    flops = 6 * batch * mlp
+    byte_ms = nbytes / PEAK_BYTES_S * 1e3
+    op_ms = flops / PEAK_FLOPS_F32_CUDA_CORES * 1e3
+    return dict(bound_ms=max(byte_ms, op_ms),
+                bound_by="bytes" if byte_ms >= op_ms else "operations",
+                bytes=nbytes, flops=flops, parameters=params)
+
+
+def _wd_grads(mx, net, loss_fn, idx, vals, y):
+    with mx.autograd.record():
+        loss = loss_fn(net(idx, vals), y)
+    mx.autograd.backward(loss)
+    return loss.detach().cpu(), {
+        n: p.grad.detach().float().cpu().clone()
+        for n, p in net.collect_params().items()}
+
+
+def _wd_parity(torch, mx):
+    """One f32 dense step at batch WD_PARITY_BATCH on the card against a
+    CPU copy: the loss within SERVE_TOL, the gradients by
+    `_spread_parity` against the CPU copy's spread with every weight
+    nudged by 1 +- WD_NUDGE."""
+    idx, vals, y = _wd_data(torch, WD_PARITY_BATCH, "cpu")
+    dev = WD_DEVICE
+    net = _wd_materialize(mx, _wd_net(mx, False), idx.to(dev), vals.to(dev))
+    cpu = _wd_materialize(mx, _wd_net(mx, False, "cpu"), idx, vals)
+    cpu.load_state_dict({k: v.detach().cpu()
+                         for k, v in net.state_dict().items()})
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    loss, grads = _wd_grads(mx, net, loss_fn, idx.to(dev), vals.to(dev),
+                            y.to(dev))
+    ref_loss, ref_grads = _wd_grads(mx, cpu, loss_fn, idx, vals, y)
+    nudge_weights(torch, (cpu,), WD_NUDGE)
+    _, spread = _wd_grads(mx, cpu, loss_fn, idx, vals, y)
+    del net, cpu
+    return dict(batch=WD_PARITY_BATCH, dtype="float32", nudge=WD_NUDGE,
+                loss_max_abs_err=(loss - ref_loss).abs().max().item(),
+                loss_tol=SERVE_TOL,
+                **_spread_parity(torch, grads, ref_grads, spread))
+
+
+def _wd_sparse_run(torch, mx):
+    """(b): BucketedSparseTrainer (Adam, lr 1e-3) at batch 2,048 as
+    run_wide_deep(sparse=True) drives it: WD_SPARSE_WARMUP steps, then
+    TRAIN_STEPS timed (CUDA events) and PROFILE_STEPS profiled."""
+    from incubator_mxnet_tpu_torch.contrib.sparse_jit import \
+        BucketedSparseTrainer
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    idx, vals, y = _wd_data(torch, WD_SPARSE_BATCH)
+    net = _wd_materialize(mx, _wd_net(mx, True), idx, vals)
+    jt = BucketedSparseTrainer(net, optimizer="adam", lr=WD_LR)
+
+    def counts():
+        return dict(captures=jt.captures, replays=jt.replays,
+                    eager_steps=jt.eager_steps)
+    for _ in range(WD_SPARSE_WARMUP):
+        jt.step(idx, vals, y)
+    torch.cuda.synchronize()
+    warm = counts()
+    events = [torch.cuda.Event(enable_timing=True)
+              for _ in range(TRAIN_STEPS + 1)]
+    losses = []
+    t0 = time.perf_counter()
+    events[0].record()
+    for i in range(TRAIN_STEPS):
+        losses.append(jt.step(idx, vals, y))
+        events[i + 1].record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    timed = {k: v - warm[k] for k, v in counts().items()}
+    rows, wall_us = _device_kernels(torch, lambda: jt.step(idx, vals, y),
+                                    PROFILE_STEPS)
+    device_us = sum(r[0] for r in rows)
+    step_ms = [events[i].elapsed_time(events[i + 1])
+               for i in range(TRAIN_STEPS)]
+    out = dict(batch=WD_SPARSE_BATCH, step_ms=step_ms,
+               step_ms_median=statistics.median(step_ms),
+               samples_per_s=TRAIN_STEPS * WD_SPARSE_BATCH / wall,
+               losses=[float(v.item()) for v in losses],
+               unique_rows_per_step=int(np.unique(idx.cpu().numpy()).size),
+               vocabulary=WD_FEATURES, bucket_keys=jt.bucket_keys,
+               programs=dict(after_warmup=warm, during_timed_steps=timed),
+               overflow_steps=jt.overflow_steps,
+               max_memory_allocated=torch.cuda.max_memory_allocated(),
+               profile=dict(steps=PROFILE_STEPS, wall_us=wall_us,
+                            device_us=device_us,
+                            busy_share=device_us / wall_us,
+                            kernels_per_step=sum(n for _, _, n in rows)
+                            / PROFILE_STEPS,
+                            port_kernels=_port_kernel_calls(rows,
+                                                            PROFILE_STEPS),
+                            top=[dict(kernel=k[:80], us=us, calls=n)
+                                 for us, k, n in rows[:8]]))
+    _check(warm == dict(captures=1, replays=WD_SPARSE_WARMUP - 2,
+                        eager_steps=1) and len(jt.bucket_keys) == 1,
+           "train_wide_deep: the bucketed warm-up did not run one eager "
+           "step, one capture and replays of one key: %r" % (out,))
+    _check(timed == dict(captures=0, replays=TRAIN_STEPS, eager_steps=0),
+           "train_wide_deep: the bucketed timed steps did not only "
+           "replay: %r" % (timed,))
+    _check(out["overflow_steps"] == 0 and all(
+        math.isfinite(v) for v in out["losses"]),
+        "train_wide_deep: the bucketed path overflowed or lost its loss: "
+        "%r" % (out,))
+    _check(not out["profile"]["port_kernels"], "train_wide_deep: the "
+           "sparse path launched a port kernel: %r" % (out["profile"],))
+    return out
+
+
+def _wd_sparse_batches(torch):
+    """(c)'s four batches at batch 2,048 (module constants)."""
+    rs = np.random.RandomState(1)
+    last = WD_FEATURES - 1
+    out = []
+    for k, n in enumerate(WD_POOLS):
+        pool = rs.choice(WD_FEATURES, size=n, replace=False)
+        pool = np.concatenate([[last], pool]) if k == 0 else \
+            pool[pool != last]
+        idx = rs.choice(pool, size=(WD_SPARSE_BATCH, WD_FIELDS))
+        vals = rs.rand(WD_SPARSE_BATCH, WD_FIELDS).astype(np.float32)
+        y = rs.randint(0, 2, WD_SPARSE_BATCH).astype(np.float32)
+        out.append([torch.from_numpy(a).to(WD_DEVICE) for a in
+                    (idx.astype(np.int32), vals, y)])
+    return out
+
+
+def _planted_dense_adam(mx):
+    """A fault for (c): the eager path's lazy Adam made dense (every row
+    of the table updated, the untouched ones from a zero gradient).
+    Returns the function that removes it."""
+    sp = mx.nd.sparse
+    orig = sp.sparse_adam_update
+
+    def dense_adam(weight, grad_rsp, *args, **kwargs):
+        full = grad_rsp.tostype("default")
+        rows = mx.nd.NDArray(np.arange(full.shape[0]), ctx=full.context,
+                             dtype="int32")
+        every = sp.RowSparseNDArray(rows, full, full.shape)
+        return orig(weight, every, *args, **kwargs)
+    sp.sparse_adam_update = dense_adam
+    return lambda: setattr(sp, "sparse_adam_update", orig)
+
+
+def _wd_sparse_parity(torch, mx, batches, planted=None):
+    """(c): the Gluon user's eager sparse path (Embedding(sparse_grad),
+    the net hybridized, SoftmaxCrossEntropyLoss, Trainer Adam lr 1e-3)
+    against BucketedSparseTrainer from the same initial parameters over
+    `batches`, with the fault `planted` ("dense_adam" in the eager path,
+    "sentinel" one row low in the bucketed one) or none.  The row and
+    whether it holds (WD_SPARSE_TOL's comment)."""
+    from incubator_mxnet_tpu_torch.contrib.sparse_jit import \
+        BucketedSparseTrainer
+    idx0, vals0, _ = batches[0]
+    net_e = _wd_materialize(mx, _wd_net(mx, True), idx0, vals0)
+    net_j = _wd_materialize(mx, _wd_net(mx, True), idx0, vals0)
+    init = {k: v.detach().clone() for k, v in net_e.state_dict().items()}
+    net_j.load_state_dict(init)
+    net_e.hybridize()
+    trainer = mx.gluon.Trainer(net_e.collect_params(), "adam",
+                               {"learning_rate": WD_LR})
+    sce = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    jt = BucketedSparseTrainer(net_j, optimizer="adam", lr=WD_LR)
+    if planted == "sentinel":
+        jt._sentinel = WD_FEATURES - 1
+    undo = _planted_dense_adam(mx) if planted == "dense_adam" else None
+    losses = []
+    try:
+        for idx, vals, y in batches:
+            with mx.autograd.record():
+                loss = sce(net_e(idx, vals), y)
+            mx.autograd.backward(loss)
+            trainer.step(idx.shape[0])
+            losses.append((float(loss.mean().item()),
+                           float(jt.step(idx, vals, y).item())))
+    finally:
+        if undo is not None:
+            undo()
+    jt.sync_to_net()
+    pe = dict(net_e.named_parameters())
+    pj = dict(net_j.named_parameters())
+    tables = (jt._wide_name, jt._deep_name)
+    touched = torch.zeros(WD_FEATURES, dtype=torch.bool, device=WD_DEVICE)
+    for idx, _, _ in batches:
+        touched[idx.reshape(-1).long()] = True
+    untouched = ~touched
+    errs = {n: (pe[n] - pj[n]).abs().max().item()
+            / pe[n].abs().max().item() for n in pe}
+    same = {n: bool(torch.equal(pe[n][untouched], init[n][untouched])
+                    and torch.equal(pj[n][untouched], init[n][untouched]))
+            for n in tables}
+    graph = net_e._cached_graph
+    row = dict(planted=planted,
+               unique_rows=[int(np.unique(b[0].cpu().numpy()).size)
+                            for b in batches],
+               untouched_rows=int(untouched.sum().item()),
+               losses=losses,
+               loss_max_abs_err=max(abs(a - b) for a, b in losses),
+               loss_tol=WD_LOSS_TOL,
+               err_over_scale=errs, worst=max(errs, key=errs.get),
+               tol=WD_SPARSE_TOL, untouched_rows_bit_equal=same,
+               eager_net=dict(captures=graph.captures,
+                              eager_calls=graph.eager_calls),
+               trainer=dict(sparse_updates=trainer.sparse_updates,
+                            captures=trainer.captures),
+               bucketed=dict(captures=jt.captures, replays=jt.replays,
+                             eager_steps=jt.eager_steps,
+                             bucket_keys=jt.bucket_keys))
+    ok = (row["loss_max_abs_err"] <= WD_LOSS_TOL
+          and max(errs.values()) <= WD_SPARSE_TOL and all(same.values()))
+    return row, ok
+
+
+def _wd_state(jt):
+    st = jt._state
+    flat = {"t": st["t"], "overflow": st["overflow"], "loss": st["loss"]}
+    for part in ("tables", "dense", "m", "v"):
+        flat.update({part + ":" + n: t for n, t in st.get(part, {}).items()})
+    return {n: t.clone() for n, t in flat.items()}
+
+
+def _wd_overflow(torch, mx):
+    """(d): bucket_rows WD_OVERFLOW_BUCKET; two steps of a batch that fits
+    (eager, capturing), then a replayed step of run_wide_deep's batch,
+    whose unique rows overflow the bucket: skipped on the card."""
+    from incubator_mxnet_tpu_torch.contrib.sparse_jit import \
+        BucketedSparseTrainer
+    idx, vals, y = _wd_data(torch, WD_SPARSE_BATCH)
+    rs = np.random.RandomState(2)
+    pool = rs.choice(WD_FEATURES, size=WD_FIT_POOL, replace=False)
+    fit = torch.from_numpy(rs.choice(pool, size=tuple(idx.shape))
+                           .astype(np.int32)).to(WD_DEVICE)
+    net = _wd_materialize(mx, _wd_net(mx, True), idx, vals)
+    jt = BucketedSparseTrainer(net, optimizer="adam", lr=WD_LR,
+                               bucket_rows=WD_OVERFLOW_BUCKET)
+    jt.step(fit, vals, y)
+    prev = float(jt.step(fit, vals, y).item())
+    before = _wd_state(jt)
+    got = float(jt.step(idx, vals, y).item())
+    after = _wd_state(jt)
+    # the overflow counter is the one field a skipped step advances
+    changed = sorted(n for n in before if n != "overflow"
+                     and not _same_bits(torch, before[n], after[n]))
+    n_over = jt.overflow_steps
+    resumed = float(jt.step(fit, vals, y).item())
+    row = dict(bucket_rows=WD_OVERFLOW_BUCKET,
+               unique_rows=int(np.unique(idx.cpu().numpy()).size),
+               fit_unique_rows=int(np.unique(fit.cpu().numpy()).size),
+               overflow_steps=n_over, previous_loss=prev,
+               returned_loss=got, changed_state=changed,
+               resumed_loss=resumed,
+               overflow_steps_after=jt.overflow_steps,
+               programs=dict(captures=jt.captures, replays=jt.replays,
+                             eager_steps=jt.eager_steps))
+    ok = (n_over == 1 and got == prev and not changed
+          and math.isfinite(resumed) and jt.overflow_steps == 1
+          and jt.captures == 1 and jt.replays == 2)
+    return row, ok
+
+
+def phase_train_wide_deep(torch, mx, att, cs):
+    """bench.py's config 5, Wide&Deep, on the card: (a) the
+    dense headline, run_wide_deep at batch 32,768 (hybridized net and
+    loss, Adam), eager and hybridized from the same weights and data
+    through `phase_hybridize` (bit for bit, 0 captures in the timed
+    steps, no port kernel), with one f32 step against a CPU copy by the
+    spread rule and the step's bound; (b) the row_sparse path,
+    BucketedSparseTrainer at batch 2,048, one capture for its one key;
+    (c) the Gluon user's eager sparse path against (b) over four
+    batches, then with a dense Adam and with an off-by-one sentinel
+    planted, each of which the check must refuse; (d) an overflowing
+    bucket skipped on the card.  Prints the card's name and power
+    limit."""
+    t0 = time.monotonic()
+    parity = _wd_parity(torch, mx)
+    gc.collect()
+    torch.cuda.empty_cache()
+    idx, vals, y = _wd_data(torch, WD_BATCH)
+
+    def build():
+        net = _wd_materialize(mx, _wd_net(mx, False), idx, vals)
+        return net, mx.gluon.loss.SoftmaxCrossEntropyLoss(), \
+            mx.gluon.Trainer(net.collect_params(), "adam",
+                             {"learning_rate": WD_LR})
+
+    def step(net, head, trainer):
+        with mx.autograd.record():
+            loss = head(net(idx, vals), y)
+        mx.autograd.backward(loss)
+        trainer.step(WD_BATCH)
+        return loss.detach().mean()
+    dense = phase_hybridize(torch, mx, att, cs, "train_wide_deep", build,
+                            step, WD_BATCH, (0,) * 8)
+    del idx, vals, y
+    gc.collect()
+    torch.cuda.empty_cache()
+    sparse = _wd_sparse_run(torch, mx)
+    batches = _wd_sparse_batches(torch)
+    eager_sparse, eager_ok = _wd_sparse_parity(torch, mx, batches)
+    planted = {}
+    for fault in ("dense_adam", "sentinel"):
+        planted[fault] = _wd_sparse_parity(torch, mx, batches, fault)
+    overflow, overflow_ok = _wd_overflow(torch, mx)
+    out = dict(phase="train_wide_deep", config="bench.py config 5",
+               features=WD_FEATURES, fields=WD_FIELDS, embed=WD_EMBED,
+               hidden=list(WD_HIDDEN), classes=WD_CLASSES,
+               optimizer="adam", learning_rate=WD_LR,
+               nvidia_smi=_nvidia_smi(),
+               dense=dict(batch=WD_BATCH, **_summary(dense),
+                          samples_per_s=dense["units_per_s"],
+                          step_ms=dense["step_ms"], losses=dense["losses"],
+                          programs=dense["programs"],
+                          kernels_per_replayed_step=dense["profile"][
+                              "kernels_per_step"],
+                          kernel_names_per_replayed_step=len(
+                              dense["kernel_names"]),
+                          top_kernels=dense["profile"]["top"],
+                          eager_vs_hybridized=dense["compare"],
+                          **_wd_bound(WD_BATCH)),
+               parity=parity, sparse=sparse, eager_sparse=eager_sparse,
+               planted={k: v[0] for k, v in planted.items()},
+               planted_refused={k: not v[1] for k, v in planted.items()},
+               overflow=overflow, wall_s=time.monotonic() - t0)
+    _emit(out)
+    cmp = dense["compare"]
+    _check(cmp["losses_bit_equal"] and cmp["params_bit_equal"],
+           "train_wide_deep: eager and hybridized differ: %r" % (cmp,))
+    _check(parity["loss_max_abs_err"] <= SERVE_TOL,
+           "train_wide_deep: the f32 step's loss differs from the CPU "
+           "copy's: %r" % (parity,))
+    _spread_checks("train_wide_deep", parity)
+    _check(eager_ok, "train_wide_deep: the eager sparse path differs from "
+           "the bucketed one: %r" % (eager_sparse,))
+    _check(eager_sparse["eager_net"]["captures"] == 0
+           and eager_sparse["eager_net"]["eager_calls"] == len(batches)
+           and eager_sparse["trainer"]["sparse_updates"] == len(batches),
+           "train_wide_deep: the hybridized sparse-gradient net did not run "
+           "its recorded calls eagerly: %r" % (eager_sparse,))
+    _check(all(out["planted_refused"].values()),
+           "train_wide_deep: a planted fault passed the eager-against-"
+           "bucketed check: %r" % (out["planted"],))
+    _check(overflow_ok, "train_wide_deep: the overflowing bucket was not "
+           "skipped on the card: %r" % (overflow,))
+    return out
+
+
 def setup(torch):
     """What every run of the phases starts from, here and in
     `tools/chip_phases.py`: f32 products without TF32, the card's env
@@ -6792,6 +7250,7 @@ def main():
     phase_train_gnmt(torch, mx, att, cs)
     phase_generate_seq2seq(torch, mx, att, cs)
     phase_rnn(torch, mx)
+    phase_train_wide_deep(torch, mx, att, cs)
 
     def nmt(kernel):
         """A flash row's NMT-path and bf16-path launches and their shapes'

@@ -36,6 +36,7 @@ from . import callback
 from . import gluon
 from . import io
 from .io import recordio
+from . import rnn
 from . import image
 from . import contrib
 from . import models

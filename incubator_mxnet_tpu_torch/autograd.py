@@ -35,6 +35,16 @@ incubator_mxnet_tpu/autograd.py) on top of torch's own autograd.
   (`_mx_owner`); `backward` writes that leaf's gradient into the array's
   `.grad` NDArray per its grad_req ('write' replaces, 'add' sums, 'null'
   leaves it) and leaves torch's `Tensor.grad` of the leaf empty.
+* Sparse gradients: `Embedding` with `sparse_grad=True` on a leaf weight
+  gives torch's COO gradient, which torch sums with another sparse one
+  (the union of rows) and makes dense where it meets a dense one; only a
+  leaf keeps it sparse (a weight with recorded history takes the dense
+  gradient).  An NDArray whose gradient is row_sparse
+  (`attach_grad(stype="row_sparse")`) gets it as a `RowSparseNDArray`
+  (coalesced: sorted unique rows), replacing its rows for 'write' and
+  taking the union (`sparse.add`) for 'add'; a `gluon.Parameter` keeps
+  the COO tensor in `.grad`, and `list_grad()` reads it as a
+  `RowSparseNDArray`.
 * `grad(heads, variables, ..., create_graph)` returns NDArray gradients
   and writes no `.grad`; with `create_graph=True` the gradients are
   recorded, so a backward through them gives second-order gradients.
@@ -199,10 +209,29 @@ def backward(heads, head_grads=None, retain_graph=False, train_mode=True):
         g, leaf.grad = leaf.grad, None
         if g is None or nd._grad is None or nd._grad_req == "null":
             continue
+        if getattr(nd._grad, "stype", "default") == "row_sparse":
+            _deliver_row_sparse(nd, g)
+            continue
+        if g.is_sparse:
+            g = g.to_dense()
         if nd._grad_req == "add":
             nd._grad._data = nd._grad._data + g
         else:
             nd._grad._data = g
+
+
+def _deliver_row_sparse(nd, g):
+    """Give `nd` (whose gradient is a `RowSparseNDArray`) the gradient
+    `g`: torch's COO gradient coalesced, or a dense one's nonzero rows;
+    'write' replaces the stored rows, 'add' takes the union with them
+    (`sparse.add`)."""
+    from .ndarray import sparse
+    from .ndarray.ndarray import _wrap
+    rsp = sparse.from_torch_sparse(g) if g.is_sparse else \
+        sparse.cast_storage(_wrap(g), "row_sparse")
+    if nd._grad_req == "add" and nd._grad.indices.shape[0] > 0:
+        rsp = sparse.add(nd._grad, rsp)
+    nd._grad = rsp
 
 
 def grad(heads, variables, head_grads=None, retain_graph=None,
@@ -229,7 +258,9 @@ def grad(heads, variables, head_grads=None, retain_graph=None,
     out = [None] * len(xs)
     for i, g in zip(live, got):
         out[i] = g
-    return [_wrap(torch.zeros_like(x) if g is None else g)
+    from .ndarray.sparse import from_torch_sparse
+    return [_wrap(torch.zeros_like(x)) if g is None else
+            from_torch_sparse(g) if g.is_sparse else _wrap(g)
             for x, g in zip(xs, out)]
 
 

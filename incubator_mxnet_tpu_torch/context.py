@@ -3,14 +3,23 @@
 `cpu()` and `gpu(i)` return `torch.device`s, which stand in for the JAX
 package's `Context` wherever an entry point takes `ctx=` or `device=`
 (`initialize(ctx=mx.gpu(0))`, `load_parameters(..., ctx=...)`,
-`split_and_load`).  The default device is `cuda:0`: with no CUDA device
+`split_and_load`).  The default device is the one of the innermost
+`with cpu():` / `with gpu(i):` the calling thread is in, as the JAX
+package's `with mx.cpu():` sets it, else `cuda:0`: with no CUDA device
 present, `gpu()`, `current_device()` (alias `current_context()`) and
 every entry point that defaults to them raise instead of carrying on
-on the CPU.  A caller that wants the CPU says so with `device="cpu"`.
+on the CPU.  A caller that wants the CPU says so with `device="cpu"` or
+`with cpu():`.
+
+A `torch.device` used as a context manager enters torch's own
+`DeviceContext`, a function mode that also places torch's factory
+functions called without `device=` on that device; `current_device()`
+reads that mode back.
 """
 from __future__ import annotations
 
 import torch
+from torch.utils._device import DeviceContext
 
 from .base import MXNetError
 
@@ -35,9 +44,29 @@ def gpu(device_id: int = 0) -> torch.device:
     return torch.device("cuda", device_id)
 
 
+def _entered_device():
+    """The device of the innermost `with <torch.device>:` on this thread,
+    or None.  torch keeps each as a `DeviceContext` on its (thread-local)
+    torch-function mode stack, the innermost nearest the top; that stack
+    and the class are private API (torch._C, torch.utils._device), so
+    `tests/test_torch_context.py` and a card test hold this reading."""
+    for i in range(torch._C._len_torch_function_stack() - 1, -1, -1):
+        mode = torch._C._get_function_stack_at(i)
+        if isinstance(mode, DeviceContext):
+            return mode.device
+    return None
+
+
 def current_device() -> torch.device:
-    """The default device of every entry point: `cuda:0`."""
-    return gpu(0)
+    """The default device of every entry point: that of the innermost
+    `with cpu():` / `with gpu(i):` on this thread, else `cuda:0` (which
+    raises without CUDA)."""
+    dev = _entered_device()
+    if dev is None:
+        return gpu(0)
+    if dev.type == "cuda":
+        return gpu(0 if dev.index is None else dev.index)
+    return dev
 
 
 current_context = current_device

@@ -165,8 +165,15 @@ def init_trainer(trainer, loss_scaler=None):
 
 
 def _live_grads(trainer):
-    return [p.grad for p in trainer._params
+    return [_grad_leaf(p.grad) for p in trainer._params
             if p.requires_grad and p.grad is not None]
+
+
+def _grad_leaf(g):
+    """The dense tensor holding a gradient's values: for a row_sparse one
+    (torch's COO gradient of an `Embedding(sparse_grad=True)`) its values,
+    which the checks read and the zeroing and unscaling write in place."""
+    return g._values() if g.is_sparse else g
 
 
 @contextmanager

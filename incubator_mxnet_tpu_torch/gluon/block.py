@@ -60,10 +60,16 @@ runs the forward under `torch.utils.checkpoint` (non-reentrant), its
 dropout masks kept for the recompute (`random.remat_contexts`), as the
 JAX package wraps it in `jax.checkpoint`; `remat_policy` names a JAX
 policy and raises.  `hybridize(active=False)` makes the block eager
-again.  `set_input_transform(fn)` installs a function of the first input
-(a uint8 batch to its normalized bf16, say) that runs inside the
-forward the block captures, and before `forward` in an eager call.  A parameter that `cast`, `initialize`, `load_parameters` or
-`set_data` replaced or rewrote is marked (`parameter.touch`), which
+again.  A block with a parameter whose gradient is row_sparse
+(`Embedding(sparse_grad=True)`) runs its recorded calls eagerly (the
+`eager_calls` counter counts them), as the JAX block leaves its fused
+backward for such a parameter: the gradient's row count depends on the
+data, which a captured program cannot hold; its calls without recording
+are captured as any other.  `set_input_transform(fn)` installs a
+function of the first input (a uint8 batch to its normalized bf16, say)
+that runs inside the forward the block captures, and before `forward` in
+an eager call.  A parameter that `cast`, `initialize`, `load_parameters`
+or `set_data` replaced or rewrote is marked (`parameter.touch`), which
 changes the parameters' key and drops the block's programs.
 """
 from __future__ import annotations
@@ -121,14 +127,16 @@ def nameless_scope():
         _NAMES.counts = counts
 
 
-def new_parameter(name, shape, init, device, dtype, grad_req="write"):
+def new_parameter(name, shape, init, device, dtype, grad_req="write",
+                  grad_stype="default"):
     """A `Parameter` of `shape` (0 for a width the first input gives);
     `init` is an Initializer, one of its names, or None for the default
     `Uniform()`.  With a `device` it is initialized there at once (or
     when its shape becomes known); without one it waits for
     `initialize`."""
     p = Parameter(name, grad_req=grad_req, shape=shape, dtype=dtype,
-                  init=init, allow_deferred_init=True)
+                  init=init, allow_deferred_init=True,
+                  grad_stype=grad_stype)
     # the block it is assigned to prefixes its name (`Block.__setattr__`)
     p.__dict__["_unscoped"] = True
     if device is not None:
@@ -622,6 +630,9 @@ class _CachedGraph:
         if self.params is None:
             self.named = list(self.block.named_parameters())
             self.params = [p for _, p in self.named]
+            self.sparse_grads = any(
+                getattr(p, "grad_stype", "default") == "row_sparse"
+                for p in self.params)
         keys = [_param_key(p) for p in self.params]
         if keys != self._param_keys:
             self._warm.clear()
@@ -642,7 +653,9 @@ class _CachedGraph:
         except TypeError as exc:
             raise MXNetError("a hybridized call's arguments other than "
                              "tensors must be hashable: %s" % exc) from exc
-        if warm < self.WARMUP:
+        if warm < self.WARMUP or (recording and self.sparse_grads):
+            # a row_sparse gradient's row count depends on the data, so a
+            # recorded call of a block that has one runs eagerly
             self._warm[sig] = warm + 1
             self.eager_calls += 1
             out = self.forward(args, kwargs, training, recording)

@@ -1,8 +1,8 @@
 """`gluon.contrib.nn` layers of the PyTorch port (counterpart of
 incubator_mxnet_tpu/gluon/contrib/nn/basic_layers.py): `Concurrent`,
-`HybridConcurrent`, `Identity`, `SyncBatchNorm` on one device and
-`PixelShuffle1D/2D/3D`.  `SparseEmbedding` waits for sparse storage,
-which is not yet ported.
+`HybridConcurrent`, `Identity`, `SparseEmbedding` (an `Embedding`
+whose gradient is row_sparse), `SyncBatchNorm` on one device and
+`PixelShuffle1D/2D/3D`.
 
 `HybridConcurrent` subclasses `HybridSequential`, as in the JAX package,
 but runs its own forward: every branch takes the same input and their
@@ -15,11 +15,13 @@ from __future__ import annotations
 import torch
 
 from ....base import MXNetError
-from ...block import HybridBlock
-from ...nn.basic_layers import BatchNorm, HybridSequential, Sequential
+from ...block import Block, HybridBlock
+from ...nn.basic_layers import (BatchNorm, Embedding, HybridSequential,
+                                Sequential)
 
-__all__ = ["Concurrent", "HybridConcurrent", "Identity", "SyncBatchNorm",
-           "PixelShuffle1D", "PixelShuffle2D", "PixelShuffle3D"]
+__all__ = ["Concurrent", "HybridConcurrent", "Identity", "SparseEmbedding",
+           "SyncBatchNorm", "PixelShuffle1D", "PixelShuffle2D",
+           "PixelShuffle3D"]
 
 
 def _concat_branches(block, x):
@@ -54,6 +56,23 @@ class Identity(HybridBlock):
 
     def forward(self, x):
         return x
+
+
+class SparseEmbedding(Block):
+    """ref: contrib SparseEmbedding: an Embedding whose weight gradient is
+    row_sparse, for very large tables (here the one `Embedding` with
+    `sparse_grad=True`, the child `_embedding`, as the JAX package names
+    it)."""
+
+    def __init__(self, input_dim, output_dim, dtype="float32",
+                 weight_initializer=None, device=None):
+        super().__init__()
+        self._embedding = Embedding(input_dim, output_dim, dtype=dtype,
+                                    weight_initializer=weight_initializer,
+                                    sparse_grad=True, device=device)
+
+    def forward(self, x):
+        return self._embedding(x)
 
 
 class SyncBatchNorm(BatchNorm):

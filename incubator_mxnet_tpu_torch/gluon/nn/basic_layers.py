@@ -184,16 +184,22 @@ class Dropout(HybridBlock):
 
 
 class Embedding(HybridBlock):
+    """ref: nn.Embedding.  With `sparse_grad=True` the weight's gradient
+    is row_sparse (`grad_stype`): only the looked-up rows, which the
+    optimizers update lazily."""
+
     def __init__(self, input_dim, output_dim, dtype="float32",
-                 weight_initializer=None, device=None):
+                 weight_initializer=None, sparse_grad=False, device=None):
         super().__init__()
         self._input_dim = input_dim
         self._output_dim = output_dim
-        self.weight = new_parameter("weight", (input_dim, output_dim),
-                                    weight_initializer, device, dtype)
+        self._sparse_grad = sparse_grad
+        self.weight = new_parameter(
+            "weight", (input_dim, output_dim), weight_initializer, device,
+            dtype, grad_stype="row_sparse" if sparse_grad else "default")
 
     def forward(self, x):
-        return ops.embedding(x, self.weight)
+        return ops.embedding(x, self.weight, sparse_grad=self._sparse_grad)
 
 
 class LayerNorm(HybridBlock):

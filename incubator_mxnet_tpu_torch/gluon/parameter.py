@@ -28,6 +28,10 @@ Life cycle, as in the JAX package:
   updates the tensor the forward materialises.
 * `cast(dtype)` before materialisation records the dtype to allocate.
 
+`grad_stype="row_sparse"` (an `Embedding(sparse_grad=True)` weight): the
+layer's backward gives torch's COO gradient, which `.grad` holds and
+`list_grad()` reads as a `RowSparseNDArray`; `zero_grad` empties it.
+
 `grad_req`: 'write' (the default) has each `autograd.backward` overwrite
 the gradient; 'add' keeps adding to it until `zero_grad()`; 'null' is
 `requires_grad=False`, and the Trainer neither updates it nor creates
@@ -135,8 +139,15 @@ class Parameter(nn.Parameter):
 
     def __new__(cls, name="", grad_req="write", shape=None,
                 dtype="float32", lr_mult=1.0, wd_mult=1.0, init=None,
-                allow_deferred_init=False, differentiable=True):
+                allow_deferred_init=False, differentiable=True,
+                stype="default", grad_stype="default"):
         req = grad_req if differentiable else "null"
+        if stype != "default" or grad_stype not in ("default",
+                                                     "row_sparse"):
+            raise MXNetError("parameter %s: stype %r / grad_stype %r: a "
+                             "parameter's data is dense, its gradient "
+                             "dense or row_sparse" % (name, stype,
+                                                      grad_stype))
         if req not in _GRAD_REQS:
             raise ValueError("grad_req must be one of %s, got %r"
                              % (_GRAD_REQS, grad_req))
@@ -149,7 +160,7 @@ class Parameter(nn.Parameter):
             _name=name, _grad_req=req, lr_mult=lr_mult, wd_mult=wd_mult,
             init=init, allow_deferred_init=allow_deferred_init,
             _shape=tuple(shape) if shape is not None else None,
-            _deferred_init=None, _final_cls=cls)
+            _deferred_init=None, _final_cls=cls, _grad_stype=grad_stype)
         return obj
 
     def __init__(self, *args, **kwargs):
@@ -178,6 +189,17 @@ class Parameter(nn.Parameter):
         if req == "null":
             self.grad = None
         self.requires_grad = req != "null"
+
+    @property
+    def stype(self):
+        """The data's storage type: always "default"."""
+        return "default"
+
+    @property
+    def grad_stype(self):
+        """The gradient's storage type, "default" or "row_sparse" (an
+        `Embedding(sparse_grad=True)` weight)."""
+        return self.__dict__.get("_grad_stype", "default")
 
     def _shape_known(self):
         shape = self.__dict__.get("_shape")
@@ -279,9 +301,27 @@ class Parameter(nn.Parameter):
 
     def list_grad(self):
         """[the gradient], or [] for grad_req 'null' or before the first
-        backward (MXNet's `grad()`; torch's `.grad` is kept)."""
+        backward (MXNet's `grad()`; torch's `.grad` is kept).  A
+        row_sparse gradient is read from the live `.grad` (torch's COO
+        tensor, coalesced in place) as a `RowSparseNDArray`, an empty one
+        before any backward."""
         self._check_initialized()
+        if self.grad_stype == "row_sparse" and self.grad_req != "null":
+            return [self._row_sparse_grad()]
         return [] if self.grad is None else [self.grad]
+
+    def _row_sparse_grad(self):
+        from ..ndarray import sparse
+        from ..ndarray.ndarray import _wrap
+        g = self.grad
+        if g is None:
+            return sparse.zeros_row_sparse(self.shape, self.dtype,
+                                           ctx=self.device)
+        if not g.is_sparse:
+            return sparse.cast_storage(_wrap(g), "row_sparse")
+        if not g.is_coalesced():
+            g = self.grad = g.coalesce()
+        return sparse.from_torch_sparse(g)
 
     def list_ctx(self):
         if is_deferred(self) and self._deferred_init is not None:
@@ -290,7 +330,12 @@ class Parameter(nn.Parameter):
         return [self.device]
 
     def zero_grad(self):
-        if self.grad is not None:
+        """Zero the gradient; a row_sparse one becomes empty (no rows)."""
+        if self.grad_stype == "row_sparse" and self.grad_req != "null" \
+                and not is_deferred(self):
+            from ..ndarray.sparse import empty_coo
+            self.grad = empty_coo(self.shape, self.dtype, self.device)
+        elif self.grad is not None:
             self.grad.zero_()
 
     @torch.no_grad()

@@ -58,6 +58,14 @@ optimizer with only `update` (every registered optimizer has a device
 update).
 `captures`, `replays` and `eager_updates` count the three.
 `load_states` drops the captured update.
+
+A parameter whose gradient is row_sparse (`grad_stype`, an
+`Embedding(sparse_grad=True)` weight) takes its optimizer's lazy update
+(`Optimizer._sparse_update`) every step, eagerly and before the dense
+ones, from the rows the last backward gave it (none when no backward
+reached it); it is never part of the captured update, whose key the
+dense parameters alone make, so it stays the same from step to step.
+`sparse_updates` counts the steps that ran lazy updates.
 """
 from __future__ import annotations
 
@@ -114,6 +122,7 @@ class Trainer:
         self._program = None        # (key, captured update)
         self._warm_key = None
         self.captures = self.replays = self.eager_updates = 0
+        self.sparse_updates = 0
 
     @property
     def learning_rate(self):
@@ -144,17 +153,23 @@ class Trainer:
         buffer zeroed, as the JAX Trainer updates it from its zero-filled
         gradient; `ignore_stale_grad` changes nothing, as there."""
         self._optimizer.rescale_grad = self._scale / batch_size
-        live = []
+        live, sparse = [], []
         for i, p in enumerate(self._params):
             if not p.requires_grad or is_deferred(p):
+                continue
+            if getattr(p, "grad_stype", "default") == "row_sparse" or (
+                    p.grad is not None and p.grad.is_sparse):
+                sparse.append(i)
                 continue
             if p.grad is None:
                 p.grad = _ag.grad_buffer(p).zero_()
             live.append(i)
-        if not live:
-            return
         opt = self._optimizer
         params = self._params
+        if sparse:
+            self._sparse_update(sparse)
+        if not live:
+            return
         if opt._device_one is None:
             self.eager_updates += 1
             for i in live:
@@ -195,6 +210,21 @@ class Trainer:
         self.captures += 1
         if not program.ran:
             program.replay()
+
+    def _sparse_update(self, indices):
+        """The lazy updates of the parameters at `indices`, whose
+        gradients are row_sparse, before the dense ones (the JAX
+        optimizers' `update_multi` order): eagerly, since the rows they
+        touch depend on the data."""
+        self.sparse_updates += 1
+        opt = self._optimizer
+        states = self._updater.states
+        for i in indices:
+            p = self._params[i]
+            if i not in states:
+                states[i] = opt.create_state_multi_precision(i, p.data)
+            grad = p.list_grad()[0] if isinstance(p, Parameter) else p.grad
+            opt._sparse_update(i, p.data, grad, states[i])
 
     def _update_key(self, live, weights, states, hypers):
         """What a captured update depends on, but the gradients' storage:

@@ -56,6 +56,7 @@ launches are read from the profiler's kernel names.
 from __future__ import annotations
 
 import contextlib
+import gc
 import threading
 
 import torch
@@ -293,6 +294,11 @@ def _capture(fn, device, pool, stream):
     _rnd.register_with_graph(graph, device)
     before = _pool_bytes(device, pool)
     watch = _Watch(record=False)
+    # torch.cuda.graph collects garbage before it starts; a collection
+    # inside the capture could free another program's graph (one that a
+    # cycle held), which invalidates the capture
+    collecting = gc.isenabled()
+    gc.disable()
     try:
         with torch.cuda.device(device), torch.cuda.graph(
                 graph, pool=pool, stream=stream,
@@ -304,6 +310,9 @@ def _capture(fn, device, pool, stream):
         if isinstance(exc, CaptureError):
             raise
         raise _failed(watch, exc) from exc
+    finally:
+        if collecting:
+            gc.enable()
     after = _pool_bytes(device, graph.pool())
     growth = None if before is None or after is None else after - before
     return _Graph(graph, growth), out

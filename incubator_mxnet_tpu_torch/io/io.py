@@ -194,41 +194,10 @@ class CSVIter(DataIter):
         return self._inner.next()
 
 
-class CSRBatch:
-    """The rows of a `LibSVMIter` batch in CSR form: `data`, `indices`
-    and `indptr` NDArrays on `ctx` and the dense `shape`.  The port's
-    `ndarray.sparse` is not yet written; `asnumpy()` and
-    `tostype("default")` give the dense rows."""
-
-    stype = "csr"
-
-    def __init__(self, data, indices, indptr, shape, ctx=None):
-        self.data = nd.array(data, ctx=ctx, dtype="float32")
-        self.indices = nd.array(indices, ctx=ctx, dtype="int32")
-        self.indptr = nd.array(indptr, ctx=ctx, dtype="int32")
-        self.shape = tuple(shape)
-        self._ctx = ctx
-
-    def asnumpy(self):
-        out = _np.zeros(self.shape, _np.float32)
-        indptr = self.indptr.asnumpy()
-        rows = _np.repeat(_np.arange(len(indptr) - 1), _np.diff(indptr))
-        out[rows, self.indices.asnumpy()] = self.data.asnumpy()
-        return out
-
-    def tostype(self, stype):
-        if stype == "csr":
-            return self
-        if stype != "default":
-            raise NotImplementedError("tostype(%r): sparse arrays are not "
-                                      "yet ported" % (stype,))
-        return nd.array(self.asnumpy(), ctx=self._ctx)
-
-
 class LibSVMIter(DataIter):
     """ref: src/io/iter_libsvm.cc — sparse libsvm text (Wide&Deep).  Rows
-    come back in CSR form (`CSRBatch`), labels as NDArrays, on `ctx`
-    (default `cuda:0`)."""
+    come back as `ndarray.sparse.CSRNDArray`s, labels as NDArrays, on
+    `ctx` (default `cuda:0`)."""
 
     def __init__(self, data_libsvm, data_shape, label_libsvm=None,
                  label_shape=None, batch_size=1, round_batch=True, ctx=None):
@@ -275,8 +244,9 @@ class LibSVMIter(DataIter):
         if n < self.batch_size:    # pad with empty rows
             indptr = _np.concatenate(
                 [indptr, _np.full(self.batch_size - n, indptr[-1])])
-        return [CSRBatch(self._values[sl], self._indices[sl], indptr,
-                         (self.batch_size,) + self._shape, ctx=self._ctx)]
+        from ..ndarray.sparse import CSRNDArray
+        return [CSRNDArray(self._values[sl], self._indices[sl], indptr,
+                           (self.batch_size,) + self._shape, ctx=self._ctx)]
 
     def getlabel(self):
         lo = self.cursor

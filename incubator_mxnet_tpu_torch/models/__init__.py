@@ -11,3 +11,4 @@ from .faster_rcnn import (FasterRCNN, faster_rcnn_toy,
                           faster_rcnn_resnet50_v1b, rcnn_training_targets,
                           RCNNTrainLoss)
 from .seq2seq import Seq2Seq, GNMT, gnmt_large
+from .wide_deep import WideDeep, wide_deep, csr_to_fields

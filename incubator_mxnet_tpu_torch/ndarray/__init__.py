@@ -2,7 +2,8 @@
 incubator_mxnet_tpu/ndarray/__init__.py): `NDArray`, one generated
 function per registered operator (as the JAX package and the reference's
 register.py generate them), the creation helpers, `waitall`, the
-`nd.random` and `nd.contrib` namespaces, DLPack exchange and the JAX
+`nd.random`, `nd.contrib` and `nd.sparse` (row_sparse and csr storage)
+namespaces, DLPack exchange and the JAX
 package's parameter file format.
 
 Every generated function dispatches through `invoke`, so `nd.dot(a, b)`,
@@ -42,7 +43,7 @@ from .ndarray import NDArray, invoke, apply_fn, array, unwrap, _wrap
 
 __all__ = ["NDArray", "array", "invoke", "apply_fn", "zeros", "ones",
            "full", "empty", "arange", "linspace", "eye", "save", "load",
-           "waitall", "concat", "stack", "random", "contrib",
+           "waitall", "concat", "stack", "random", "contrib", "sparse",
            "to_dlpack_for_read", "to_dlpack_for_write", "from_dlpack"]
 
 _MAGIC = 0x112
@@ -278,3 +279,7 @@ contrib.flash_attention = getattr(_this, "_contrib_flash_attention")
 contrib.SyncBatchNorm = getattr(_this, "_contrib_SyncBatchNorm")
 contrib.CTCLoss = contrib.ctc_loss = getattr(_this, "CTCLoss")
 _sys.modules[contrib.__name__] = contrib
+
+# nd.sparse namespace: row_sparse and csr storage, and Embedding's sparse
+# gradient path in the registry
+from . import sparse  # noqa: E402,F401

@@ -132,9 +132,14 @@ def invoke(opname, *args, **kwargs):
     entry, ref: _imperative_invoke).  `ctx=` places an op without tensor
     inputs (default `cuda:0`); a sampling op draws from its device's
     generator and a BatchNorm or Dropout reads `autograd.is_training()`,
-    unless the caller passes `_rng_key` or `_training`.  A Symbol
-    argument raises "not yet ported"."""
+    unless the caller passes `_rng_key` or `_training`.  An op with a
+    sparse path (`OpDef.sparse_invoke`) is offered the call first.  A
+    Symbol argument raises "not yet ported"."""
     od = _REGISTRY[opname]
+    if od.sparse_invoke is not None:
+        res = od.sparse_invoke(args, kwargs)
+        if res is not NotImplemented:
+            return res
     ctx = None
     if kwargs:
         ctx = kwargs.pop("ctx", None)
@@ -337,17 +342,21 @@ class NDArray:
     # autograd (ref: MXNDArrayAttachGrad / MXAutogradBackward)
     # ------------------------------------------------------------------
     def attach_grad(self, grad_req="write", stype=None):
-        """Make the array a leaf with a zero gradient buffer `.grad`; a
-        recorded history no longer flows through it."""
-        if stype not in (None, "default"):
-            raise NotImplementedError("attach_grad(stype=%r): sparse "
-                                      "arrays are not yet ported" % stype)
+        """Make the array a leaf with a zero gradient buffer `.grad` (with
+        `stype="row_sparse"` an empty `RowSparseNDArray`, which a backward
+        replaces by the rows it reaches; any other stype is dense, as in
+        the JAX package); a recorded history no longer flows through
+        it."""
         t = self._data.detach()
         if grad_req != "null" and t.dtype.is_floating_point:
             t.requires_grad_(True)
             t._mx_owner = weakref.ref(self)
         self._data = t
-        self._grad = _wrap(torch.zeros_like(t))
+        if stype == "row_sparse":
+            from .sparse import zeros_row_sparse
+            self._grad = zeros_row_sparse(t.shape, t.dtype, ctx=t.device)
+        else:
+            self._grad = _wrap(torch.zeros_like(t))
         self._grad_req = grad_req
 
     def detach(self):
@@ -499,10 +508,12 @@ class NDArray:
         return invoke("ones_like", self)
 
     def tostype(self, stype):
+        """This array in storage `stype` ("default", "row_sparse",
+        "csr"; `sparse.cast_storage`)."""
         if stype == "default":
             return self
-        raise NotImplementedError("tostype(%r): sparse arrays are not yet "
-                                  "ported" % stype)
+        from .sparse import cast_storage
+        return cast_storage(self, stype)
 
     # ------------------------------------------------------------------
     # operators

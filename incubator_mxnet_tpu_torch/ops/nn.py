@@ -394,12 +394,15 @@ def sync_batch_norm(data, gamma, beta, moving_mean, moving_var, eps=1e-3,
                       momentum, fix_gamma, use_global_stats, axis, training)
 
 
-def embedding(data, weight):
+def embedding(data, weight, sparse_grad=False):
     """Rows of `weight` at the indices `data`.  Out-of-range indices are
     clamped into the table (the JAX package's gather clamps too), so a bad
-    token id cannot fault the device."""
+    token id cannot fault the device.  With `sparse_grad`, a leaf
+    weight's gradient is torch's sparse COO tensor of the rows looked up
+    (a weight with recorded history takes the dense one)."""
     idx = data.long().clamp(0, weight.shape[0] - 1)
-    return F.embedding(idx, weight)
+    return F.embedding(idx, weight,
+                       sparse=bool(sparse_grad) and weight.grad_fn is None)
 
 
 def leaky_relu(data, gamma=None, act_type="leaky", slope=0.25,

@@ -29,7 +29,8 @@ class OpDef:
 
     __slots__ = ("name", "fn", "ndarray_inputs", "differentiable",
                  "num_outputs", "visible_outputs", "num_outputs_fn",
-                 "doc", "needs_rng", "needs_training", "nograd_argnums")
+                 "doc", "needs_rng", "needs_training", "nograd_argnums",
+                 "sparse_invoke")
 
     def __init__(self, name: str, fn: Callable, *,
                  ndarray_inputs: Optional[Sequence[str]] = None,
@@ -55,6 +56,12 @@ class OpDef:
         self.needs_rng = needs_rng or "_rng_key" in params
         self.needs_training = "_training" in params
         self.nograd_argnums = tuple(nograd_argnums)
+        # the FComputeEx analogue: `sparse_invoke(args, kwargs)` on
+        # NDArrays is offered each imperative call first and returns
+        # NotImplemented to leave it to `fn` (ref: storage-type dispatch,
+        # src/imperative/imperative_utils.h; `ndarray.sparse` sets
+        # Embedding's)
+        self.sparse_invoke = None
         self.doc = fn.__doc__
 
     def __repr__(self):

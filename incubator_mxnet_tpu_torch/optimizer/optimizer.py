@@ -22,8 +22,16 @@ included) takes the plain update.  An optimizer with
 `aggregatable = True` (SGD, Adam) also has `update_multi`, which the
 Trainer takes for all its parameters at once, as the JAX Trainer's
 aggregated path does; the others update tensor by tensor, as in the JAX
-package.  Sparse (row_sparse) gradients are not ported: AdaGrad given
-one raises.
+package.
+
+A row_sparse gradient (a `RowSparseNDArray`, or torch's sparse COO
+gradient of an `Embedding(sparse_grad=True)`) takes the lazy update of
+SGD, Adam or AdaGrad (`ndarray.sparse.sparse_*_update`), which reads and
+writes only the gradient's rows, eagerly, with the hypers as Python
+numbers: `update` and `update_multi_precision` route it there, and
+`update_multi` updates the sparse positions first and the dense ones
+after (`_split_sparse`), as the JAX package does.  Another optimizer given
+one raises, as does a gradient of any other sparse layout.
 
 Each update is split in two, so that a `gluon.Trainer` can capture the
 device part once and replay it (`graph_capture`):
@@ -63,6 +71,7 @@ import torch
 
 from .. import random as _rnd
 from ..base import MXNetError
+from ..ndarray import sparse as _sparse
 from ..ops import optimizer as _ops
 
 __all__ = ["Optimizer", "SGD", "NAG", "Adam", "AdaGrad", "AdaDelta",
@@ -255,13 +264,42 @@ class Optimizer:
         device_fn(index, weight, grad, state, *hypers.at(0))
 
     def update(self, index, weight, grad, state):
+        if _is_row_sparse(grad):
+            return self._sparse_update(index, weight, grad, state)
         if self._device_one is None:
             raise NotImplementedError
         self._run_one(self._device_one, index, weight, grad, state)
 
+    #: the lazy update of one row_sparse gradient, (index, weight,
+    #: RowSparseNDArray, state, lr, wd) with Python-number hypers; None
+    #: for an optimizer that has none
+    _sparse_one = None
+
+    def _sparse_update(self, index, weight, grad, state):
+        """Host bookkeeping of one update of `index`, then the lazy update
+        from the row_sparse `grad`."""
+        if self._sparse_one is None:
+            raise MXNetError("%s has no lazy update for a row_sparse "
+                             "gradient" % type(self).__name__)
+        rsp = _as_row_sparse(grad)
+        lrs, wds, _ = self._hypers([index])
+        with torch.no_grad():
+            self._sparse_one(index, weight, rsp, state, lrs[0], wds[0])
+
+    @staticmethod
+    def _split_sparse(grads):
+        """(dense positions, sparse positions) of a batch of updates: a
+        row_sparse gradient takes the lazy update."""
+        dense, sparse = [], []
+        for k, g in enumerate(grads):
+            (sparse if _is_row_sparse(g) else dense).append(k)
+        return dense, sparse
+
     def update_multi_precision(self, index, weight, grad, state):
         """`update`, or for a master-copied weight the update of its f32
         copy from the f32 gradient, rounded into `weight`."""
+        if _is_row_sparse(grad):
+            return self._sparse_update(index, weight, grad, state)
         if self._device_one is not None:
             self._run_one(self._device_one_mp, index, weight, grad, state)
         elif self._master_copy(weight):
@@ -272,8 +310,17 @@ class Optimizer:
             self.update(index, weight, grad, state)
 
     def update_multi(self, indices, weights, grads, states):
-        """One aggregated update of the parameters at `indices`."""
-        indices = list(indices)
+        """One aggregated update of the parameters at `indices`: the
+        row_sparse gradients' lazy updates first, then the dense ones."""
+        dense, sparse = self._split_sparse(grads)
+        for k in sparse:
+            self._sparse_update(indices[k], weights[k], grads[k], states[k])
+        if not dense:
+            return
+        indices = [indices[k] for k in dense]
+        weights = [weights[k] for k in dense]
+        grads = [grads[k] for k in dense]
+        states = [states[k] for k in dense]
         lrs, wds, extras = self._hypers(indices)
         hypers = Hypers().write(lrs, wds, self.rescale_grad,
                                 weights[0].device, extras)
@@ -281,6 +328,25 @@ class Optimizer:
 
     #: whether `update_multi` updates a list of parameters at once
     aggregatable = False
+
+
+def _is_row_sparse(grad):
+    """Whether `grad` is a row_sparse gradient; a gradient of another
+    sparse layout raises."""
+    if getattr(grad, "stype", None) == "row_sparse":
+        return True
+    if not isinstance(grad, torch.Tensor) or grad.layout == torch.strided:
+        return False
+    if grad.layout == torch.sparse_coo:
+        return True
+    raise MXNetError("a %s gradient has no update: gradients are dense or "
+                     "row_sparse" % (grad.layout,))
+
+
+def _as_row_sparse(grad):
+    from ..ndarray import sparse
+    return grad if isinstance(grad, sparse.RowSparseNDArray) else \
+        sparse.from_torch_sparse(grad)
 
 
 class Hypers:
@@ -333,7 +399,7 @@ def _hyper_array(values, device, out=None):
     `_hyper_array`), written into `out` when given: from pinned memory
     without waiting on a card, whose caching host allocator keeps the
     pinned block until the copy has run."""
-    host = torch.tensor(values, dtype=torch.float32)
+    host = torch.tensor(values, dtype=torch.float32, device="cpu")
     if out is None:
         out = torch.empty_like(host, device=device)
     if out.is_cuda:
@@ -346,13 +412,18 @@ def _hyper_array(values, device, out=None):
 @register
 class SGD(Optimizer):
     """ref: optimizer.SGD → sgd_update / sgd_mom_update, and
-    multi_sgd(_mom)_update on the aggregated path.  Gradients are dense
-    here, so `lazy_update` (the JAX package's row-sparse path) is
-    accepted and changes nothing."""
+    multi_sgd(_mom)_update on the aggregated path.  A row_sparse gradient
+    takes `sparse_sgd_update`, which touches only its rows and, as in the
+    JAX package, no momentum (`lazy_update` is kept for the API)."""
 
     def __init__(self, momentum=0.0, lazy_update=True, **kwargs):
         super().__init__(**kwargs)
         self.momentum = momentum
+        self.lazy_update = lazy_update
+
+    def _sparse_one(self, index, weight, grad, state, lr, wd):
+        _sparse.sparse_sgd_update(weight, grad, lr, wd, self.rescale_grad,
+                                  self.clip_gradient, self.lazy_update)
 
     def create_state(self, index, weight):
         if self.momentum == 0.0:
@@ -429,7 +500,8 @@ class NAG(Optimizer):
 @register
 class Adam(Optimizer):
     """ref: optimizer.Adam → adam_update, with the bias correction folded
-    into the learning rate from each index's own update count t; the
+    into the learning rate from each index's own update count t (a
+    row_sparse gradient: `sparse_adam_update`, lazy); the
     aggregated path (`update_multi`) as in the JAX package, whose device
     part is the same per-tensor update, so that both paths give the same
     bits."""
@@ -446,6 +518,12 @@ class Adam(Optimizer):
         t = self._index_update_count[index]
         return (self._get_lr(index) * math.sqrt(1.0 - self.beta2 ** t)
                 / (1.0 - self.beta1 ** t))
+
+    def _sparse_one(self, index, weight, grad, state, lr, wd):
+        mean, var = state
+        _sparse.sparse_adam_update(weight, grad, mean, var, lr, self.beta1,
+                                   self.beta2, self.epsilon, wd,
+                                   self.rescale_grad, self.clip_gradient)
 
     def _device_one(self, index, weight, grad, state, lr, wd, rescale):
         mean, var = state
@@ -480,8 +558,9 @@ def _pow_f32(base, t):
 @register
 class AdaGrad(Optimizer):
     """ref: optimizer.AdaGrad → adagrad_update (`ops.optimizer.
-    adagrad_update_`); state: the squared-gradient history.  A sparse
-    (row_sparse) gradient raises: sparse storage is not yet ported."""
+    adagrad_update_`); state: the squared-gradient history.  A row_sparse
+    gradient takes `sparse_adagrad_update`, which updates the history and
+    the weight on its rows only."""
 
     def __init__(self, eps=1e-7, **kwargs):
         super().__init__(**kwargs)
@@ -490,10 +569,12 @@ class AdaGrad(Optimizer):
     def create_state(self, index, weight):
         return torch.zeros_like(weight)
 
+    def _sparse_one(self, index, weight, grad, state, lr, wd):
+        _sparse.sparse_adagrad_update(weight, grad, state, lr,
+                                      self.float_stable_eps, wd,
+                                      self.rescale_grad, self.clip_gradient)
+
     def _device_one(self, index, weight, grad, state, lr, wd, rescale):
-        if grad.layout != torch.strided:
-            raise MXNetError("AdaGrad: a %s gradient is sparse storage, "
-                             "which is not yet ported" % (grad.layout,))
         _ops.adagrad_update_(weight, grad, state, lr, wd, rescale,
                              epsilon=self.float_stable_eps,
                              clip_gradient=self.clip_gradient)

@@ -98,14 +98,18 @@ def rand_shape_3d(dim0=10, dim1=10, dim2=10):
 
 def rand_ndarray(shape, stype="default", density=None, dtype="float32",
                  ctx=None):
-    """A dense array of uniform(-1, 1) values on `ctx` (default
-    `default_context()`); sparse storage types are not yet ported."""
-    if stype != "default":
-        raise NotImplementedError("rand_ndarray(stype=%r): sparse arrays "
-                                  "are not yet ported" % stype)
+    """An array of uniform(-1, 1) values on `ctx` (default
+    `default_context()`); a "row_sparse" or "csr" one keeps each value
+    with probability `density` (default 0.5), the others zero, in that
+    storage (ref: rand_ndarray)."""
     ctx = ctx or default_context()
     a = _np.random.uniform(-1, 1, size=shape).astype(_np.float32)
-    return nd.array(a, ctx=ctx, dtype=nd_dtype(dtype))
+    if stype == "default":
+        return nd.array(a, ctx=ctx, dtype=nd_dtype(dtype))
+    density = 0.5 if density is None else density
+    a = a * (_np.random.rand(*shape) < density)
+    from .ndarray.sparse import cast_storage
+    return cast_storage(nd.array(a, ctx=ctx, dtype=nd_dtype(dtype)), stype)
 
 
 def numeric_grad(f, x, eps=1e-4):

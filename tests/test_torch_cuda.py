@@ -21,7 +21,8 @@ from incubator_mxnet_tpu_torch.ops import attention as tatt
 from incubator_mxnet_tpu_torch.ops import conv_stats as tcs
 from incubator_mxnet_tpu_torch.ops import nn as tnn
 from incubator_mxnet_tpu_torch.monitor import events
-from chip_smoke import _device_kernels, _low_tolerance, _port_kernel_calls
+from chip_smoke import (WD_SPARSE_TOL, _device_kernels, _low_tolerance,
+                        _port_kernel_calls)
 
 pytestmark = [pytest.mark.torch_port, pytest.mark.cuda]
 
@@ -1894,3 +1895,115 @@ def test_input_transform_is_captured_on_card(card):
     assert not [n for n in names if n.startswith("cudaLaunchKernel")]
     assert net._cached_graph.replays == 1
     assert torch.equal(out, eager)
+
+
+def test_with_gpu_places_arrays_on_the_card(card):
+    """F5: `with gpu(0):` is the default device of the entry points, read
+    from torch's DeviceContext (private API) on the card's torch; `with
+    cpu():` inside it wins, and an explicit ctx= wins over both."""
+    from incubator_mxnet_tpu_torch import context as tctx
+    with tmx.gpu(0):
+        assert tctx._entered_device() == card
+        assert tmx.current_context() == card
+        assert tmx.nd.zeros((2,)).context == card
+        assert tmx.nd.array([1.0, 2.0]).context == card
+        dense = tmx.gluon.nn.Dense(3, in_units=2)
+        dense.initialize()
+        assert dense.weight.device == card
+        with tmx.cpu():
+            assert tmx.nd.zeros((2,)).context == torch.device("cpu")
+        assert tmx.nd.zeros((2,), ctx="cpu").context == torch.device("cpu")
+    assert tctx._entered_device() is None
+    assert tmx.current_context() == card
+
+
+def _wd_card_batch(rs, vocab, B, F, device):
+    return [torch.from_numpy(a).to(device) for a in (
+        rs.randint(0, vocab, (B, F)).astype(np.int32),
+        rs.rand(B, F).astype(np.float32),
+        rs.randint(0, 2, B).astype(np.float32))]
+
+
+def test_bucketed_sparse_trainer_captures_once_per_key(card):
+    """BucketedSparseTrainer on the card: one eager step and one CUDA
+    graph capture per (K, B, F) key, replays only after that; its losses
+    and parameters against the same steps on a CPU copy (within
+    chip_smoke.WD_SPARSE_TOL, 1e-3, of scale: Adam's eps zone on
+    near-cancelling sums, 2.3e-4 at lr 1e-2 in the deep table on the
+    H100; the wide table, whose gradient is rounding noise, by Adam's step
+    bound, lr a step)."""
+    from incubator_mxnet_tpu_torch.contrib.sparse_jit import \
+        BucketedSparseTrainer
+    vocab, F = 500, 4
+    runs = {}
+    for device in (card, torch.device("cpu")):
+        rs = np.random.RandomState(0)
+        tmx.random.seed(0)
+        net = tmx.models.WideDeep(vocab, embed_dim=8, hidden=(16,),
+                                  classes=2)
+        net.initialize(ctx=device)
+        idx, vals, _ = _wd_card_batch(rs, vocab, 2, F, device)
+        with tmx.autograd.pause():
+            net(idx, vals)
+        if device == card:
+            init = {k: v.cpu() for k, v in net.state_dict().items()}
+        else:
+            net.load_state_dict(init)
+        jt = BucketedSparseTrainer(net, optimizer="adam", lr=1e-2)
+        losses, counts = [], []
+        for B in (16, 16, 16, 8, 8, 8, 16, 8):
+            losses.append(float(jt.step(*_wd_card_batch(rs, vocab, B, F,
+                                                        device)).item()))
+            counts.append(jt.captures)
+        jt.sync_to_net()
+        runs[device.type] = (losses, counts, jt, {
+            k: v.detach().cpu() for k, v in net.state_dict().items()})
+    losses, counts, jt, params = runs["cuda"]
+    assert jt.bucket_keys == [(8 * F, 8, F), (16 * F, 16, F)]
+    assert counts == [0, 1, 1, 1, 2, 2, 2, 2]
+    assert (jt.captures, jt.eager_steps, jt.replays) == (2, 2, 4)
+    assert jt.overflow_steps == 0
+    np.testing.assert_allclose(losses, runs["cpu"][0], rtol=0, atol=1e-5)
+    for k, v in params.items():
+        ref = runs["cpu"][3][k]
+        err = (v - ref).abs().max().item()
+        limit = 1e-2 * len(losses) if k == "wide.weight" else \
+            WD_SPARSE_TOL * max(ref.abs().max().item(), 1e-3)
+        assert err <= limit, (k, err)
+
+
+def test_sparse_trainer_update_keeps_the_dense_capture_on_card(card):
+    """The Trainer's lazy update of a row_sparse table runs eagerly beside
+    the captured update of a hybridized dense head: the captured update's
+    key stays the same, 1 capture, then replays."""
+    rs = np.random.RandomState(1)
+    V, E, B, T, C = 30, 3, 4, 2, 3
+    tmx.random.seed(0)
+    emb = tmx.gluon.nn.Embedding(V, E, sparse_grad=True, device=card)
+    head = tmx.gluon.nn.HybridSequential()
+    head.add(tmx.gluon.nn.Flatten(), tmx.gluon.nn.Dense(C))
+    head.initialize(ctx=card)
+
+    def ids():
+        return torch.from_numpy(rs.randint(0, V, (B, T)).astype(
+            np.int32)).to(card)
+    head(emb(ids()))
+    head.hybridize()
+    params = list(emb.collect_params().values()) + \
+        list(head.collect_params().values())
+    tr = tmx.gluon.Trainer(params, "adam", {"learning_rate": 0.1})
+    loss_fn = tmx.gluon.loss.SoftmaxCrossEntropyLoss()
+    keys = []
+    for _ in range(5):
+        y = torch.from_numpy(rs.randint(0, C, B).astype(
+            np.float32)).to(card)
+        with tmx.autograd.record():
+            loss = loss_fn(head(emb(ids())), y)
+        tmx.autograd.backward(loss)
+        tr.step(B)
+        keys.append(tr._warm_key)
+    torch.cuda.synchronize()
+    assert (tr.eager_updates, tr.captures, tr.replays,
+            tr.sparse_updates) == (1, 1, 3, 5)
+    assert all(k == keys[0] for k in keys)
+    assert emb.weight.grad.is_sparse

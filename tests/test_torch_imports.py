@@ -190,3 +190,34 @@ def test_input_pipeline_modules_load_no_jax(tmp_path):
                          timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+# the sparse slice's modules: importing them loads neither JAX nor the JAX
+# package
+SPARSE_MODULES = (
+    "ndarray.sparse", "contrib.sparse_jit", "models.wide_deep", "rnn",
+    "gluon.contrib.nn", "context")
+
+
+def test_sparse_modules_load_no_jax(tmp_path):
+    env = dict(os.environ, PATH=str(tmp_path), CUDA_HOME=str(tmp_path),
+               PYTHONPATH=str(ROOT))
+    code = ("import importlib, sys\n"
+            "for n in %r:\n"
+            "    importlib.import_module('incubator_mxnet_tpu_torch.' + n)\n"
+            "import incubator_mxnet_tpu_torch as mx\n"
+            "mx.nd.sparse.RowSparseNDArray, mx.nd.sparse.CSRNDArray\n"
+            "mx.nd.sparse.sparse_adam_update, mx.models.WideDeep\n"
+            "mx.models.csr_to_fields, mx.rnn.BucketSentenceIter\n"
+            "mx.contrib.sparse_jit.BucketedSparseTrainer\n"
+            "mx.gluon.contrib.nn.SparseEmbedding, mx.rnn.LSTMCell\n"
+            "assert mx.ops.registry.get('Embedding').sparse_invoke\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in\n"
+            "       ('jax', 'jaxlib', 'incubator_mxnet_tpu')]\n"
+            "assert not bad, bad\n"
+            "print('ok')" % (SPARSE_MODULES,))
+    out = subprocess.run([sys.executable, "-c", code], cwd=str(tmp_path),
+                         env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"

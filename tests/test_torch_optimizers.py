@@ -304,11 +304,22 @@ def test_lamb_phase1_rounds_g_prime_to_the_gradient_dtype():
 
 
 def test_adagrad_refuses_a_sparse_gradient():
+    """AdaGrad refuses a sparse gradient of a layout that has no update (a
+    CSR one); a row_sparse one (torch's COO gradient of an Embedding with
+    sparse_grad) takes the lazy update, which leaves the other rows as
+    they were (its values against the JAX package:
+    test_torch_sparse.py::test_adagrad_takes_a_row_sparse_gradient_as_jax)."""
     o = tmx.optimizer.create("adagrad")
     w = torch.zeros(4, 3)
-    g = torch.zeros(4, 3).to_sparse()
+    csr = torch.sparse_csr_tensor(torch.zeros(5, dtype=torch.long),
+                                  torch.zeros(0, dtype=torch.long),
+                                  torch.zeros(0), (4, 3))
     with pytest.raises(MXNetError, match="sparse"):
-        o.update(0, w, g, o.create_state(0, w))
+        o.update(0, w, csr, o.create_state(0, w))
+    g = torch.zeros(4, 3)
+    g[2] = 1.0
+    o.update(0, w, g.to_sparse(1), o.create_state(0, w))
+    assert bool((w[2] != 0).all()) and bool((w[[0, 1, 3]] == 0).all())
 
 
 def test_multi_precision_updates_the_master_copy():
