@@ -410,6 +410,42 @@ Drives incubator_mxnet_tpu_torch only (never JAX or the JAX package):
              fail that check; (d) bucket_rows 4,096 under a batch of
              ~28,000 unique rows: the step skipped on the card, the
              state bit for bit, the previous loss returned.
+13o. train_sharded — bench.py's `sharded` config (build_sharded_trainer,
+             run_sharded) through parallel.ShardedTrainer on the one-card
+             mesh: resnet50_v1b, 1000 classes, 224^2, bf16 parameters
+             but BatchNorm's gamma, beta and running statistics, SGD
+             momentum 0.9, lr 0.1, wd 1e-4, the first batch of 256, 128,
+             64 that fits; 2 warm-up steps (eager, then the whole step
+             captured) and 16 timed steps that only replay: images/s
+             after a sync, step ms by CUDA events, busy share of a
+             profiled step, peak memory, 33 conv-kernel launches a
+             replayed step by name.  zero 0, 1, 2 and 3 from the same
+             start: 3 losses bit for bit (cuDNN deterministic).  Before
+             it, an f32 batch-4 parity of two zero-2 steps on a
+             2-replica mesh (both on cuda:0) against CPU replicas: loss,
+             running statistics and each step's parameter changes by
+             train_resnet's spread rule; the update's rescale left at
+             the per-replica batch and momentum dropped at step 2 must
+             each fail it.
+13p. kvstore — resnet18_v1 as a Gluon user trains it on [gpu(0)]
+             (split_and_load, a recorded forward per context, batch 32):
+             3 steps with kvstore "device", and "dist_sync" on a
+             world-size-1 torch.distributed group (NCCL for card
+             tensors), and update_on_kvstore (the store's per-parameter
+             update), bit for bit the parameters of kvstore=None (cuDNN
+             deterministic); row_sparse_pull of card tensors and 2-bit
+             compression of card gradients equal to the CPU's.
+13q. multi_card — where the host has 2 or more cards (up to 4 used):
+             ShardedTrainer at zero 0 (BatchNorm statistics summed
+             across the cards in lockstep, gradients by NCCL) and zero 2
+             (reduce-scatter) over the cards in one process, and as one
+             rank a card in a torch.distributed NCCL group started by
+             the port's launcher (`chip_smoke.py dist-worker`), each
+             against the same replicas on one card (8 rows each, f32,
+             two steps from the reference's state, the spread rule);
+             resnet18_v1's Gluon loop over the cards against the same
+             loop over CPU replica contexts.  With one card it prints
+             {"multi_card": "not run", "cards": 1}.
 14. kernels — one JSON line per the port's kernel table (5 rows), then the
              card's name and power limit, then the final {"ok": true, ...}
              line.
@@ -7176,6 +7212,648 @@ def phase_train_wide_deep(torch, mx, att, cs):
     return out
 
 
+# train_sharded: bench.py's `sharded` config (build_sharded_trainer /
+# run_sharded): resnet50_v1b, 1000 classes, 224^2, bf16 parameters but
+# BatchNorm's gamma, beta and running statistics, SGD momentum 0.9, lr
+# 0.1, wd 1e-4, the largest batch of the ladder that fits, 2 warm-up and
+# 16 timed steps
+SHARDED_BATCHES = (256, 128, 64)
+SHARDED_WARMUP = 2
+SHARDED_STEPS = 16
+SHARDED_SGD = dict(optimizer="sgd", lr=0.1, momentum=0.9, wd=1e-4)
+SHARDED_SWEEP_STEPS = 3
+SHARDED_PARITY_BATCH = 4
+# kvstore: a Gluon resnet18_v1 loop on the card, batch 32 at 224^2
+KV_BATCH = 32
+KV_STEPS = 3
+KV_SGD = {"learning_rate": 0.1, "momentum": 0.9, "wd": 1e-4}
+
+
+def _sharded_net(torch, mx, device):
+    """resnet50_v1b(classes=1000) on `device`, its stem completed by one
+    inference forward, as bench.py's build_sharded_trainer does."""
+    from incubator_mxnet_tpu_torch.gluon.model_zoo.vision import \
+        resnet50_v1b
+    mx.random.seed(0)
+    net = resnet50_v1b(classes=1000, device=device)
+    with mx.autograd.pause():
+        net(torch.zeros(2, 3, 224, 224, device=device))
+    return net
+
+
+def _sharded_trainer(torch, mx, net, **kw):
+    """bench.py's trainer: bf16 parameters but BatchNorm's gamma, beta
+    and running statistics, and the optimizer state made anew from
+    them."""
+    from incubator_mxnet_tpu_torch import parallel
+    t = parallel.ShardedTrainer(net, **dict(SHARDED_SGD, **kw))
+    t.params = {k: (v.to(torch.bfloat16) if v.dtype == torch.float32
+                    and "running" not in k and "gamma" not in k
+                    and "beta" not in k else v)
+                for k, v in t.params.items()}
+    t.opt_state = t._opt_init(t.params)
+    return t
+
+
+def _sharded_batch(torch, batch):
+    rs = np.random.RandomState(0)
+    x = torch.from_numpy(rs.randn(batch, 3, 224, 224).astype(np.float32))
+    y = torch.from_numpy(rs.randint(0, 1000, batch).astype(np.int64))
+    return x.cuda().to(torch.bfloat16), y.cuda()
+
+
+def _sharded_fit(torch, mx, net):
+    """The largest batch of SHARDED_BATCHES whose warm-up steps (one
+    eager, one capturing) fit; (batch, trainer, x, y, losses)."""
+    for batch in SHARDED_BATCHES:
+        t = None
+        try:
+            t = _sharded_trainer(torch, mx, net)
+            x, y = _sharded_batch(torch, batch)
+            losses = [t.step(x, y) for _ in range(SHARDED_WARMUP)]
+            torch.cuda.synchronize()
+            return batch, t, x, y, losses
+        except torch.cuda.OutOfMemoryError:
+            if t is not None:
+                t.release()
+            del t
+            gc.collect()
+            torch.cuda.empty_cache()
+    raise RuntimeError("no batch of %s fits" % (SHARDED_BATCHES,))
+
+
+def _sharded_deltas(torch, t, before):
+    """{trainable name: its change over the last step, on the CPU, f32}."""
+    now = t.params
+    return {n: (now[n].float().cpu() - before[n])
+            for n in now if n not in t._stateful}
+
+
+def _host_tree(tree):
+    return {k: _host_tree(v) for k, v in tree.items()} \
+        if isinstance(tree, dict) else tree.detach().cpu().clone()
+
+
+def _load_live(torch, t, state):
+    """Copy `state` ({params, opt}) into the live tensors of a one-replica
+    trainer, which are those its `params` and `opt_state` return and
+    its captured step reads (assigning them would drop the program)."""
+    def walk(live, want):
+        if isinstance(live, dict):
+            for k in live:
+                walk(live[k], want[k])
+        else:
+            live.copy_(want)
+    with torch.no_grad():
+        walk(t.params, state["params"])
+        walk(t.opt_state, state["opt"])
+
+
+def _sharded_run(torch, mx, net, mesh, x, y, planted=None, start=None,
+                 zero=2, device=None, steps=2):
+    """`steps` f32 steps of `net` at `zero` over `mesh` (or, in a process
+    group, as this rank on `device`): per step the loss, the
+    parameters' changes (the gradient proxies: -lr (g + wd w) + momentum
+    m) and the running statistics after it, the state it started from,
+    and how it ran ([eager, captured, replayed] steps).  `start`: a
+    reference run whose state each step starts from, so that every step
+    is compared from the same parameters and momentum; a one-replica
+    trainer takes it into its live tensors, so that its steps run
+    eager, then captured, then replayed.  `planted`: "rescale" leaves
+    the update's rescale at the per-replica batch, "momentum" drops the
+    momentum state before every step from the second."""
+    from incubator_mxnet_tpu_torch import parallel
+    t = parallel.ShardedTrainer(net, mesh=mesh, zero=zero, device=device,
+                                **SHARDED_SGD)
+    if planted == "rescale":
+        for h in t._hyper:
+            h[2].fill_(1.0)
+    out = []
+    for step in range(steps):
+        if start is not None and t._capture:
+            _load_live(torch, t, start[step]["state"])
+        elif start is not None:
+            t.params = start[step]["state"]["params"]
+            t.opt_state = start[step]["state"]["opt"]
+        if planted == "momentum" and step >= 1:
+            for tree in t._opt:
+                for leaf in tree.values():
+                    leaf.zero_()
+        state = dict(params=_host_tree(t.params), opt=_host_tree(t.opt_state))
+        before = {n: v.float() for n, v in state["params"].items()}
+        counts = (t.eager_steps, t.captures, t.replays)
+        loss = float(t.step(x, y))
+        params = t.params
+        out.append(dict(loss=loss, deltas=_sharded_deltas(torch, t, before),
+                        running={n: params[n].float().cpu().clone()
+                                 for n in t._stateful}, state=state,
+                        ran=[b - a for a, b in zip(counts, (
+                            t.eager_steps, t.captures, t.replays))]))
+    t.release()
+    return out
+
+
+def _sharded_captured_parity(torch, mx, net, cpu_net, x, y):
+    """The program `train_sharded` times: one replica on cuda:0 at zero
+    0, its steps eager, then captured, then replayed, in f32 at batch 4
+    against the same trainer on the CPU (`device="cpu"`), each step from
+    the CPU run's state, by `_sharded_parity`'s spread rule.  The
+    momentum dropped before the captured and the replayed step must fail
+    it at each of them."""
+    kw = dict(zero=0, steps=SHARDED_SWEEP_STEPS)
+    ref = _sharded_run(torch, mx, cpu_net, None, x, y, device="cpu", **kw)
+    spread = _sharded_run(torch, mx, cpu_net, None, x * (1.0 + 2.0 ** -22),
+                          y, start=ref, device="cpu", **kw)
+    card = _sharded_run(torch, mx, net, None, x.cuda(), y.cuda(),
+                        start=ref, device="cuda:0", **kw)
+    planted = _sharded_run(torch, mx, net, None, x.cuda(), y.cuda(),
+                           start=ref, device="cuda:0", planted="momentum",
+                           **kw)
+    steps = [_spread_parity(torch, card[i][what], ref[i][what],
+                            spread[i][what])
+             for i in range(len(card)) for what in ("deltas", "running")]
+    dropped = [_spread_parity(torch, planted[i]["deltas"], ref[i]["deltas"],
+                              spread[i]["deltas"])["grad_err_over_scale_max"]
+               for i in (1, 2)]
+    losses = dict(card=[r["loss"] for r in card],
+                  cpu=[r["loss"] for r in ref])
+    out = dict(zero=0, mesh=["cuda:0"], ran=[r["ran"] for r in card],
+               losses=losses, loss_max_abs_err=max(
+                   abs(a - b) for a, b in zip(losses["card"],
+                                              losses["cpu"])),
+               checks=["step%d %s" % (i + 1, what)
+                       for i in range(len(card))
+                       for what in ("deltas", "running")], steps=steps,
+               planted_momentum_worst=dropped,
+               planted_refused=all(
+                   v["card"] > RESNET_SPREAD_FACTOR * max(v["cpu_spread"],
+                                                          1e-6)
+                   for v in dropped))
+    _check(out["ran"] == [[1, 0, 0], [0, 1, 0], [0, 0, 1]],
+           "sharded captured parity: the card's steps did not run eager, "
+           "captured, replayed: %r" % (out["ran"],))
+    _check(out["loss_max_abs_err"] <= SERVE_TOL, "sharded captured "
+           "parity: the loss differs from the CPU trainer's by %g > %g"
+           % (out["loss_max_abs_err"], SERVE_TOL))
+    for name, s in zip(out["checks"], steps):
+        _spread_checks("sharded captured parity " + name, s)
+    _check(out["planted_refused"], "sharded captured parity: the momentum "
+           "dropped before the captured or the replayed step passed: %r"
+           % (dropped,))
+    return out
+
+
+def _sharded_parity(torch, mx, cs):
+    """Two f32 batch-4 zero-2 steps on a 2-replica mesh on the card (both
+    replicas on cuda:0, so the rescale across replicas shows) against
+    the same trainer on CPU replicas cpu(0), cpu(1), each step from the
+    CPU run's state: the losses, and each step's parameter changes and
+    running statistics by train_resnet's spread rule (the CPU run's own
+    spread under a 2**-22 change of its input; at 2 rows a replica the
+    BatchNorms make both no smooth function of the input).  The update's
+    rescale left at the per-replica batch, and the momentum dropped at
+    step 2, must each fail it.  Then the one-replica captured step on
+    the same batch (`_sharded_captured_parity`)."""
+    from incubator_mxnet_tpu_torch import parallel
+    rs = np.random.RandomState(2)
+    x = torch.from_numpy(rs.randn(SHARDED_PARITY_BATCH, 3, 224, 224)
+                         .astype(np.float32))
+    y = torch.from_numpy(rs.randint(0, 1000, SHARDED_PARITY_BATCH)
+                         .astype(np.int64))
+    net = _sharded_net(torch, mx, "cuda:0")
+    cpu_net = _sharded_net(torch, mx, "cpu")
+    _copy_to_cpu(mx, net, cpu_net, x[:1])
+    card_mesh = parallel.make_mesh(devices=["cuda:0", "cuda:0"])
+    cpu_mesh = parallel.make_mesh(devices=[mx.cpu(0), mx.cpu(1)])
+    ref = _sharded_run(torch, mx, cpu_net, cpu_mesh, x, y)
+    spread = _sharded_run(torch, mx, cpu_net, cpu_mesh,
+                          x * (1.0 + 2.0 ** -22), y, start=ref)
+    runs = {p: _sharded_run(torch, mx, net, card_mesh, x.cuda(), y.cuda(),
+                            planted=p, start=ref)
+            for p in (None, "rescale", "momentum")}
+
+    def judged(run):
+        steps = [_spread_parity(torch, run[i][what], ref[i][what],
+                                spread[i][what])
+                 for i in range(2) for what in ("deltas", "running")]
+        ok = all(v["card"] <= RESNET_SPREAD_FACTOR * max(v["cpu_spread"],
+                                                         1e-6)
+                 for s in steps for v in (s["grad_err_over_scale_max"],
+                                          s["grad_err_over_scale_median"]))
+        return steps, ok
+    good, good_ok = judged(runs[None])
+    losses = dict(card=[r["loss"] for r in runs[None]],
+                  cpu=[r["loss"] for r in ref])
+    loss_err = max(abs(a - b) for a, b in zip(losses["card"], losses["cpu"]))
+    planted = {p: judged(runs[p]) for p in ("rescale", "momentum")}
+    out = dict(batch=SHARDED_PARITY_BATCH, dtype="float32", zero=2,
+               card_mesh=["cuda:0", "cuda:0"], cpu_mesh=["cpu", "cpu:1"],
+               losses=losses, loss_max_abs_err=loss_err,
+               checks=["step1 deltas", "step1 running", "step2 deltas",
+                       "step2 running"], steps=good,
+               planted_refused={p: not v[1] for p, v in planted.items()},
+               planted_worst={p: [s["grad_err_over_scale_max"]
+                                  for s in v[0]]
+                              for p, v in planted.items()})
+    _emit(dict(phase="train_sharded_parity", **out))
+    _check(loss_err <= SERVE_TOL, "sharded parity: the loss differs from "
+           "the CPU replicas' by %g > %g" % (loss_err, SERVE_TOL))
+    for name, s in zip(out["checks"], good):
+        _spread_checks("sharded parity " + name, s)
+    _check(good_ok, "sharded parity: %r" % (good,))
+    for p, (_, ok) in planted.items():
+        _check(not ok, "sharded parity: the planted %s fault passed" % p)
+    out["captured"] = _sharded_captured_parity(torch, mx, net, cpu_net, x, y)
+    _emit(dict(phase="train_sharded_captured_parity", **out["captured"]))
+    del net, cpu_net
+    return out
+
+
+def _sharded_sweep(torch, mx, batch):
+    """zero 0..3 on the one-card mesh from the same start: the losses of
+    SHARDED_SWEEP_STEPS steps bit for bit (deterministic cuDNN)."""
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    x, y = _sharded_batch(torch, batch)
+    losses = {}
+    try:
+        for zero in range(4):
+            net = _sharded_net(torch, mx, "cuda:0")
+            t = _sharded_trainer(torch, mx, net, zero=zero)
+            losses[zero] = [t.step(x, y) for _ in range(SHARDED_SWEEP_STEPS)]
+            losses[zero] = [v.float().item() for v in losses[zero]]
+            t.release()
+            del t, net
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    same = all(_same_bits(torch, torch.tensor(losses[z]),
+                          torch.tensor(losses[0])) for z in losses)
+    _check(same, "zero levels disagree on one card: %r" % (losses,))
+    return dict(steps=SHARDED_SWEEP_STEPS, batch=batch, losses=losses,
+                bit_identical=same)
+
+
+def phase_train_sharded(torch, mx, cs):
+    """bench.py's `sharded` config through parallel.ShardedTrainer on the
+    one-card mesh (module doc, 13o); returns the conv kernel's launches
+    over the path and a replayed step's by the profiler."""
+    phase_t0 = time.perf_counter()
+    parity = _sharded_parity(torch, mx, cs)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    net = _sharded_net(torch, mx, "cuda:0")
+    cs.conv1x1_stats_launches = 0       # the main path starts here
+    batch, t, x, y, warm = _sharded_fit(torch, mx, net)
+    warm_counts = dict(captures=t.captures, replays=t.replays,
+                       eager_steps=t.eager_steps)
+    events = [torch.cuda.Event(enable_timing=True)
+              for _ in range(SHARDED_STEPS + 1)]
+    losses = []
+    t0 = time.perf_counter()
+    events[0].record()
+    for i in range(SHARDED_STEPS):
+        losses.append(t.step(x, y))
+        events[i + 1].record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = cs.conv1x1_stats_launches    # the main path ends here
+    timed = dict(captures=t.captures - warm_counts["captures"],
+                 replays=t.replays - warm_counts["replays"],
+                 eager_steps=t.eager_steps - warm_counts["eager_steps"])
+    step_ms = [events[i].elapsed_time(events[i + 1])
+               for i in range(SHARDED_STEPS)]
+    losses = [v.item() for v in warm + losses]
+    per_step = _profile(torch, lambda: t.step(x, y), 1, top=12,
+                        phase="train_sharded_profile", batch=batch)
+    conv = _profiled_counts(per_step)[3]
+    peak = torch.cuda.max_memory_allocated()
+    replica_bytes = t.replica_param_bytes()
+    t.release()
+    del t, net
+    torch.cuda.empty_cache()
+    sweep = _sharded_sweep(torch, mx, batch)
+    _emit(dict(phase="train_sharded", model="resnet50_v1b", classes=1000,
+               image=[3, 224, 224], dtype="bfloat16 (BatchNorm f32)",
+               batch=batch, ladder=list(SHARDED_BATCHES),
+               mesh=["cuda:0"], zero=0, **SHARDED_SGD,
+               warmup_steps=SHARDED_WARMUP, steps=SHARDED_STEPS,
+               images_per_s=SHARDED_STEPS * batch / wall, wall_s=wall,
+               step_ms=step_ms, step_ms_median=statistics.median(step_ms),
+               max_memory_allocated=peak, replica_param_bytes=replica_bytes,
+               warmup=warm_counts, timed=timed, losses=losses,
+               conv1x1_stats_launches=launches,
+               conv_launches_per_replayed_step=conv,
+               zero_sweep=sweep, parity=parity, phase_s=time.perf_counter() - phase_t0))
+    _check(all(math.isfinite(v) for v in losses),
+           "non-finite sharded loss: %r" % (losses,))
+    _check(warm_counts == dict(captures=1, replays=0, eager_steps=1),
+           "the warm-up steps did not run eager then capture: %r"
+           % (warm_counts,))
+    _check(timed == dict(captures=0, replays=SHARDED_STEPS, eager_steps=0),
+           "timed sharded steps did not only replay: %r" % (timed,))
+    _check(launches == 2 * RESNET_SITES, "the warm-up steps launched the "
+           "conv kernel %d times, not %d" % (launches, 2 * RESNET_SITES))
+    _check(conv == RESNET_SITES, "a replayed sharded step launched the conv "
+           "kernel %d times by name, not %d" % (conv, RESNET_SITES))
+    return dict(launches=launches, per_replayed_step=conv, batch=batch)
+
+
+def _kv_loop(torch, mx, kvstore, update_on_kvstore=None):
+    """resnet18_v1 as a Gluon user trains it on [gpu(0)]: split_and_load,
+    a recorded forward per context, Trainer(kvstore=...); the parameters
+    after KV_STEPS steps (CPU copies) and the trainer."""
+    from incubator_mxnet_tpu_torch.gluon.model_zoo.vision import get_model
+    mx.random.seed(0)
+    ctx = [mx.gpu(0)]
+    net = get_model("resnet18_v1", classes=1000)
+    net.initialize(mx.init.MSRAPrelu(), ctx=ctx)
+    tr = mx.gluon.Trainer(net.collect_params(), "sgd", dict(KV_SGD),
+                          kvstore=kvstore,
+                          update_on_kvstore=update_on_kvstore)
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    rs = np.random.RandomState(3)
+    for _ in range(KV_STEPS):
+        x = rs.randn(KV_BATCH, 3, 224, 224).astype(np.float32)
+        y = rs.randint(0, 1000, KV_BATCH).astype(np.float32)
+        data = mx.gluon.utils.split_and_load(x, ctx)
+        label = mx.gluon.utils.split_and_load(y, ctx)
+        with mx.autograd.record():
+            losses = [loss_fn(net(d), l) for d, l in zip(data, label)]
+        mx.autograd.backward(losses)
+        tr.step(KV_BATCH)
+    params = {k: p.detach().cpu().clone()
+              for k, p in net.collect_params().items()}
+    return params, tr
+
+
+def _kv_card_ops(torch, mx):
+    """row_sparse_pull of card tensors and 2-bit compression of card
+    gradients (a dist store on the NCCL group) against the same on the
+    CPU, exactly."""
+    from incubator_mxnet_tpu_torch import kvstore
+    rs = np.random.RandomState(4)
+    w = rs.randn(1000, 64).astype(np.float32)
+    rows = np.array([3, 17, 999, 500, 3], np.int32)
+    got = {}
+    for dev in ("cuda:0", "cpu"):
+        kv = kvstore.create("local")
+        kv.init("emb", mx.nd.array(w, ctx=dev))
+        out = mx.nd.zeros((1000, 64), ctx=dev)
+        kv.row_sparse_pull("emb", out=out, row_ids=mx.nd.array(
+            rows, dtype="int32", ctx=dev))
+        dkv = kvstore.create("dist_sync")
+        dkv.set_gradient_compression({"type": "2bit", "threshold": 0.5})
+        dkv.init(0, mx.nd.zeros((257, 33), ctx=dev))
+        pulled = []
+        for i in range(3):
+            g = np.random.RandomState(10 + i).randn(257, 33).astype(
+                np.float32) * 0.6
+            dkv.push(0, mx.nd.array(g, ctx=dev))
+            o = mx.nd.zeros((257, 33), ctx=dev)
+            dkv.pull(0, out=o)
+            pulled.append(o.asnumpy())
+        got[dev] = (out.asnumpy(), pulled, dkv.num_workers)
+    same_rows = np.array_equal(got["cuda:0"][0], got["cpu"][0])
+    same_2bit = all(np.array_equal(a, b) for a, b in zip(got["cuda:0"][1],
+                                                         got["cpu"][1]))
+    _check(same_rows, "row_sparse_pull on the card differs from the CPU's")
+    _check(same_2bit, "2-bit compression on the card differs from the CPU's")
+    return dict(row_sparse_pull_exact=same_rows, two_bit_exact=same_2bit,
+                dist_workers=got["cuda:0"][2])
+
+
+def phase_kvstore(torch, mx):
+    """The Gluon multi-device loop and the KVStore on the card (module
+    doc, 13p)."""
+    import socket
+    import torch.distributed as dist
+    # the loops are held bit for bit: cuDNN's deterministic algorithms
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        return _kv_phase(torch, mx, socket, dist)
+    finally:
+        torch.backends.cudnn.deterministic = prev
+
+
+def _kv_phase(torch, mx, socket, dist):
+    phase_t0 = time.perf_counter()
+    base, _ = _kv_loop(torch, mx, None)
+    device, tr = _kv_loop(torch, mx, "device")
+    device_store = tr._kvstore is not None
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    dist.init_process_group("cpu:gloo,cuda:nccl",
+                            init_method="tcp://127.0.0.1:%d" % port,
+                            world_size=1, rank=0)
+    try:
+        dist_params, dtr = _kv_loop(torch, mx, "dist_sync")
+        uok_params, utr = _kv_loop(torch, mx, "dist_sync",
+                                   update_on_kvstore=True)
+        card_ops = _kv_card_ops(torch, mx)
+        backend = dist.get_backend()
+    finally:
+        dist.destroy_process_group()
+    same = {name: all(_same_bits(torch, p[k], base[k]) for k in base)
+            for name, p in (("device", device), ("dist_sync", dist_params),
+                            ("update_on_kvstore", uok_params))}
+    uok_err = _scaled_err(uok_params, base)
+    _emit(dict(phase="kvstore", model="resnet18_v1", batch=KV_BATCH,
+               steps=KV_STEPS, ctx=["cuda:0"], sgd=KV_SGD,
+               device_store_made=device_store,
+               dist_backend=backend, dist_workers=dtr._kvstore.num_workers,
+               bit_identical_to_kvstore_none=same,
+               update_on_kvstore_worst_err_over_scale=max(uok_err.values()),
+               card_ops=card_ops, phase_s=time.perf_counter() - phase_t0))
+    _check(same["device"] and same["dist_sync"], "the kvstore's loops "
+           "differ from kvstore=None: %r" % (same,))
+    _check(same["update_on_kvstore"], "update_on_kvstore: the store's "
+           "update is %g of scale off the Trainer's" % max(uok_err.values()))
+    return same
+
+# multi_card: the replica group across cards, where the host has them
+MULTI_CARDS = 4
+MULTI_ROWS = 8              # rows a replica
+MULTI_TIMEOUT_S = 600
+
+
+def _multi_batch(torch, n):
+    rs = np.random.RandomState(5)
+    x = torch.from_numpy(rs.randn(MULTI_ROWS * n, 3, 224, 224)
+                         .astype(np.float32))
+    y = torch.from_numpy(rs.randint(0, 1000, MULTI_ROWS * n)
+                         .astype(np.int64))
+    return x, y
+
+
+def _dist_worker(out_dir, zero):
+    """One rank of `phase_multi_card`'s process group (started by the
+    port's launcher, one card a rank, NCCL for card tensors): its rows
+    of `_multi_batch` through two f32 steps of `ShardedTrainer` from the
+    state the parent wrote; rank 0 writes what `_sharded_run` returns."""
+    import torch
+    import torch.distributed as dist
+    import incubator_mxnet_tpu_torch as mx
+    mx.base.ensure_distributed()
+    rank, n = dist.get_rank(), dist.get_world_size()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = "cuda:%d" % torch.cuda.current_device()
+    net = _sharded_net(torch, mx, dev)
+    net.load_state_dict(torch.load(os.path.join(out_dir, "start.pt"),
+                                   map_location=dev, weights_only=True))
+    start = torch.load(os.path.join(out_dir, "ref%s.pt" % zero),
+                       weights_only=True)
+    x, y = _multi_batch(torch, n)
+    rows = slice(rank * MULTI_ROWS, (rank + 1) * MULTI_ROWS)
+    run = _sharded_run(torch, mx, net, None, x[rows].to(dev),
+                       y[rows].to(dev), start=start, zero=int(zero),
+                       device=dev)
+    if rank == 0:
+        torch.save([{k: v for k, v in r.items() if k != "state"}
+                    for r in run], os.path.join(out_dir, "dist%s.pt" % zero))
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def phase_multi_card(torch, mx):
+    """The replica group across cards (NCCL), where the host has at
+    least two: `ShardedTrainer` at zero 0 (BatchNorm statistics summed
+    across the cards in lockstep) and zero 2 (reduce-scatter, local
+    statistics) on a mesh of up to MULTI_CARDS cards in one process,
+    against the same replicas on one card (MULTI_ROWS rows each), and as
+    one rank per card in a `torch.distributed` NCCL group started by the
+    port's launcher; then the Gluon loop over the cards against the
+    same loop on as many CPU replica contexts.  Each by the spread
+    rule (two steps from the reference's state; the spread under a
+    2**-22 change of the reference's input).  With one card it prints
+    what was not shown."""
+    from incubator_mxnet_tpu_torch import parallel
+    from incubator_mxnet_tpu_torch.tools import launch
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        _emit({"multi_card": "not run", "cards": cards})
+        return None
+    phase_t0 = time.perf_counter()
+    n = min(cards, MULTI_CARDS)
+    devs = ["cuda:%d" % i for i in range(n)]
+    x, y = _multi_batch(torch, n)
+    net = _sharded_net(torch, mx, "cuda:0")
+    out = dict(phase="multi_card", cards=cards, replicas=n,
+               rows_per_replica=MULTI_ROWS)
+    tmp = tempfile.mkdtemp(prefix="mxt-multi-")
+    try:
+        torch.save({k: v.cpu() for k, v in net.state_dict().items()},
+                   os.path.join(tmp, "start.pt"))
+        checks = []
+        for zero in (0, 2):
+            one = parallel.make_mesh(devices=["cuda:0"] if zero == 0
+                                     else ["cuda:0"] * n)
+            ref = _sharded_run(torch, mx, net, one, x.cuda(), y.cuda(),
+                               zero=zero)
+            spread = _sharded_run(torch, mx, net, one,
+                                  x.cuda() * (1.0 + 2.0 ** -22), y.cuda(),
+                                  start=ref, zero=zero)
+            multi = _sharded_run(torch, mx, net,
+                                 parallel.make_mesh(devices=devs),
+                                 x.cuda(), y.cuda(), start=ref, zero=zero)
+            torch.save([dict(state=r["state"]) for r in ref],
+                       os.path.join(tmp, "ref%d.pt" % zero))
+            with open(os.path.join(tmp, "log%d" % zero), "w") as log:
+                rc = launch.launch(n, [sys.executable, os.path.abspath(
+                    __file__), "dist-worker", tmp, str(zero)],
+                    timeout=MULTI_TIMEOUT_S, out=log)
+            _check(rc == 0, "the %d-rank NCCL group failed (rc %d): %s"
+                   % (n, rc, open(os.path.join(tmp, "log%d" % zero))
+                      .read()[-3000:]))
+            dist = torch.load(os.path.join(tmp, "dist%d.pt" % zero),
+                              weights_only=False)
+            for name, run in (("one_process", multi),
+                              ("process_group", dist)):
+                for i in range(2):
+                    for what in ("deltas", "running"):
+                        checks.append(("zero%d %s step%d %s" % (
+                            zero, name, i + 1, what), _spread_parity(
+                                torch, run[i][what], ref[i][what],
+                                spread[i][what])))
+                out["zero%d_%s_losses" % (zero, name)] = [
+                    r["loss"] for r in run]
+            out["zero%d_reference_losses" % zero] = [r["loss"] for r in ref]
+        out["sharded"] = {k: dict(max=v["grad_err_over_scale_max"],
+                                  median=v["grad_err_over_scale_median"])
+                          for k, v in checks}
+        out["gluon"] = _multi_gluon(torch, mx, n)
+        out["phase_s"] = time.perf_counter() - phase_t0
+        _emit(out)
+        for name, parity in checks:
+            _spread_checks("multi_card " + name, parity)
+        _spread_checks("multi_card gluon", out["gluon"]["parity"])
+        _check(out["gluon"]["copies_equal"], "the Gluon loop's copies "
+               "differ across the cards after a step")
+    finally:
+        import shutil
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+def _multi_gluon_step(torch, mx, ctx, start, scale=1.0):
+    """resnet18_v1's Gluon loop over the contexts `ctx` (kvstore
+    "device"), one f32 step of MULTI_ROWS rows a context from the
+    parameter file `start`: {trainable name: its change}."""
+    from incubator_mxnet_tpu_torch.gluon.model_zoo.vision import get_model
+    net = get_model("resnet18_v1", classes=1000)
+    net.initialize(ctx=ctx)
+    net.load_parameters(start, ctx=ctx)
+    before = {k: p.detach().cpu().clone()
+              for k, p in net.collect_params().items() if p.requires_grad}
+    tr = mx.gluon.Trainer(net.collect_params(), "sgd", dict(KV_SGD),
+                          kvstore="device")
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    x, y = _multi_batch(torch, len(ctx))
+    data = mx.gluon.utils.split_and_load(x * scale, ctx)
+    label = mx.gluon.utils.split_and_load(y.float(), ctx)
+    with mx.autograd.record():
+        losses = [loss_fn(net(d), l) for d, l in zip(data, label)]
+    mx.autograd.backward(losses)
+    tr.step(x.shape[0])
+    params = net.collect_params()
+    same = all(torch.equal(c.cpu(), params[k].detach().cpu())
+               for k in before for c in params[k].list_data())
+    return {k: params[k].detach().cpu() - v for k, v in before.items()}, \
+        same
+
+
+def _multi_gluon(torch, mx, n):
+    """The Gluon loop over n cards against the same loop over n CPU
+    replica contexts, one step's parameter changes by the spread rule;
+    every card's copy equal after it."""
+    from incubator_mxnet_tpu_torch.gluon.model_zoo.vision import get_model
+    tmp = tempfile.mkdtemp(prefix="mxt-gluon-")
+    try:
+        mx.random.seed(0)
+        net = get_model("resnet18_v1", classes=1000)
+        net.initialize(mx.init.MSRAPrelu(), ctx="cpu")
+        with mx.autograd.pause():
+            net(torch.zeros(1, 3, 224, 224))
+        start = os.path.join(tmp, "start.params")
+        net.save_parameters(start)
+        cards, same = _multi_gluon_step(torch, mx,
+                                        [mx.gpu(i) for i in range(n)], start)
+        cpus = [mx.cpu(i) for i in range(n)]
+        ref, _ = _multi_gluon_step(torch, mx, cpus, start)
+        spread, _ = _multi_gluon_step(torch, mx, cpus, start,
+                                      scale=1.0 + 2.0 ** -22)
+    finally:
+        import shutil
+        shutil.rmtree(tmp, ignore_errors=True)
+    return dict(contexts=n, copies_equal=same,
+                parity=_spread_parity(torch, cards, ref, spread))
+
 def setup(torch):
     """What every run of the phases starts from, here and in
     `tools/chip_phases.py`: f32 products without TF32, the card's env
@@ -7251,6 +7929,9 @@ def main():
     phase_generate_seq2seq(torch, mx, att, cs)
     phase_rnn(torch, mx)
     phase_train_wide_deep(torch, mx, att, cs)
+    sharded = phase_train_sharded(torch, mx, cs)
+    phase_kvstore(torch, mx)
+    phase_multi_card(torch, mx)
 
     def nmt(kernel):
         """A flash row's NMT-path and bf16-path launches and their shapes'
@@ -7338,7 +8019,11 @@ def main():
                  "conv_launches_per_replayed_step"],
              train_mobilenet_device_ms_per_step=mobilenet[
                  "conv_device_ms_per_step"],
-             zoo_launches_per_replayed_step=zoo_launches),
+             zoo_launches_per_replayed_step=zoo_launches,
+             train_sharded_launches=sharded["launches"],
+             train_sharded_launches_per_replayed_step=sharded[
+                 "per_replayed_step"],
+             train_sharded_batch=sharded["batch"]),
         dict(name="nms", route="cuda",
              source="incubator_mxnet_tpu_torch/ops/csrc/nms.cu",
              replaces="no TPU kernel: box_nms "
@@ -7369,4 +8054,6 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["dist-worker"]:
+        sys.exit(_dist_worker(*sys.argv[2:]))
     sys.exit(main())

@@ -34,6 +34,9 @@ from . import optimizer
 from . import metric
 from . import callback
 from . import gluon
+from . import kvstore
+from . import kvstore as kv
+from . import parallel
 from . import io
 from .io import recordio
 from . import rnn

@@ -1,10 +1,46 @@
-"""Base utilities of the PyTorch port: the framework's error type and the
-dtype names the port accepts (counterpart of incubator_mxnet_tpu/base.py)."""
+"""Base utilities of the PyTorch port: the framework's error type, the
+dtype names the port accepts and the start of a distributed job
+(counterpart of incubator_mxnet_tpu/base.py)."""
 from __future__ import annotations
+
+import os
 
 import torch
 
-__all__ = ["MXNetError", "torch_dtype", "nd_dtype"]
+__all__ = ["MXNetError", "torch_dtype", "nd_dtype", "ensure_distributed"]
+
+
+def ensure_distributed(backend=None):
+    """Join the `torch.distributed` process group that the reference's
+    DMLC_* environment describes (DMLC_NUM_WORKER, DMLC_WORKER_ID or
+    DMLC_RANK, DMLC_PS_ROOT_URI, DMLC_PS_ROOT_PORT), as the JAX package's
+    `ensure_jax_distributed` joins jax.distributed.  Worker 0 hosts the
+    rendezvous store, the role the reference's scheduler had; a process
+    whose DMLC_ROLE is not "worker" (a server or scheduler) returns
+    without joining, and so does a job of one worker.  `backend` is
+    torch's backend string; by default "cpu:gloo,cuda:nccl" where a CUDA
+    device is present (each collective takes the backend of its
+    tensors' device: NCCL for card tensors, gloo for host ones), else
+    "gloo".  With NCCL each rank takes card `rank % device_count`.
+    Returns whether the process is in a group."""
+    import torch.distributed as dist
+    if dist.is_initialized():
+        return True
+    nworkers = int(os.environ.get("DMLC_NUM_WORKER", "1"))
+    if nworkers <= 1 or os.environ.get("DMLC_ROLE", "worker") != "worker":
+        return False
+    rank = int(os.environ.get("DMLC_WORKER_ID",
+                              os.environ.get("DMLC_RANK", "0")))
+    uri = os.environ.get("DMLC_PS_ROOT_URI", "127.0.0.1")
+    port = os.environ.get("DMLC_PS_ROOT_PORT", "9000")
+    if backend is None:
+        backend = "cpu:gloo,cuda:nccl" if torch.cuda.is_available() \
+            else "gloo"
+    if "nccl" in backend:
+        torch.cuda.set_device(rank % torch.cuda.device_count())
+    dist.init_process_group(backend, init_method="tcp://%s:%s" % (uri, port),
+                            world_size=nworkers, rank=rank)
+    return True
 
 
 class MXNetError(RuntimeError):

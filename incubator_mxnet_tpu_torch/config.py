@@ -349,3 +349,31 @@ register("MXNET_MEMWATCH_FRESH_S", float, 30.0,
 register("MXNET_MEMWATCH_TOP", int, 5,
          "Top-N consumers carried on a firing mem-drift alert and the "
          "memwatch block")
+register("MXNET_KVSTORE_BARRIER_TIMEOUT", float, 300.0,
+         "DistKVStore barrier timeout in seconds: a worker stuck at a "
+         "barrier raises an error naming its rank instead of hanging "
+         "(0 = wait indefinitely)")
+register("MXNET_ZERO_LEVEL", int, 0,
+         "Default ZeRO stage of parallel.ShardedTrainer(zero=None): 0 "
+         "replicated, 1 optimizer state sharded, 2 + gradients "
+         "reduce-scattered in buckets and the update on shards, 3 + "
+         "parameters stored sharded (parallel/zero.py)")
+register("MXNET_ZERO_BUCKET_MB", float, 0.0,
+         "Bucket cap in MB of the ZeRO-2/3 concat buckets; 0 = auto, "
+         "1/32 of the parameter bytes clamped to [1, 16] MB")
+register("MXNET_ZERO_SOLO_KB", int, 256,
+         "Parameter size in KB from which a parameter with a "
+         "data-divisible axis is reduce-scattered on its own instead of "
+         "joining a concat bucket")
+register("MXNET_ZERO_OVERLAP", str, "auto",
+         "ZeRO-2/3 collective schedule: 'trail' or 'auto' (both: every "
+         "collective after the backward, recorded in the plan); 'bwd' "
+         "is not ported and raises")
+register("MXNET_DISPATCH_THREADS", int, -1,
+         "ShardedTrainer per-replica threads (parallel/dispatch.py): -1 "
+         "= one per replica (at most 8), 0 = none (replicas run in turn "
+         "and cannot reduce inside a forward), N = exactly N")
+register("MXNET_AMP_DTYPE", str, "",
+         "parallel.ShardedTrainer(amp=None): the mixed-precision compute "
+         "dtype, 'bfloat16' or 'float16' (contrib.amp's cast policy), "
+         "empty = off")

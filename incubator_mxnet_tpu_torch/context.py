@@ -11,6 +11,15 @@ every entry point that defaults to them raise instead of carrying on
 on the CPU.  A caller that wants the CPU says so with `device="cpu"` or
 `with cpu():`.
 
+Data-parallel replicas need contexts that stay apart.  On the card a
+replica is its device, `cuda:i`.  On the CPU every tensor lives on
+`cpu`, so `cpu(i)` for i > 0 is `torch.device("cpu", i)`: a distinct
+context, on which tensors are still made on `cpu` (`cpu()` and `cpu(0)`
+stay `torch.device("cpu")`).  `tag_replica(t, ctx)` marks a CPU tensor
+with its replica's context and `replica_of(t)` reads it back (a tensor's
+device where it carries no mark), which is how `split_and_load`'s
+slices tell a block whose parameter copies to take.
+
 A `torch.device` used as a context manager enters torch's own
 `DeviceContext`, a function mode that also places torch's factory
 functions called without `device=` on that device; `current_device()`
@@ -24,11 +33,14 @@ from torch.utils._device import DeviceContext
 from .base import MXNetError
 
 __all__ = ["cpu", "gpu", "current_device", "current_context", "num_gpus",
-           "resolve_device"]
+           "resolve_device", "tag_replica", "replica_of"]
 
 
 def cpu(device_id: int = 0) -> torch.device:
-    return torch.device("cpu")
+    """`cpu` for device 0, `cpu:<device_id>` (a replica's context whose
+    tensors live on `cpu`) otherwise."""
+    return torch.device("cpu") if not device_id else \
+        torch.device("cpu", int(device_id))
 
 
 def gpu(device_id: int = 0) -> torch.device:
@@ -86,4 +98,25 @@ def resolve_device(device=None) -> torch.device:
     if dev.type == "cuda":
         return gpu(0 if dev.index is None else dev.index)
     return dev
+
+
+def _norm(ctx):
+    """`ctx` as a device with `cpu:0` read as `cpu`."""
+    dev = torch.device(ctx)
+    return torch.device("cpu") if dev.type == "cpu" and not dev.index \
+        else dev
+
+
+def tag_replica(t, ctx):
+    """Mark CPU tensor `t` as replica `ctx`'s (a context other than
+    `cpu`); returns `t`."""
+    ctx = _norm(ctx)
+    if ctx.type == "cpu" and ctx.index:
+        t._mx_ctx = ctx
+    return t
+
+
+def replica_of(t):
+    """The replica context of tensor `t`: its mark, else its device."""
+    return getattr(t, "_mx_ctx", None) or _norm(t.device)
 

@@ -71,10 +71,20 @@ that runs inside the forward the block captures, and before `forward` in
 an eager call.  A parameter that `cast`, `initialize`, `load_parameters`
 or `set_data` replaced or rewrote is marked (`parameter.touch`), which
 changes the parameters' key and drops the block's programs.
+
+Parameters on several contexts (`initialize(ctx=[...])`): a call whose
+first tensor input belongs to another context than the parameters'
+first one (its device, or on the CPU the replica mark that
+`gluon.utils.split_and_load` puts on its slices, `context.replica_of`)
+runs on that context's copies (`Parameter.replica`), through
+`torch.func.functional_call`; a hybridized block keeps one set of
+programs per such context, each capturing over its context's copies and
+writing their gradients.
 """
 from __future__ import annotations
 
 import contextlib
+import itertools
 import math
 import re
 import threading
@@ -91,7 +101,7 @@ from .. import autograd as _ag
 from .. import graph_capture as _capture
 from .. import random as _rnd
 from ..base import MXNetError
-from ..context import resolve_device
+from ..context import replica_of, resolve_device
 from ..ndarray.ndarray import NDArray, _wrap, unwrap
 
 __all__ = ["Block", "HybridBlock", "new_parameter", "cast_parameter",
@@ -264,8 +274,14 @@ class Block(nn.Module):
         return out
 
     def __call__(self, *args, **kwargs):
-        out = _nd_call(super().__call__, args, kwargs)
-        return super().__call__(*args, **kwargs) if out is None else out
+        out = _nd_call(self._call, args, kwargs)
+        return self._call(*args, **kwargs) if out is None else out
+
+    def _call(self, *args, **kwargs):
+        rep = _replica_params(self, args, kwargs)
+        if rep is not None:
+            return _replica_call(self, rep[1], args, kwargs)
+        return nn.Module.__call__(self, *args, **kwargs)
 
     def collect_params(self, select=None):
         """`ParameterDict` of structural parameter names → parameters,
@@ -421,6 +437,7 @@ class HybridBlock(Block):
         old = self.__dict__.get("_cached_graph")
         if old is not None:
             old.clear()
+        self.__dict__.pop("_replica_graphs", None)
         self.__dict__["_cached_graph"] = _CachedGraph(self, remat) \
             if active else None
         super().hybridize(active, static_alloc=static_alloc,
@@ -433,10 +450,26 @@ class HybridBlock(Block):
         cached = self.__dict__.get("_cached_graph")
         if in_shape_pass():         # its inputs are transformed already
             return nn.Module.__call__(self, *args, **kwargs)
+        rep = _replica_params(self, args, kwargs)
         if cached is None or _in_program():
+            if rep is not None:
+                return _replica_call(self, rep[1], args, kwargs)
             return nn.Module.__call__(
                 self, *self._apply_input_transform(args), **kwargs)
+        if rep is not None:
+            cached = self._replica_graph(*rep)
         return cached(args, kwargs)
+
+    def _replica_graph(self, ctx, params):
+        """The programs of this block for the copies `params` of context
+        `ctx` (new ones when the copies changed)."""
+        graphs = self.__dict__.setdefault("_replica_graphs", {})
+        graph = graphs.get(ctx)
+        if graph is None or graph.replica_ids != [id(t) for t in
+                                                  params.values()]:
+            graph = graphs[ctx] = _CachedGraph(
+                self, self.__dict__["_cached_graph"].remat, params)
+        return graph
 
     def set_input_transform(self, fn):
         """Install a preprocessing function of NDArrays applied to the
@@ -451,6 +484,7 @@ class HybridBlock(Block):
         cached = self.__dict__.get("_cached_graph")
         if cached is not None:
             cached.clear()
+        self.__dict__.pop("_replica_graphs", None)
 
     def _apply_input_transform(self, args):
         """`args` with the input transform applied to the first, a
@@ -535,6 +569,46 @@ class HybridBlock(Block):
         return InferenceEngine(self, **kwargs)
 
 
+# -- parameters on several contexts ------------------------------------------
+
+_REPLICA = threading.local()
+
+
+def _replica_params(block, args, kwargs):
+    """(context, {name: copy}) when the first tensor among the call's
+    arguments belongs to a context on which `block`'s parameters have
+    copies other than themselves; else None (always inside a replica
+    call or a program: the outer call chose the tensors)."""
+    if getattr(_REPLICA, "on", False) or _in_program():
+        return None
+    params = block.named_parameters()
+    head = next(params, None)
+    if head is None or not head[1].__dict__.get("_replicas"):
+        return None
+    first = next((a for a in tree_flatten((args, kwargs))[0]
+                  if isinstance(a, torch.Tensor)), None)
+    if first is None:
+        return None
+    ctx = replica_of(first)
+    out = {}
+    for name, p in itertools.chain([head], params):
+        reps = p.__dict__.get("_replicas")
+        if not reps or ctx not in reps:
+            return None
+        out[name] = reps[ctx]
+    return ctx, out
+
+
+def _replica_call(block, params, args, kwargs):
+    """`block`'s call on the tensors `params` in place of its parameters
+    (its own `__call__` applies its input transform)."""
+    _REPLICA.on = True
+    try:
+        return torch.func.functional_call(block, params, tuple(args), kwargs)
+    finally:
+        _REPLICA.on = False
+
+
 # -- cached programs ---------------------------------------------------------
 
 _SCOPE = threading.local()
@@ -592,9 +666,14 @@ class _CachedGraph:
     #: eager calls of a signature before its capture
     WARMUP = 1
 
-    def __init__(self, block, remat):
+    def __init__(self, block, remat, replica=None):
         self.block = block
         self.remat = remat
+        #: {name: copy} of one context's parameter copies, or None for
+        #: the parameters themselves
+        self.replica = replica
+        self.replica_ids = None if replica is None else \
+            [id(t) for t in replica.values()]
         self.params = None
         self._param_keys = None
         self._warm = {}
@@ -613,6 +692,9 @@ class _CachedGraph:
         call's scope, with the tensors `params` (name -> tensor) in place
         of its parameters where given, and under checkpointing with
         `remat` while recording."""
+        if params is None:
+            params = self.replica
+
         def run(*a, **kw):
             with _ProgramScope(training, recording):
                 if params is None:
@@ -628,7 +710,9 @@ class _CachedGraph:
 
     def _check_params(self):
         if self.params is None:
-            self.named = list(self.block.named_parameters())
+            self.named = list(self.replica.items()) \
+                if self.replica is not None \
+                else list(self.block.named_parameters())
             self.params = [p for _, p in self.named]
             self.sparse_grads = any(
                 getattr(p, "grad_stype", "default") == "row_sparse"

@@ -76,11 +76,15 @@ class SparseEmbedding(Block):
 
 
 class SyncBatchNorm(BatchNorm):
-    """ref: contrib.nn.SyncBatchNorm.  On one device (`num_devices` None
-    or 1, no `axis_name`) it is BatchNorm over axis 1, as upstream MXNet
-    degrades at one device; statistics across devices raise an
-    MXNetError: the port's multi-device training is ROADMAP Queue 1
-    item 7."""
+    """ref: contrib.nn.SyncBatchNorm: BatchNorm over axis 1 whose batch
+    statistics span the replicas of a data-parallel group.  Run in the
+    replicas' threads of a group (`parallel.collectives.replica_sync`,
+    as `parallel.ShardedTrainer` at zero 0 and 1 does), its moments and
+    backward sums are summed across them (`ops.sync_batch_norm`); with
+    `axis_name` it must be (the JAX layer's shard_map axis); without one
+    and outside a group it is BatchNorm, as upstream MXNet degrades at
+    one device and the JAX layer is without an axis name.
+    `num_devices` is taken for the reference's signature."""
 
     def __init__(self, in_channels=0, num_devices=None, momentum=0.9,
                  epsilon=1e-5, center=True, scale=True,
@@ -88,12 +92,6 @@ class SyncBatchNorm(BatchNorm):
                  gamma_initializer="ones", running_mean_initializer="zeros",
                  running_variance_initializer="ones", axis_name=None,
                  device=None, dtype="float32"):
-        if (num_devices or 1) > 1 or axis_name:
-            raise MXNetError(
-                "SyncBatchNorm across %s devices (axis_name %r) needs the "
-                "port's multi-device training, ROADMAP Queue 1 item 7, "
-                "which is not yet ported; on one device it is BatchNorm"
-                % (num_devices, axis_name))
         super().__init__(
             axis=1, momentum=momentum, epsilon=epsilon, center=center,
             scale=scale, use_global_stats=use_global_stats,
@@ -102,6 +100,18 @@ class SyncBatchNorm(BatchNorm):
             running_mean_initializer=running_mean_initializer,
             running_variance_initializer=running_variance_initializer,
             in_channels=in_channels, device=device, dtype=dtype)
+        self._num_devices = num_devices
+        self._axis_name = axis_name
+
+    def forward(self, x, sums=None):
+        from ....parallel import collectives
+        if self._axis_name and self.batch_stats and \
+                collectives.current_sync() is None:
+            raise MXNetError(
+                "SyncBatchNorm(axis_name=%r) outside a replica group: run "
+                "it in the replicas' threads (parallel.collectives."
+                "replica_sync)" % (self._axis_name,))
+        return super().forward(x, sums)
 
 
 class _PixelShuffle(HybridBlock):

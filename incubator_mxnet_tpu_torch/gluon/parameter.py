@@ -37,6 +37,16 @@ the gradient; 'add' keeps adding to it until `zero_grad()`; 'null' is
 `requires_grad=False`, and the Trainer neither updates it nor creates
 optimizer state for it.
 
+Several contexts (`initialize(ctx=[gpu(0), gpu(1)])`, or CPU replicas
+`[cpu(0), ..., cpu(3)]`): the parameter itself is the copy on the first
+context and each other context has a copy of its own, a leaf tensor
+that `replica(ctx)` returns (with its `.grad`).  `list_data`,
+`list_grad` and `list_ctx` list every copy in context order; `set_data`,
+`zero_grad`, `cast` and loading write every copy.  A block called with
+inputs of another context (`gluon.utils.split_and_load`'s slices) runs
+on that context's copies (`gluon.block`), and a `Trainer` sums the
+copies' gradients through its kvstore.
+
 `set_data`, `cast`, `reset_ctx`, materialisation and a forced
 re-initialization mark the parameter (`touch`), so that the captured
 programs that read it (`HybridBlock.hybridize`, `Trainer`) are captured
@@ -118,18 +128,25 @@ def cast_parameter(param, dtype):
         touch(param)
 
 
-def _one_device(ctx):
-    """The single device of `ctx` (a device, its name, or a list of one);
-    None means `current_device()`."""
+def _contexts(ctx):
+    """The contexts of `ctx` (a device, its name, or a list of them) as a
+    list; None means [`current_device()`]."""
+    from ..context import _norm
     if ctx is None:
-        return current_device()
-    if isinstance(ctx, (list, tuple)):
-        if len(ctx) != 1:
-            raise NotImplementedError(
-                "parameters on %d devices need a kvstore, which is not yet "
-                "ported" % len(ctx))
-        ctx = ctx[0]
-    return resolve_device(ctx)
+        return [current_device()]
+    ctxs = list(ctx) if isinstance(ctx, (list, tuple)) else [ctx]
+    if not ctxs:
+        raise MXNetError("ctx must name at least one device")
+    out = [_norm(resolve_device(c)) for c in ctxs]
+    if len(set(out)) != len(out):
+        raise MXNetError("ctx lists a context twice: %s" % out)
+    return out
+
+
+def _one_device(ctx):
+    """The first device of `ctx`; None means `current_device()`."""
+    dev = _contexts(ctx)[0]
+    return torch.device("cpu") if dev.type == "cpu" else dev
 
 
 class Parameter(nn.Parameter):
@@ -225,7 +242,8 @@ class Parameter(nn.Parameter):
         forward.  An initialized parameter warns and keeps its data
         unless `force_reinit`."""
         default_init = default_init or init_mod.Uniform()
-        dev = _one_device(ctx)
+        ctxs = _contexts(ctx)
+        dev = _one_device(ctxs)
         if not is_deferred(self):
             if not force_reinit:
                 warnings.warn("parameter %s is already initialized, "
@@ -236,8 +254,10 @@ class Parameter(nn.Parameter):
                 self.data = self.data.to(dev)
                 self.grad = None
             self._fill(init, default_init)
+            self._set_contexts(ctxs)
             touch(self)
             return
+        self._note_contexts(ctxs)
         if not self._shape_known():
             if not self.allow_deferred_init:
                 raise MXNetError(
@@ -250,6 +270,46 @@ class Parameter(nn.Parameter):
             return
         self._materialize(dev)
         self._fill(init, default_init)
+        self._set_contexts(ctxs)
+
+    @torch.no_grad()
+    def _set_contexts(self, ctxs):
+        """Keep a copy of the data on each context after the first."""
+        self._note_contexts(ctxs)
+        reps = {}
+        for c in ctxs[1:]:
+            dev = torch.device("cpu") if c.type == "cpu" else c
+            reps[c] = self.detach().to(dev, copy=True).requires_grad_(
+                self.requires_grad)
+        self.__dict__["_replicas"] = reps
+
+    def _note_contexts(self, ctxs):
+        """Record several contexts (one is the tensor's own device, which
+        `list_ctx` reads, so that a move of the module stays seen)."""
+        if len(ctxs) > 1:
+            self.__dict__["_ctx_list"] = list(ctxs)
+        else:
+            self.__dict__.pop("_ctx_list", None)
+
+    def _copies(self):
+        """[this tensor] and its copies on the other contexts."""
+        return [self] + list(self.__dict__.get("_replicas", {}).values())
+
+    def replica(self, ctx):
+        """The copy on context `ctx` (this tensor for the first
+        context); its `.grad` is that copy's gradient (MXNet's
+        `data(ctx)` and `grad(ctx)`)."""
+        from ..context import _norm
+        self._check_initialized()
+        c = _norm(resolve_device(ctx))
+        ctxs = self.list_ctx()
+        if c == ctxs[0]:
+            return self
+        reps = self.__dict__.get("_replicas", {})
+        if c not in reps:
+            raise MXNetError("parameter %s has no copy on %s (its contexts: "
+                             "%s)" % (self.name, c, ctxs))
+        return reps[c]
 
     def _materialize(self, dev):
         """Allocate the tensor (uninitialized values) on `dev` and become
@@ -279,6 +339,8 @@ class Parameter(nn.Parameter):
         init, default_init = self._deferred_init
         self._materialize(self.data.device)
         self._fill(init, default_init)
+        self._set_contexts(self.__dict__.get("_ctx_list")
+                           or [self.device])
 
     def _check_initialized(self):
         if not is_deferred(self):
@@ -297,7 +359,7 @@ class Parameter(nn.Parameter):
     def list_data(self):
         """[the tensor] (MXNet's `data()`; torch's `.data` is kept)."""
         self._check_initialized()
-        return [self]
+        return self._copies()
 
     def list_grad(self):
         """[the gradient], or [] for grad_req 'null' or before the first
@@ -308,6 +370,12 @@ class Parameter(nn.Parameter):
         self._check_initialized()
         if self.grad_stype == "row_sparse" and self.grad_req != "null":
             return [self._row_sparse_grad()]
+        copies = self._copies()
+        if len(copies) > 1 and self.grad_req != "null":
+            for t in copies:
+                if t.grad is None:
+                    t.grad = torch.zeros_like(t)
+            return [t.grad for t in copies]
         return [] if self.grad is None else [self.grad]
 
     def _row_sparse_grad(self):
@@ -324,10 +392,11 @@ class Parameter(nn.Parameter):
         return sparse.from_torch_sparse(g)
 
     def list_ctx(self):
+        ctxs = self.__dict__.get("_ctx_list")
         if is_deferred(self) and self._deferred_init is not None:
-            return [self.data.device]
+            return list(ctxs) if ctxs else [self.data.device]
         self._check_initialized()
-        return [self.device]
+        return list(ctxs) if ctxs else [self.device]
 
     def zero_grad(self):
         """Zero the gradient; a row_sparse one becomes empty (no rows)."""
@@ -335,8 +404,10 @@ class Parameter(nn.Parameter):
                 and not is_deferred(self):
             from ..ndarray.sparse import empty_coo
             self.grad = empty_coo(self.shape, self.dtype, self.device)
-        elif self.grad is not None:
-            self.grad.zero_()
+        else:
+            for t in self._copies():
+                if t.grad is not None:
+                    t.grad.zero_()
 
     @torch.no_grad()
     def set_data(self, data):
@@ -350,7 +421,10 @@ class Parameter(nn.Parameter):
                 raise MXNetError("parameter %s has not been initialized"
                                  % self.name)
             self._materialize(self.data.device)
-        self.data.copy_(data)
+            self._set_contexts(self.__dict__.get("_ctx_list")
+                               or [self.device])
+        for t in self._copies():
+            t.data.copy_(data)
         touch(self)
 
     def _load_and_set(self, data, ctx=None):
@@ -360,28 +434,35 @@ class Parameter(nn.Parameter):
         if is_deferred(self):
             self._set_shape(data.shape)
             if ctx is not None:
-                dev = _one_device(ctx)
+                ctxs = _contexts(ctx)
             elif self._deferred_init is not None:
-                dev = self.data.device
+                ctxs = self.__dict__.get("_ctx_list") or [self.data.device]
             else:
-                dev = current_device()
-            self._materialize(dev)
+                ctxs = [current_device()]
+            self._materialize(_one_device(ctxs))
+            self._set_contexts(ctxs)
         self.set_data(data)
 
     def reset_ctx(self, ctx):
         """Move the data (or the recorded device of a deferred one) to
         `ctx`."""
-        dev = _one_device(ctx)
+        ctxs = _contexts(ctx)
         if is_deferred(self) and self._deferred_init is None:
             self._check_initialized()
-        self.data = self.data.to(dev)
+        self.data = self.data.to(_one_device(ctxs))
         self.grad = None
+        if is_deferred(self):
+            self._note_contexts(ctxs)
+        else:
+            self._set_contexts(ctxs)
         touch(self)
 
     def cast(self, dtype):
         """Cast in place to `dtype`, keeping the object; its gradient is
         dropped.  Before materialisation, the dtype to allocate."""
         cast_parameter(self, dtype)
+        if not is_deferred(self) and self.__dict__.get("_replicas"):
+            self._set_contexts(self.list_ctx())
 
     def __deepcopy__(self, memo):
         if id(self) in memo:

@@ -26,9 +26,21 @@ sets `_scale` to the loss scale's inverse, which `update` folds into
 `rescale_grad`.  `save_states`/`load_states` write and read the
 optimizer's states with the optimizer itself (scheduler and update
 counts included), as the JAX Trainer does; after `load_states`,
-`trainer.optimizer` is the loaded one.  With one device there is no
-kvstore; parameters on several devices, or a `dist` kvstore, raise
-"not yet ported".
+`trainer.optimizer` is the loaded one.
+
+Parameters on several contexts (`initialize(ctx=[...])`) must all have
+the same ones.  As in the JAX Trainer, a kvstore (`kvstore`, by default
+"device"; see `kvstore.create`) is made at the first step when there
+are several contexts or the kvstore is a `dist` one; with one context
+and an in-process kvstore there is none.  `step` then sums each
+parameter's gradients over its copies (and the workers) with
+`pushpull` (`allreduce_grads`), updates the first context's copy as
+below and copies the result to the others, which is what the JAX
+Trainer's per-context updaters compute.  With `update_on_kvstore=True`
+the store runs the optimizer: `step` pushes the gradients and pulls the
+updated weight into every copy (the store's update is the optimizer's
+per-parameter one).  `compression_params` go to the dist store's
+`set_gradient_compression`.
 
 Each `step` runs the optimizer's host bookkeeping (`Optimizer._hypers`:
 update counts, the scheduler's lr, the multipliers, and the per-step
@@ -69,6 +81,7 @@ dense parameters alone make, so it stays the same from step to step.
 """
 from __future__ import annotations
 
+import torch
 from torch import nn
 
 from .. import autograd as _ag
@@ -93,20 +106,19 @@ class Trainer:
             if not isinstance(p, nn.Parameter):
                 raise MXNetError("invalid parameter %r" % (p,))
         self._params = list(params)
-        devices = {d for p in self._params
-                   for d in (p.list_ctx() if isinstance(p, Parameter)
-                             else [p.device])}
-        if len(devices) > 1:
-            raise NotImplementedError(
-                "Trainer over parameters on several devices (%s) needs a "
-                "kvstore, which is not yet ported"
-                % ", ".join(sorted(map(str, devices))))
-        if isinstance(kvstore, str) and kvstore.startswith("dist"):
-            raise NotImplementedError("kvstore %r is not yet ported"
-                                      % kvstore)
-        if compression_params or update_on_kvstore:
-            raise NotImplementedError("gradient compression and "
-                                      "update_on_kvstore are not yet ported")
+        contexts = None
+        for p in self._params:
+            ctx = p.list_ctx() if isinstance(p, Parameter) else [p.device]
+            if contexts is not None and contexts != ctx:
+                raise MXNetError("all Parameters must live on the same "
+                                 "contexts (%s and %s)" % (contexts, ctx))
+            contexts = ctx
+        self._contexts = contexts or []
+        self._kvstore_type = kvstore
+        self._compression_params = compression_params
+        self._update_on_kvstore = update_on_kvstore
+        self._kvstore = None
+        self._kv_initialized = False
         optimizer_params = dict(optimizer_params or {})
         self._scale = float(optimizer_params.get("rescale_grad", 1.0))
         if isinstance(optimizer, opt_mod.Optimizer):
@@ -139,20 +151,95 @@ class Trainer:
     def optimizer(self):
         return self._optimizer
 
+    def _init_kvstore(self):
+        """The kvstore, as the JAX Trainer makes it (module doc)."""
+        from .. import kvstore as kv_mod
+        kind = self._kvstore_type
+        is_dist = isinstance(kind, str) and kind.startswith("dist")
+        if kind is None or (len(self._contexts) <= 1 and not is_dist):
+            self._kvstore = None
+            self._update_on_kvstore = False
+        else:
+            self._kvstore = kind if isinstance(kind, kv_mod.KVStore) else \
+                kv_mod.create(kind if isinstance(kind, str) else "device")
+            if self._compression_params:
+                self._kvstore.set_gradient_compression(
+                    self._compression_params)
+            self._update_on_kvstore = bool(self._update_on_kvstore)
+            if self._update_on_kvstore:
+                self._kvstore.set_optimizer(self._optimizer)
+            for i, p in enumerate(self._params):
+                if not is_deferred(p):
+                    self._kvstore.init(i, p)
+        self._kv_initialized = True
+
+    def _live(self, p):
+        return p.requires_grad and not is_deferred(p)
+
+    def _grads(self, i, p):
+        """Every copy's gradient of parameter `i` (zeros where no backward
+        reached it), with the store holding its key."""
+        if i not in self._kvstore._store:
+            self._kvstore.init(i, p)
+        copies = p.list_data() if isinstance(p, Parameter) else [p]
+        for t in copies:
+            if t.grad is None:
+                t.grad = _ag.grad_buffer(t).zero_() if t is p \
+                    else torch.zeros_like(t)
+        return [t.grad for t in copies]
+
     def step(self, batch_size, ignore_stale_grad=False):
-        """Rescale gradients by 1 / batch_size and update (ref:
-        Trainer.step; with one device there is nothing to allreduce)."""
+        """Rescale gradients by 1 / batch_size, sum them over the
+        contexts and workers (`allreduce_grads`) and update (ref:
+        Trainer.step)."""
+        if not self._kv_initialized:
+            self._init_kvstore()
+        self._optimizer.rescale_grad = self._scale / batch_size
+        if not self._update_on_kvstore:
+            # with the update in the store, the store sums the pushes
+            self.allreduce_grads()
         self.update(batch_size, ignore_stale_grad)
 
     def allreduce_grads(self):
-        """One device: nothing to reduce."""
+        """Each parameter's gradients summed over its copies (and the
+        workers), written back into every copy (`pushpull`)."""
+        if not self._kv_initialized:
+            self._init_kvstore()
+        if self._kvstore is None:
+            return
+        for i, p in enumerate(self._params):
+            if self._live(p) and getattr(p, "grad_stype",
+                                         "default") == "default":
+                grads = self._grads(i, p)
+                self._kvstore.pushpull(i, grads, out=grads)
 
     def update(self, batch_size, ignore_stale_grad=False):
         """Update every parameter that requires grad.  A parameter that no
         backward reached is updated with a zero gradient, its persistent
         buffer zeroed, as the JAX Trainer updates it from its zero-filled
-        gradient; `ignore_stale_grad` changes nothing, as there."""
+        gradient; `ignore_stale_grad` changes nothing, as there.  The
+        other contexts' copies take the first's result."""
+        if not self._kv_initialized:
+            self._init_kvstore()
         self._optimizer.rescale_grad = self._scale / batch_size
+        if self._update_on_kvstore and self._kvstore is not None:
+            for i, p in enumerate(self._params):
+                if self._live(p):
+                    self._kvstore.push(i, self._grads(i, p))
+                    with torch.no_grad():
+                        self._kvstore.pull(i, out=p.list_data() if
+                                           isinstance(p, Parameter) else p)
+            return
+        self._update_first()
+        if len(self._contexts) > 1:
+            with torch.no_grad():
+                for p in self._params:
+                    if self._live(p):
+                        for t in p.list_data()[1:]:
+                            t.copy_(p)
+
+    def _update_first(self):
+        """The update of the first context's copies (module doc)."""
         live, sparse = [], []
         for i, p in enumerate(self._params):
             if not p.requires_grad or is_deferred(p):

@@ -1,6 +1,6 @@
 """Gluon utilities of the PyTorch port (counterpart of
-incubator_mxnet_tpu/gluon/utils.py): `split_data`, `split_and_load` (one
-device), `clip_global_norm`, `check_sha1` and `download`.
+incubator_mxnet_tpu/gluon/utils.py): `split_data`, `split_and_load`,
+`clip_global_norm`, `check_sha1` and `download`.
 """
 from __future__ import annotations
 
@@ -13,7 +13,7 @@ import numpy as np
 import torch
 
 from ..base import MXNetError
-from ..context import resolve_device
+from ..context import resolve_device, tag_replica
 
 __all__ = ["split_data", "split_and_load", "clip_global_norm",
            "check_sha1", "download"]
@@ -37,17 +37,26 @@ def split_data(data, num_slice, batch_axis=0, even_split=True):
 
 
 def split_and_load(data, ctx_list, batch_axis=0, even_split=True):
-    """`data` (a tensor or an array) on the device of `ctx_list`, as a
-    list of one.  Several devices need the kvstore, which is not yet
-    ported."""
+    """`data` (a tensor, an NDArray or an array) split along
+    `batch_axis` into one slice per context of `ctx_list`, each a tensor
+    on its context's device (`split_data`); a CPU replica's slice
+    carries its context (`context.tag_replica`), so that a block called
+    on it runs on that context's parameter copies."""
+    from ..ndarray.ndarray import NDArray
     if not isinstance(ctx_list, (list, tuple)):
         ctx_list = [ctx_list]
-    if len(ctx_list) != 1:
-        raise NotImplementedError("split_and_load over %d devices is not "
-                                  "yet ported" % len(ctx_list))
+    if isinstance(data, NDArray):
+        data = data._data
     if not isinstance(data, torch.Tensor):
         data = torch.as_tensor(np.asarray(data))
-    return [data.to(resolve_device(ctx_list[0]))]
+    if len(ctx_list) == 1:
+        return [data.to(resolve_device(ctx_list[0]))]
+    out = []
+    for piece, ctx in zip(split_data(data, len(ctx_list), batch_axis,
+                                     even_split), ctx_list):
+        dev = resolve_device(ctx)
+        out.append(tag_replica(piece.to(dev, copy=True), dev))
+    return out
 
 
 @torch.no_grad()

@@ -22,9 +22,17 @@ the current step runs, uint8 on the wire.
    the feed copies a numpy leaf (`torch.from_numpy` aliases, and the
    decode service recycles its slabs).
 
-`sharding=` raises `NotImplementedError`: placing a batch across devices
-waits for the port's sharded trainer.  ``MXNET_FEED_ASYNC=0`` reads and
-places in the consumer (same counters, no thread).
+4. **Placement on a mesh.**  With `sharding=` (a
+   `parallel.NamedSharding` whose spec splits dimension 0 along a mesh
+   axis, or replicates with `P()`), each leaf comes back as a
+   `parallel.Shards`: one NDArray per replica of the mesh, holding that
+   replica's rows (or the whole leaf), placed on its device as above,
+   through a staging ring and a copy stream per card; a CPU replica's
+   piece carries its context (`context.tag_replica`).
+   `ShardedTrainer.step` takes such leaves as they are.
+
+``MXNET_FEED_ASYNC=0`` reads and places in the consumer (same counters,
+no thread).
 
 Counters on `monitor.events` (microseconds, bytes, counts):
 
@@ -189,7 +197,8 @@ class DeviceFeed:
         not callable and has ``reset()`` is reset between epochs.
     ctx: the target device (default `cuda:0`); batches come back as
         NDArrays on it.
-    sharding: not yet ported (raises `NotImplementedError`).
+    sharding: a `parallel.NamedSharding` to place each batch across the
+        replicas of its mesh (module doc, 4.), instead of `ctx`.
     depth: batches in flight and pinned staging slots (default
         ``MXNET_FEED_DEPTH``).
     transform: a host function applied to each raw batch in the thread
@@ -201,11 +210,18 @@ class DeviceFeed:
 
     def __init__(self, source, ctx=None, sharding=None, depth=None,
                  transform=None):
-        if sharding is not None:
-            raise NotImplementedError(
-                "DeviceFeed(sharding=...): placing a batch across devices "
-                "waits for the port's sharded trainer; pass ctx=")
         from ..context import resolve_device
+        self._replicas = None
+        if sharding is not None:
+            from ..parallel.mesh import mesh_devices
+            spec = tuple(sharding.spec)
+            if any(a is not None for a in spec[1:]):
+                raise NotImplementedError(
+                    "DeviceFeed(sharding=%r): only the batch dimension "
+                    "(dim 0) is split across replicas" % (sharding,))
+            self._split_rows = bool(spec) and spec[0] is not None
+            self._replicas = mesh_devices(sharding.mesh)
+            ctx = self._replicas[0]
         # resolved here, not in the thread
         self._device = resolve_device(ctx)
         self._source = source
@@ -214,6 +230,7 @@ class DeviceFeed:
                                  else _cfg.get("MXNET_FEED_DEPTH")))
         self._async = bool(_cfg.get("MXNET_FEED_ASYNC"))
         self._stager = None
+        self._stagers = {}
         self._gen = 0               # epoch generation; bumping it
         self._q = None              # retires the thread at its next put
         self._thread = None
@@ -248,6 +265,9 @@ class DeviceFeed:
         hosts = [self._host(l) for l in leaves]
         nbytes = sum(int(h.nbytes) if isinstance(h, _np.ndarray)
                      else h.numel() * h.element_size() for h in hosts)
+        if self._replicas is not None:
+            placed, evs = self._place_shards(hosts)
+            return tree_unflatten(placed, spec), evs, nbytes
         if self._device.type != "cuda":
             out = [torch.from_numpy(_np.array(h, copy=True))
                    if isinstance(h, _np.ndarray) else h.to(self._device)
@@ -258,11 +278,63 @@ class DeviceFeed:
         out, ev = self._stager.place(hosts)
         return tree_unflatten(out, spec), ev, nbytes
 
+    def _place_shards(self, hosts):
+        """Per leaf, a `Shards` of the replicas' pieces on their devices;
+        and the copies' events (None without a card)."""
+        import torch
+        from ..context import tag_replica
+        from ..parallel.mesh import Shards
+        n = len(self._replicas)
+        per, evs = [], []
+        for r, dev in enumerate(self._replicas):
+            pieces = []
+            for h in hosts:
+                if self._split_rows:
+                    if h.shape[0] % n:
+                        raise ValueError(
+                            "a batch of %d rows does not split over %d "
+                            "replicas" % (h.shape[0], n))
+                    rows = h.shape[0] // n
+                    h = h[r * rows:(r + 1) * rows]
+                pieces.append(h)
+            if dev.type != "cuda":
+                out = [tag_replica(torch.from_numpy(_np.array(h, copy=True))
+                                   if isinstance(h, _np.ndarray)
+                                   else h.to("cpu", copy=True), dev)
+                       for h in pieces]
+            else:
+                stager = self._stagers.get(dev)
+                if stager is None:
+                    stager = self._stagers[dev] = _Stager(dev, self._depth)
+                out, ev = stager.place(pieces)
+                evs.append(ev)
+            per.append(out)
+        return ([Shards(per[r][i] for r in range(n))
+                 for i in range(len(hosts))], evs or None)
+
     def _deliver(self, placed, ev):
         """The consumer's side: its stream waits on the copy's event, each
         tensor is marked as used by that stream, NDArrays come out."""
         from torch.utils._pytree import tree_flatten, tree_map
         from ..ndarray.ndarray import _wrap
+        if isinstance(ev, list):
+            import torch
+            from ..parallel.mesh import Shards
+            leaves, _ = tree_flatten(
+                placed, is_leaf=lambda x: isinstance(x, Shards))
+            for leaf in leaves:
+                for t in leaf:
+                    if t.is_cuda:
+                        stream = torch.cuda.current_stream(t.device)
+                        for e in ev:
+                            stream.wait_event(e)
+                        t.record_stream(stream)
+            return tree_map(lambda t: Shards(_wrap(x) for x in t), placed,
+                            is_leaf=lambda x: isinstance(x, Shards))
+        if self._replicas is not None:
+            from ..parallel.mesh import Shards
+            return tree_map(lambda t: Shards(_wrap(x) for x in t), placed,
+                            is_leaf=lambda x: isinstance(x, Shards))
         if ev is not None:
             import torch
             stream = torch.cuda.current_stream(self._device)

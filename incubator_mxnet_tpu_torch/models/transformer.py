@@ -44,8 +44,9 @@ class MultiHeadAttention(HybridBlock):
                              % (units, num_heads))
         if seq_parallel is not None:
             raise NotImplementedError(
-                "MultiHeadAttention(seq_parallel=...) ring attention is not "
-                "yet ported")
+                "MultiHeadAttention(seq_parallel=...): ring and Ulysses "
+                "attention are not yet ported; they come with slice 23 of "
+                "the port (ROADMAP Queue 1 item 7)")
         self._units = units
         self._num_heads = num_heads
         dev = resolve_device(device)

@@ -35,7 +35,7 @@ import torch
 from .. import autograd as _ag
 from .. import random as _rnd
 from ..base import nd_dtype
-from ..context import resolve_device
+from ..context import resolve_device, tag_replica
 from ..ops import registry as _registry
 from ..ops.tensor import _take_slice
 
@@ -196,6 +196,8 @@ class NDArray:
             data = data._data
         dt = nd_dtype(dtype)
         if isinstance(data, torch.Tensor):
+            if ctx is None:
+                ctx = getattr(data, "_mx_ctx", None)
             t = data.detach()
             dev = t.device if ctx is None else resolve_device(ctx)
             t = t.to(device=dev, dtype=_X64.get(t.dtype, t.dtype)
@@ -210,6 +212,8 @@ class NDArray:
             t = torch.from_numpy(_np.array(npd, copy=True))
             t = t.to(device=resolve_device(ctx),
                      dtype=_X64.get(t.dtype, t.dtype) if dt is None else dt)
+        if ctx is not None:
+            tag_replica(t, torch.device(ctx))
         self._data = t
         self._grad = None
         self._grad_req = None
@@ -250,7 +254,9 @@ class NDArray:
 
     @property
     def context(self):
-        return self._data.device
+        """The array's device, or the replica context (`cpu(i)`) its
+        tensor was marked with (`context.tag_replica`)."""
+        return getattr(self._data, "_mx_ctx", None) or self._data.device
 
     ctx = context
 
@@ -324,9 +330,10 @@ class NDArray:
 
     def as_in_context(self, ctx):
         dev = resolve_device(ctx)
-        if dev == self._data.device:
+        if dev == self.context:
             return self
-        return _wrap(self._data.detach().to(dev))
+        return _wrap(tag_replica(self._data.detach().to(dev, copy=True),
+                                 dev))
 
     as_in_ctx = as_in_context
 

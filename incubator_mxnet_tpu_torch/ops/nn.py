@@ -251,14 +251,23 @@ def _moments(s1, s2, n):
 class _BNTrain(torch.autograd.Function):
     """Training BatchNorm (out, mean, var) over channel `axis`.  With
     `s1` None the statistics come from x (`_bn_stats`); otherwise from
-    the sums s1 = Σx, s2 = Σx² of n values per channel.  Saves x, gamma,
-    mean and 1/std; the statistics are non-differentiable outputs and
-    their cotangents are ignored."""
+    the sums s1 = Σx, s2 = Σx² of n values per channel.  With `sync` =
+    (replica group, local rank) the statistics span the group's
+    replicas: the per-channel Σx, Σx² and n (the fused convolution's
+    sums where given) are summed across them, and so are the backward's
+    two per-channel sums, as the JAX package's `_bn_train_sync` does
+    with psum; the gradients of gamma and beta stay this replica's own
+    (the trainer sums them with the others).  Saves x, gamma, mean and
+    1/std; the statistics are non-differentiable outputs and their
+    cotangents are ignored."""
 
     @staticmethod
-    def forward(ctx, x, g, b, axis, eps, s1, s2, n):
+    def forward(ctx, x, g, b, axis, eps, s1, s2, n, sync):
         bshape = _bcast_shape(x, axis)
-        if s1 is None:
+        n_all = n
+        if sync is not None:
+            mean, var, n_all = _sync_moments(x, axis, s1, s2, n, sync)
+        elif s1 is None:
             mean, var = _bn_stats(x, axis)
         else:
             mean, var = _moments(s1, s2, n)
@@ -270,6 +279,7 @@ class _BNTrain(torch.autograd.Function):
         out = x * scale.to(x.dtype) + shift.to(x.dtype)
         ctx.save_for_backward(x, g, mean, inv)
         ctx.axis = axis
+        ctx.sync, ctx.n_all = sync, n_all
         ctx.mark_non_differentiable(mean, var)
         return out, mean, var
 
@@ -286,11 +296,39 @@ class _BNTrain(torch.autograd.Function):
         xhat = (x.to(acc) - mean.reshape(bshape)) * inv.reshape(bshape)
         dbeta = dy32.sum(dim=red)
         dgamma = (dy32 * xhat).sum(dim=red)
-        m1 = (dbeta / n).reshape(bshape)
-        m2 = (dgamma / n).reshape(bshape)
+        sb, sg = dbeta, dgamma
+        if ctx.sync is not None:
+            group, rank = ctx.sync
+            sb, sg = group.lockstep_all_reduce(
+                rank, torch.stack([dbeta, dgamma]))
+            n = ctx.n_all
+        m1 = (sb / n).reshape(bshape)
+        m2 = (sg / n).reshape(bshape)
         dx = (g.to(acc) * inv).reshape(bshape) * (dy32 - m1 - xhat * m2)
         return (dx.to(x.dtype), dgamma.to(g.dtype), dbeta.to(g.dtype), None,
-                None, None, None, None)
+                None, None, None, None, None)
+
+
+def _sync_moments(x, axis, s1, s2, n, sync):
+    """(mean, biased variance, n) over every replica of `sync`'s group:
+    the per-channel sums Σx, Σx² (the given ones, else x's) and the
+    count n summed across the replicas."""
+    group, rank = sync
+    if s1 is None:
+        red = tuple(i for i in range(x.ndim) if i != axis)
+        x32 = x.to(_bn_acc(x))
+        s1, s2 = x32.sum(dim=red), x32.square().sum(dim=red)
+        n = x.numel() // x.shape[axis]
+    s1 = s1.reshape(-1)
+    local = torch.cat([s1, s2.reshape(-1).to(s1.dtype),
+                       torch.full((1,), float(n), dtype=s1.dtype,
+                                  device=s1.device)])
+    tot = group.lockstep_all_reduce(rank, local)
+    c = s1.shape[0]
+    n_all = tot[2 * c:]
+    mean = tot[:c] / n_all
+    return (mean, torch.clamp_min(tot[c:2 * c] / n_all - mean.square(), 0.0),
+            n_all)
 
 
 def batch_norm(data, gamma, beta, moving_mean, moving_var, eps=1e-3,
@@ -300,13 +338,17 @@ def batch_norm(data, gamma, beta, moving_mean, moving_var, eps=1e-3,
     `training` and not `use_global_stats`, the batch statistics
     normalize (taken from `sums` = (Σx, Σx², n) when given, else from
     data; ignored otherwise); otherwise the moving ones.  `fix_gamma`
-    treats gamma as 1.  The caller updates the moving statistics
-    (`momentum` is taken for the JAX signature and not used here)."""
+    treats gamma as 1.  Inside `parallel.collectives.replica_sync` the
+    batch statistics span the replicas of its group (`_BNTrain`).  The
+    caller updates the moving statistics (`momentum` is taken for the
+    JAX signature and not used here)."""
     axis = axis % data.ndim
     g = torch.ones_like(gamma) if fix_gamma else gamma
     if training and not use_global_stats:
+        from ..parallel import collectives
         s1, s2, n = sums if sums is not None else (None, None, 0)
-        return _BNTrain.apply(data, g, beta, axis, eps, s1, s2, n)
+        return _BNTrain.apply(data, g, beta, axis, eps, s1, s2, n,
+                              collectives.current_sync())
     bshape = _bcast_shape(data, axis)
     acc = _bn_acc(data)
     mean = moving_mean.to(acc)
@@ -379,17 +421,21 @@ def lrn(data, alpha=1e-4, beta=0.75, knorm=2.0, nsize=5):
 def sync_batch_norm(data, gamma, beta, moving_mean, moving_var, eps=1e-3,
                     momentum=0.9, fix_gamma=True, use_global_stats=False,
                     axis=1, ndev=1, axis_name="", training=True):
-    """BatchNorm whose batch statistics span every device of a
-    data-parallel group.  On one device (`ndev` 1 and no `axis_name`) it
-    is `batch_norm`, as upstream MXNet degrades at ndev=1; across devices
-    it raises: the port's multi-device training (ROADMAP Queue 1, item 7)
-    is not yet written."""
-    if ndev > 1 or axis_name:
+    """BatchNorm whose batch statistics span every replica of a
+    data-parallel group.  With `axis_name` the caller's thread must be a
+    replica of a group (`parallel.collectives.replica_sync`, as the JAX
+    op runs under its shard_map axis), whose replicas' moments and
+    backward sums it sums; without one it is `batch_norm`, which also
+    syncs inside a group, as upstream MXNet degrades at ndev=1 and the
+    JAX op without an axis name is BatchNorm.  `ndev` is taken for the
+    reference's signature."""
+    from ..parallel import collectives
+    if axis_name and training and not use_global_stats and \
+            collectives.current_sync() is None:
         raise MXNetError(
-            "SyncBatchNorm across %s devices (axis_name %r) needs the "
-            "port's multi-device training, ROADMAP Queue 1 item 7, which "
-            "is not yet ported; on one device it is BatchNorm"
-            % (ndev, axis_name))
+            "SyncBatchNorm with axis_name %r outside a replica group: run "
+            "it in the replicas' threads (parallel.collectives."
+            "replica_sync, as parallel.ShardedTrainer does)" % (axis_name,))
     return batch_norm(data, gamma, beta, moving_mean, moving_var, eps,
                       momentum, fix_gamma, use_global_stats, axis, training)
 
@@ -921,8 +967,8 @@ def _sync_batch_norm_op(data, gamma, beta, moving_mean, moving_var,
                         use_global_stats=False, output_mean_var=False,
                         axis=1, ndev=1, key="", axis_name="",
                         _training=True):
-    """BatchNorm on one device; across devices it raises
-    (`sync_batch_norm`)."""
+    """BatchNorm with statistics across the replicas of the caller's
+    group (`sync_batch_norm`)."""
     return sync_batch_norm(data, gamma, beta, moving_mean, moving_var, eps,
                            momentum, fix_gamma, use_global_stats, axis,
                            ndev, axis_name, training=_training)

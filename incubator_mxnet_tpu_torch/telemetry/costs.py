@@ -24,12 +24,17 @@ no counterpart for a CUDA graph, so a row carries:
 The FLOP and bytes-accessed fields of the JAX rows come from XLA's cost
 analysis; a captured program has none, so they stay 0 with
 ``analyzed=False``.  `MeteredJit` (the training side) is not ported.
+
+`note_collective` registers a ZeRO bucket's collective (a reduce-scatter,
+an all-gather or an all-reduce of one bucket, `parallel/zero.py`) with
+its bytes on the wire as ``bytes_accessed``, kind "collective", as the
+JAX package's rows do.
 """
 from __future__ import annotations
 
 import threading
 
-__all__ = ["note_program", "invoke", "table", "totals", "snapshot",
+__all__ = ["note_program", "note_collective", "invoke", "table", "totals", "snapshot",
            "reset", "footprint_bytes", "drop_rows"]
 
 _LOCK = threading.Lock()
@@ -58,6 +63,23 @@ def note_program(kind, label, sig=None, group=None, param_bytes=0,
            "temp_measured": pool_bytes is not None}
     if sig is not None:
         row["sig"] = str(sig)
+    with _LOCK:
+        key = _NEXT[0]
+        _NEXT[0] += 1
+        _ROWS[key] = row
+    return key
+
+
+def note_collective(label, op, wire_bytes, n_shards, dtype="float32"):
+    """Register one bucket collective's row (module doc); returns its key
+    for `invoke()`."""
+    row = {"kind": "collective", "label": str(label), "flops": 0.0,
+           "bytes_accessed": float(wire_bytes), "analyzed": True,
+           "compile_wall_s": 0.0, "loaded": False, "invocations": 0,
+           "group": None, "param_bytes": 0, "argument_bytes": 0,
+           "output_bytes": 0, "temp_bytes": 0, "pool_bytes": None,
+           "temp_measured": False,
+           "sig": "%s[%d shards, %s]" % (op, int(n_shards), dtype)}
     with _LOCK:
         key = _NEXT[0]
         _NEXT[0] += 1

@@ -2007,3 +2007,91 @@ def test_sparse_trainer_update_keeps_the_dense_capture_on_card(card):
             tr.sparse_updates) == (1, 1, 3, 5)
     assert all(k == keys[0] for k in keys)
     assert emb.weight.grad.is_sparse
+
+
+def _dp_mlp(device):
+    nn = tmx.gluon.nn
+    tmx.random.seed(0)
+    net = nn.HybridSequential()
+    net.add(nn.Dense(32, activation="relu", in_units=16, device=device),
+            nn.Dense(4, in_units=32, device=device))
+    return net
+
+
+@pytest.mark.parametrize("zero", [0, 1, 2, 3])
+def test_sharded_trainer_on_card_matches_cpu(card, zero):
+    """One replica on the card (eager, captured, replayed steps) against
+    the same trainer on the CPU; a 2-replica zero-2 mesh on the card
+    against 2 CPU replicas."""
+    from incubator_mxnet_tpu_torch import parallel
+    rs = np.random.RandomState(0)
+    xs = [rs.randn(8, 16).astype(np.float32) for _ in range(4)]
+    ys = [rs.randint(0, 4, 8) for _ in range(4)]
+    for devs, cpus in ((["cuda:0"], ["cpu"]),
+                       (["cuda:0", "cuda:0"], [tmx.cpu(0), tmx.cpu(1)])):
+        z = zero if len(devs) == 1 else 2
+        runs = []
+        card_net = _dp_mlp("cuda:0")
+        cpu_net = _dp_mlp("cpu")
+        cpu_net.load_state_dict({k: v.cpu() for k, v in
+                                 card_net.state_dict().items()})
+        for mesh_devs, net in ((devs, card_net), (cpus, cpu_net)):
+            t = parallel.ShardedTrainer(
+                net, mesh=parallel.make_mesh(devices=mesh_devs),
+                zero=z, optimizer="adam", lr=0.01, wd=1e-4)
+            losses = [float(t.step(x, y)) for x, y in zip(xs, ys)]
+            runs.append((losses, t.params, t))
+        (cl, cp, ct), (hl, hp, _) = runs
+        np.testing.assert_allclose(cl, hl, rtol=1e-5, atol=1e-6)
+        for k, v in hp.items():
+            np.testing.assert_allclose(cp[k].cpu().numpy(), v.numpy(),
+                                       rtol=1e-4, atol=1e-6)
+        if len(devs) == 1:
+            assert (ct.eager_steps, ct.captures, ct.replays) == (1, 1, 2)
+
+
+def test_kvstore_paths_on_card_equal_cpu(card):
+    from incubator_mxnet_tpu_torch import kvstore
+    rs = np.random.RandomState(1)
+    vals = [rs.randn(6, 5).astype(np.float32) for _ in range(3)]
+    out = {}
+    for dev in ("cuda:0", "cpu"):
+        kv = kvstore.create("device")
+        kv.init("w", tmx.nd.zeros((6, 5), ctx=dev))
+        kv.set_optimizer(tmx.optimizer.create("sgd", learning_rate=0.1,
+                                              momentum=0.9))
+        kv.push("w", [tmx.nd.array(v, ctx=dev) for v in vals])
+        o = tmx.nd.zeros((6, 5), ctx=dev)
+        kv.pull("w", out=o)
+        r = tmx.nd.zeros((6, 5), ctx=dev)
+        kv.row_sparse_pull("w", out=r, row_ids=tmx.nd.array(
+            [4, 1], dtype="int32", ctx=dev))
+        a = [tmx.nd.array(v, ctx=dev) for v in vals]
+        kv.init("p", tmx.nd.zeros((6, 5), ctx=dev))
+        kv.pushpull("p", a, out=a)
+        out[dev] = (o.asnumpy(), r.asnumpy(), a[0].asnumpy())
+    for got, ref in zip(out["cuda:0"], out["cpu"]):
+        np.testing.assert_allclose(got, ref, rtol=1e-6, atol=1e-7)
+
+
+def test_gluon_loop_on_card_with_device_kvstore(card):
+    """Parameters on [gpu(0)]: the Gluon loop's kvstore paths bit for bit
+    the loop without one."""
+    res = []
+    for kv in (None, "device"):
+        net = _dp_mlp(None)
+        net.initialize(ctx=[tmx.gpu(0)])
+        tr = tmx.gluon.Trainer(net.collect_params(), "sgd", {
+            "learning_rate": 0.1, "momentum": 0.9}, kvstore=kv)
+        rs = np.random.RandomState(2)
+        for _ in range(3):
+            x = rs.randn(8, 16).astype(np.float32)
+            data = tmx.gluon.utils.split_and_load(x, [tmx.gpu(0)])
+            with tmx.autograd.record():
+                loss = net(data[0]).square().mean()
+            tmx.autograd.backward(loss)
+            tr.step(8)
+        res.append({k: p.detach().cpu() for k, p in
+                    net.collect_params().items()})
+    for k in res[0]:
+        assert torch.equal(res[0][k], res[1][k]), k

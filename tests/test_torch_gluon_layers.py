@@ -283,16 +283,29 @@ def test_ctc_loss_block_matches_jax():
 
 
 def test_sync_batch_norm_across_devices_raises():
-    """SyncBatchNorm is BatchNorm on one device; across devices, the
-    layer and the op raise an MXNetError that names the queue item."""
-    with pytest.raises(MXNetError, match="Queue 1 item 7"):
-        tmx.gluon.contrib.nn.SyncBatchNorm(num_devices=2)
-    with pytest.raises(MXNetError, match="Queue 1 item 7"):
-        tmx.gluon.contrib.nn.SyncBatchNorm(axis_name="data")
+    """SyncBatchNorm is BatchNorm outside a replica group (its statistics
+    across replicas: test_torch_gluon_multi.py); with an axis name the
+    layer and the op raise an MXNetError there while training."""
+    x = torch.from_numpy(np.random.RandomState(0).randn(4, 3, 2, 2)
+                         .astype(np.float32))
+    sbn = tmx.gluon.contrib.nn.SyncBatchNorm(num_devices=2, in_channels=3,
+                                             device="cpu")
+    bn = tmx.gluon.nn.BatchNorm(in_channels=3, device="cpu")
+    with tmx.autograd.record():
+        torch.testing.assert_close(sbn(x), bn(x))
+    named = tmx.gluon.contrib.nn.SyncBatchNorm(axis_name="data",
+                                               in_channels=3, device="cpu")
+    with pytest.raises(MXNetError, match="outside a replica group"):
+        with tmx.autograd.record():
+            named(x)
+    named(x)            # inference: the running statistics
     z = tmx.nd.zeros((2, 3), ctx="cpu")
     g = tmx.nd.ones((3,), ctx="cpu")
-    with pytest.raises(MXNetError, match="Queue 1 item 7"):
-        tmx.nd.contrib.SyncBatchNorm(z, g, g * 0, g * 0, g, ndev=2)
+    tmx.nd.contrib.SyncBatchNorm(z, g, g * 0, g * 0, g, ndev=2)
+    with pytest.raises(MXNetError, match="outside a replica group"):
+        with tmx.autograd.record():
+            tmx.nd.contrib.SyncBatchNorm(z, g, g * 0, g * 0, g, ndev=2,
+                                         axis_name="data")
 
 
 def test_layers_refuse_channel_last_layouts():

@@ -221,3 +221,65 @@ def test_sparse_modules_load_no_jax(tmp_path):
                          timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+# the data-parallel slice's modules: importing them loads neither JAX nor
+# the JAX package, and their entry points default to the card
+PARALLEL_MODULES = (
+    "base", "context", "kvstore", "kvstore.kvstore", "parallel",
+    "parallel.collectives", "parallel.mesh", "parallel.functional",
+    "parallel.zero", "parallel.dispatch", "parallel.trainer",
+    "tools", "tools.launch", "gluon.parameter", "gluon.trainer",
+    "gluon.utils", "io.device_feed", "ops.nn", "gluon.contrib.nn")
+
+
+def test_parallel_modules_load_no_jax(tmp_path):
+    env = dict(os.environ, PATH=str(tmp_path), CUDA_HOME=str(tmp_path),
+               PYTHONPATH=str(ROOT))
+    code = ("import importlib, sys\n"
+            "for n in %r:\n"
+            "    importlib.import_module('incubator_mxnet_tpu_torch.' + n)\n"
+            "import torch\n"
+            "import incubator_mxnet_tpu_torch as mx\n"
+            "mx.kv.create, mx.kvstore.DistKVStore, mx.base.ensure_distributed\n"
+            "mx.parallel.ShardedTrainer, mx.parallel.make_mesh\n"
+            "mx.parallel.BucketPlan, mx.parallel.DispatchPool\n"
+            "def in_group():\n"
+            "    import tempfile, torch.distributed as dist\n"
+            "    with mx.cpu():\n"
+            "        net = mx.gluon.nn.Dense(2, in_units=3)\n"
+            "        net.initialize()\n"
+            "    f = tempfile.mkdtemp() + '/store'\n"
+            "    dist.init_process_group('gloo', init_method='file://' + f,\n"
+            "                            world_size=1, rank=0)\n"
+            "    try:\n"
+            "        mx.parallel.ShardedTrainer(net)\n"
+            "    finally:\n"
+            "        dist.destroy_process_group()\n"
+            "if not torch.cuda.is_available():\n"
+            "    for fn in (mx.parallel.make_mesh,\n"
+            "               lambda: mx.gluon.Parameter('w', shape=(2,))\n"
+            "               .initialize(), in_group):\n"
+            "        try:\n"
+            "            fn()\n"
+            "        except mx.MXNetError:\n"
+            "            pass\n"
+            "        else:\n"
+            "            raise AssertionError('ran without a card')\n"
+            "for name in ('ResilientTrainer', 'ElasticTrainer',\n"
+            "             'pipeline_apply', 'moe_ffn', 'ring_attention',\n"
+            "             'ulysses_attention'):\n"
+            "    try:\n"
+            "        getattr(mx.parallel, name)()\n"
+            "    except NotImplementedError as e:\n"
+            "        assert 'slice 23' in str(e), e\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in\n"
+            "       ('jax', 'jaxlib', 'incubator_mxnet_tpu')]\n"
+            "assert not bad, bad\n"
+            "print('ok')" % (PARALLEL_MODULES,))
+    out = subprocess.run([sys.executable, "-c", code], cwd=str(tmp_path),
+                         env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+

@@ -425,8 +425,18 @@ def test_feed_recycled_slab_not_aliased():
 
 
 def test_feed_sharding_not_yet_ported():
-    with pytest.raises(NotImplementedError, match="sharded"):
-        tfeed.DeviceFeed(_batches(), sharding=object())
+    """`sharding=` places each replica's rows on its context (more in
+    test_torch_gluon_multi.py); a spec that splits another dimension is
+    not ported."""
+    from incubator_mxnet_tpu_torch import parallel as tpar
+    mesh = tpar.make_mesh(devices=[tmx.cpu(0), tmx.cpu(1)])
+    rows = [np.arange(8, dtype=np.float32).reshape(4, 2)]
+    (got,) = list(tfeed.DeviceFeed(rows, sharding=tpar.batch_sharded(mesh)))
+    assert [g.context for g in got] == [tmx.cpu(0), tmx.cpu(1)]
+    np.testing.assert_array_equal(got[1].asnumpy(), rows[0][2:])
+    with pytest.raises(NotImplementedError, match="batch dimension"):
+        tfeed.DeviceFeed(_batches(), sharding=tpar.NamedSharding(
+            mesh, tpar.P(None, "data")))
 
 
 @pytest.mark.parametrize("mean,std,dtype", [

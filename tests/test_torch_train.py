@@ -173,12 +173,20 @@ def test_optimizer_surface():
 
 
 def test_trainer_rejects_what_is_not_ported():
+    """Parameters on different devices are refused, as in the JAX Trainer
+    (several contexts are each parameter's copies: test_torch_gluon_multi
+    .py); a one-process dist kvstore is one worker that sums nothing."""
     p = torch.nn.Parameter(torch.ones(2))
     q = torch.nn.Parameter(torch.ones(2, device="meta"))
-    with pytest.raises(NotImplementedError, match="several devices"):
+    with pytest.raises(MXNetError, match="same contexts"):
         tmx.gluon.Trainer([p, q], "adam")
-    with pytest.raises(NotImplementedError, match="dist_sync"):
-        tmx.gluon.Trainer([p], "adam", kvstore="dist_sync")
+    d = torch.nn.Parameter(torch.ones(2))
+    dist = tmx.gluon.Trainer([d], "sgd", {"learning_rate": 0.5},
+                             kvstore="dist_sync")
+    d.grad = torch.ones(2)
+    dist.step(1)
+    assert dist._kvstore.num_workers == 1
+    torch.testing.assert_close(d.detach(), torch.full((2,), 0.5))
     with pytest.raises(MXNetError, match="dict or a list"):
         tmx.gluon.Trainer(p, "adam")
     tr = tmx.gluon.Trainer({"p": p}, "adam", {"learning_rate": 0.1})
