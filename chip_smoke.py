@@ -435,7 +435,46 @@ Drives incubator_mxnet_tpu_torch only (never JAX or the JAX package):
              update), bit for bit the parameters of kvstore=None (cuDNN
              deterministic); row_sparse_pull of card tensors and 2-bit
              compression of card gradients equal to the CPU's.
-13q. multi_card — where the host has 2 or more cards (up to 4 used):
+13q. train_resilient — the same config through parallel.ResilientTrainer
+             (checkpoints every 4 steps into a temporary directory, keep
+             2, spike factor 5): 2 warm-up steps (eager, capture) and 12
+             that only replay, grad_nan planted at 6 and loss_spike at 9
+             (each skipped, parameters, momentum and running statistics
+             bit for bit as they were, no new capture) and a SIGTERM at
+             10 through the real signal path (checkpoint and PREEMPTED
+             marker at 11; the run goes on as the uninterrupted
+             reference); a fresh wrapper resumes the preempted directory
+             and its steps 11-13 and final state equal the reference bit
+             for bit (cuDNN deterministic); one bit flipped in its newest
+             checkpoint is refused and the previous restored bit for bit.
+             Guarded step ms (CUDA events) against train_sharded's
+             replayed step at the same batch, images/s, checkpoint ms and
+             bytes, resume ms, peak memory, 33 conv-kernel launches a
+             replayed guarded step by name.  Before it, 3 guarded f32
+             batch-4 steps (grad_nan at the replayed third) against a CPU
+             copy by the spread rule; a guard that commits the planted
+             step anyway must fail it.
+13r. seq_parallel — bert_base (f32, dropout 0) with seq_parallel on 4
+             replicas of cuda:0, batch 8 x 512, against the same weights
+             on the fused flash path: forward within 1e-3 and layer 0's
+             query/value weight gradients within 5e-3 of scale, no flash
+             launch on the ring path; ring and Ulysses attention, causal
+             and not, against a CPU copy (1e-4 of scale); the ring
+             without its rescale (planted) must fail; forward + backward
+             ms, ring against fused.
+13s. pipeline_moe — pipeline_apply over 4 functional BERT-base encoder
+             layers (768, 12 heads, FFN 3072), 8 microbatches of 2 x 128,
+             outputs and every stage's gradients against the stages in
+             sequence on the card; moe_ffn(768, 3072, 8) on 4 replicas,
+             512 tokens a replica, capacity factors 1.25 and 4.0, outputs,
+             aux and gradients against a CPU copy, 4.0 equal to the dense
+             top-1 mixture; ms of each.
+13t. elastic — bench.py's elastic scenario (MLP 32-64-8, Adam 1e-2, batch
+             56, replica_down at 6, 16 steps, 8 to an epoch, checkpoints
+             every 2) through ElasticTrainer with 8 replicas on cuda:0:
+             bench.py's keys, and the shrunk stretch's losses bit for bit
+             a 7-replica run from the same checkpoint.
+13u. multi_card — where the host has 2 or more cards (up to 4 used):
              ShardedTrainer at zero 0 (BatchNorm statistics summed
              across the cards in lockstep, gradients by NCCL) and zero 2
              (reduce-scatter) over the cards in one process, and as one
@@ -444,7 +483,11 @@ Drives incubator_mxnet_tpu_torch only (never JAX or the JAX package):
              against the same replicas on one card (8 rows each, f32,
              two steps from the reference's state, the spread rule);
              resnet18_v1's Gluon loop over the cards against the same
-             loop over CPU replica contexts.  With one card it prints
+             loop over CPU replica contexts; causal ring attention over
+             the cards in one process and as a 4-rank NCCL group
+             (`chip_smoke.py ring-worker`) against 4 replicas of one
+             card; the elastic scenario over the cards (the highest lost
+             at step 6, re-admitted at 8).  With one card it prints
              {"multi_card": "not run", "cards": 1}.
 14. kernels — one JSON line per the port's kernel table (5 rows), then the
              card's name and power limit, then the final {"ok": true, ...}
@@ -463,6 +506,8 @@ import logging
 import math
 import os
 import re
+import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -7788,8 +7833,17 @@ def phase_multi_card(torch, mx):
                                   median=v["grad_err_over_scale_median"])
                           for k, v in checks}
         out["gluon"] = _multi_gluon(torch, mx, n)
+        out["ring"] = _multi_ring(torch, mx, n, tmp)
+        out["elastic"] = _elastic_scenario(
+            torch, mx, ["cuda:%d" % i for i in range(n)],
+            tempfile.mkdtemp(dir=tmp))
         out["phase_s"] = time.perf_counter() - phase_t0
         _emit(out)
+        for form in ("one_process", "process_group"):
+            worst = max(out["ring"][form].values())
+            _check(worst <= SP_FN_TOL, "multi_card ring (%s) is %g of scale "
+                   "off one card" % (form, worst))
+        _elastic_checks("multi_card elastic", out["elastic"], n)
         for name, parity in checks:
             _spread_checks("multi_card " + name, parity)
         _spread_checks("multi_card gluon", out["gluon"]["parity"])
@@ -7853,6 +7907,969 @@ def _multi_gluon(torch, mx, n):
         shutil.rmtree(tmp, ignore_errors=True)
     return dict(contexts=n, copies_equal=same,
                 parity=_spread_parity(torch, cards, ref, spread))
+
+# train_resilient: bench.py's sharded config under parallel.ResilientTrainer
+RESIL_CKPT_INTERVAL = 4
+RESIL_KEEP = 2
+RESIL_STEPS = 14            # 2 warm-up (eager, capturing) + 12 replays
+RESIL_FAULTS = (("grad_nan", 6), ("loss_spike", 9))
+RESIL_PREEMPT = 10
+RESIL_SPIKE_FACTOR = 5.0
+RESIL_SEED = 0
+RESIL_PLAIN_STEPS = 6       # train_sharded's replayed step, timed beside
+RESIL_PARITY_STEPS = 3
+RESIL_PARITY_NAN = 2
+
+
+def _host_state(t):
+    """Host copies of a trainer's parameters (running statistics
+    included) and optimizer state."""
+    return dict(params=_host_tree(t.params), opt=_host_tree(t.opt_state))
+
+
+def _same_tree(torch, a, b):
+    """Whether two trees of tensors hold the same bits."""
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(_same_tree(torch, a[k], b[k])
+                                            for k in a)
+    return _same_bits(torch, a, b)
+
+
+def _dir_bytes(path):
+    return sum(os.path.getsize(os.path.join(root, f))
+               for root, _dirs, files in os.walk(path) for f in files)
+
+
+def _resilient_run(torch, mx, net, x, y, device, start=None, planted=False):
+    """RESIL_PARITY_STEPS guarded f32 steps of `net` at zero 0 on one
+    replica (`device`), `grad_nan` at step RESIL_PARITY_NAN: per step the
+    loss, the verdict, the parameter changes and running statistics, the
+    state it started from and whether the step left it bit for bit.
+    `start`: a reference run whose state each step starts from.
+    `planted`: the guard commits the step whatever its verdict."""
+    from incubator_mxnet_tpu_torch import fault, parallel
+    t = parallel.ShardedTrainer(net, device=device, zero=0, **SHARDED_SGD)
+    if planted:
+        verdict = t._verdict
+
+        def commit_anyway(losses, grads, guard):
+            loss, ok = verdict(losses, grads, guard)
+            return loss, [torch.ones_like(o) for o in ok]
+        t._verdict = commit_anyway
+    rt = parallel.ResilientTrainer(t, seed=RESIL_SEED, handle_sigterm=False)
+    fault.clear()
+    fault.install("grad_nan", steps=[RESIL_PARITY_NAN])
+    out = []
+    try:
+        for step in range(RESIL_PARITY_STEPS):
+            if start is not None:
+                _load_live(torch, t, start[step]["state"])
+            state = _host_state(t)
+            before = {n: v.float() for n, v in state["params"].items()}
+            loss, ok = rt.step(x, y)
+            params = t.params
+            out.append(dict(
+                loss=loss, ok=ok, state=state,
+                deltas=_sharded_deltas(torch, t, before),
+                running={n: params[n].float().cpu().clone()
+                         for n in t._stateful},
+                unchanged=_same_tree(torch, _host_state(t), state)))
+    finally:
+        fault.clear()
+        t.release()
+    return out
+
+
+def _resilient_parity(torch, mx):
+    """RESIL_PARITY_STEPS guarded f32 batch-4 steps on the card (eager,
+    captured, replayed; `grad_nan` at the replayed one) against the same
+    on a CPU copy, each step from the CPU run's state: the clean steps'
+    parameter changes and running statistics by train_resnet's spread
+    rule, the planted one skipped on both with the state bit for bit
+    unchanged.  A guard that commits the planted step anyway must fail
+    it."""
+    rs = np.random.RandomState(4)
+    x = torch.from_numpy(rs.randn(SHARDED_PARITY_BATCH, 3, 224, 224)
+                         .astype(np.float32))
+    y = torch.from_numpy(rs.randint(0, 1000, SHARDED_PARITY_BATCH)
+                         .astype(np.int64))
+    net = _sharded_net(torch, mx, "cuda:0")
+    cpu_net = _sharded_net(torch, mx, "cpu")
+    _copy_to_cpu(mx, net, cpu_net, x[:1])
+    ref = _resilient_run(torch, mx, cpu_net, x, y, "cpu")
+    spread = _resilient_run(torch, mx, cpu_net, x * (1.0 + 2.0 ** -22), y,
+                            "cpu", start=ref)
+    card = _resilient_run(torch, mx, net, x.cuda(), y.cuda(), "cuda:0",
+                          start=ref)
+    planted = _resilient_run(torch, mx, net, x.cuda(), y.cuda(), "cuda:0",
+                             start=ref, planted=True)
+    clean = [i for i in range(RESIL_PARITY_STEPS) if i != RESIL_PARITY_NAN]
+    steps = {"step%d %s" % (i + 1, what): _spread_parity(
+        torch, card[i][what], ref[i][what], spread[i][what])
+        for i in clean for what in ("deltas", "running")}
+
+    def skipped(run):
+        r = run[RESIL_PARITY_NAN]
+        return (not r["ok"]) and r["unchanged"] and math.isnan(r["loss"])
+    out = dict(batch=SHARDED_PARITY_BATCH, dtype="float32",
+               planted_step=RESIL_PARITY_NAN,
+               ok=dict(card=[r["ok"] for r in card],
+                       cpu=[r["ok"] for r in ref]),
+               losses=dict(card=[r["loss"] for r in card],
+                           cpu=[r["loss"] for r in ref]),
+               loss_max_abs_err=max(abs(card[i]["loss"] - ref[i]["loss"])
+                                    for i in clean),
+               steps=steps, skipped_bit_for_bit=dict(
+                   card=skipped(card), cpu=skipped(ref)),
+               commit_anyway=dict(ok=planted[RESIL_PARITY_NAN]["ok"],
+                                  unchanged=planted[RESIL_PARITY_NAN][
+                                      "unchanged"],
+                                  refused=not skipped(planted)))
+    _emit(dict(phase="train_resilient_parity", **out))
+    _check(out["ok"]["card"] == out["ok"]["cpu"] == [
+        i != RESIL_PARITY_NAN for i in range(RESIL_PARITY_STEPS)],
+        "resilient parity: the verdicts are %r" % (out["ok"],))
+    _check(out["loss_max_abs_err"] <= SERVE_TOL, "resilient parity: the "
+           "loss differs from the CPU copy's by %g" % out["loss_max_abs_err"])
+    for name, s in steps.items():
+        _spread_checks("resilient parity " + name, s)
+    _check(out["skipped_bit_for_bit"]["card"] and
+           out["skipped_bit_for_bit"]["cpu"], "resilient parity: the "
+           "planted step was not skipped bit for bit: %r"
+           % (out["skipped_bit_for_bit"],))
+    _check(out["commit_anyway"]["refused"], "resilient parity: a guard "
+           "that commits the planted step passed the check")
+    del net, cpu_net
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _resilient_trainer(torch, mx, ckpt_dir, handle_sigterm=False):
+    """bench.py's sharded trainer (`_sharded_trainer`) on a fresh
+    resnet50_v1b under ResilientTrainer."""
+    from incubator_mxnet_tpu_torch import parallel
+    net = _sharded_net(torch, mx, "cuda:0")
+    return parallel.ResilientTrainer(
+        _sharded_trainer(torch, mx, net), ckpt_dir=ckpt_dir,
+        ckpt_interval=RESIL_CKPT_INTERVAL, keep=RESIL_KEEP,
+        spike_factor=RESIL_SPIKE_FACTOR, seed=RESIL_SEED,
+        handle_sigterm=handle_sigterm)
+
+
+def _release(torch, rt):
+    rt.uninstall_sigterm()
+    rt.trainer.release()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _resilient_fit(torch, mx, ckpt_dir):
+    """The first batch of SHARDED_BATCHES whose two warm-up steps (eager,
+    capturing) fit under the resilient wrapper: (batch, wrapper, x, y,
+    [(loss, ok)])."""
+    for batch in SHARDED_BATCHES:
+        rt = None
+        try:
+            shutil.rmtree(ckpt_dir, ignore_errors=True)
+            rt = _resilient_trainer(torch, mx, ckpt_dir, handle_sigterm=True)
+            x, y = _sharded_batch(torch, batch)
+            warm = [rt.step(x, y) for _ in range(SHARDED_WARMUP)]
+            return batch, rt, x, y, warm
+        except torch.cuda.OutOfMemoryError:
+            if rt is not None:
+                _release(torch, rt)
+            del rt
+    raise RuntimeError("no batch of %s fits" % (SHARDED_BATCHES,))
+
+
+def _plain_replay_ms(torch, mx, batch, x, y):
+    """train_sharded's replayed step at `batch` (CUDA events, median of
+    RESIL_PLAIN_STEPS after its 2 warm-up steps)."""
+    net = _sharded_net(torch, mx, "cuda:0")
+    t = _sharded_trainer(torch, mx, net)
+    for _ in range(SHARDED_WARMUP):
+        t.step(x, y)
+    ev = [torch.cuda.Event(enable_timing=True)
+          for _ in range(RESIL_PLAIN_STEPS + 1)]
+    ev[0].record()
+    for i in range(RESIL_PLAIN_STEPS):
+        t.step(x, y)
+        ev[i + 1].record()
+    torch.cuda.synchronize()
+    ms = [ev[i].elapsed_time(ev[i + 1]) for i in range(RESIL_PLAIN_STEPS)]
+    replays = t.replays
+    t.release()
+    del t, net
+    gc.collect()
+    torch.cuda.empty_cache()
+    _check(replays == RESIL_PLAIN_STEPS, "the plain sharded steps did not "
+           "replay")
+    return statistics.median(ms)
+
+
+def phase_train_resilient(torch, mx, cs):
+    """bench.py's `sharded` config through parallel.ResilientTrainer on the
+    card (module doc, 13q); returns the conv kernel's launches over the
+    path and in one replayed guarded step by the profiler."""
+    from incubator_mxnet_tpu_torch import fault
+    phase_t0 = time.perf_counter()
+    prev_det = torch.backends.cudnn.deterministic
+    # the resumed run is held bit for bit: cuDNN's deterministic
+    # algorithms, as in the kvstore phase
+    torch.backends.cudnn.deterministic = True
+    prev_term = signal.getsignal(signal.SIGTERM)
+    tmp = tempfile.mkdtemp(prefix="mxt-resilient-")
+    try:
+        parity = _resilient_parity(torch, mx)
+        return _resilient_main(torch, mx, cs, tmp, parity, prev_term,
+                               phase_t0)
+    finally:
+        # a step that raised left the wrapper's flag-only handler in
+        # place: put the previous one back, so that SIGTERM still stops
+        # the script
+        signal.signal(signal.SIGTERM, prev_term)
+        fault.clear()
+        torch.backends.cudnn.deterministic = prev_det
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _resilient_main(torch, mx, cs, tmp, parity, prev_term, phase_t0):
+    from incubator_mxnet_tpu_torch import fault, integrity
+    from incubator_mxnet_tpu_torch.telemetry import flightrec
+    ck = os.path.join(tmp, "ck")
+    ck_pre = os.path.join(tmp, "ck_preempted")
+    fault.clear()
+    for site, step in RESIL_FAULTS:
+        fault.install(site, steps=[step], times=1)
+    fault.install("preempt", steps=[RESIL_PREEMPT], times=1)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cs.conv1x1_stats_launches = 0       # the main path starts here
+    batch, rt, x, y, warm = _resilient_fit(torch, mx, ck)
+    ck_ms = []
+    checkpoint = rt.checkpoint
+
+    def timed_checkpoint():
+        t0 = time.perf_counter()
+        out = checkpoint()
+        ck_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+    rt.checkpoint = timed_checkpoint
+    t = rt.trainer
+    warm_counts = (t.eager_steps, t.captures, t.replays)
+    run = {i: dict(loss=l, ok=ok) for i, (l, ok) in enumerate(warm)}
+    planted, preempted, snap12 = {}, None, None
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    step_ms, step_wall = {}, {}
+    for step in range(SHARDED_WARMUP, RESIL_STEPS):
+        faulted = step in dict((s, n) for n, s in RESIL_FAULTS)
+        before = _host_state(t) if faulted else None
+        captures = t.captures
+        t0 = time.perf_counter()
+        ev[0].record()
+        try:
+            loss, ok = rt.step(x, y)
+        except fault.Preempted as e:
+            preempted = e.step
+            loss, ok = next(
+                (ev_["loss"], ev_["ok"]) for ev_ in reversed(
+                    flightrec.ring_snapshot()) if ev_.get("kind") == "step"
+                and ev_.get("name") == "resilient"
+                and ev_.get("step") == step)
+            loss = float("nan") if loss is None else loss
+        ev[1].record()
+        torch.cuda.synchronize()
+        step_wall[step] = time.perf_counter() - t0
+        step_ms[step] = ev[0].elapsed_time(ev[1])
+        run[step] = dict(loss=loss, ok=ok)
+        if faulted:
+            planted[step] = dict(ok=ok, captures_added=t.captures - captures,
+                                 unchanged=_same_tree(torch, _host_state(t),
+                                                      before))
+        if preempted is not None and not os.path.isdir(ck_pre):
+            # the preempted run's directory as the SIGTERM left it: the
+            # resume below starts from it, while this run goes on as the
+            # uninterrupted reference
+            shutil.copytree(ck, ck_pre)
+        if t._n_step == 12:
+            snap12 = _host_state(t)
+    launches = cs.conv1x1_stats_launches    # the main path ends here
+    final = _host_state(t)
+    timed = (t.eager_steps - warm_counts[0], t.captures - warm_counts[1],
+             t.replays - warm_counts[2])
+    rt.uninstall_sigterm()
+    term_restored = signal.getsignal(signal.SIGTERM) == prev_term
+    peak = torch.cuda.max_memory_allocated()
+    ck_bytes = _dir_bytes(os.path.join(ck, rt._ckpt_name(12)))
+    rt.ckpt_interval = 0        # the profiled steps write nothing
+    per_step = _profile(torch, lambda: rt.step(x, y), 1, top=12,
+                        phase="train_resilient_profile", batch=batch)
+    conv = _profiled_counts(per_step)[3]
+    _release(torch, rt)
+    del rt, t
+    plain_ms = _plain_replay_ms(torch, mx, batch, x, y)
+    # the resume: a fresh wrapper over a fresh trainer
+    rt = _resilient_trainer(torch, mx, ck_pre)
+    marker = rt.was_preempted(ck_pre)
+    t0 = time.perf_counter()
+    resumed = rt.resume()
+    resume_ms = (time.perf_counter() - t0) * 1e3
+    resumed_at = rt.step_number
+    after = {}
+    for step in range(resumed_at, RESIL_STEPS):
+        after[step] = rt.step(x, y)[0]
+    same_losses = all(after[s] == run[s]["loss"] for s in after)
+    same_final = _same_tree(torch, _host_state(rt.trainer), final)
+    # one flipped bit in the newest checkpoint: refused, the previous
+    # one restored
+    fault.install("ckpt.bitflip", steps=[rt.step_number], times=1)
+    flipped = rt.checkpoint()
+    try:
+        integrity.verify_checkpoint(flipped)
+        corrupt = None
+    except integrity.CheckpointCorrupt as e:
+        corrupt = dict(files=e.files, leaves=e.leaves[:4])
+    salvaged = rt.resume()
+    salvage_step = rt.step_number
+    same_salvage = snap12 is not None and _same_tree(
+        torch, _host_state(rt.trainer), snap12)
+    _release(torch, rt)
+    del rt
+    clean = [s for s in step_ms if s not in dict(
+        (s, n) for n, s in RESIL_FAULTS) and s != RESIL_PREEMPT
+        and (s + 1) % RESIL_CKPT_INTERVAL]
+    guarded_ms = statistics.median(step_ms[s] for s in clean)
+    losses = [run[s]["loss"] for s in range(RESIL_STEPS)]
+    oks = [run[s]["ok"] for s in range(RESIL_STEPS)]
+    out = dict(phase="train_resilient", model="resnet50_v1b", classes=1000,
+               image=[3, 224, 224], dtype="bfloat16 (BatchNorm f32)",
+               batch=batch, ladder=list(SHARDED_BATCHES), mesh=["cuda:0"],
+               **SHARDED_SGD, ckpt_interval=RESIL_CKPT_INTERVAL,
+               keep=RESIL_KEEP, spike_factor=RESIL_SPIKE_FACTOR,
+               faults=dict(RESIL_FAULTS, preempt=RESIL_PREEMPT),
+               warmup=dict(zip(("eager_steps", "captures", "replays"),
+                               warm_counts)),
+               timed=dict(zip(("eager_steps", "captures", "replays"), timed)),
+               losses=losses, ok=oks, planted=planted,
+               preempted_at=preempted, preempted_marker=marker,
+               sigterm_handler_restored=term_restored,
+               guarded_step_ms=guarded_ms, guarded_step_ms_by_step=step_ms,
+               plain_replayed_step_ms=plain_ms,
+               guarded_over_plain=guarded_ms / plain_ms,
+               images_per_s=batch * len(step_ms) / sum(step_wall.values()),
+               images_per_s_between_checkpoints=batch * len(clean) / sum(
+                   step_wall[s] for s in clean),
+               checkpoint_ms=ck_ms, checkpoint_bytes=ck_bytes,
+               resume_ms=resume_ms, resumed_at=resumed_at,
+               resumed_losses=after, resumed_bit_for_bit=dict(
+                   losses=same_losses, final_state=same_final),
+               bitflip=dict(checkpoint=os.path.basename(flipped),
+                            corrupt=corrupt, restored=salvaged,
+                            restored_step=salvage_step,
+                            state_bit_for_bit=same_salvage),
+               max_memory_allocated=peak,
+               conv1x1_stats_launches=launches,
+               conv_launches_per_replayed_step=conv, parity=dict(
+                   steps=len(parity["steps"]),
+                   commit_anyway_refused=parity["commit_anyway"]["refused"]),
+               phase_s=time.perf_counter() - phase_t0)
+    _emit(out)
+    want_ok = [s not in dict((s, n) for n, s in RESIL_FAULTS)
+               for s in range(RESIL_STEPS)]
+    _check(oks == want_ok, "the guarded verdicts are %r, not %r"
+           % (oks, want_ok))
+    _check(all(math.isfinite(v) for v, ok in zip(losses, oks) if ok),
+           "non-finite guarded loss: %r" % (losses,))
+    _check(all(p["unchanged"] and p["captures_added"] == 0 and not p["ok"]
+               for p in planted.values()) and len(planted) == 2,
+           "a planted step was applied or captured anew: %r" % (planted,))
+    _check(out["warmup"] == dict(eager_steps=1, captures=1, replays=0),
+           "the warm-up steps did not run eager then capture: %r"
+           % (out["warmup"],))
+    _check(timed == (0, 0, RESIL_STEPS - SHARDED_WARMUP), "timed guarded "
+           "steps did not only replay: %r" % (timed,))
+    _check(preempted == RESIL_PREEMPT + 1, "the SIGTERM at step %d did not "
+           "preempt at %d: %r" % (RESIL_PREEMPT, RESIL_PREEMPT + 1, preempted))
+    _check(term_restored, "the previous SIGTERM handler was not restored")
+    _check(marker and resumed and resumed_at == RESIL_PREEMPT + 1,
+           "resume() restored step %r (marker %r)" % (resumed_at, marker))
+    _check(same_losses and same_final, "the resumed run is not the "
+           "uninterrupted one bit for bit: %r" % (out["resumed_bit_for_bit"],))
+    _check(corrupt is not None and salvaged and salvage_step == 12
+           and same_salvage, "the flipped checkpoint was not refused for "
+           "the previous one: %r" % (out["bitflip"],))
+    _check(launches == 2 * RESNET_SITES, "the warm-up guarded steps launched "
+           "the conv kernel %d times, not %d" % (launches, 2 * RESNET_SITES))
+    _check(conv == RESNET_SITES, "a replayed guarded step launched the conv "
+           "kernel %d times by name, not %d" % (conv, RESNET_SITES))
+    return dict(launches=launches, per_replayed_step=conv, batch=batch)
+
+
+# seq_parallel: bert_base with ring attention over 4 replicas of cuda:0
+SP_REPLICAS = 4
+SP_BATCH = 8
+SP_SEQ = 512
+SP_FWD_TOL = 1e-3
+SP_GRAD_TOL = 5e-3
+SP_FN_SHAPE = (2, 512, 12, 64)
+SP_FN_TOL = 1e-4
+SP_TIMED = 3
+
+
+def _err_cpu(got, ref):
+    """`_scaled_err` of two {name: tensor} on any device."""
+    return _scaled_err({k: v.detach().float().cpu() for k, v in got.items()},
+                       {k: v.detach().float().cpu() for k, v in ref.items()})
+
+
+def _sp_mesh(mx, devices):
+    from incubator_mxnet_tpu_torch import parallel
+    return parallel.make_mesh(devices=devices, axis_names=("sp",))
+
+
+def _bert_grads(torch, net, toks):
+    """bert_base's output and the gradients of layer 0's query and value
+    weights of the mean square output."""
+    attn = net.encoder.layers[0].attn
+    out = net(toks)
+    gq, gv = torch.autograd.grad((out.float() ** 2).mean(),
+                                 [attn.query.weight, attn.value.weight])
+    return out.detach(), gq, gv
+
+
+def _events_ms(torch, fn, reps):
+    """fn()'s ms by CUDA events, median over `reps` after one warm-up."""
+    fn()
+    ms = []
+    for _ in range(reps):
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        ms.append(a.elapsed_time(b))
+    return statistics.median(ms)
+
+
+def _sp_functions(torch, mx):
+    """ring and Ulysses attention, causal and not, on the card mesh
+    against a CPU copy of the same call; the planted ring's error."""
+    import functools
+    from incubator_mxnet_tpu_torch import parallel
+    from incubator_mxnet_tpu_torch.parallel import P
+    rs = np.random.RandomState(6)
+    q, k, v = (torch.from_numpy(rs.randn(*SP_FN_SHAPE).astype(np.float32))
+               for _ in range(3))
+    spec = P(None, "sp")
+    card_mesh = _sp_mesh(mx, ["cuda:0"] * SP_REPLICAS)
+    cpu_mesh = _sp_mesh(mx, [mx.cpu(i) for i in range(SP_REPLICAS)])
+    out = {}
+
+    def call(fn, mesh, dev, **kw):
+        f = parallel.shard_map(functools.partial(fn, axis_name="sp", **kw),
+                               mesh, in_specs=(spec,) * 3, out_specs=spec)
+        return f(*(t.to(dev) for t in (q, k, v)))
+    for name in ("ring_attention", "ulysses_attention"):
+        for causal in (False, True):
+            fn = getattr(parallel, name)
+            got = call(fn, card_mesh, "cuda:0", causal=causal)
+            ref = call(fn, cpu_mesh, "cpu", causal=causal)
+            ms = _events_ms(torch, lambda: call(fn, card_mesh, "cuda:0",
+                                                causal=causal), SP_TIMED)
+            out["%s%s" % (name, "_causal" if causal else "")] = dict(
+                err_over_scale=_err_cpu({"o": got}, {"o": ref})["o"],
+                ms=ms)
+    planted = call(ring_without_rescale(), card_mesh, "cuda:0")
+    ref = call(parallel.ring_attention, cpu_mesh, "cpu")
+    out["planted_no_rescale_err_over_scale"] = _err_cpu(
+        {"o": planted}, {"o": ref})["o"]
+    return out
+
+
+def phase_seq_parallel(torch, mx, att):
+    """bert_base with seq_parallel (ring attention) on 4 replicas of
+    cuda:0 against the fused flash path (module doc, 13r)."""
+    from incubator_mxnet_tpu_torch.models import bert_base
+    phase_t0 = time.perf_counter()
+    mesh = _sp_mesh(mx, ["cuda:0"] * SP_REPLICAS)
+    mx.random.seed(0)
+    ref = bert_base(dropout=0.0, device="cuda:0")
+    sp = bert_base(dropout=0.0, device="cuda:0", seq_parallel=(mesh, "sp"))
+    sp.load_state_dict(ref.state_dict())
+    toks = torch.from_numpy(np.random.RandomState(0).randint(
+        0, 30522, (SP_BATCH, SP_SEQ)).astype(np.int32)).cuda()
+    _reset_counts(att)
+    r_out, r_gq, r_gv = _bert_grads(torch, ref, toks)
+    fused_counts = _all_counts(att)
+    _reset_counts(att)
+    s_out, s_gq, s_gv = _bert_grads(torch, sp, toks)
+    ring_counts = _all_counts(att)
+    errs = _err_cpu({"out": s_out, "query": s_gq, "value": s_gv},
+                       {"out": r_out, "query": r_gq, "value": r_gv})
+    del r_out, s_out
+    ring_ms = _events_ms(torch, lambda: _bert_grads(torch, sp, toks),
+                         SP_TIMED)
+    fused_ms = _events_ms(torch, lambda: _bert_grads(torch, ref, toks),
+                          SP_TIMED)
+    del ref, sp
+    gc.collect()
+    torch.cuda.empty_cache()
+    fns = _sp_functions(torch, mx)
+    out = dict(phase="seq_parallel", model="bert_base", dtype="float32",
+               batch=SP_BATCH, seq=SP_SEQ, replicas=["cuda:0"] * SP_REPLICAS,
+               forward_err_over_scale=errs["out"],
+               query_grad_err_over_scale=errs["query"],
+               value_grad_err_over_scale=errs["value"],
+               flash_launches=dict(fused=fused_counts, ring=ring_counts),
+               fwd_bwd_ms=dict(ring=ring_ms, fused=fused_ms),
+               ring_over_fused=ring_ms / fused_ms, functions=fns,
+               phase_s=time.perf_counter() - phase_t0)
+    _emit(out)
+    _check(errs["out"] <= SP_FWD_TOL, "seq_parallel: the ring forward is %g "
+           "of scale off the fused one" % errs["out"])
+    _check(max(errs["query"], errs["value"]) <= SP_GRAD_TOL, "seq_parallel: "
+           "the layer-0 gradients are %r of scale off" % (errs,))
+    _check(fused_counts[0] == 12 and fused_counts[1] == fused_counts[2] == 12
+           and not any(ring_counts), "seq_parallel: flash launches fused %r, "
+           "ring %r" % (fused_counts, ring_counts))
+    for name, row in fns.items():
+        if isinstance(row, dict):
+            _check(row["err_over_scale"] <= SP_FN_TOL, "seq_parallel: %s on "
+                   "the card is %g of scale off the CPU copy"
+                   % (name, row["err_over_scale"]))
+    _check(fns["planted_no_rescale_err_over_scale"] > SP_FN_TOL,
+           "seq_parallel: the ring without its rescale passed")
+    return out
+
+
+# pipeline_moe: pipeline and MoE at BERT-base widths on 4 replicas of cuda:0
+PP_STAGES = 4
+PP_MICRO = 8
+PP_MB_SHAPE = (2, 128)
+PP_UNITS, PP_HEADS, PP_FFN = 768, 12, 3072
+PP_TOL = 1e-4
+PP_GRAD_TOL = 1e-3
+MOE_EXPERTS = 8
+MOE_TOKENS = 512            # a replica
+MOE_FACTORS = (1.25, 4.0)
+MOE_TOL = 1e-4
+
+
+def _encoder_stage(p, x):
+    """One post-LN BERT encoder layer as a function of its parameters,
+    in plain torch (a stage must keep x's shape)."""
+    import torch
+    import torch.nn.functional as F
+    B, T, C = x.shape
+    H = PP_HEADS
+    d = C // H
+
+    def heads(t):
+        return t.reshape(B, T, H, d).transpose(1, 2)
+    q = heads(x @ p["wq"] + p["bq"])
+    k = heads(x @ p["wk"] + p["bk"])
+    v = heads(x @ p["wv"] + p["bv"])
+    a = torch.softmax(q @ k.transpose(-1, -2) / math.sqrt(d), dim=-1) @ v
+    h = a.transpose(1, 2).reshape(B, T, C) @ p["wo"] + p["bo"]
+    x = F.layer_norm(x + h, (C,), p["g1"], p["be1"])
+    f = F.gelu(x @ p["w1"] + p["c1"]) @ p["w2"] + p["c2"]
+    return F.layer_norm(x + f, (C,), p["g2"], p["be2"])
+
+
+def _stage_params(torch, seed, device):
+    rs = np.random.RandomState(seed)
+    C, Fh = PP_UNITS, PP_FFN
+    shapes = dict(wq=(C, C), wk=(C, C), wv=(C, C), wo=(C, C), w1=(C, Fh),
+                  w2=(Fh, C))
+    p = {n: rs.randn(*s) * 0.02 for n, s in shapes.items()}
+    p.update({n: rs.randn(C) * 0.02 for n in ("bq", "bk", "bv", "bo", "c2",
+                                             "be1", "be2")})
+    p["c1"] = rs.randn(Fh) * 0.02
+    p["g1"] = 1.0 + rs.randn(C) * 0.02
+    p["g2"] = 1.0 + rs.randn(C) * 0.02
+    return {n: torch.from_numpy(v.astype(np.float32)).to(device)
+            for n, v in p.items()}
+
+
+def _pipeline_check(torch, mx):
+    import functools
+    from incubator_mxnet_tpu_torch import parallel
+    from incubator_mxnet_tpu_torch.parallel import P
+    stages = [_stage_params(torch, s, "cuda:0") for s in range(PP_STAGES)]
+    rows = PP_MICRO * PP_MB_SHAPE[0]
+    x = torch.from_numpy(np.random.RandomState(7).randn(
+        rows, PP_MB_SHAPE[1], PP_UNITS).astype(np.float32)).cuda()
+    mesh = parallel.make_mesh(devices=["cuda:0"] * PP_STAGES,
+                              axis_names=("pipe",))
+    piped = parallel.shard_map(
+        functools.partial(parallel.pipeline_apply, _encoder_stage,
+                          axis_name="pipe"), mesh,
+        in_specs=(P("pipe"), P()), out_specs=P())
+
+    def run_pipe():
+        stacked = {n: v.requires_grad_() for n, v in
+                   parallel.stack_stage_params(stages).items()}
+        out = piped(stacked, parallel.split_microbatches(x, PP_MICRO))
+        grads = torch.autograd.grad((out ** 2).mean(), list(stacked.values()))
+        return out.reshape(x.shape).detach(), dict(zip(stacked, grads))
+
+    def run_seq():
+        leaves = [{n: v.detach().requires_grad_() for n, v in s.items()}
+                  for s in stages]
+        h = x
+        for p in leaves:
+            h = _encoder_stage(p, h)
+        flat = [v for p in leaves for v in p.values()]
+        grads = torch.autograd.grad((h ** 2).mean(), flat)
+        it = iter(grads)
+        per = [{n: next(it) for n in p} for p in leaves]
+        return h.detach(), {n: torch.stack([g[n] for g in per])
+                            for n in per[0]}
+    p_out, p_grads = run_pipe()
+    s_out, s_grads = run_seq()
+    errs = _err_cpu(dict(out=p_out, **{"grad_" + n: g for n, g in
+                                          p_grads.items()}),
+                       dict(out=s_out, **{"grad_" + n: g for n, g in
+                                          s_grads.items()}))
+    return dict(stages=PP_STAGES, microbatches=PP_MICRO,
+                microbatch=list(PP_MB_SHAPE), units=PP_UNITS,
+                heads=PP_HEADS, ffn=PP_FFN, out_err_over_scale=errs["out"],
+                grad_err_over_scale_max=max(v for n, v in errs.items()
+                                            if n != "out"),
+                gradients=len(p_grads),
+                fwd_bwd_ms=dict(pipeline=_events_ms(torch, run_pipe, SP_TIMED),
+                                sequential=_events_ms(torch, run_seq,
+                                                      SP_TIMED)))
+
+
+def _moe_run(torch, parallel, mesh, dev, x, rw, factor, experts):
+    """moe_apply of `experts` (moe_ffn's parameters and expert) over
+    `mesh`: outputs, aux and the gradients of the experts, tokens and
+    router."""
+    from incubator_mxnet_tpu_torch.parallel import P
+    params, fn = experts
+    params = {n: v.detach().requires_grad_() for n, v in params.items()}
+    xs, rws = x.to(dev).requires_grad_(), rw.to(dev).requires_grad_()
+    y, aux = parallel.shard_map(
+        lambda a, b, c: parallel.moe_apply(a, b, fn, c, axis_name="expert",
+                                           capacity_factor=factor),
+        mesh, in_specs=(P("expert"), P(), P("expert")),
+        out_specs=(P("expert"), P()))(xs, rws, params)
+    grads = torch.autograd.grad((y ** 2).mean() + 0.01 * aux,
+                                [params["w1"], params["w2"], xs, rws])
+    return y.detach(), aux.detach(), dict(zip(("w1", "w2", "x", "router"),
+                                              grads))
+
+
+def _moe_check(torch, mx):
+    from incubator_mxnet_tpu_torch import parallel
+    n = PP_STAGES
+    rs = np.random.RandomState(8)
+    x = torch.from_numpy(rs.randn(n * MOE_TOKENS, PP_UNITS)
+                         .astype(np.float32))
+    rw = torch.from_numpy((rs.randn(PP_UNITS, MOE_EXPERTS)
+                           / np.sqrt(PP_UNITS)).astype(np.float32))
+    x_card, rw_card = x.cuda(), rw.cuda()
+    card = parallel.make_mesh(devices=["cuda:0"] * n, axis_names=("expert",))
+    cpu = parallel.make_mesh(devices=[mx.cpu(i) for i in range(n)],
+                             axis_names=("expert",))
+    experts = {dev: parallel.moe_ffn(PP_UNITS, PP_FFN, MOE_EXPERTS, key=0,
+                                     device=dev) for dev in ("cuda:0", "cpu")}
+    params, fn = experts["cuda:0"]
+    out = {}
+    for factor in MOE_FACTORS:
+        y, aux, g = _moe_run(torch, parallel, card, "cuda:0", x, rw, factor,
+                             experts["cuda:0"])
+        cy, caux, cg = _moe_run(torch, parallel, cpu, "cpu", x, rw, factor,
+                                experts["cpu"])
+        errs = _err_cpu(dict(y=y, **g), dict(y=cy, **cg))
+        row = dict(y_err_over_scale=errs["y"],
+                   aux=float(aux), aux_cpu=float(caux),
+                   grad_err_over_scale_max=max(v for k, v in errs.items()
+                                               if k != "y"),
+                   dropped_tokens=int((y.abs().sum(1) == 0).sum()),
+                   fwd_bwd_ms=_events_ms(torch, lambda: _moe_run(
+                       torch, parallel, card, "cuda:0", x_card, rw_card,
+                       factor, experts["cuda:0"]), SP_TIMED))
+        if factor == max(MOE_FACTORS):
+            with torch.no_grad():
+                xc = x.cuda()
+                probs = torch.softmax(xc @ rw.cuda(), dim=-1)
+                e = probs.argmax(-1)
+                dense = torch.zeros_like(xc)
+                for j in range(MOE_EXPERTS):
+                    idx = (e == j).nonzero().flatten()
+                    p = {k: v[j] for k, v in params.items()}
+                    dense[idx] = fn(p, xc[idx]) * probs[idx, j, None]
+            row["dense_err_over_scale"] = _err_cpu(
+                {"y": y}, {"y": dense})["y"]
+        out[str(factor)] = row
+    return out
+
+
+def phase_pipeline_moe(torch, mx):
+    """pipeline_apply over 4 functional BERT-base encoder layers and
+    moe_apply of moe_ffn(768, 3072, 8), each on 4 replicas of cuda:0
+    (module doc, 13s)."""
+    phase_t0 = time.perf_counter()
+    pipe = _pipeline_check(torch, mx)
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe = _moe_check(torch, mx)
+    out = dict(phase="pipeline_moe", replicas=["cuda:0"] * PP_STAGES,
+               pipeline=pipe, moe=dict(experts=MOE_EXPERTS,
+                                       tokens_a_replica=MOE_TOKENS,
+                                       units=PP_UNITS, hidden=PP_FFN,
+                                       by_capacity_factor=moe),
+               phase_s=time.perf_counter() - phase_t0)
+    _emit(out)
+    _check(pipe["out_err_over_scale"] <= PP_TOL, "pipeline: the outputs are "
+           "%g of scale off the stages in sequence" % pipe["out_err_over_scale"])
+    _check(pipe["grad_err_over_scale_max"] <= PP_GRAD_TOL, "pipeline: a "
+           "stage gradient is %g of scale off" % pipe["grad_err_over_scale_max"])
+    for factor, row in moe.items():
+        _check(row["y_err_over_scale"] <= MOE_TOL and
+               row["grad_err_over_scale_max"] <= MOE_TOL and
+               abs(row["aux"] - row["aux_cpu"]) <= 1e-5 * abs(row["aux_cpu"]),
+               "moe at capacity factor %s differs from the CPU copy: %r"
+               % (factor, row))
+    top = moe[str(max(MOE_FACTORS))]
+    _check(top["dense_err_over_scale"] <= MOE_TOL and
+           top["dropped_tokens"] == 0, "moe at capacity factor %s is not the "
+           "dense top-1 mixture: %r" % (max(MOE_FACTORS), top))
+    return out
+
+
+# elastic: bench.py's _elastic_scenario setup with 8 replicas on cuda:0
+EL_REPLICAS = 8
+EL_KILL = 6
+EL_STEPS = 16
+EL_EPOCH = 8
+EL_CKPT = 2
+EL_IN, EL_HIDDEN, EL_CLASSES = 32, 64, 8
+
+
+def _elastic_build(mx, device):
+    from incubator_mxnet_tpu_torch import parallel
+
+    def build(mesh, lr_factor):
+        mx.random.seed(11)
+        nn = mx.gluon.nn
+        net = nn.HybridSequential()
+        net.add(nn.Dense(EL_HIDDEN, activation="relu", in_units=EL_IN,
+                         device=device),
+                nn.Dense(EL_CLASSES, in_units=EL_HIDDEN, device=device))
+        return parallel.ShardedTrainer(net, optimizer="adam",
+                                       lr=1e-2 * lr_factor, mesh=mesh)
+    return build
+
+
+def _elastic_data(n):
+    batch = n * (n - 1) // math.gcd(n, n - 1)
+
+    def data(step, n_replicas):
+        rs = np.random.RandomState(1000 + step)
+        return (rs.randn(batch, EL_IN).astype(np.float32),
+                rs.randint(0, EL_CLASSES, batch))
+    return data, batch
+
+
+def _elastic_scenario(torch, mx, devices, tmp):
+    """bench.py's scenario on `devices`: the ElasticTrainer's run with
+    `mesh.replica_down` at EL_KILL, and its shrunk stretch replayed by a
+    trainer built on the survivors from the checkpoint it resumed
+    from."""
+    from incubator_mxnet_tpu_torch import config, fault, parallel
+    from incubator_mxnet_tpu_torch.monitor import events
+    n = len(devices)
+    data, batch = _elastic_data(n)
+    build = _elastic_build(mx, devices[0])
+    config.set("MXNET_FAULT_PLAN", "mesh.replica_down@%d" % EL_KILL)
+    config.set("MXNET_BLACKBOX_DIR", tmp)
+    fault.reset_from_config()
+    shrinks0, grows0 = events.get("mesh.shrinks"), events.get("mesh.grows")
+    t0 = time.perf_counter()
+    try:
+        et = parallel.ElasticTrainer(
+            build, ckpt_dir=os.path.join(tmp, "ck"), devices=devices,
+            steps_per_epoch=EL_EPOCH, ckpt_interval=EL_CKPT, keep=50, seed=5,
+            handle_sigterm=False)
+        losses = et.run(data, EL_STEPS)
+    finally:
+        fault.clear()
+        config.unset("MXNET_FAULT_PLAN")
+        config.unset("MXNET_BLACKBOX_DIR")
+    wall = time.perf_counter() - t0
+    shrink = [t for t in et.transitions if t["kind"] == "shrink"]
+    grow = [t for t in et.transitions if t["kind"] == "grow"]
+    out = dict(elastic_devices=n, batch=batch, zero_level=et.trainer.zero,
+               elastic_kill_step=EL_KILL, elastic_steps_total=EL_STEPS,
+               elastic_final_replicas=et.n_replicas, elastic_wall_s=wall,
+               elastic_shrinks=events.get("mesh.shrinks") - shrinks0,
+               elastic_grows=events.get("mesh.grows") - grows0,
+               elastic_losses_finite=all(math.isfinite(v)
+                                         for v in losses.values()),
+               transitions=et.transitions)
+    if shrink:
+        s = shrink[0]
+        out.update(elastic_shrink_step=s["step"],
+                   elastic_lost_replica=s["lost"][0],
+                   elastic_steps_lost=s["steps_lost"],
+                   elastic_recovery_s=s["wall_s"])
+    if grow:
+        out.update(elastic_readmit_step=grow[0]["step"],
+                   elastic_regrow_s=grow[0]["wall_s"])
+    if et.last_blackbox:
+        out["elastic_blackbox"] = os.path.basename(et.last_blackbox)
+    if et.fleet is not None:
+        out["fleet"] = et.fleet.block()
+    et.trainer.release()
+    if shrink and grow:
+        lost = shrink[0]["lost"]
+        resumed = shrink[0]["resumed_step"]
+        control = build(parallel.surviving_mesh(devices, lost=lost),
+                        (n - len(lost)) / float(n))
+        rc = parallel.ResilientTrainer(control, ckpt_dir=os.path.join(
+            tmp, "ck"), seed=5, ckpt_interval=0, handle_sigterm=False)
+        rc._restore_from(rc._ckpt_name(resumed))
+        stretch = list(range(resumed, grow[0]["step"]))
+        replay = {s: rc.step(*data(s, n - len(lost)))[0] for s in stretch}
+        control.release()
+        out["shrunk_stretch"] = dict(steps=stretch, control=replay,
+                                     elastic={s: losses[s] for s in stretch})
+        out["shrunk_bit_for_bit"] = all(replay[s] == losses[s]
+                                        for s in stretch)
+    return out
+
+
+def _elastic_checks(name, out, n):
+    _check(out.get("elastic_shrinks") == 1 and out.get("elastic_grows") == 1,
+           "%s: transitions %r" % (name, out.get("transitions")))
+    _check(out.get("elastic_lost_replica") == n - 1, "%s: lost %r, not the "
+           "highest replica" % (name, out.get("elastic_lost_replica")))
+    _check(out["elastic_final_replicas"] == n and
+           out.get("elastic_readmit_step", 0) % EL_EPOCH == 0,
+           "%s: not re-admitted at an epoch boundary: %r" % (name, out))
+    _check(out["elastic_losses_finite"], "%s: non-finite losses" % name)
+    _check(out.get("shrunk_bit_for_bit"), "%s: the shrunk stretch is not the "
+           "from-checkpoint run bit for bit: %r"
+           % (name, out.get("shrunk_stretch")))
+
+
+def phase_elastic(torch, mx):
+    """bench.py's elastic scenario through the port's ElasticTrainer, 8
+    replicas on cuda:0 (module doc, 13t)."""
+    phase_t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="mxt-elastic-")
+    try:
+        out = _elastic_scenario(torch, mx, ["cuda:0"] * EL_REPLICAS, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out.update(phase="elastic", model="MLP %d-%d-%d" % (
+        EL_IN, EL_HIDDEN, EL_CLASSES), optimizer="adam", lr=1e-2,
+        steps_per_epoch=EL_EPOCH, ckpt_interval=EL_CKPT,
+        phase_s=time.perf_counter() - phase_t0)
+    _emit(out)
+    _elastic_checks("elastic", out, EL_REPLICAS)
+    return out
+
+
+# multi_card additions: ring attention and the elastic trainer over cards
+MULTI_RING_SHAPE = (2, 1024, 12, 64)
+
+
+def _ring_inputs(torch):
+    rs = np.random.RandomState(11)
+    return [torch.from_numpy(rs.randn(*MULTI_RING_SHAPE).astype(np.float32))
+            for _ in range(3)]
+
+
+def _ring_case(torch, mesh, dev):
+    """Causal ring attention of `_ring_inputs` over `mesh`: the output and
+    the gradients of q, k, v of its mean square (a process mesh: this
+    rank's slices of them)."""
+    import functools
+    from incubator_mxnet_tpu_torch import parallel
+    from incubator_mxnet_tpu_torch.parallel import P
+    q, k, v = (t.to(dev).requires_grad_() for t in _ring_inputs(torch))
+    spec = P(None, "sp")
+    out = parallel.shard_map(functools.partial(
+        parallel.ring_attention, axis_name="sp", causal=True), mesh,
+        in_specs=(spec,) * 3, out_specs=spec)(q, k, v)
+    grads = torch.autograd.grad((out ** 2).mean(), [q, k, v])
+    return out.detach(), grads
+
+
+def _ring_worker(out_dir):
+    """One rank of `_multi_ring`'s NCCL group: the ring over
+    `process_mesh()`, rank 0 writing the output and every rank's slice
+    of the gradients."""
+    import torch
+    import torch.distributed as dist
+    import incubator_mxnet_tpu_torch as mx
+    from incubator_mxnet_tpu_torch import parallel
+    mx.base.ensure_distributed()
+    rank, n = dist.get_rank(), dist.get_world_size()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = "cuda:%d" % torch.cuda.current_device()
+    out, grads = _ring_case(torch, parallel.process_mesh(("sp",)), dev)
+    span = MULTI_RING_SHAPE[1] // n
+    mine = [g.narrow(1, rank * span, span).contiguous() for g in grads]
+    parts = []
+    for g in mine:
+        got = [torch.empty_like(g) for _ in range(n)]
+        dist.all_gather(got, g)
+        parts.append(torch.cat(got, 1).cpu())
+    if rank == 0:
+        torch.save(dict(out=out.cpu(), grads=parts),
+                   os.path.join(out_dir, "ring.pt"))
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def _multi_ring(torch, mx, n, tmp):
+    from incubator_mxnet_tpu_torch.tools import launch
+    one = _ring_case(torch, _sp_mesh(mx, ["cuda:0"] * n), "cuda:0")
+    cards = _ring_case(torch, _sp_mesh(mx, ["cuda:%d" % i for i in range(n)]),
+                       "cuda:0")
+    with open(os.path.join(tmp, "ring_log"), "w") as log:
+        rc = launch.launch(n, [sys.executable, os.path.abspath(__file__),
+                               "ring-worker", tmp],
+                           timeout=MULTI_TIMEOUT_S, out=log)
+    _check(rc == 0, "the %d-rank ring group failed (rc %d): %s" % (
+        n, rc, open(os.path.join(tmp, "ring_log")).read()[-3000:]))
+    dist = torch.load(os.path.join(tmp, "ring.pt"), weights_only=True)
+
+    def errs(run):
+        out, grads = run
+        return _err_cpu(dict(out=out, q=grads[0], k=grads[1], v=grads[2]),
+                           dict(out=one[0], q=one[1][0], k=one[1][1],
+                                v=one[1][2]))
+    return dict(shape=list(MULTI_RING_SHAPE), causal=True,
+                one_process=errs(cards),
+                process_group=errs((dist["out"], dist["grads"])))
+
+
+def ring_without_rescale():
+    """The planted ring of `phase_seq_parallel`: `parallel.ring_attention`
+    with its merge's rescale of the running sum dropped (a_prev = 1),
+    made from the port's source so that nothing else differs."""
+    import inspect
+    import textwrap
+    from incubator_mxnet_tpu_torch.parallel import ring_attention as fn
+    mod = sys.modules[fn.__module__]
+    src = textwrap.dedent(inspect.getsource(fn))
+    old = ("a_prev = torch.where(torch.isneginf(m), torch.zeros_like(m),\n"
+           "                             torch.exp(m - mm))")
+    _check(old in src, "the ring's merge is not as the planted fault "
+           "expects it")
+    src = src.replace(old, "a_prev = torch.ones_like(m)")
+    env = dict(vars(mod))
+    exec(compile(src, "<planted ring>", "exec"), env)
+    return env["ring_attention"]
+
 
 def setup(torch):
     """What every run of the phases starts from, here and in
@@ -7931,6 +8948,10 @@ def main():
     phase_train_wide_deep(torch, mx, att, cs)
     sharded = phase_train_sharded(torch, mx, cs)
     phase_kvstore(torch, mx)
+    resilient = phase_train_resilient(torch, mx, cs)
+    phase_seq_parallel(torch, mx, att)
+    phase_pipeline_moe(torch, mx)
+    phase_elastic(torch, mx)
     phase_multi_card(torch, mx)
 
     def nmt(kernel):
@@ -8023,7 +9044,11 @@ def main():
              train_sharded_launches=sharded["launches"],
              train_sharded_launches_per_replayed_step=sharded[
                  "per_replayed_step"],
-             train_sharded_batch=sharded["batch"]),
+             train_sharded_batch=sharded["batch"],
+             train_resilient_launches=resilient["launches"],
+             train_resilient_launches_per_replayed_step=resilient[
+                 "per_replayed_step"],
+             train_resilient_batch=resilient["batch"]),
         dict(name="nms", route="cuda",
              source="incubator_mxnet_tpu_torch/ops/csrc/nms.cu",
              replaces="no TPU kernel: box_nms "
@@ -8056,4 +9081,6 @@ def main():
 if __name__ == "__main__":
     if sys.argv[1:2] == ["dist-worker"]:
         sys.exit(_dist_worker(*sys.argv[2:]))
+    if sys.argv[1:2] == ["ring-worker"]:
+        sys.exit(_ring_worker(*sys.argv[2:]))
     sys.exit(main())

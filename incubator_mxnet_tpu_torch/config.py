@@ -377,3 +377,53 @@ register("MXNET_AMP_DTYPE", str, "",
          "parallel.ShardedTrainer(amp=None): the mixed-precision compute "
          "dtype, 'bfloat16' or 'float16' (contrib.amp's cast policy), "
          "empty = off")
+register("MXNET_CKPT_INTERVAL", int, 100,
+         "ResilientTrainer: steps between periodic atomic checkpoints")
+register("MXNET_CKPT_KEEP", int, 3,
+         "ResilientTrainer: checkpoints retained (keep-last-K garbage "
+         "collection; older step_* directories are removed after a "
+         "successful write)")
+register("MXNET_CKPT_VERIFY", bool, True,
+         "Verify every checkpoint against its integrity manifest "
+         "(per-file and per-leaf CRCs, integrity.py) before restoring "
+         "it.  A mismatch raises a typed CheckpointCorrupt naming the "
+         "bad file (and leaf, where the file still loads) and resume() "
+         "restores the newest checkpoint that verifies.  0 skips "
+         "verification")
+register("MXNET_SDC_AUDIT_STEPS", int, 0,
+         "Cross-replica audit cadence: every N steps, hash every "
+         "replicated parameter and optimizer-state leaf per replica and "
+         "compare across the mesh (integrity.audit_replicas).  A "
+         "divergent replica triggers a black-box dump and a rollback "
+         "(ResilientTrainer) or its eviction (ElasticTrainer).  0 = off")
+register("MXNET_BAD_STEP_ROLLBACK", int, 3,
+         "ResilientTrainer: consecutive skipped (non-finite/spiking) "
+         "steps before rolling back to the last checkpoint; 0 disables "
+         "rollback (skip-only)")
+register("MXNET_LOSS_SPIKE_FACTOR", float, 0.0,
+         "ResilientTrainer: skip the update when loss exceeds this "
+         "multiple of its running mean (0 = non-finite detection only)")
+register("MXNET_ELASTIC_STALE_STEPS", int, 1,
+         "ElasticTrainer heartbeat health: steps without a kvstore "
+         "heartbeat before a replica is reported SLOW "
+         "(mesh.replica_slow counter; observation only, no shrink)")
+register("MXNET_ELASTIC_DOWN_STEPS", int, 2,
+         "ElasticTrainer heartbeat health: steps without a kvstore "
+         "heartbeat before a replica is declared DOWN: the mesh drains, "
+         "shrinks to the survivors and resumes from the last atomic "
+         "checkpoint")
+register("MXNET_ELASTIC_MIN_REPLICAS", int, 1,
+         "ElasticTrainer: smallest mesh the supervisor will shrink to; "
+         "losing a replica below this floor is a hard error")
+register("MXNET_STRAGGLER_WINDOW", int, 8,
+         "Fleet straggler detector (telemetry/fleet.py): per-replica "
+         "rolling window of published step times the skew statistic is "
+         "computed over; the detector needs at least 2 samples per "
+         "replica before it judges")
+register("MXNET_FLEET_PUBLISH_STEPS", int, 1,
+         "Fleet telemetry publish cadence: every N supervised steps "
+         "each replica's compact snapshot (step time, dispatch/"
+         "collective walls, memory watermark) is pushed through the "
+         "kvstore at __mesh__/telemetry/<rid> and merged into the "
+         "FleetView.  0 disables fleet publishing and straggler "
+         "detection")

@@ -24,6 +24,31 @@ CPU.  The sites the port reads:
                         record read): the payload gets one bit flipped
                         in flight (`flip_bits`), which the CRC sidecar
                         or the decoder catches and quarantines
+    grad_nan            ResilientTrainer: the guarded step's loss and
+                        gradients are multiplied by NaN (a slot of its
+                        device vector: no new capture)
+    loss_spike          ResilientTrainer: the loss and gradients are
+                        multiplied by 1e4
+    collective          ResilientTrainer step dispatch: raises
+                        TransientFault (retried)
+    preempt             ResilientTrainer: SIGTERM is raised in-process
+                        (`signal.raise_signal`, the real signal path)
+    checkpoint.save     ResilientTrainer checkpoint write: raises
+                        InjectedIOError (retried)
+    ckpt.bitflip        ResilientTrainer: one bit of the largest file of
+                        the just-published checkpoint is flipped
+                        (`flip_file_bit`); the integrity manifest
+                        catches it at the next verify or restore
+    mesh.replica_down   ElasticTrainer heartbeats: the victim (highest
+                        active replica) stops beating from this step
+                        on; the health poll finds it down through the
+                        real staleness path and the mesh shrinks
+    mesh.replica_slow   ElasticTrainer heartbeats: the victim skips one
+                        staleness window of beats (reported slow, not
+                        shrunk)
+    mesh.replica_divergence  the cross-replica audit
+                        (`integrity.audit_replicas`): the victim (highest
+                        replica) reports a perturbed CRC for one leaf
 
 Faults install programmatically::
 
@@ -41,18 +66,20 @@ seconds::
 The registry is process-local, thread-safe, and off unless something was
 installed.
 
-Left out: the JAX package's training, mesh and checkpoint sites and
-`flip_file_bit`, which wait on the modules that read them.
+Left out: the JAX package's ``kvstore.barrier_hang``, ``serve.slow``
+and control-plane sites, whose readers are not ported.
 """
 from __future__ import annotations
 
+import os
 import threading
 import time
 from typing import Dict, List, Optional
 
 __all__ = ["InjectedFault", "TransientFault", "InjectedIOError", "install",
            "clear", "reset_from_config", "should_fire", "maybe_raise",
-           "maybe_slow", "fired_count", "active_sites", "flip_bits"]
+           "maybe_slow", "fired_count", "active_sites", "flip_bits",
+           "flip_file_bit", "Preempted"]
 
 
 class InjectedFault(Exception):
@@ -66,6 +93,24 @@ class TransientFault(InjectedFault):
 class InjectedIOError(TransientFault, IOError):
     """An injected I/O failure: an IOError, so that `except (IOError,
     OSError)` handlers treat it as a real one."""
+
+
+class Preempted(Exception):
+    """Raised by the resilient train loop after a (real or injected)
+    preemption signal was handled.  With a checkpoint directory, state
+    was checkpointed and a resumable marker is on disk when this
+    propagates; `ckpt_dir` is None otherwise: nothing was saved."""
+
+    def __init__(self, step, ckpt_dir):
+        if ckpt_dir:
+            msg = ("training preempted at step %d; resumable checkpoint "
+                   "in %s" % (step, ckpt_dir))
+        else:
+            msg = ("training preempted at step %d; NO checkpoint "
+                   "directory configured — state was not saved" % step)
+        super().__init__(msg)
+        self.step = step
+        self.ckpt_dir = ckpt_dir
 
 
 class _Fault:
@@ -246,3 +291,20 @@ def flip_bits(buf: bytes, seed: int = 0) -> bytes:
     pos = (len(b) // 2 + int(seed)) % len(b)
     b[pos] ^= 1 << (int(seed) % 8)
     return bytes(b)
+
+
+def flip_file_bit(path: str, seed: int = 0) -> int:
+    """Flip one bit in the middle of the file at `path` in place
+    (deterministic per (size, seed)); returns the byte offset flipped,
+    -1 for an empty file.  The ckpt.bitflip site applies it to the
+    largest file of a just-published checkpoint."""
+    size = os.path.getsize(path)
+    if size == 0:
+        return -1
+    pos = (size // 2 + int(seed)) % size
+    with open(path, "r+b") as fh:
+        fh.seek(pos)
+        byte = fh.read(1)
+        fh.seek(pos)
+        fh.write(bytes([byte[0] ^ (1 << (int(seed) % 8))]))
+    return pos

@@ -155,6 +155,14 @@ def gate(device):
         return g
 
 
+def capturing(device):
+    """Whether this thread is capturing a program on `device`."""
+    device = torch.device(device)
+    if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+        return True
+    return gate(device)._owner == threading.get_ident()
+
+
 class _Watch(TorchDispatchMode):
     """Refuses host reads and names the last op issued; with `record`,
     keeps (op, args, kwargs, result) of every op it lets run."""

@@ -11,7 +11,11 @@ decode step attend with `torch.bmm`, as the JAX package does with
 `batch_dot` outside its kernels.  Every layer takes `device` (default
 `cuda:0`) and `dtype`, and builds its parameters there.
 `FusedMLMCELoss` owns the vocab projection and fuses it into a chunked
-softmax cross-entropy.
+softmax cross-entropy.  `seq_parallel=(mesh, axis)` runs unmasked
+attention as `parallel.ring_attention` over the sequence split on the
+mesh axis (`parallel.shard_map`), plain torch in f32 as in the JAX
+package; a mask, or a captured program, falls back to the path above
+with a warning.
 """
 from __future__ import annotations
 
@@ -20,7 +24,7 @@ import warnings
 
 import torch
 
-from .. import autograd
+from .. import autograd, graph_capture
 from ..context import resolve_device
 from ..gluon import nn
 from ..gluon.block import HybridBlock, new_parameter
@@ -42,13 +46,15 @@ class MultiHeadAttention(HybridBlock):
         if units % num_heads:
             raise ValueError("units %d is not a multiple of num_heads %d"
                              % (units, num_heads))
-        if seq_parallel is not None:
-            raise NotImplementedError(
-                "MultiHeadAttention(seq_parallel=...): ring and Ulysses "
-                "attention are not yet ported; they come with slice 23 of "
-                "the port (ROADMAP Queue 1 item 7)")
         self._units = units
         self._num_heads = num_heads
+        self._seq_parallel = seq_parallel
+        if seq_parallel is not None and dropout:
+            warnings.warn(
+                "MultiHeadAttention(seq_parallel=...): attention-prob "
+                "dropout is not applied on the ring-attention path (the "
+                "fused flash path's contract); residual/FFN dropout still "
+                "applies")
         dev = resolve_device(device)
         kw = dict(flatten=False, in_units=units, device=dev, dtype=dtype)
         self.query = nn.Dense(units, **kw)
@@ -57,8 +63,45 @@ class MultiHeadAttention(HybridBlock):
         self.proj = nn.Dense(units, **kw)
         self.dropout = nn.Dropout(dropout) if dropout else None
 
+    def _ring_forward(self, x):
+        """The context-parallel path: q/k/v (B, T, H, d) split on T over
+        the mesh axis, ring attention in `parallel.shard_map` on the
+        mesh's replicas, the result back on x's device."""
+        from ..parallel import P, ring_attention, shard_map
+        if graph_capture.capturing(x.device):
+            raise graph_capture.CaptureError(
+                "MultiHeadAttention(seq_parallel=...) cannot run inside a "
+                "captured program: the ring runs one thread per replica, "
+                "which a capture does not record; call the block "
+                "uncaptured (not hybridized)")
+        H = self._num_heads
+        B, T, C = x.shape
+        mesh, axis = self._seq_parallel
+        n_shards = mesh.shape[axis]
+        if T % n_shards:
+            raise ValueError(
+                "seq_parallel ring attention needs the sequence length to "
+                "divide evenly over the %r mesh axis: T=%d, shards=%d (pad "
+                "the sequence or change the mesh)" % (axis, T, n_shards))
+        d = C // H
+        q = self.query(x).reshape(B, T, H, d)
+        k = self.key(x).reshape(B, T, H, d)
+        v = self.value(x).reshape(B, T, H, d)
+        spec = P(None, axis)
+        ring = shard_map(lambda q_, k_, v_: ring_attention(
+            q_, k_, v_, axis_name=axis), mesh, in_specs=(spec, spec, spec),
+            out_specs=spec)
+        ctx = ring(q, k, v).to(x.device)
+        return self.proj(ctx.reshape(B, T, C))
+
     def forward(self, x, mask=None):
         H = self._num_heads
+        if self._seq_parallel is not None:
+            if mask is None:
+                return self._ring_forward(x)
+            warnings.warn(
+                "seq_parallel attention falls back to the single-device "
+                "path (mask given): the ring path supports mask=None only")
         # fused path: softmax(QK^T)V is one kernel and the score matrix
         # never reaches device memory.  Attention-prob dropout is live
         # only while training (autograd.is_training()), so inference

@@ -15,6 +15,14 @@ live on `cpu`).  `make_mesh()` takes every card, and raises without one
 unless the caller is inside `with cpu():`; a CPU mesh of n replicas is
 `make_mesh(devices=[cpu(i) for i in range(n)])`.  `Shards` is a list of per-replica tensors that a feed or
 a caller has placed already, which the trainer takes as it is.
+
+`process_mesh()` is the mesh of a `torch.distributed` group: one
+replica per rank along one axis, of which this process drives its own
+(`Mesh.in_process` False); `parallel.spmd.shard_map` runs one body per
+rank over it.  `squeeze_stage_axis` strips the leading size-1 axis of a
+stacked tree's per-replica slice inside a `shard_map` body;
+`mark_varying` is the identity (the port has no replication types) and
+stays so that bodies read as the JAX package's do.
 """
 from __future__ import annotations
 
@@ -25,7 +33,8 @@ import torch
 
 __all__ = ["make_mesh", "Mesh", "NamedSharding", "P", "replicated",
            "batch_sharded", "default_dp_mesh", "replica_contexts",
-           "mesh_devices", "surviving_mesh", "Shards"]
+           "mesh_devices", "surviving_mesh", "Shards", "process_mesh",
+           "squeeze_stage_axis", "mark_varying"]
 
 
 class P(tuple):
@@ -40,7 +49,11 @@ class P(tuple):
 
 
 class Mesh:
-    """Replica contexts laid out in a grid with named axes."""
+    """Replica contexts laid out in a grid with named axes.
+    `in_process` False: the replicas are the ranks of a process group
+    (`process_mesh`)."""
+
+    in_process = True
 
     def __init__(self, devices, axis_names):
         from ..context import _norm
@@ -154,3 +167,49 @@ def batch_sharded(mesh: Mesh, axis: str = "data",
     spec = [None] * (batch_dim + 1)
     spec[batch_dim] = axis
     return NamedSharding(mesh, P(*spec))
+
+
+def process_mesh(axis_names=("data",), device=None) -> Mesh:
+    """A 1-d mesh over the ranks of the default `torch.distributed`
+    group, this process being replica `get_rank()` on `device` (default
+    `cuda:<rank % cards>`, which raises without a card unless inside
+    `with cpu():`, where it is `cpu(rank)`); the other entries name the
+    other ranks' devices of the same kind, `cuda:<r % cards>` or
+    `cpu(r)`."""
+    import torch.distributed as dist
+    from ..context import cpu, current_device, resolve_device
+    if not dist.is_initialized():
+        raise RuntimeError("no torch.distributed process group: start it "
+                           "with base.ensure_distributed()")
+    n, rank = dist.get_world_size(), dist.get_rank()
+    mine = resolve_device(device) if device is not None else None
+    on_card = (mine or current_device()).type == "cuda"
+
+    def dev(r):
+        if r == rank and mine is not None:
+            return mine
+        if on_card:
+            return torch.device("cuda", r % torch.cuda.device_count())
+        return cpu(r)
+    mesh = make_mesh((n,), axis_names, devices=[dev(r) for r in range(n)])
+    mesh.in_process = False
+    return mesh
+
+
+def squeeze_stage_axis(tree):
+    """Strip the leading size-1 axis that a P('<axis>')-sharded stacked
+    tree carries inside a shard_map body (each replica sees its own
+    slice)."""
+    if isinstance(tree, dict):
+        return {k: squeeze_stage_axis(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(squeeze_stage_axis(v) for v in tree)
+    if getattr(tree, "ndim", 0) and tree.shape[0] == 1:
+        return tree[0]
+    return tree
+
+
+def mark_varying(x, axis_name):
+    """The identity: the JAX package tags a value as device-varying for
+    shard_map's type system, which the port has not."""
+    return x

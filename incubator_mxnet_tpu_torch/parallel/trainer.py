@@ -44,12 +44,23 @@ with the same values).  In the trainer, lr, wd and the rescale are read
 from a device vector per replica (`_hyper`), so `set_learning_rate`
 reaches a captured step.
 
+A guarded step (`parallel.ResilientTrainer`) runs the same body with a
+device vector per replica [poison, spike threshold, loss scale]: the
+loss is scaled, the loss and gradients are multiplied by the poison,
+`ok` (a finite loss at or below the threshold, every gradient finite,
+over all replicas) is computed on the device, the gradients are
+unscaled in the update, and the new parameters, optimizer state and
+running statistics are committed by `torch.where(ok, new, old)`: a bad
+step leaves all three bit for bit as they were.  With poison and scale
+1 it is the unguarded step, bit for bit.
+
 Capture: with one replica the whole step (forward, backward, update) is
 one program of `graph_capture.capture`, a CUDA graph on the card: the
 first step of a batch signature runs eagerly, the second captures, the
 later ones copy the batch into the program's static inputs and replay
 (`captures`, `replays`, `eager_steps` count them).  A step over several
-in-process replicas runs uncaptured.
+in-process replicas runs uncaptured.  A guarded step is a program of
+its own.
 
 Checkpoints are `torch.save` files of host tensors (`checkpoint.pt` in
 the directory `path`) holding the tree {params, opt_state, n_step} at
@@ -80,7 +91,8 @@ from .zero import BucketPlan, overlap_schedule, record_plan, \
 __all__ = ["ShardedTrainer", "softmax_ce_loss", "sgd_momentum_tree",
            "adam_tree"]
 
-_CKPT = "checkpoint.pt"
+#: the file of a `save_checkpoint` directory
+CHECKPOINT_FILE = "checkpoint.pt"
 
 
 def softmax_ce_loss(logits, labels):
@@ -144,6 +156,11 @@ def adam_tree(lr, beta1=0.9, beta2=0.999, eps=1e-8, wd=0.0):
     return init, update
 
 
+def _clone(out):
+    return tuple(t.clone() for t in out) if isinstance(out, tuple) \
+        else out.clone()
+
+
 def _map_named(tree, names, fn):
     """`tree` with fn(name, leaf) at each leaf of a dict keyed by
     parameter names, fn(None, leaf) at every other leaf."""
@@ -171,14 +188,22 @@ def _leaves(tree):
         yield tree
 
 
-def _copy_tree(dst, src):
+def _commit(dst, new, ok=None):
+    """`dst` := `new`, or where the device bool `ok` is given,
+    `torch.where(ok, new, dst)` (the old value is read before it is
+    written)."""
+    dst.copy_(new if ok is None else torch.where(ok, new.to(dst.dtype), dst))
+
+
+def _copy_tree(dst, src, ok=None):
     """Write `src` into `dst` in place, leaf by leaf (the same
-    structure; a parameter-keyed dict of `src` may hold a subset)."""
+    structure; a parameter-keyed dict of `src` may hold a subset), each
+    leaf committed by `_commit`."""
     if isinstance(dst, dict):
         for k, v in src.items():
-            _copy_tree(dst[k], v)
+            _copy_tree(dst[k], v, ok)
     else:
-        dst.copy_(src)
+        _commit(dst, src, ok)
 
 
 class ShardedTrainer:
@@ -264,7 +289,14 @@ class ShardedTrainer:
         self._n_step = 0
         self._dispatch = DispatchPool(self._local) \
             if self.group.in_process else None
-        self._sync_bn = self.zero <= 1 and self._n > 1
+        self._capture = self._n == 1
+        self._names = list(block.collect_params().keys())
+        self._stateful = {n for n, p in block.collect_params().items()
+                          if not p.requires_grad}
+        # global batch statistics are BatchNorm's: a block without
+        # running statistics has nothing to sum across replicas
+        self._sync_bn = self.zero <= 1 and self._n > 1 and \
+            bool(self._stateful)
         cards = [d for d in self._local if d.type == "cuda"]
         if self._sync_bn and len(set(cards)) < len(cards):
             raise ValueError(
@@ -272,10 +304,6 @@ class ShardedTrainer:
                 "middle of the backward, which replicas sharing a card "
                 "cannot do (their backwards run on one autograd thread); "
                 "use one replica per card, or zero>=2" % self.zero)
-        self._capture = self._n == 1
-        self._names = list(block.collect_params().keys())
-        self._stateful = {n for n, p in block.collect_params().items()
-                          if not p.requires_grad}
         self._shells = [block] + [replica_shell(block)
                                   for _ in self._local[1:]]
         self._fwd = [functionalize(b, training=True) for b in self._shells]
@@ -444,9 +472,11 @@ class ShardedTrainer:
         return self._dispatch.place(arr if isinstance(arr, torch.Tensor)
                                     else torch.as_tensor(arr))
 
-    def _replica_grads(self, r, x, y, params):
+    def _replica_grads(self, r, x, y, params, guard=None):
         """Loss, {name: gradient} and running-statistic updates of local
-        replica r over its rows."""
+        replica r over its rows; a guarded step's loss is scaled, and
+        the loss and gradients are multiplied by the poison (module
+        doc)."""
         if self._preprocess is not None:
             x = self._preprocess(x)
         leaves = {n: (v.detach().requires_grad_(True)
@@ -455,18 +485,25 @@ class ShardedTrainer:
         with torch.enable_grad():
             out, states = self._fwd[r](leaves, x)
             loss = self.loss_fn(out, y)
+            if guard is not None:
+                loss = loss * guard[r][2]
             train = [n for n in self._names if n not in self._stateful]
             grads = torch.autograd.grad(loss, [leaves[n] for n in train],
                                         allow_unused=True)
-        return loss.detach(), {
-            n: torch.zeros_like(leaves[n]) if g is None else g
-            for n, g in zip(train, grads)}, states
+        grads = {n: torch.zeros_like(leaves[n]) if g is None else g
+                 for n, g in zip(train, grads)}
+        loss = loss.detach()
+        if guard is not None:
+            poison = guard[r][0]
+            loss = loss * poison
+            grads = {n: g * poison.to(g.dtype) for n, g in grads.items()}
+        return loss, grads, states
 
-    def _forward_backward(self, xs, ys, full):
+    def _forward_backward(self, xs, ys, full, guard=None):
         """Per local replica (loss, grads, states), in lockstep when
         BatchNorm's statistics span the replicas."""
         def one(r):
-            return self._replica_grads(r, xs[r], ys[r], full[r])
+            return self._replica_grads(r, xs[r], ys[r], full[r], guard)
 
         def synced(r):
             with _coll.replica_sync(self.group, r):
@@ -481,17 +518,42 @@ class ShardedTrainer:
             return [one(r) for r in range(len(self._local))]
         return self._dispatch.run(one, range(len(self._local)))
 
-    def _body(self, xs, ys):
+    def _verdict(self, losses, grads, guard):
+        """A guarded step's (unscaled mean loss on replica 0's device,
+        [ok on each local replica's device]): the loss finite and at most
+        the spike threshold, every gradient of every replica finite."""
+        group, nl = self.group, len(self._local)
+        dev0 = self._dev(0)
+        fin = [torch.isfinite(torch.stack(
+            [n.float() for n in torch._foreach_norm(
+                list(grads[r].values()), float("inf"))]
+            + [losses[r].float()])).all().to(dev0) for r in range(nl)]
+        fin = torch.stack(fin).all()
+        loss = torch.stack([l.to(dev0) for l in losses]).mean()
+        if not group.in_process and self._n > 1:
+            both = group.all_reduce([torch.stack(
+                [loss.float(), (~fin).float()])])[0]
+            loss, fin = both[0] / self._n, both[1] == 0
+        loss = loss / guard[0][2]
+        ok = fin & torch.isfinite(loss) & (loss <= guard[0][1])
+        return loss, [ok if r == 0 else ok.to(self._dev(r))
+                      for r in range(nl)]
+
+    def _body(self, xs, ys, guard=None):
         """One step on the local replicas' rows; returns the mean loss
-        (on replica 0's device)."""
+        (on replica 0's device), and with a guard (a device vector per
+        local replica, module doc) (loss, ok)."""
         group, nl = self.group, len(self._local)
         plan = self._plan
         full = self._rparams
         if self._param_dim:
             full = plan.gather_params(group, self._rparams)
-        results = self._forward_backward(xs, ys, full)
+        results = self._forward_backward(xs, ys, full, guard)
         losses = [res[0] for res in results]
         grads = [res[1] for res in results]
+        ok = None
+        if guard is not None:
+            gloss, ok = self._verdict(losses, grads, guard)
         train = list(grads[0])
         # the gradient each replica updates with: (name -> tensor), the
         # shard of it where the state is sharded
@@ -520,13 +582,16 @@ class ShardedTrainer:
         for r in range(nl):
             init, update = self._opt_fns[r]
             state = _restrict(self._opt[r], names, set(g_up[r]))
-            new_w, new_s = update(w_up[r], g_up[r], state,
-                                  scale=self._hyper[r][2])
+            scale = self._hyper[r][2] if guard is None else \
+                self._hyper[r][2] / guard[r][2]
+            new_w, new_s = update(w_up[r], g_up[r], state, scale=scale)
             with torch.no_grad():
-                _copy_tree(state, new_s)
+                _copy_tree(state, new_s, None if ok is None else ok[r])
                 for nm, v in new_w.items():
-                    w_up[r][nm].copy_(v)
-        self._write_back(results, w_up)
+                    _commit(w_up[r][nm], v, None if ok is None else ok[r])
+        self._write_back(results, w_up, ok)
+        if guard is not None:
+            return gloss, ok[0]
         loss = losses[0] if nl == 1 else torch.stack(
             [l.to(self._dev(0)) for l in losses]).mean()
         if not group.in_process and self._n > 1:
@@ -534,9 +599,10 @@ class ShardedTrainer:
         return loss
 
     @torch.no_grad()
-    def _write_back(self, results, w_up):
+    def _write_back(self, results, w_up, ok=None):
         """The updated shards all-gathered into the stored parameters, and
-        the running statistics folded in."""
+        the running statistics folded in (where `ok`, a guarded step's
+        verdict per replica, holds)."""
         group, nl = self.group, len(self._local)
         for nm in self._shapes:
             dim = self._state_dim.get(nm)
@@ -553,11 +619,17 @@ class ShardedTrainer:
             for r, v in enumerate(vals):
                 dst = self._rparams[r][nm]
                 dim = self._param_dim.get(nm)
-                dst.copy_(self._shard(v, dim, r).to(dst.dtype))
+                _commit(dst, self._shard(v, dim, r).to(dst.dtype),
+                        None if ok is None else ok[r])
 
-    def step(self, batch, labels, rng_bits=None):
+    def step(self, batch, labels, rng_bits=None, guard=None,
+             on_capture=None):
         """One step over the global batch (a process-group rank: its own
-        rows); returns the mean loss, a device scalar."""
+        rows); returns the mean loss, a device scalar.  A guarded step
+        (module doc; `guard` holds one device vector [poison, spike
+        threshold, loss scale] per local replica) returns (unscaled mean
+        loss, ok), device scalars, and the step counter moves either
+        way; `on_capture(program, seconds)` is told of a new program."""
         if rng_bits is not None:
             raise NotImplementedError(
                 "rng_bits: the port's dropout draws from its generator "
@@ -566,41 +638,48 @@ class ShardedTrainer:
         xs, ys = self._split(batch), self._split(labels)
         if not self._capture:
             self.eager_steps += 1
-            loss = self._body(xs, ys)
+            out = self._body(xs, ys, guard)
         else:
-            loss = self._captured(xs[0], ys[0])
+            out = self._captured(xs[0], ys[0], guard, on_capture)
         self._n_step += 1
         if self._plan is not None:
             self._plan.invoke_cost_rows()
         _bb.record("step", "sharded", step=self._n_step - 1,
                    us=int((time.perf_counter() - t0) * 1e6))
-        return loss
+        return out
 
-    def _captured(self, x, y):
+    def _captured(self, x, y, guard=None, on_capture=None):
         """The one-replica step: eager at a signature's first call,
-        captured at its second, replayed after."""
-        sig = (tuple(x.shape), x.dtype, tuple(y.shape), y.dtype)
+        captured at its second, replayed after.  A guarded step (`guard`
+        the replica's device vector, written before each call) is a
+        program of its own and returns (loss, ok); `on_capture(program,
+        seconds)` is told of a new program."""
+        sig = (tuple(x.shape), x.dtype, tuple(y.shape), y.dtype,
+               guard is not None)
         prog = self._program
         if prog is not None and prog[0] == sig:
-            _, program, sx, sy, sloss = prog
+            _, program, sx, sy, out = prog
             with torch.no_grad():
                 sx.copy_(x)
                 sy.copy_(y)
             program.replay()
             self.replays += 1
-            return sloss.clone()
+            return _clone(out)
         if self._warm != sig:
             self._warm = sig
             self.eager_steps += 1
-            return self._body([x], [y])
+            return self._body([x], [y], guard)
         sx, sy = x.clone(), y.clone()
-        program, sloss = _capture.capture(lambda: self._body([sx], [sy]),
-                                          self._dev(0))
+        t0 = time.perf_counter()
+        program, out = _capture.capture(
+            lambda: self._body([sx], [sy], guard), self._dev(0))
         self.captures += 1
+        if on_capture is not None:
+            on_capture(program, time.perf_counter() - t0)
         if not program.ran:
             program.replay()
-        self._program = (sig, program, sx, sy, sloss)
-        return sloss.clone()
+        self._program = (sig, program, sx, sy, out)
+        return _clone(out)
 
     # -- around the step ---------------------------------------------
     def device_feed(self, source, depth=None, transform=None):
@@ -635,24 +714,27 @@ class ShardedTrainer:
     # -- checkpoints -------------------------------------------------
     def save_checkpoint(self, path):
         """Write {params, opt_state, n_step} at global shapes, as host
-        tensors, to `path`/checkpoint.pt (`path` a directory)."""
+        tensors, to `path`/checkpoint.pt (`path` a directory); returns
+        that host tree (every rank of a process group gathers it, rank 0
+        writes it)."""
         params, opt = self.params, self.opt_state
         tree = {"params": {n: v.detach().cpu() for n, v in params.items()},
                 "opt_state": _map_named(opt, set(self._shapes),
                                         lambda n, v: v.detach().cpu()),
                 "n_step": self._n_step}
         if not self.group.in_process and self.group.rank_offset != 0:
-            return
+            return tree
         os.makedirs(path, exist_ok=True)
-        tmp = os.path.join(path, _CKPT + ".tmp.%d" % os.getpid())
+        tmp = os.path.join(path, CHECKPOINT_FILE + ".tmp.%d" % os.getpid())
         torch.save(tree, tmp)
-        os.replace(tmp, os.path.join(path, _CKPT))
+        os.replace(tmp, os.path.join(path, CHECKPOINT_FILE))
+        return tree
 
     def load_checkpoint(self, path):
         """Restore a `save_checkpoint` onto this trainer's mesh and ZeRO
         level; a name, shape or dtype mismatch raises ValueError, a
         missing checkpoint FileNotFoundError."""
-        f = os.path.join(path, _CKPT)
+        f = os.path.join(path, CHECKPOINT_FILE)
         if not os.path.exists(f):
             raise FileNotFoundError("no checkpoint at %s" % path)
         tree = torch.load(f, map_location="cpu", weights_only=True)

@@ -13,9 +13,13 @@ snapshot as one atomic JSON file; `crash_dump()` is its never-raising,
 per-reason throttled form, which `install_crash_hooks()` wires into
 `sys.excepthook`, `threading.excepthook` and SIGUSR2.
 
+`record_mesh` marks the elastic trainer's mesh transitions, and the
+callable that `set_fleet_provider` registers (`telemetry.fleet`) gives
+every dump its `fleet` block: the per-replica view and the stragglers.
+
 Left out: the JAX package's device-memory watermarks, executable cost
-table, fleet, SLO, control-plane, autotune and memory-observatory
-blocks of a dump, and `record_mesh`, whose producers are not ported.
+table, SLO, control-plane, autotune and memory-observatory blocks of a
+dump.
 """
 from __future__ import annotations
 
@@ -31,8 +35,9 @@ from collections import deque
 from .. import config as _cfg
 from ..monitor import events
 
-__all__ = ["enabled", "record", "record_at", "ring_snapshot", "clear",
-           "dump_blackbox", "crash_dump", "install_crash_hooks"]
+__all__ = ["enabled", "record", "record_at", "record_mesh",
+           "ring_snapshot", "clear", "dump_blackbox", "crash_dump",
+           "install_crash_hooks", "set_fleet_provider", "fleet_block"]
 
 SCHEMA = "mxtpu-blackbox/1"
 
@@ -43,6 +48,27 @@ _CRASH_SEEN = {}                # reason -> last crash_dump monotonic time
 #: min seconds between crash dumps for the same reason: a persistently
 #: failing loop must not fill the disk with one dump per poll
 CRASH_DUMP_MIN_GAP_S = 10.0
+
+_FLEET = {"provider": None}
+
+
+def set_fleet_provider(fn):
+    """Register the callable whose result becomes the `fleet` block of
+    every black-box dump (None unregisters)."""
+    _FLEET["provider"] = fn
+
+
+def fleet_block():
+    """The registered fleet provider's current block (None when none is
+    set, it raised, or its supervisor is gone)."""
+    fn = _FLEET["provider"]
+    if fn is None:
+        return None
+    try:
+        return fn()
+    except Exception:               # noqa: BLE001 — forensics only
+        return None
+
 
 def enabled() -> bool:
     """Whether the flight recorder is on (default: yes — it exists for
@@ -82,6 +108,14 @@ def record_at(ts: float, kind: str, name: str, **data):
     _ring()                         # ensure it exists (locks itself)
     with _LOCK:
         _RING.append(ev)
+
+
+def record_mesh(phase: str, **data):
+    """A mesh-transition marker of the elastic trainer: one ring event of
+    kind ``mesh`` (``replica_down``, ``replica_slow``, ``shrink``,
+    ``grow``, ``straggler``...) with the replica ids and step in
+    `data`."""
+    record("mesh", phase, **data)
 
 
 def clear():
@@ -205,6 +239,7 @@ def dump_blackbox(path=None, reason="manual", exc=None, last=None):
         "percentiles": pcts,
         "labeled": labeled,
         "reqtrace": rt_block,
+        "fleet": fleet_block(),
         "events": evs,
         "trace": {"traceEvents": _chrome_view(evs),
                   "displayTimeUnit": "ms"},

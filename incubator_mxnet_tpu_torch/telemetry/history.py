@@ -37,7 +37,7 @@ from .. import config as _cfg
 from ..monitor import events
 
 __all__ = ["HistoryWriter", "enabled", "history_dir", "get_writer",
-           "record", "note_event", "tick", "query",
+           "record", "note_event", "record_fleet", "tick", "query",
            "runs", "flush", "reset"]
 
 SCHEMA = "mxtpu-history/1"
@@ -315,6 +315,29 @@ def note_event(name, **fields):
     if not enabled():
         return 0
     return get_writer().append("marker", name, 1.0, **fields)
+
+
+def record_fleet(replicas, step=None, stragglers=()):
+    """Per-replica fleet rows from the rank-0 merge (`FleetTelemetry`
+    calls this at its publish cadence); "step" is the merge round, the
+    replica's own step is kept as "replica_step".  No-op when
+    disabled."""
+    if not enabled() or not replicas:
+        return 0
+    w = get_writer()
+    slow = {str(s) for s in (stragglers or ())}
+    rows = []
+    now = time.time()
+    for rid, fr in replicas.items():
+        r = dict(fr, replica_step=fr.get("step"))
+        r.update(ts=now, run=w.run, kind="fleet", name="replica",
+                 v=float(fr.get("step_us", 0)),
+                 labels={"replica": str(rid)},
+                 straggler=str(rid) in slow)
+        if step is not None:
+            r["step"] = int(step)
+        rows.append(r)
+    return w.append_rows(rows)
 
 
 def tick(now=None):

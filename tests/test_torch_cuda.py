@@ -2095,3 +2095,68 @@ def test_gluon_loop_on_card_with_device_kvstore(card):
                     net.collect_params().items()})
     for k in res[0]:
         assert torch.equal(res[0][k], res[1][k]), k
+
+
+def test_guarded_step_replays_a_planted_nan_without_a_capture(card,
+                                                              tmp_path):
+    """ResilientTrainer on one card: the step captured once, a grad_nan
+    planted at a replayed step skipped with the parameters, optimizer
+    state and running statistics bit for bit as they were, no new
+    capture; the run then matches the CPU trainer's."""
+    from incubator_mxnet_tpu_torch import fault, parallel
+    rs = np.random.RandomState(2)
+    xs = [rs.randn(8, 16).astype(np.float32) for _ in range(5)]
+    ys = [rs.randint(0, 4, 8) for _ in range(5)]
+    runs = []
+    card_net = _dp_mlp("cuda:0")
+    cpu_net = _dp_mlp("cpu")
+    cpu_net.load_state_dict({k: v.cpu() for k, v in
+                             card_net.state_dict().items()})
+    for dev, net in (("cuda:0", card_net), ("cpu", cpu_net)):
+        rt = parallel.ResilientTrainer(
+            parallel.ShardedTrainer(net, device=dev, optimizer="adam",
+                                    lr=0.01), ckpt_dir=str(tmp_path / dev),
+            seed=1, handle_sigterm=False)
+        fault.clear()
+        fault.install("grad_nan", steps=[3])
+        try:
+            out = []
+            for i in range(5):
+                before = [v.clone() for v in rt.trainer.params.values()]
+                loss, ok = rt.step(xs[i], ys[i])
+                same = all(torch.equal(a, b) for a, b in
+                           zip(before, rt.trainer.params.values()))
+                out.append((loss, ok, same))
+        finally:
+            fault.clear()
+        runs.append((out, rt.trainer))
+    (card_out, ct), (cpu_out, _) = runs
+    assert [o[1] for o in card_out] == [True, True, True, False, True]
+    assert [o[2] for o in card_out] == [False, False, False, True, False]
+    assert (ct.eager_steps, ct.captures, ct.replays) == (1, 1, 3)
+    np.testing.assert_allclose([o[0] for o in card_out if o[1]],
+                               [o[0] for o in cpu_out if o[1]],
+                               rtol=1e-5, atol=1e-6)
+
+
+def test_shard_map_ppermute_across_two_replicas_of_the_card(card):
+    """ppermute between two replicas on cuda:0, forward and gradient,
+    against the same on two CPU replicas."""
+    from incubator_mxnet_tpu_torch import parallel
+    x = np.random.RandomState(3).randn(4, 6).astype(np.float32)
+    res = []
+    for devs in (["cuda:0", "cuda:0"], [tmx.cpu(0), tmx.cpu(1)]):
+        mesh = parallel.make_mesh(devices=devs, axis_names=("r",))
+        f = parallel.shard_map(
+            lambda a: parallel.ppermute(
+                a * (parallel.axis_index("r") + 1.0), "r", [(0, 1), (1, 0)]),
+            mesh, in_specs=(parallel.P("r"),), out_specs=parallel.P("r"))
+        t = torch.from_numpy(x).to(torch.device(devs[0]) if devs[0] ==
+                                   "cuda:0" else "cpu").requires_grad_()
+        y = f(t)
+        (y * torch.arange(6, device=y.device)).sum().backward()
+        res.append((y.detach().cpu(), t.grad.cpu(), y.device.type))
+    (cy, cg, cdev), (hy, hg, _) = res
+    assert cdev == "cuda"
+    assert torch.equal(cy, hy) and torch.equal(cg, hg)
+    assert torch.equal(cy[:2], torch.from_numpy(x[2:]) * 2)

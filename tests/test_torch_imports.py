@@ -223,14 +223,18 @@ def test_sparse_modules_load_no_jax(tmp_path):
     assert out.stdout.strip() == "ok"
 
 
-# the data-parallel slice's modules: importing them loads neither JAX nor
+# the parallel layer's modules: importing them loads neither JAX nor
 # the JAX package, and their entry points default to the card
 PARALLEL_MODULES = (
     "base", "context", "kvstore", "kvstore.kvstore", "parallel",
     "parallel.collectives", "parallel.mesh", "parallel.functional",
     "parallel.zero", "parallel.dispatch", "parallel.trainer",
     "tools", "tools.launch", "gluon.parameter", "gluon.trainer",
-    "gluon.utils", "io.device_feed", "ops.nn", "gluon.contrib.nn")
+    "gluon.utils", "io.device_feed", "ops.nn", "gluon.contrib.nn",
+    "parallel.spmd", "parallel.resilience", "parallel.elastic",
+    "parallel.ring_attention", "parallel.pipeline", "parallel.moe",
+    "integrity", "telemetry.fleet", "telemetry.stepstats",
+    "models.transformer")
 
 
 def test_parallel_modules_load_no_jax(tmp_path):
@@ -244,7 +248,7 @@ def test_parallel_modules_load_no_jax(tmp_path):
             "mx.kv.create, mx.kvstore.DistKVStore, mx.base.ensure_distributed\n"
             "mx.parallel.ShardedTrainer, mx.parallel.make_mesh\n"
             "mx.parallel.BucketPlan, mx.parallel.DispatchPool\n"
-            "def in_group():\n"
+            "def in_group(make=lambda net: mx.parallel.ShardedTrainer(net)):\n"
             "    import tempfile, torch.distributed as dist\n"
             "    with mx.cpu():\n"
             "        net = mx.gluon.nn.Dense(2, in_units=3)\n"
@@ -253,13 +257,27 @@ def test_parallel_modules_load_no_jax(tmp_path):
             "    dist.init_process_group('gloo', init_method='file://' + f,\n"
             "                            world_size=1, rank=0)\n"
             "    try:\n"
-            "        mx.parallel.ShardedTrainer(net)\n"
+            "        make(net)\n"
             "    finally:\n"
             "        dist.destroy_process_group()\n"
+            "def resilient():\n"
+            "    with mx.cpu():\n"
+            "        net = mx.gluon.nn.Dense(2, in_units=3)\n"
+            "        net.initialize()\n"
+            "    mx.parallel.ResilientTrainer(mx.parallel.ShardedTrainer(net),\n"
+            "                                 handle_sigterm=False)\n"
             "if not torch.cuda.is_available():\n"
             "    for fn in (mx.parallel.make_mesh,\n"
             "               lambda: mx.gluon.Parameter('w', shape=(2,))\n"
-            "               .initialize(), in_group):\n"
+            "               .initialize(), in_group, resilient,\n"
+            "               lambda: mx.parallel.ElasticTrainer(\n"
+            "                   lambda mesh, f: None, ckpt_dir=None),\n"
+            "               lambda: mx.parallel.shard_map(\n"
+            "                   lambda a: a, in_specs=(mx.parallel.P(),),\n"
+            "                   out_specs=mx.parallel.P()),\n"
+            "               lambda: mx.parallel.moe_ffn(8, 16, 2),\n"
+            "               lambda: in_group(\n"
+            "                   lambda net: mx.parallel.process_mesh())):\n"
             "        try:\n"
             "            fn()\n"
             "        except mx.MXNetError:\n"
@@ -267,12 +285,13 @@ def test_parallel_modules_load_no_jax(tmp_path):
             "        else:\n"
             "            raise AssertionError('ran without a card')\n"
             "for name in ('ResilientTrainer', 'ElasticTrainer',\n"
-            "             'pipeline_apply', 'moe_ffn', 'ring_attention',\n"
-            "             'ulysses_attention'):\n"
-            "    try:\n"
-            "        getattr(mx.parallel, name)()\n"
-            "    except NotImplementedError as e:\n"
-            "        assert 'slice 23' in str(e), e\n"
+            "             'ReplicaHealth', 'pipeline_apply',\n"
+            "             'split_microbatches', 'stack_stage_params',\n"
+            "             'switch_route', 'moe_apply', 'moe_ffn',\n"
+            "             'ring_attention', 'ulysses_attention',\n"
+            "             'local_attention', 'shard_map'):\n"
+            "    assert callable(getattr(mx.parallel, name)), name\n"
+            "    assert name in mx.parallel.__all__, name\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in\n"
             "       ('jax', 'jaxlib', 'incubator_mxnet_tpu')]\n"
             "assert not bad, bad\n"
