@@ -487,8 +487,39 @@ Drives incubator_mxnet_tpu_torch only (never JAX or the JAX package):
              the cards in one process and as a 4-rank NCCL group
              (`chip_smoke.py ring-worker`) against 4 replicas of one
              card; the elastic scenario over the cards (the highest lost
-             at step 6, re-admitted at 8).  With one card it prints
+             at step 6, re-admitted at 8).  With four cards: (a)
+             train_tensor_parallel's BERT-base TP step on a (2, 2)
+             ("data", "model") mesh of the cards in one process and as a
+             4-rank NCCL group on a process_mesh (`chip_smoke.py
+             tp-worker`, its second step captured a rank), each against
+             one card's replicated step by the spread rule; (b) bench.py's
+             `sharded` config (256 images a card) as a 4-rank NCCL group
+             with one CUDA graph a rank (`chip_smoke.py capture-worker`):
+             2 warm-up steps (eager, capture) and 16 that only replay,
+             step ms by CUDA events, images/s over the group and a card
+             against the one-card captured step timed in the same run
+             (scaling efficiency), rank 0's busy share, NCCL device ms and
+             conv launches from a profiled replay, and the parameters
+             after 3 captured steps against 3 eager ones (cuDNN
+             deterministic); (c) the captured TP step at 16 x 512 over the
+             group, tokens/s against the one-card replicated step at
+             8 x 512.  With one card it prints
              {"multi_card": "not run", "cards": 1}.
+13v. train_tensor_parallel — bert_base (f32, dropout 0, vocab 30522, 512
+             tokens, MLM over the full logits, Adam lr 1e-4, batch 8 x 512
+             from RandomState(0)) through ShardedTrainer on a (1, 2)
+             ("data", "model") mesh of cuda:0 twice, query/key/value/ffn1
+             column and proj/ffn2 row parallel by a spec function over the
+             MXNet names: two steps against a one-replica trainer from the
+             same start (losses; each step's parameter changes by the
+             spread rule, the reference's own spread under its weights
+             nudged by 1 + 2**-22); 12 launches of each flash kernel a
+             replica a step, every one at BH 8 x 6; replica_param_bytes
+             against the replicated trainer's; the row-parallel output
+             without its psum, and attention on 12 heads of dim 32, must
+             each fail the check; the uncaptured TP step's ms beside the
+             replicated captured step's (for information: the replicas
+             take turns on one card).
 14. kernels — one JSON line per the port's kernel table (5 rows), then the
              card's name and power limit, then the final {"ok": true, ...}
              line.
@@ -7837,8 +7868,11 @@ def phase_multi_card(torch, mx):
         out["elastic"] = _elastic_scenario(
             torch, mx, ["cuda:%d" % i for i in range(n)],
             tempfile.mkdtemp(dir=tmp))
+        out["tensor_parallel"] = _multi_tp(torch, mx, n, tmp)
+        out["captured"] = _multi_captured(torch, mx, n, tmp)
         out["phase_s"] = time.perf_counter() - phase_t0
         _emit(out)
+        _multi_new_checks(out, n)
         for form in ("one_process", "process_group"):
             worst = max(out["ring"][form].values())
             _check(worst <= SP_FN_TOL, "multi_card ring (%s) is %g of scale "
@@ -7853,6 +7887,38 @@ def phase_multi_card(torch, mx):
         import shutil
         shutil.rmtree(tmp, ignore_errors=True)
     return out
+
+
+def _multi_new_checks(out, n):
+    """The gates of multi_card's tensor-parallel and captured parts."""
+    tp = out["tensor_parallel"]
+    if n >= 4:
+        for form in ("one_process", "process_group"):
+            _check(tp[form]["ok"], "multi_card TP (%s) fails the spread "
+                   "rule: %r" % (form, tp[form]["steps"]))
+            _check(tp[form]["loss_max_abs_err"] <= SERVE_TOL,
+                   "multi_card TP (%s): the loss is %g off one card's"
+                   % (form, tp[form]["loss_max_abs_err"]))
+        _check(tp["process_group_ran"] == [1, 1, 0], "multi_card TP group: "
+               "its parity steps ran %r, not eager then captured"
+               % (tp["process_group_ran"],))
+        _check(tp["timed"]["ran"] == [1, 1, 1 + MULTI_TP_TIMED],
+               "multi_card TP group: the timed steps ran %r"
+               % (tp["timed"]["ran"],))
+    cap = out["captured"]
+    _check(cap["warmup"] == [1, 1, 0] and
+           cap["timed"] == [0, 0, SHARDED_STEPS], "multi_card captured: "
+           "warm-up %r and timed %r steps, not eager+capture then only "
+           "replays" % (cap["warmup"], cap["timed"]))
+    _check(cap["one_card_ran"] == [1, 1, 1 + SHARDED_STEPS],
+           "multi_card captured: the one-card reference ran %r, not "
+           "eager, capture, replays" % (cap["one_card_ran"],))
+    _check(cap["conv"] == RESNET_SITES, "multi_card captured: a replayed "
+           "step launched the conv kernel %d times by name" % cap["conv"])
+    _check(cap["bitwise_differing"] == 0 or
+           cap["worst_over_scale"] <= 2.0 ** -7, "multi_card captured: the "
+           "captured parameters differ from the eager ones by %g of scale"
+           % cap["worst_over_scale"])
 
 
 def _multi_gluon_step(torch, mx, ctx, start, scale=1.0):
@@ -8871,6 +8937,478 @@ def ring_without_rescale():
     return env["ring_attention"]
 
 
+# train_tensor_parallel: bert_base tensor parallel over a (data, model)
+# mesh (parallel/tensor_parallel.py)
+TP_BATCH = 8
+TP_LR = 1e-4
+TP_STEPS = 2
+TP_TIMED = 3
+TP_HEADS = 12
+TP_NUDGE = 2.0 ** -22       # the reference's spread: every weight nudged
+TP_COLUMN = ("query", "key", "value", "ffn1")
+TP_ROW = ("proj", "ffn2")
+MULTI_TP_TIMED = 8          # replayed TP steps timed across the cards
+MULTI_TP_BATCH = 16         # the group's rows in the timed TP step
+MULTI_GROUP_TIMEOUT_S = 300  # each of multi_card's slice-24 groups
+
+
+def _tp_spec(net):
+    """The spec function over MXNet names ("dense0_weight"), as
+    ShardedTrainer calls it: query/key/value/ffn1 weights column
+    parallel, proj/ffn2 weights row parallel, selected by each name's
+    structural role; everything else replicated."""
+    from incubator_mxnet_tpu_torch.parallel import P
+    roles = {p.name: n for n, p in net.collect_params().items()}
+
+    def fn(name, shape):
+        role = roles[name].split(".")
+        if len(shape) == 2 and role[-1] == "weight":
+            if role[-2] in TP_COLUMN:
+                return P("model", None)
+            if role[-2] in TP_ROW:
+                return P(None, "model")
+        return P()
+    return fn
+
+
+def _tp_loss(logits, labels):
+    """MLM softmax cross-entropy over the full logits, in f32."""
+    import torch
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    return -logp.gather(-1, labels.long()[..., None]).mean()
+
+
+def _tp_start(torch, mx):
+    """bert_base's weights from seed 0 (f32, vocab 30522, 512 tokens), on
+    the host."""
+    mx.random.seed(0)
+    net = mx.models.bert_base(dropout=0.0, device="cuda:0")
+    start = {k: v.detach().cpu() for k, v in net.state_dict().items()}
+    del net
+    return start
+
+
+def _tp_batch(torch, rows):
+    rs = np.random.RandomState(0)
+    x = torch.from_numpy(rs.randint(0, 30522, (rows, SEQ)).astype(np.int64))
+    y = torch.from_numpy(rs.randint(0, 30522, (rows, SEQ)).astype(np.int64))
+    return x, y
+
+
+@contextlib.contextmanager
+def _flash_shapes(att):
+    """Yields a list that gets (kernel, q's leading BH) for each flash
+    kernel launch inside the block, the wrappers' counters untouched."""
+    log = []
+    names = ("_flash_fwd_cuda", "_flash_bwd_dq_cuda", "_flash_bwd_dkv_cuda")
+    saved = [getattr(att, n) for n in names]
+
+    def logged(name, fn):
+        def call(q, *args):
+            log.append((name, int(q.shape[0])))
+            return fn(q, *args)
+        return call
+    for name, fn in zip(names, saved):
+        setattr(att, name, logged(name, fn))
+    try:
+        yield log
+    finally:
+        for name, fn in zip(names, saved):
+            setattr(att, name, fn)
+
+
+@contextlib.contextmanager
+def _tp_planted(fault):
+    """The planted tensor-parallel faults: "row_without_psum" drops the
+    row-parallel output's sum over the model axis, "full_heads" runs
+    attention on all 12 heads of the local features (dim 32)."""
+    from incubator_mxnet_tpu_torch.parallel import tensor_parallel as ttp
+    name, fake = {"row_without_psum": ("reduce_from", lambda x: x),
+                  "full_heads": ("local_heads", lambda block, h: h),
+                  None: (None, None)}[fault]
+    orig = getattr(ttp, name) if name else None
+    if name:
+        setattr(ttp, name, fake)
+    try:
+        yield
+    finally:
+        if name:
+            setattr(ttp, name, orig)
+
+
+def _tp_run(torch, mx, start, x, y, mesh=None, device=None, tp=True,
+            steps=TP_STEPS, scale=1.0, timed=0, planted=None):
+    """`steps` Adam steps of bert_base from `start` (its weights times
+    `scale`) through ShardedTrainer over `mesh` (or one replica on
+    `device`; a `process_mesh`: this rank), tensor parallel by
+    `_tp_spec` where `tp`: per step the loss and {name: the parameter's
+    change} (host f32; a process mesh's ranks all gather, rank 0 keeps
+    them), then `timed` more steps timed by CUDA events (their median
+    ms), the replicas' parameter bytes and [eager, captured, replayed]
+    steps."""
+    from incubator_mxnet_tpu_torch import parallel
+    dev = device or (mesh.devices.flat[0] if mesh is not None and
+                     mesh.in_process else None)
+    net = mx.models.bert_base(dropout=0.0, device=dev or "cuda:%d" %
+                              torch.cuda.current_device())
+    net.load_state_dict({k: v * scale if v.is_floating_point() else v
+                         for k, v in start.items()})
+    t = parallel.ShardedTrainer(net, loss_fn=_tp_loss, optimizer="adam",
+                                lr=TP_LR, mesh=mesh, device=device,
+                                param_spec_fn=_tp_spec(net) if tp else None)
+    keep = t.writer
+    out = []
+    # every rank of a group gathers the parameters; the writer keeps them
+    before = t.params
+    before = {n: v.to("cpu", torch.float32, copy=True)
+              for n, v in before.items()} if keep else None
+    with _tp_planted(planted):
+        for _ in range(steps):
+            loss = float(t.step(x, y))
+            now = t.params
+            if keep:
+                now = {n: v.to("cpu", torch.float32, copy=True)
+                       for n, v in now.items()}
+                out.append(dict(loss=loss, deltas={
+                    n: now[n] - before[n] for n in now}))
+                before = now
+        ms = _events_ms(torch, lambda: t.step(x, y), timed) \
+            if timed else None
+    res = dict(steps=out, ms=ms, replica_param_bytes=t.replica_param_bytes(),
+               ran=[t.eager_steps, t.captures, t.replays])
+    t.release()
+    del t, net
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def _tp_parity(torch, run, ref, spread):
+    """The losses and each step's parameter changes of `run` against the
+    one-replica reference, beside the reference's own spread under its
+    weights nudged by 1 + 2**-22 (`_spread_parity`)."""
+    steps = [_spread_parity(torch, run["steps"][i]["deltas"],
+                            ref["steps"][i]["deltas"],
+                            spread["steps"][i]["deltas"])
+             for i in range(len(ref["steps"]))]
+    losses = [r["loss"] for r in run["steps"]]
+    return dict(losses=losses, loss_max_abs_err=max(
+        abs(a["loss"] - b["loss"]) for a, b in zip(run["steps"],
+                                                    ref["steps"])),
+        steps=steps, ok=all(
+            v["card"] <= RESNET_SPREAD_FACTOR * max(v["cpu_spread"], 1e-6)
+            for s in steps for v in (s["grad_err_over_scale_max"],
+                                     s["grad_err_over_scale_median"])))
+
+
+def phase_train_tensor_parallel(torch, mx, att):
+    """bert_base (f32, dropout 0, vocab 30522, 512 tokens, MLM over the
+    full logits, Adam lr 1e-4, batch 8 x 512 from RandomState(0))
+    through ShardedTrainer on a (1, 2) ("data", "model") mesh of cuda:0
+    twice, query/key/value/ffn1 column and proj/ffn2 row parallel by
+    `_tp_spec`: two steps from the same start as a one-replica trainer,
+    losses and each step's parameter changes by the spread rule (the
+    reference's own spread under its weights nudged by 1 + 2**-22); 12
+    launches of each flash kernel a replica a step at BH = 8 x 6;
+    replica_param_bytes against the replicated trainer's; the
+    row-parallel output without its psum, and attention on 12 heads of
+    dim 32, must each fail the check; ms a step beside the replicated
+    step (for information: the two replicas run in turn)."""
+    from incubator_mxnet_tpu_torch import parallel
+    from incubator_mxnet_tpu_torch.monitor import events
+    phase_t0 = time.perf_counter()
+    start = _tp_start(torch, mx)
+    x, y = (t.cuda() for t in _tp_batch(torch, TP_BATCH))
+    ref = _tp_run(torch, mx, start, x, y, device="cuda:0", tp=False,
+                  timed=TP_TIMED)
+    spread = _tp_run(torch, mx, start, x, y, device="cuda:0", tp=False,
+                     scale=1.0 + TP_NUDGE)
+    mesh = parallel.make_mesh((1, 2), ("data", "model"),
+                              devices=["cuda:0", "cuda:0"])
+    counts0 = {k: events.get(k) for k in
+               ("tp.column", "tp.row", "tp.heads_local", "tp.gathered")}
+    _reset_counts(att)      # the main path starts here
+    with _flash_shapes(att) as shapes:
+        run = _tp_run(torch, mx, start, x, y, mesh=mesh)
+    launches = _all_counts(att)[:3]     # the main path ends here
+    counts = {k: events.get(k) - v for k, v in counts0.items()}
+    timed = _tp_run(torch, mx, start, x, y, mesh=mesh, steps=0,
+                    timed=TP_TIMED)
+    planted = {p: _tp_parity(torch, _tp_run(torch, mx, start, x, y,
+                                            mesh=mesh, steps=1,
+                                            planted=p),
+                             dict(steps=ref["steps"][:1]),
+                             dict(steps=spread["steps"][:1]))
+               for p in ("row_without_psum", "full_heads")}
+    parity = _tp_parity(torch, run, ref, spread)
+    bh = sorted({b for _, b in shapes})
+    want = 12 * 2 * TP_STEPS
+    out = dict(phase="train_tensor_parallel", model="bert_base",
+               dtype="float32", batch=TP_BATCH, seq=SEQ,
+               mesh={"data": 1, "model": 2}, devices=["cuda:0", "cuda:0"],
+               spec=dict(column=list(TP_COLUMN), row=list(TP_ROW)),
+               reference_losses=[r["loss"] for r in ref["steps"]],
+               parity=parity, planted={p: dict(ok=v["ok"], worst=[
+                   s["grad_err_over_scale_max"] for s in v["steps"]],
+                   loss_max_abs_err=v["loss_max_abs_err"])
+                   for p, v in planted.items()},
+               flash_launches=dict(zip(("fwd", "dq", "dkv"), launches)),
+               flash_bh=bh, tp_counters=counts,
+               replica_param_bytes=run["replica_param_bytes"],
+               replicated_param_bytes=ref["replica_param_bytes"],
+               step_ms=timed["ms"], replicated_step_ms=ref["ms"],
+               ran=run["ran"], reference_ran=ref["ran"],
+               phase_s=time.perf_counter() - phase_t0)
+    _emit(out)
+    _check(parity["ok"], "train_tensor_parallel: the TP steps fail the "
+           "spread rule: %r" % (parity["steps"],))
+    _check(parity["loss_max_abs_err"] <= SERVE_TOL, "train_tensor_parallel:"
+           " the loss differs from the replicated one by %g"
+           % parity["loss_max_abs_err"])
+    for p, v in planted.items():
+        _check(not v["ok"], "train_tensor_parallel: the planted %s passed"
+               % p)
+    _check(launches == (want,) * 3, "train_tensor_parallel: the flash "
+           "kernels launched %r times, not %d each" % (launches, want))
+    _check(bh == [TP_BATCH * TP_HEADS // 2], "train_tensor_parallel: flash "
+           "launches at BH %r, not %d" % (bh, TP_BATCH * TP_HEADS // 2))
+    _check(counts["tp.heads_local"] == 12 * 2 * TP_STEPS and
+           counts["tp.column"] == 48 * 2 * TP_STEPS and
+           counts["tp.row"] == 24 * 2 * TP_STEPS and
+           counts["tp.gathered"] == 0, "train_tensor_parallel: the plan's "
+           "counters %r" % (counts,))
+    whole = ref["replica_param_bytes"][0]
+    sharded = 12 * 4 * (4 * 768 * 768 + 2 * 768 * 3072)
+    _check(run["replica_param_bytes"] == [whole - sharded // 2] * 2,
+           "train_tensor_parallel: replica bytes %r, not %d each"
+           % (run["replica_param_bytes"], whole - sharded // 2))
+    return dict(launches=dict(zip(("fwd", "dq", "dkv"), launches)))
+
+
+def _tp_worker(out_dir):
+    """One rank of `_multi_tp`'s 4-rank NCCL group on a (2, 2) ("data",
+    "model") `process_mesh`: (a) its data coordinate's rows of the
+    8 x 512 batch through two TP steps from the parent's start (the
+    first eager, the second captured), rank 0 writing each step's loss
+    and parameter changes; (c) the group's 16 x 512 batch, captured a
+    rank and then replayed MULTI_TP_TIMED times by CUDA events."""
+    import torch
+    import torch.distributed as dist
+    import incubator_mxnet_tpu_torch as mx
+    from incubator_mxnet_tpu_torch import parallel
+    mx.base.ensure_distributed()
+    rank = dist.get_rank()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = parallel.process_mesh(("data", "model"), shape=(2, 2))
+    start = torch.load(os.path.join(out_dir, "tp_start.pt"),
+                       weights_only=True)
+    dev = "cuda:%d" % torch.cuda.current_device()
+    data = rank // 2
+    x, y = _tp_batch(torch, TP_BATCH)
+    rows = slice(data * TP_BATCH // 2, (data + 1) * TP_BATCH // 2)
+    parity = _tp_run(torch, mx, start, x[rows].to(dev), y[rows].to(dev),
+                     mesh=mesh)
+    x, y = _tp_batch(torch, MULTI_TP_BATCH)
+    rows = slice(data * MULTI_TP_BATCH // 2, (data + 1) * MULTI_TP_BATCH // 2)
+    timed = _tp_run(torch, mx, start, x[rows].to(dev), y[rows].to(dev),
+                    mesh=mesh, steps=2, timed=MULTI_TP_TIMED)
+    if rank == 0:
+        torch.save(dict(parity=parity, ms=timed["ms"], ran=timed["ran"],
+                        parity_ran=parity["ran"],
+                        replica_param_bytes=timed["replica_param_bytes"]),
+                   os.path.join(out_dir, "tp.pt"))
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def _multi_tp(torch, mx, n, tmp):
+    """(a) the TP BERT-base step of `phase_train_tensor_parallel` on a
+    (2, 2) mesh of the cards in one process, and as a 4-rank NCCL group
+    (`chip_smoke.py tp-worker`, its second step captured a rank), each
+    against one card's replicated step by the spread rule; (c) the
+    group's step captured a rank at 16 x 512 over the group, tokens/s
+    against the one-card replicated step at 8 x 512."""
+    from incubator_mxnet_tpu_torch import parallel
+    from incubator_mxnet_tpu_torch.tools import launch
+    if n < 4:
+        return dict(tp="not run", cards=n)
+    start = _tp_start(torch, mx)
+    torch.save(start, os.path.join(tmp, "tp_start.pt"))
+    x, y = (t.cuda() for t in _tp_batch(torch, TP_BATCH))
+    ref = _tp_run(torch, mx, start, x, y, device="cuda:0", tp=False,
+                  timed=MULTI_TP_TIMED)
+    spread = _tp_run(torch, mx, start, x, y, device="cuda:0", tp=False,
+                     scale=1.0 + TP_NUDGE)
+    mesh = parallel.make_mesh((2, 2), ("data", "model"),
+                              devices=["cuda:%d" % i for i in range(4)])
+    one = _tp_run(torch, mx, start, x, y, mesh=mesh)
+    with open(os.path.join(tmp, "tp_log"), "w") as log:
+        rc = launch.launch(4, [sys.executable, os.path.abspath(__file__),
+                               "tp-worker", tmp],
+                           timeout=MULTI_GROUP_TIMEOUT_S, out=log)
+    _check(rc == 0, "the 4-rank TP group failed (rc %d): %s" % (
+        rc, open(os.path.join(tmp, "tp_log")).read()[-3000:]))
+    dist = torch.load(os.path.join(tmp, "tp.pt"), weights_only=False)
+    tokens = MULTI_TP_BATCH * SEQ / (dist["ms"] / 1e3)
+    ref_tokens = TP_BATCH * SEQ / (ref["ms"] / 1e3)
+    return dict(one_process=_tp_parity(torch, one, ref, spread),
+                process_group=_tp_parity(torch, dist["parity"], ref, spread),
+                process_group_ran=dist["parity_ran"],
+                timed=dict(batch=MULTI_TP_BATCH, step_ms=dist["ms"],
+                           tokens_per_s=tokens, ran=dist["ran"],
+                           replica_param_bytes=dist["replica_param_bytes"],
+                           one_card_step_ms=ref["ms"],
+                           one_card_batch=TP_BATCH,
+                           one_card_tokens_per_s=ref_tokens,
+                           speedup=tokens / ref_tokens))
+
+
+def _capture_worker(out_dir):
+    """One rank of `_multi_captured`'s 4-rank NCCL group: bench.py's
+    `sharded` config (`_sharded_trainer`, SHARDED_BATCHES[0] images a
+    rank from RandomState(rank)).  With cuDNN deterministic, 3 steps
+    stepping eagerly and 3 captured (eager, capture, replay) from the
+    same start, their parameters compared bit for bit; then a fresh
+    trainer: SHARDED_WARMUP steps (eager, capture) and SHARDED_STEPS
+    that only replay, each timed by CUDA events; then 2 more replays,
+    rank 0's under torch.profiler.  Rank 0 writes the result."""
+    import torch
+    import torch.distributed as dist
+    import incubator_mxnet_tpu_torch as mx
+    mx.base.ensure_distributed()
+    rank, n = dist.get_rank(), dist.get_world_size()
+    dev = "cuda:%d" % torch.cuda.current_device()
+    batch = SHARDED_BATCHES[0]
+    rs = np.random.RandomState(rank)
+    x = torch.from_numpy(rs.randn(batch, 3, 224, 224).astype(np.float32)) \
+        .to(dev).to(torch.bfloat16)
+    y = torch.from_numpy(rs.randint(0, 1000, batch).astype(np.int64)).to(dev)
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    runs = {}
+    for mode in ("eager", "captured"):
+        t = _sharded_trainer(torch, mx, _sharded_net(torch, mx, dev))
+        t._capture = mode == "captured"
+        for _ in range(SHARDED_SWEEP_STEPS):
+            t.step(x, y)
+        runs[mode] = ({k: v.detach().clone() for k, v in t.params.items()},
+                      [t.eager_steps, t.captures, t.replays])
+        t.release()
+        del t
+        gc.collect()
+        torch.cuda.empty_cache()
+    torch.backends.cudnn.deterministic = prev
+    diff = [k for k, v in runs["eager"][0].items()
+            if not _same_bits(torch, v, runs["captured"][0][k])]
+    worst = max((float((runs["captured"][0][k].float() - v.float()).abs()
+                       .max() / v.float().abs().max().clamp(min=1e-30))
+                 for k, v in runs["eager"][0].items()), default=0.0)
+    flags = torch.tensor([float(len(diff)), worst], device=dev)
+    dist.all_reduce(flags, op=dist.ReduceOp.MAX)
+    del runs
+    t = _sharded_trainer(torch, mx, _sharded_net(torch, mx, dev))
+    for _ in range(SHARDED_WARMUP):
+        t.step(x, y)
+    warm = [t.eager_steps, t.captures, t.replays]
+    dist.barrier()
+    torch.cuda.synchronize()
+    events = [torch.cuda.Event(enable_timing=True)
+              for _ in range(SHARDED_STEPS + 1)]
+    t0 = time.perf_counter()
+    events[0].record()
+    for i in range(SHARDED_STEPS):
+        t.step(x, y)
+        events[i + 1].record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    step_ms = [events[i].elapsed_time(events[i + 1])
+               for i in range(SHARDED_STEPS)]
+    timed = [t.eager_steps - warm[0], t.captures - warm[1],
+             t.replays - warm[2]]
+    t.step(x, y)
+    torch.cuda.synchronize()
+    dist.barrier()
+    prof_rows = None
+    if rank == 0:
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            p0 = time.perf_counter()
+            t.step(x, y)
+            torch.cuda.synchronize()
+            prof_wall = (time.perf_counter() - p0) * 1e6
+        evs = prof.key_averages()
+        host = {ev.key for ev in evs if ev.device_type != DeviceType.CUDA}
+        prof_rows = sorted(
+            ((ev.self_device_time_total, ev.key, ev.count) for ev in evs
+             if ev.device_type == DeviceType.CUDA and ev.key not in host
+             and ev.self_device_time_total > 0), reverse=True)
+    else:
+        t.step(x, y)
+        torch.cuda.synchronize()
+    ran = [t.eager_steps, t.captures, t.replays]
+    peak = torch.cuda.max_memory_allocated()
+    t.release()
+    if rank == 0:
+        device_us = sum(r[0] for r in prof_rows)
+        nccl_us = sum(r[0] for r in prof_rows if "nccl" in r[1].lower())
+        torch.save(dict(
+            ranks=n, batch=batch, step_ms=step_ms, wall_s=wall,
+            warmup=warm, timed=timed, ran=ran, peak=peak,
+            bitwise_differing=int(flags[0]), worst_over_scale=float(flags[1]),
+            eager_ran=None, busy_share=device_us / prof_wall,
+            device_ms=device_us / 1e3, nccl_ms=nccl_us / 1e3,
+            profiled_wall_ms=prof_wall / 1e3,
+            conv=_profiled_counts(_port_kernel_calls(prof_rows))[3],
+            top=[dict(kernel=k[:100], us=us, calls=c)
+                 for us, k, c in prof_rows[:10]]),
+            os.path.join(out_dir, "captured.pt"))
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def _multi_captured(torch, mx, n, tmp):
+    """(b) bench.py's `sharded` config as an n-rank NCCL group, one CUDA
+    graph a rank (`chip_smoke.py capture-worker`): images/s over the
+    group and per card against the one-card captured step timed here in
+    the same run, rank 0's busy share and NCCL device ms from a profiled
+    replay, its conv launches by name, and the captured parameters after
+    3 steps against the same ranks stepping eagerly."""
+    from incubator_mxnet_tpu_torch.tools import launch
+    # one replica on cuda:0 (the default mesh would take every card)
+    batch = SHARDED_BATCHES[0]
+    t = _sharded_trainer(torch, mx, _sharded_net(torch, mx, "cuda:0"),
+                         device="cuda:0")
+    x, y = _sharded_batch(torch, batch)
+    for _ in range(SHARDED_WARMUP):
+        t.step(x, y)
+    one_ms = _events_ms(torch, lambda: t.step(x, y), SHARDED_STEPS)
+    one_ran = [t.eager_steps, t.captures, t.replays]
+    t.release()
+    del t
+    gc.collect()
+    torch.cuda.empty_cache()
+    with open(os.path.join(tmp, "capture_log"), "w") as log:
+        rc = launch.launch(n, [sys.executable, os.path.abspath(__file__),
+                               "capture-worker", tmp],
+                           timeout=MULTI_GROUP_TIMEOUT_S, out=log)
+    _check(rc == 0, "the %d-rank captured group failed (rc %d): %s" % (
+        n, rc, open(os.path.join(tmp, "capture_log")).read()[-3000:]))
+    got = torch.load(os.path.join(tmp, "captured.pt"), weights_only=False)
+    med = statistics.median(got["step_ms"])
+    per_card = got["batch"] / (med / 1e3)
+    one = batch / (one_ms / 1e3)
+    got.update(step_ms_median=med, images_per_s=n * per_card,
+               images_per_s_per_card=per_card, one_card_batch=batch,
+               one_card_step_ms=one_ms, one_card_images_per_s=one,
+               one_card_ran=one_ran, scaling_efficiency=per_card / one)
+    return got
+
+
 def setup(torch):
     """What every run of the phases starts from, here and in
     `tools/chip_phases.py`: f32 products without TF32, the card's env
@@ -8952,6 +9490,7 @@ def main():
     phase_seq_parallel(torch, mx, att)
     phase_pipeline_moe(torch, mx)
     phase_elastic(torch, mx)
+    tp = phase_train_tensor_parallel(torch, mx, att)
     phase_multi_card(torch, mx)
 
     def nmt(kernel):
@@ -8979,6 +9518,7 @@ def main():
                     "flash_attention_fwd.cu",
              replaces="incubator_mxnet_tpu/ops/attention.py:131",
              launches=launches, train_launches=train_launches["fwd"],
+             train_tensor_parallel_launches=tp["launches"]["fwd"],
              serve_registry_launches=registry_launches,
              replayed_serving_batch_launches=replayed,
              parity="ok",
@@ -8990,6 +9530,7 @@ def main():
         dict(name="flash_attention_bwd_dq", route="cuda", source=bwd_src,
              replaces="incubator_mxnet_tpu/ops/attention.py:232",
              launches=train_launches["dq"], parity="ok",
+             train_tensor_parallel_launches=tp["launches"]["dq"],
              max_abs_err=max(bwd_row["err"]["dq"], bwd_row["err_delta"]),
              ms=bwd_row["dq_ms"], kernel_ms=bwd_row["dq_ms"],
              plain_ms=bwd_row["dq_plain_ms"],
@@ -9002,6 +9543,7 @@ def main():
         dict(name="flash_attention_bwd_dkv", route="cuda", source=bwd_src,
              replaces="incubator_mxnet_tpu/ops/attention.py:278",
              launches=train_launches["dkv"], parity="ok",
+             train_tensor_parallel_launches=tp["launches"]["dkv"],
              max_abs_err=max(bwd_row["err"]["dk"], bwd_row["err"]["dv"]),
              ms=bwd_row["dkv_ms"], kernel_ms=bwd_row["dkv_ms"],
              plain_ms=bwd_row["dkv_plain_ms"],
@@ -9083,4 +9625,8 @@ if __name__ == "__main__":
         sys.exit(_dist_worker(*sys.argv[2:]))
     if sys.argv[1:2] == ["ring-worker"]:
         sys.exit(_ring_worker(*sys.argv[2:]))
+    if sys.argv[1:2] == ["tp-worker"]:
+        sys.exit(_tp_worker(*sys.argv[2:]))
+    if sys.argv[1:2] == ["capture-worker"]:
+        sys.exit(_capture_worker(*sys.argv[2:]))
     sys.exit(main())

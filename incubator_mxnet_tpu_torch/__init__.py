@@ -18,6 +18,9 @@ from __future__ import annotations
 __version__ = "0.1.0"
 
 from . import config
+from . import engine
+from . import runtime
+from . import util
 from .base import MXNetError
 from .context import (cpu, gpu, current_device, current_context, num_gpus,
                       resolve_device)

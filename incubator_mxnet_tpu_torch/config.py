@@ -427,3 +427,10 @@ register("MXNET_FLEET_PUBLISH_STEPS", int, 1,
          "kvstore at __mesh__/telemetry/<rid> and merged into the "
          "FleetView.  0 disables fleet publishing and straggler "
          "detection")
+register("MXNET_ENGINE_TYPE", str, "ThreadedEnginePerDevice",
+         "Engine mode; 'NaiveEngine' synchronizes the device after every "
+         "op of the registry's invoke and every replayed hybridized "
+         "program (race debugging; engine.py)")
+register("MXNET_EXEC_BULK_EXEC_MAX_NODE_TRAIN", int, 15,
+         "engine.bulk's default size: recorded, changes nothing (a "
+         "captured program is the port's bulking)")

@@ -98,6 +98,7 @@ from .parameter import (DeferredInitializationError, Parameter,
                         ParameterDict, cast_parameter, in_shape_pass,
                         is_deferred, shape_pass)
 from .. import autograd as _ag
+from .. import engine as _engine
 from .. import graph_capture as _capture
 from .. import random as _rnd
 from ..base import MXNetError
@@ -880,7 +881,8 @@ class _Program:
         if self.fwd is None:
             self._capture_forward(inputs)
         else:
-            self.fwd.replay()
+            _engine.replay(self.fwd, self.cached.block.name + "_cachedop",
+                           self.device)
             self.cached.replays += 1
         self.generation += 1
         self.busy = self.recording
@@ -910,7 +912,8 @@ class _Program:
         if self.bwd is None:
             self._capture_backward(self._bwd_graph)
         if self.bwd_runs or not self.bwd.ran:
-            self.bwd.replay()
+            _engine.replay(self.bwd, self.cached.block.name +
+                           "_cachedop_backward", self.device)
         # the run that completes a capture is not a replay
         self.cached.replays += self.bwd_runs > 0
         self.bwd_runs += 1

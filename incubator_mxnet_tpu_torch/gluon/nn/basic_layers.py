@@ -155,6 +155,11 @@ class Dense(HybridBlock):
         materialize(self.weight, (self._units, in_units))
 
     def forward(self, x):
+        from ...parallel import tensor_parallel as _tp
+        out = _tp.dense(self, x)
+        if out is not None:
+            # a tensor-parallel step's replica: its weight is a shard
+            return out
         self.infer_shape(x)
         out = ops.fully_connected(x, self.weight, self.bias,
                                   num_hidden=self._units,
@@ -178,6 +183,12 @@ class Dropout(HybridBlock):
     def forward(self, x):
         if not _ag.is_training():
             return x
+        from ...parallel import tensor_parallel as _tp
+        if _tp.current() is not None and self._rate:
+            raise NotImplementedError(
+                "Dropout(%g) in a tensor-parallel step: each replica would "
+                "draw its own mask where the model replicas need one"
+                % self._rate)
         return ops.dropout(x, self._rate, training=True,
                            generator=_rnd.generator(x.device),
                            axes=self._axes)

@@ -21,6 +21,13 @@ launches):
   every tensor keeps its storage across replays, as in a graph's pool.
   It is not a fallback: a CUDA tensor never takes it.
 
+A CUDA graph may hold NCCL collectives (`torch.distributed` ops of a
+process group on cards, whose communicators an eager run set up before
+the capture); the watch lets their `c10d` ops through with the tensors
+and groups they name.  A recording refuses them: gloo's collectives on
+host tensors cannot be replayed, so a group's step on the host stays
+eager.
+
 Either program keeps a CUDA graph's rules, so that the CPU tests catch
 what breaks them: Python values are frozen at capture, a replay reads
 and writes the storage that the capture saw (a tensor replaced since is
@@ -179,6 +186,11 @@ class _Watch(TorchDispatchMode):
             raise CaptureError(
                 "%s reads a device value on the host, which a captured "
                 "program cannot do" % func)
+        if self.ops is not None and func.namespace == "c10d":
+            raise CaptureError(
+                "%s is a collective on host tensors (gloo), which a "
+                "recording cannot replay; a process group's step on the "
+                "host runs eagerly" % func)
         out = func(*args, **kwargs)
         if self.ops is not None:
             self.ops.append((func, args, kwargs, out))

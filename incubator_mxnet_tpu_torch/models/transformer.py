@@ -30,6 +30,7 @@ from ..gluon import nn
 from ..gluon.block import HybridBlock, new_parameter
 from ..ops import attention as _att
 from ..ops import nn as ops
+from ..parallel import tensor_parallel as _tp
 
 __all__ = ["MultiHeadAttention", "CrossAttention", "PositionwiseFFN",
            "TransformerEncoderLayer", "TransformerEncoder",
@@ -95,7 +96,10 @@ class MultiHeadAttention(HybridBlock):
         return self.proj(ctx.reshape(B, T, C))
 
     def forward(self, x, mask=None):
-        H = self._num_heads
+        # a tensor-parallel step's replica runs num_heads/tp heads of the
+        # same head dim (parallel/tensor_parallel.py)
+        H = _tp.local_heads(self, self._num_heads)
+        x = _tp.enter(self, x)
         if self._seq_parallel is not None:
             if mask is None:
                 return self._ring_forward(x)
@@ -114,7 +118,8 @@ class MultiHeadAttention(HybridBlock):
         ctx = _scaled_dot_attention(
             _split_heads(self.query(x), H), _split_heads(self.key(x), H),
             _split_heads(self.value(x), H),
-            1.0 / math.sqrt(self._units // H), H, mask, self.dropout)
+            1.0 / math.sqrt(self._units // self._num_heads), H, mask,
+            self.dropout)
         return self.proj(_merge_heads(ctx, H))
 
 
@@ -190,9 +195,10 @@ class _CausalSelfAttention(MultiHeadAttention):
             raise ValueError("_CausalSelfAttention builds its causal mask "
                              "inside the fused kernel; mask= is not "
                              "supported")
+        x = _tp.enter(self, x)
         ctx = _att._contrib_flash_attention(
             self.query(x), self.key(x), self.value(x),
-            num_heads=self._num_heads, causal=True)
+            num_heads=_tp.local_heads(self, self._num_heads), causal=True)
         return self.proj(ctx)
 
 
@@ -208,6 +214,8 @@ class PositionwiseFFN(HybridBlock):
         self.dropout = nn.Dropout(dropout) if dropout else None
 
     def forward(self, x):
+        # tensor parallel: ffn1's output slice stays sharded through GELU
+        x = _tp.enter(self, x)
         h = ops.leaky_relu(self.ffn1(x), act_type="gelu")
         if self.dropout is not None:
             h = self.dropout(h)

@@ -212,9 +212,10 @@ def eye(N, M=0, k=0, ctx=None, dtype="float32"):
 
 
 def waitall():
-    """Wait for all work queued on the card (ref: nd.waitall)."""
-    if torch.cuda.is_available() and torch.cuda.is_initialized():
-        torch.cuda.synchronize()
+    """Wait for all work queued on the cards (ref: nd.waitall;
+    `engine.wait_all`)."""
+    from ..engine import wait_all
+    wait_all()
 
 
 def uniform(low=0.0, high=1.0, shape=(), ctx=None, dtype="float32", **kw):

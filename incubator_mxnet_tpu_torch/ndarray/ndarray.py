@@ -33,6 +33,7 @@ import numpy as _np
 import torch
 
 from .. import autograd as _ag
+from .. import engine as _engine
 from .. import random as _rnd
 from ..base import nd_dtype
 from ..context import resolve_device, tag_replica
@@ -149,6 +150,12 @@ def invoke(opname, *args, **kwargs):
         kwargs["_rng_key"] = _rnd.generator(_device_of(args, kwargs, ctx))
     if od.needs_training and "_training" not in kwargs:
         kwargs["_training"] = _ag.is_training()
+    if _engine._LISTENERS or _engine._NAIVE:
+        return _engine.dispatched(
+            od.name, _device_of(args, kwargs, ctx), lambda: apply_fn(
+                od.fn, args, kwargs, name=od.name,
+                differentiable=od.differentiable, ctx=ctx,
+                nograd_argnums=od.nograd_argnums))
     return apply_fn(od.fn, args, kwargs, name=od.name,
                     differentiable=od.differentiable, ctx=ctx,
                     nograd_argnums=od.nograd_argnums)

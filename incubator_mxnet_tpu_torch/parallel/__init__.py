@@ -1,14 +1,16 @@
 """Parallel training of the PyTorch port (counterpart of
 incubator_mxnet_tpu/parallel/).
 
-- meshes of replica contexts, and the process-group mesh (mesh.py);
+- meshes of replica contexts, and the process-group mesh with a
+  subgroup per axis slice (mesh.py);
 - the replica group's collectives, in-process or over a
   torch.distributed group (collectives.py), and `shard_map` with the
   axis collectives `axis_index`, `psum`, `pmean`, `ppermute` and
   `all_to_all` (spmd.py);
 - `functionalize`, ZeRO bucket plans, per-replica dispatch threads and
-  `ShardedTrainer` with ZeRO levels 0–3 (functional.py, zero.py,
-  dispatch.py, trainer.py);
+  `ShardedTrainer` with ZeRO levels 0–3 and tensor parallelism over a
+  (data, model) mesh (functional.py, zero.py, dispatch.py, trainer.py,
+  tensor_parallel.py);
 - `ResilientTrainer`: guarded steps, atomic checkpoints with integrity
   manifests, preemption and bit-exact resume; `retry_transient`
   (resilience.py);

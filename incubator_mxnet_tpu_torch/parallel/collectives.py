@@ -20,7 +20,10 @@ result per such replica, each on its replica's device:
   backend of its tensors' device: gloo for host tensors, NCCL for card
   tensors.  `reduce_scatter` is the backend's reduce-scatter, so a rank
   receives its shard's sums only.  Low-precision tensors are summed in
-  f32 here too.
+  f32 here too.  With `group=` it is one rank of a subgroup (a slice of
+  a `mesh.process_mesh` axis) and every collective runs on that.
+* `AxisGroups(devices, members)`, the in-process form over the slices
+  of a mesh axis: a `ReplicaGroup` per slice, one interface over all.
 
 `lockstep_all_reduce(local_rank, tensor)` is the reduction in the middle
 of a forward (BatchNorm's moments across replicas): in the in-process
@@ -38,8 +41,8 @@ import threading
 
 import torch
 
-__all__ = ["ReplicaGroup", "ProcessReplicaGroup", "replica_sync",
-           "current_sync"]
+__all__ = ["ReplicaGroup", "ProcessReplicaGroup", "AxisGroups",
+           "replica_sync", "current_sync"]
 
 #: dtypes whose sums the group takes in f32
 LOW_PRECISION = (torch.bfloat16, torch.float16)
@@ -169,25 +172,33 @@ class ReplicaGroup:
 
 class ProcessReplicaGroup:
     """The process-group form (module doc): this process is replica
-    `torch.distributed.get_rank()` of `get_world_size()`, on `device`."""
+    `torch.distributed.get_rank()` of `get_world_size()`, on `device`;
+    with `group` (a `torch.distributed` subgroup) and `ranks` (its global
+    ranks in order), replica `ranks.index(get_rank())` of that
+    subgroup, every collective running on it."""
 
     in_process = False
 
-    def __init__(self, device):
+    def __init__(self, device, group=None, ranks=None):
         import torch.distributed as dist
         from ..context import _norm
         if not dist.is_initialized():
             raise RuntimeError("no torch.distributed process group: start "
                                "it with base.ensure_distributed()")
         self._dist = dist
+        self._group = group
         self.local = [_norm(device)]
-        self.size = dist.get_world_size()
-        self.rank_offset = dist.get_rank()
+        if ranks is None:
+            self.size = dist.get_world_size()
+            self.rank_offset = dist.get_rank()
+        else:
+            self.size = len(ranks)
+            self.rank_offset = list(ranks).index(dist.get_rank())
 
     def all_reduce(self, tensors):
         (t,) = tensors
         acc = _acc(t).clone()
-        self._dist.all_reduce(acc)
+        self._dist.all_reduce(acc, group=self._group)
         return [acc.to(t.dtype)]
 
     def reduce_scatter(self, tensors, dim=0):
@@ -197,18 +208,20 @@ class ProcessReplicaGroup:
         acc = _acc(t)
         parts = [p.contiguous() for p in acc.chunk(self.size, dim)]
         out = torch.empty_like(parts[self.rank_offset])
-        self._dist.reduce_scatter(out, parts)
+        self._dist.reduce_scatter(out, parts, group=self._group)
         return [out.to(t.dtype)]
 
     def all_gather(self, shards, dim=0):
         (s,) = shards
         parts = [torch.empty_like(s) for _ in range(self.size)]
-        self._dist.all_gather(parts, s.contiguous())
+        self._dist.all_gather(parts, s.contiguous(), group=self._group)
         return [torch.cat(parts, dim)]
 
     def broadcast(self, tensors, root=0):
         out = tensors[0].clone()
-        self._dist.broadcast(out, root)
+        src = root if self._group is None else \
+            self._dist.get_global_rank(self._group, root)
+        self._dist.broadcast(out, src, group=self._group)
         return [out]
 
     def lockstep_all_reduce(self, local_rank, tensor):
@@ -219,3 +232,58 @@ class ProcessReplicaGroup:
 
     def reset(self):
         """Nothing to ready."""
+
+
+class AxisGroups:
+    """The in-process form over the slices of one mesh axis: `members`
+    lists, per slice, the local replica indices along the axis in order,
+    each slice being a `ReplicaGroup` of its own.  It takes and returns
+    one tensor per local replica, as `ReplicaGroup` does, each
+    collective running within the slices (a tensor-parallel mesh's
+    gradient sum over the data axis among the replicas that hold the
+    same model coordinate)."""
+
+    in_process = True
+    rank_offset = 0
+
+    def __init__(self, devices, members):
+        from ..context import _norm
+        self.local = [_norm(d) for d in devices]
+        self.members = [list(m) for m in members]
+        self.size = len(self.members[0])
+        self._groups = [ReplicaGroup([self.local[i] for i in m])
+                        for m in self.members]
+
+    def _map(self, method, tensors, *args):
+        out = [None] * len(self.local)
+        for m, g in zip(self.members, self._groups):
+            for i, t in zip(m, getattr(g, method)([tensors[i] for i in m],
+                                                  *args)):
+                out[i] = t
+        return out
+
+    def all_reduce(self, tensors):
+        return self._map("all_reduce", tensors)
+
+    def reduce_scatter(self, tensors, dim=0):
+        return self._map("reduce_scatter", tensors, dim)
+
+    def all_gather(self, shards, dim=0):
+        return self._map("all_gather", shards, dim)
+
+    def broadcast(self, tensors, root=0):
+        return self._map("broadcast", tensors, root)
+
+    def lockstep_all_reduce(self, local_rank, tensor):
+        for m, g in zip(self.members, self._groups):
+            if local_rank in m:
+                return g.lockstep_all_reduce(m.index(local_rank), tensor)
+        raise ValueError("no replica %d" % local_rank)
+
+    def abort(self):
+        for g in self._groups:
+            g.abort()
+
+    def reset(self):
+        for g in self._groups:
+            g.reset()

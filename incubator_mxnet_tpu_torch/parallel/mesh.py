@@ -17,11 +17,13 @@ unless the caller is inside `with cpu():`; a CPU mesh of n replicas is
 a caller has placed already, which the trainer takes as it is.
 
 `process_mesh()` is the mesh of a `torch.distributed` group: one
-replica per rank along one axis, of which this process drives its own
-(`Mesh.in_process` False); `parallel.spmd.shard_map` runs one body per
-rank over it.  `squeeze_stage_axis` strips the leading size-1 axis of a
-stacked tree's per-replica slice inside a `shard_map` body;
-`mark_varying` is the identity (the port has no replication types) and
+replica per rank, along one axis or laid out in a grid (`shape=`), of
+which this process drives its own (`Mesh.in_process` False), with a
+subgroup per slice of each axis (`axis_group`);
+`parallel.spmd.shard_map` runs one body per rank over it.
+`squeeze_stage_axis` strips the leading size-1 axis of a stacked tree's
+per-replica slice inside a `shard_map` body; `mark_varying` is the
+identity (the port has no replication types) and
 stays so that bodies read as the JAX package's do.
 """
 from __future__ import annotations
@@ -34,7 +36,7 @@ import torch
 __all__ = ["make_mesh", "Mesh", "NamedSharding", "P", "replicated",
            "batch_sharded", "default_dp_mesh", "replica_contexts",
            "mesh_devices", "surviving_mesh", "Shards", "process_mesh",
-           "squeeze_stage_axis", "mark_varying"]
+           "squeeze_stage_axis", "mark_varying", "axis_group"]
 
 
 class P(tuple):
@@ -169,19 +171,27 @@ def batch_sharded(mesh: Mesh, axis: str = "data",
     return NamedSharding(mesh, P(*spec))
 
 
-def process_mesh(axis_names=("data",), device=None) -> Mesh:
-    """A 1-d mesh over the ranks of the default `torch.distributed`
-    group, this process being replica `get_rank()` on `device` (default
+def process_mesh(axis_names=("data",), device=None, shape=None) -> Mesh:
+    """A mesh over the ranks of the default `torch.distributed` group,
+    this process being replica `get_rank()` on `device` (default
     `cuda:<rank % cards>`, which raises without a card unless inside
     `with cpu():`, where it is `cpu(rank)`); the other entries name the
     other ranks' devices of the same kind, `cuda:<r % cards>` or
-    `cpu(r)`."""
+    `cpu(r)`.  `shape` (default: one axis of every rank) lays the ranks
+    out in row-major order, (2, 2) with ("data", "model") putting ranks
+    0, 1 on data index 0.  Every rank must call it, in one order with
+    its other group calls: over a mesh of several axes it creates one
+    subgroup per slice of each axis (`axis_group`)."""
     import torch.distributed as dist
     from ..context import cpu, current_device, resolve_device
     if not dist.is_initialized():
         raise RuntimeError("no torch.distributed process group: start it "
                            "with base.ensure_distributed()")
     n, rank = dist.get_world_size(), dist.get_rank()
+    shape = (n,) if shape is None else tuple(int(s) for s in shape)
+    if int(_np.prod(shape)) != n:
+        raise ValueError("a process mesh of shape %s needs %d ranks, the "
+                         "group has %d" % (shape, int(_np.prod(shape)), n))
     mine = resolve_device(device) if device is not None else None
     on_card = (mine or current_device()).type == "cuda"
 
@@ -191,9 +201,30 @@ def process_mesh(axis_names=("data",), device=None) -> Mesh:
         if on_card:
             return torch.device("cuda", r % torch.cuda.device_count())
         return cpu(r)
-    mesh = make_mesh((n,), axis_names, devices=[dev(r) for r in range(n)])
+    mesh = make_mesh(shape, axis_names, devices=[dev(r) for r in range(n)])
     mesh.in_process = False
+    mesh._axis_groups = {}
+    ranks = _np.arange(n).reshape(shape)
+    for a, name in enumerate(mesh.axis_names):
+        lines = _np.moveaxis(ranks, a, -1).reshape(-1, shape[a])
+        for line in lines:
+            members = [int(r) for r in line]
+            # one axis spanning the group is the default group
+            group = None if len(shape) == 1 else dist.new_group(members)
+            for r in members:
+                mesh._axis_groups[(name, r)] = (group, members)
     return mesh
+
+
+def axis_group(mesh: Mesh, name, rank):
+    """(torch.distributed group, its global ranks in axis order) of
+    `rank`'s slice along axis `name` of a `process_mesh`; the group is
+    None (the default group) on a one-axis mesh."""
+    try:
+        return mesh._axis_groups[(name, int(rank))]
+    except (AttributeError, KeyError):
+        raise ValueError("no %r axis group for rank %s of %r (a "
+                         "process_mesh has them)" % (name, rank, mesh))
 
 
 def squeeze_stage_axis(tree):

@@ -220,9 +220,8 @@ class ResilientTrainer:
                        for r in range(len(trainer._local))]
         self._preempted = False
         self._prev_sigterm = None
-        grp = trainer.group
         # a process group's rank 0 writes the checkpoints
-        self._writer = grp.in_process or grp.rank_offset == 0
+        self._writer = trainer.writer
         if self.ckpt_dir and self._writer:
             os.makedirs(self.ckpt_dir, exist_ok=True)
         self._have_ckpt = bool(self._list_checkpoints())

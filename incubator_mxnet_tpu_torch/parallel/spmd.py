@@ -23,6 +23,12 @@ Python ints and the collectives have jax's semantics:
   it receives, in source order, along `concat_axis` (untiled: a new
   dimension there).
 
+`run_replicas(fn, mesh)` runs `fn` as each replica's body without
+splitting or assembling anything (`ShardedTrainer`'s tensor-parallel
+step, whose layers issue the collectives of `tensor_parallel`: "tp_copy"
+and "tp_sum", Megatron's f and g, and "gather" and "split" along a
+dimension).
+
 Gradients flow through every collective: each is a
 `torch.autograd.Function` whose backward is the transposed collective
 (psum of the cotangents, `ppermute` by the inverse permutation,
@@ -48,8 +54,10 @@ Two forms:
 * **process group** (`mesh.process_mesh()`): one body per rank; each
   rank passes the global arguments and takes its own slice; sums by
   `dist.all_reduce`, `ppermute` by `dist.batch_isend_irecv`,
-  `all_to_all` by `dist.all_to_all_single`, each on the backend of its
-  tensors' device (gloo for host tensors, NCCL for card tensors).  An
+  `all_to_all` by `dist.all_to_all_single`, each on the subgroup of its
+  axis (`mesh.axis_group`; the default group on a one-axis mesh) and on
+  the backend of its tensors' device (gloo for host tensors, NCCL for
+  card tensors).  An
   output's named dimensions are all-gathered, so every rank holds the
   global value; its gradient is this rank's slice of the cotangent.  A
   replicated output is each rank's own, and only rank 0's cotangent
@@ -69,10 +77,10 @@ import torch
 from .. import autograd as _ag
 from .collectives import LOW_PRECISION, _ordered_sum
 from .dispatch import DispatchPool
-from .mesh import Mesh, P, make_mesh
+from .mesh import Mesh, P, axis_group, make_mesh
 
 __all__ = ["shard_map", "axis_index", "axis_size", "psum", "pmean",
-           "ppermute", "all_to_all"]
+           "ppermute", "all_to_all", "run_replicas"]
 
 _LOCAL = threading.local()
 
@@ -95,6 +103,7 @@ class _Axes:
     into."""
 
     def __init__(self, mesh):
+        self.mesh = mesh
         self.names = tuple(mesh.axis_names)
         self.sizes = dict(zip(self.names, mesh.devices.shape))
         self.coords = [dict(zip(self.names, idx))
@@ -156,7 +165,7 @@ def _apply_op(op, name, args, xs, devs, axes):
         members = axes.group(name, r)
         done.update(members)
         vals = [xs[s] for s in members]
-        if op == "psum":
+        if op in ("psum", "tp_sum"):
             total = _sum(vals, devs[members[0]])
             for s in members:
                 out[s] = total.to(devs[s], copy=True)
@@ -169,6 +178,13 @@ def _apply_op(op, name, args, xs, devs, axes):
 def _group_op(op, args, vals, i, dev):
     """Member i's output of `op` over its group's tensors `vals`."""
     n = len(vals)
+    if op == "tp_copy":
+        return vals[i].clone()
+    if op == "gather":
+        return torch.cat([v.to(dev) for v in vals], args[0])
+    if op == "split":
+        span = vals[i].shape[args[0]] // n
+        return vals[i].narrow(args[0], i * span, span).clone()
     if op == "ppermute":
         src = [s for s, d in args[0] if d == i]
         if not src:
@@ -198,8 +214,20 @@ def _a2a_assemble(chunks, concat_axis, tiled):
         torch.stack(chunks, concat_axis)
 
 
+#: the tensor-parallel collectives (`parallel.tensor_parallel`) and the
+#: ones their backwards run: "tp_copy" is the identity whose transpose
+#: sums over the axis, "tp_sum" the sum whose transpose is the identity
+#: (Megatron's f and g: every replica of the axis holds the same loss),
+#: "gather" concatenates the axis's pieces along a dimension and
+#: "split" takes this replica's piece of it
+_TP_TRANSPOSE = {"tp_copy": "tp_sum", "tp_sum": "tp_copy",
+                 "gather": "split", "split": "gather"}
+
+
 def _transpose(op, args):
     """(op, args) of the transposed collective."""
+    if op in _TP_TRANSPOSE:
+        return _TP_TRANSPOSE[op], args
     if op == "ppermute":
         return op, ([(d, s) for s, d in args[0]],)
     if op == "all_to_all":
@@ -272,38 +300,52 @@ class _Meeting:
 
 
 class _ProcessFn(torch.autograd.Function):
-    """One collective of this rank in the process-group form."""
+    """One collective of this rank in the process-group form, over `grp`
+    ((torch.distributed group, its global ranks in axis order))."""
 
     @staticmethod
-    def forward(ctx, op, args, n, x):
-        ctx.spec = (op, args, n)
-        return _process_op(op, args, n, x)
+    def forward(ctx, op, args, grp, x):
+        ctx.spec = (op, args, grp)
+        return _process_op(op, args, grp, x)
 
     @staticmethod
     def backward(ctx, ct):
-        op, args, n = ctx.spec
+        op, args, grp = ctx.spec
         top, targs = _transpose(op, args)
-        return None, None, None, _process_op(top, targs, n, ct.contiguous())
+        return None, None, None, _process_op(top, targs, grp,
+                                             ct.contiguous())
 
 
-def _process_op(op, args, n, x):
+def _process_op(op, args, grp, x):
     import torch.distributed as dist
-    rank = dist.get_rank()
-    if op == "psum":
+    group, ranks = grp
+    n, me = len(ranks), ranks.index(dist.get_rank())
+    if op in ("psum", "tp_sum"):
         acc = (x.float() if x.dtype in LOW_PRECISION else x).clone()
-        dist.all_reduce(acc)
+        dist.all_reduce(acc, group=group)
         return acc.to(x.dtype)
+    if op == "tp_copy":
+        return x.view_as(x)
+    if op == "gather":
+        parts = [torch.empty_like(x) for _ in range(n)]
+        dist.all_gather(parts, x.contiguous(), group=group)
+        return torch.cat(parts, args[0])
+    if op == "split":
+        span = x.shape[args[0]] // n
+        return x.narrow(args[0], me * span, span).contiguous()
     if op == "ppermute":
         perm = args[0]
         ops, recv = [], None
         for s, d in perm:
-            if s == rank and d == rank:
+            if s == me and d == me:
                 recv = x.clone()
-            elif s == rank:
-                ops.append(dist.P2POp(dist.isend, x.contiguous(), d))
-            elif d == rank:
+            elif s == me:
+                ops.append(dist.P2POp(dist.isend, x.contiguous(), ranks[d],
+                                      group=group))
+            elif d == me:
                 recv = torch.empty_like(x)
-                ops.append(dist.P2POp(dist.irecv, recv, s))
+                ops.append(dist.P2POp(dist.irecv, recv, ranks[s],
+                                      group=group))
         if ops:
             for req in dist.batch_isend_irecv(ops):
                 req.wait()
@@ -314,7 +356,7 @@ def _process_op(op, args, n, x):
                   for j in range(n)]
         send = torch.cat([c.reshape(-1) for c in chunks])
         recv = torch.empty_like(send)
-        dist.all_to_all_single(recv, send)
+        dist.all_to_all_single(recv, send, group=group)
         got = [p.reshape(chunks[0].shape)
                for p in recv.split(chunks[0].numel())]
         return _a2a_assemble(got, concat_axis, tiled)
@@ -325,7 +367,9 @@ def _collective(op, name, args, x):
     ctx = _ctx()
     if isinstance(ctx.meet, _Meeting):
         return ctx.meet.collective(ctx.r, op, name, args, x)
-    return _ProcessFn.apply(op, args, ctx.size(name), x)
+    ctx.axes._check(name)
+    return _ProcessFn.apply(op, args, axis_group(ctx.axes.mesh, name, ctx.r),
+                            x)
 
 
 def psum(x, axis_name):
@@ -478,22 +522,25 @@ class _Rank0(torch.autograd.Function):
 
 
 class _Gather(torch.autograd.Function):
-    """A rank's output slice all-gathered along `dim` (process form); its
-    gradient is this rank's slice of the cotangent."""
+    """A rank's output slice all-gathered along `dim` over `grp` (its
+    axis's group and ranks; process form); its gradient is this rank's
+    slice of the cotangent."""
 
     @staticmethod
-    def forward(ctx, x, dim):
+    def forward(ctx, x, dim, grp):
         import torch.distributed as dist
+        group, ranks = grp
         ctx.dim = dim
-        ctx.rank, n = dist.get_rank(), dist.get_world_size()
+        ctx.index = ranks.index(dist.get_rank())
         ctx.span = x.shape[dim]
-        parts = [torch.empty_like(x) for _ in range(n)]
-        dist.all_gather(parts, x.contiguous())
+        parts = [torch.empty_like(x) for _ in ranks]
+        dist.all_gather(parts, x.contiguous(), group=group)
         return torch.cat(parts, dim)
 
     @staticmethod
     def backward(ctx, ct):
-        return ct.narrow(ctx.dim, ctx.rank * ctx.span, ctx.span), None
+        return ct.narrow(ctx.dim, ctx.index * ctx.span, ctx.span), None, \
+            None
 
 
 def shard_map(fn, mesh: Mesh = None, in_specs=None, out_specs=None):
@@ -535,6 +582,46 @@ def _run_threads(fn, mesh, axes, args, specs, out_specs):
     per = [[_tree_map2(lambda t, s, r=r: _place(
         _piece(t, s, axes.coords[r], axes.sizes), devs[r]), a, sp)
         for a, sp in zip(args, specs)] for r in range(axes.n)]
+    results = _threads(lambda r: fn(*per[r]), axes, devs)
+    outs = results[0]
+    flat = [_flatten(o) for o in results]
+    spec_l = _spec_leaves(outs, out_specs)
+    return _unflatten(outs, [
+        _assemble([f[i] for f in flat], spec_l[i], axes, devs[0])
+        for i in range(len(flat[0]))])
+
+
+def run_replicas(fn, mesh: Mesh):
+    """[fn(i) for each replica i of `mesh` that this process drives],
+    each inside a body's context, so that the axis collectives work: in
+    one process a thread per replica as in `shard_map`, i being the
+    replica's index; over a `process_mesh` this rank's one, called with
+    0.  The caller places each replica's inputs."""
+    from ..context import _norm
+    axes = _Axes(mesh)
+    if not mesh.in_process:
+        import torch.distributed as dist
+        r = dist.get_rank()
+        return [_in_body(axes, r, None, _host(_norm(mesh.devices.flat[r])),
+                         lambda: fn(0))]
+    return _threads(fn, axes, [_host(_norm(d)) for d in mesh.devices.flat])
+
+
+def _in_body(axes, r, meet, dev, call):
+    """`call()` as replica r inside its body's context (the process
+    form's; the threads set their own)."""
+    prev = getattr(_LOCAL, "ctx", None)
+    _LOCAL.ctx = _Ctx(axes, r, meet)
+    try:
+        with _device_scope(dev):
+            return call()
+    finally:
+        _LOCAL.ctx = prev
+
+
+def _threads(fn, axes, devs):
+    """[fn(r) for every replica r], a thread each, meeting at each
+    collective (module doc)."""
     meet = _Meeting(axes, devs)
     grad, rec, train = torch.is_grad_enabled(), _ag.is_recording(), \
         _ag.is_training()
@@ -547,19 +634,13 @@ def _run_threads(fn, mesh, axes, args, specs, out_specs):
         prev_rec, prev_train = _ag.set_recording(rec), _ag.set_training(train)
         try:
             with torch.set_grad_enabled(grad), _device_scope(devs[r]):
-                return fn(*per[r])
+                return fn(r)
         finally:
             _ag.set_recording(prev_rec)
             _ag.set_training(prev_train)
             _LOCAL.ctx = prev
             lock.release()
-    results = _pool(devs).lockstep(run, meet)
-    outs = results[0]
-    flat = [_flatten(o) for o in results]
-    spec_l = _spec_leaves(outs, out_specs)
-    return _unflatten(outs, [
-        _assemble([f[i] for f in flat], spec_l[i], axes, devs[0])
-        for i in range(len(flat[0]))])
+    return _pool(devs).lockstep(run, meet)
 
 
 def _place(t, dev):
@@ -584,30 +665,22 @@ class _device_scope:
 def _run_process(fn, mesh, axes, args, specs, out_specs):
     import torch.distributed as dist
     from ..context import _norm
-    if len(axes.names) != 1:
-        raise NotImplementedError("a process-group mesh has one axis")
     r = dist.get_rank()
     dev = _host(_norm(mesh.devices.flat[r]))
     mine = [_tree_map2(lambda t, s: _place(_piece(t, s, axes.coords[r],
                                                   axes.sizes), dev), a, sp)
             for a, sp in zip(args, specs)]
-    prev = getattr(_LOCAL, "ctx", None)
-    _LOCAL.ctx = _Ctx(axes, r, None)
-    try:
-        with _device_scope(dev):
-            out = fn(*mine)
-    finally:
-        _LOCAL.ctx = prev
+    out = _in_body(axes, r, None, dev, lambda: fn(*mine))
     flat = _flatten(out)
     spec_l = _spec_leaves(out, out_specs)
     gathered = []
     for t, spec in zip(flat, spec_l):
         if isinstance(t, torch.Tensor):
-            named = [d for d, a in enumerate(tuple(spec or ()))
+            named = [(d, a) for d, a in enumerate(tuple(spec or ()))
                      if a is not None]
             if not named:
                 t = _Rank0.apply(t)
-            for d in named:
-                t = _Gather.apply(t, d)
+            for d, a in named:
+                t = _Gather.apply(t, d, axis_group(mesh, a, r))
         gathered.append(t)
     return _unflatten(out, gathered)

@@ -3,11 +3,27 @@ incubator_mxnet_tpu/parallel/trainer.py).
 
 `ShardedTrainer` trains a Gluon block data-parallel over the replicas of
 a `Mesh` (in-process: one process drives every replica) or over the
-ranks of a `torch.distributed` group (one replica per process), through
+ranks of a `torch.distributed` group (one replica per process; with
+`mesh=process_mesh(...)`, the ranks laid out on its axes), through
 `parallel.collectives`.  Each replica holds its own copy of the
 parameters, keyed by the block's structural `collect_params()` names
 (`params`), and of the optimizer state; the block itself is read once
 and written by `sync_to_block()`.
+
+Tensor parallelism: a mesh axis other than `batch_axis` of size > 1
+("model") with a `param_spec_fn(name, shape)` whose specs name it, at
+zero 0 and 1.  The function is called with each parameter's MXNet name
+(`Parameter.name`, "dense0_weight"), as the JAX trainer calls it.  Each
+replica stores only its model coordinate's shard of a sharded parameter
+and of its optimizer state (zero 1 splits the state along the data axis
+on top, as the JAX `_zero_spec` does); checkpoints stay at global
+shapes.  The step runs each replica's forward as a body of
+`spmd.run_replicas` under the `tensor_parallel.Plan` derived from the
+specs and the block (column and row parallel Dense, attention on local
+heads, gathered parameters), then one backward over the local replicas'
+losses; each gradient is then summed over the data axis only, among the
+replicas of its model coordinate (`collectives.AxisGroups` in one
+process, a data-axis subgroup over a process group).
 
 A step splits the global batch by rows, one slice per replica (a
 process-group rank passes its own rows), and per replica runs the
@@ -58,9 +74,13 @@ Capture: with one replica the whole step (forward, backward, update) is
 one program of `graph_capture.capture`, a CUDA graph on the card: the
 first step of a batch signature runs eagerly, the second captures, the
 later ones copy the batch into the program's static inputs and replay
-(`captures`, `replays`, `eager_steps` count them).  A step over several
-in-process replicas runs uncaptured.  A guarded step is a program of
-its own.
+(`captures`, `replays`, `eager_steps` count them).  So does each rank of
+a process group on a card, its NCCL collectives inside the graph (the
+eager first step sets up every communicator the step uses); a rank on
+the host (gloo) steps eagerly.  A step over several in-process replicas
+runs uncaptured: its replicas meet on host barriers (BatchNorm's
+lockstep sums, `spmd`'s meetings), which a graph cannot record.  A
+guarded step is a program of its own.
 
 Checkpoints are `torch.save` files of host tensors (`checkpoint.pt` in
 the directory `path`) holding the tree {params, opt_state, n_step} at
@@ -69,10 +89,12 @@ restore onto a mesh of another size and another ZeRO level.
 """
 from __future__ import annotations
 
+import contextlib
 import os
 import time
 from typing import Optional
 
+import numpy as _np
 import torch
 
 from .. import config as _config
@@ -84,7 +106,8 @@ from . import collectives as _coll
 from .dispatch import DispatchPool
 from .functional import extract_params, functionalize, load_params, \
     replica_shell
-from .mesh import Mesh, NamedSharding, P, Shards, make_mesh, mesh_devices
+from .mesh import Mesh, NamedSharding, P, Shards, axis_group, make_mesh, \
+    mesh_devices
 from .zero import BucketPlan, overlap_schedule, record_plan, \
     zero_level_default
 
@@ -218,7 +241,10 @@ class ShardedTrainer:
         `torch.distributed` group with no mesh given, the trainer is one
         rank of the group, on `device` (default `cuda:<rank>` where
         there are cards, else `current_device()`, which raises outside
-        a `with cpu():`).
+        a `with cpu():`); a `process_mesh` makes it this rank's replica
+        of that mesh.
+    param_spec_fn: (MXNet name, shape) -> P over the mesh's model axis
+        (tensor parallelism, module doc); None replicates everything
     zero: the ZeRO level 0..3, or None for MXNET_ZERO_LEVEL; levels 2
         and 3 need a 1-d data mesh and no `param_spec_fn`
     preprocess: a function of each replica's batch rows run inside the
@@ -245,11 +271,20 @@ class ShardedTrainer:
         self.zero = zero_level_default(zero)
         self._preprocess = preprocess
         self._lr, self._wd = float(lr), float(wd)
-        if mesh is None and dist.is_initialized():
+        self._rank = 0
+        if mesh is not None and not mesh.in_process:
+            # one rank of a `process_mesh`: its replica of the mesh
+            self._rank = dist.get_rank()
+            device = mesh.devices.flat[self._rank]
+            self.mesh = mesh
+            self.group = _coll.ProcessReplicaGroup(
+                device, *axis_group(mesh, batch_axis, self._rank))
+        elif mesh is None and dist.is_initialized():
             if device is None:
                 device = torch.device(
                     "cuda", dist.get_rank() % torch.cuda.device_count()) \
                     if torch.cuda.is_available() else current_device()
+            self._rank = dist.get_rank()
             self.mesh = make_mesh(devices=[device])
             self.group = _coll.ProcessReplicaGroup(device)
         else:
@@ -257,12 +292,8 @@ class ShardedTrainer:
                 mesh = make_mesh(devices=[device]) if device is not None \
                     else make_mesh()
             self.mesh = mesh
-            if any(size > 1 for ax, size in mesh.shape.items()
-                   if ax != batch_axis):
-                raise NotImplementedError(
-                    "a mesh axis other than %r of size > 1 (tensor "
-                    "parallelism) is not ported" % batch_axis)
-            self.group = _coll.ReplicaGroup(mesh_devices(mesh))
+            self.group = None
+        self._mesh_layout(batch_axis)
         if self.zero >= 2:
             if len(self.mesh.axis_names) != 1 or \
                     self.mesh.axis_names[0] != batch_axis:
@@ -274,13 +305,9 @@ class ShardedTrainer:
                 raise ValueError(
                     "zero=%d shards params itself — param_spec_fn "
                     "(tensor parallel) requires zero<=1" % self.zero)
-        if param_spec_fn is not None:
-            specs = {n: param_spec_fn(n, tuple(v.shape))
-                     for n, v in extract_params(block).items()}
-            if any(any(a is not None for a in s) for s in specs.values()):
-                raise NotImplementedError(
-                    "param_spec_fn with a sharded spec (tensor "
-                    "parallelism) is not ported")
+        full = {n: v.detach().clone()
+                for n, v in extract_params(block).items()}
+        specs = self._param_specs(block, param_spec_fn, full)
         self._local = list(self.group.local)
         self._n = self.group.size
         self._optimizer = optimizer
@@ -289,10 +316,22 @@ class ShardedTrainer:
         self._n_step = 0
         self._dispatch = DispatchPool(self._local) \
             if self.group.in_process else None
-        self._capture = self._n == 1
+        # one replica captures its step: in one process, or as one rank
+        # of a group on a card (NCCL inside the graph; gloo cannot be
+        # captured, so a rank on the host steps eagerly)
+        self._capture = len(self._local) == 1 and (
+            self._local[0].type == "cuda" or
+            (self.group.in_process and self._n == 1 and self._tp == 1))
         self._names = list(block.collect_params().keys())
         self._stateful = {n for n, p in block.collect_params().items()
                           if not p.requires_grad}
+        if self._tp > 1 and self.group.in_process and self._stateful and \
+                self.zero <= 1:
+            raise ValueError(
+                "tensor parallelism in one process runs one backward over "
+                "every replica, which cannot meet BatchNorm's sums across "
+                "replicas in its middle; run one rank a card "
+                "(process_mesh)")
         # global batch statistics are BatchNorm's: a block without
         # running statistics has nothing to sum across replicas
         self._sync_bn = self.zero <= 1 and self._n > 1 and \
@@ -307,18 +346,95 @@ class ShardedTrainer:
         self._shells = [block] + [replica_shell(block)
                                   for _ in self._local[1:]]
         self._fwd = [functionalize(b, training=True) for b in self._shells]
+        self._tpplan = None
+        if self._tp > 1:
+            from .tensor_parallel import Plan
+            self._tpplan = Plan(block, specs, self._tp_axis,
+                                self._tp).bind(self._shells)
         self._hyper = [torch.tensor([lr, wd, 1.0 / self._n],
                                     dtype=torch.float32, device=self._dev(r))
                        for r in range(len(self._local))]
         self._opt_fns = [self._make_opt(h) for h in self._hyper]
         self._opt_init = self._opt_fns[0][0]
-        full = {n: v.detach().clone()
-                for n, v in extract_params(block).items()}
         self._build_layout({n: tuple(v.shape) for n, v in full.items()})
         self._place_params(full)
         self.opt_state = self._opt_fns[0][0](full)
 
     # -- layout ------------------------------------------------------
+    def _mesh_layout(self, batch_axis):
+        """The mesh's model axis (`_tp_axis`, of size `_tp`; None and 1
+        without one), each local replica's data and model index
+        (`_didx`, `_midx`), the data group where the constructor left
+        none (in one process: a group over the mesh, or one per model
+        coordinate), and a process rank's model-axis group (`_mgroup`)."""
+        mesh = self.mesh
+        if batch_axis not in mesh.axis_names:
+            raise ValueError("the mesh %s has no batch axis %r"
+                             % (tuple(mesh.axis_names), batch_axis))
+        others = [ax for ax, size in mesh.shape.items()
+                  if ax != batch_axis and size > 1]
+        if len(others) > 1:
+            raise NotImplementedError(
+                "mesh axes %s besides %r: the port shards parameters over "
+                "one model axis" % (others, batch_axis))
+        self._tp_axis = others[0] if others else None
+        self._tp = mesh.shape[self._tp_axis] if others else 1
+        coords = [dict(zip(mesh.axis_names, idx))
+                  for idx in _np.ndindex(*mesh.devices.shape)]
+        self._mgroup = None
+        if self.group is None:
+            devs = mesh_devices(mesh)
+            self._didx = [c[batch_axis] for c in coords]
+            self._midx = [c.get(self._tp_axis, 0) for c in coords]
+            if self._tp == 1:
+                self.group = _coll.ReplicaGroup(devs)
+            else:
+                self.group = _coll.AxisGroups(devs, [
+                    [r for r in range(len(devs)) if self._midx[r] == m]
+                    for m in range(self._tp)])
+        elif mesh.in_process:
+            self._didx, self._midx = [self.group.rank_offset], [0]
+        else:
+            self._didx = [coords[self._rank][batch_axis]]
+            self._midx = [coords[self._rank].get(self._tp_axis, 0)]
+            if self._tp > 1:
+                self._mgroup = _coll.ProcessReplicaGroup(
+                    self.group.local[0],
+                    *axis_group(mesh, self._tp_axis, self._rank))
+
+    def _param_specs(self, block, spec_fn, full):
+        """{structural name: spec over the model axis} from
+        `spec_fn(name, shape)`, called with each parameter's MXNet name
+        (`Parameter.name`, "dense0_weight") as the JAX trainer calls it;
+        an entry over an axis of size 1 shards nothing.  A sharded
+        dimension the model axis does not divide raises ValueError."""
+        if spec_fn is None:
+            return {}
+        pd = block.collect_params()
+        specs = {}
+        for n, v in full.items():
+            spec = tuple(spec_fn(pd[n].name, tuple(v.shape)))
+            for d, a in enumerate(spec):
+                if a is None or self.mesh.shape.get(a, 0) == 1:
+                    continue
+                if a not in self.mesh.shape:
+                    raise ValueError("parameter %s (%s): no mesh axis %r "
+                                     "(axes %s)" % (pd[n].name, n, a,
+                                                    tuple(self.mesh.shape)))
+                if a == self.batch_axis:
+                    raise NotImplementedError(
+                        "parameter %s (%s) sharded over the batch axis %r"
+                        % (pd[n].name, n, a))
+                if v.shape[d] % self._tp:
+                    raise ValueError(
+                        "parameter %s (%s): dimension %d of size %d does "
+                        "not split over the %r axis of size %d"
+                        % (pd[n].name, n, d, v.shape[d], a, self._tp))
+            specs[n] = P(*[a if a is not None and
+                           self.mesh.shape.get(a, 0) > 1 else None
+                           for a in spec])
+        return specs
+
     def _dev(self, r):
         d = self._local[r]
         return torch.device("cpu") if d.type == "cpu" else d
@@ -333,9 +449,12 @@ class ShardedTrainer:
 
     def _build_layout(self, shapes):
         """Per parameter, the dim its optimizer state (zero >= 1) and its
-        stored value (zero 3) are sharded along, or None."""
+        stored value (zero 3) are sharded along over the data axis, or
+        None; and (`_tp_dim`) the dim a tensor-parallel spec shards it
+        along over the model axis, which the state follows."""
         n = self._n
         self._plan = None
+        self._tp_dim = dict(self._tpplan.tp_dim) if self._tpplan else {}
         self._state_dim = {}
         if self.zero >= 2:
             self._plan = BucketPlan(shapes, n, order=list(shapes),
@@ -347,43 +466,67 @@ class ShardedTrainer:
         elif self.zero == 1 and n > 1:
             for name, shape in shapes.items():
                 for i, d in enumerate(shape):
-                    if d % n == 0 and d >= n:
+                    if i != self._tp_dim.get(name) and d % n == 0 and \
+                            d >= n:
                         self._state_dim[name] = i
                         break
         self._param_dim = dict(self._state_dim) if self.zero >= 3 else {}
         self._shapes = dict(shapes)
 
     def _shard(self, value, dim, r):
-        """Local replica r's shard of a global `value` along `dim`."""
+        """Local replica r's shard of `value` along `dim` over the data
+        axis."""
         if dim is None:
             return value
         span = value.shape[dim] // self._n
-        return value.narrow(dim, (self.group.rank_offset + r) * span, span)
+        return value.narrow(dim, self._didx[r] * span, span)
+
+    def _tp_shard(self, value, name, r):
+        """Local replica r's shard of global `value` by parameter
+        `name`'s tensor-parallel spec (None: `value`)."""
+        dim = None if name is None else self._tp_dim.get(name)
+        if dim is None:
+            return value
+        span = value.shape[dim] // self._tp
+        return value.narrow(dim, self._midx[r] * span, span)
 
     def _place_params(self, full):
         """Store global `full` ({name: tensor}) on every local replica as
-        the level says (zero 3: solo parameters as shards)."""
+        the level and the specs say (zero 3: solo parameters as shards;
+        a tensor-parallel parameter: its model coordinate's shard)."""
         self._rparams = [
-            {nm: self._shard(v, self._param_dim.get(nm), r)
+            {nm: self._shard(self._tp_shard(v, nm, r),
+                             self._param_dim.get(nm), r)
              .to(self._dev(r), copy=True).contiguous()
              for nm, v in full.items()}
             for r in range(len(self._local))]
         self._program = self._warm = None
 
     def _gather(self, per_replica, dims):
-        """Global {name: tensor} from local replica shards (host side for
-        checkpoints and `params`; a process-group rank gathers from the
-        other ranks)."""
+        """Global {name: tensor} from local replica shards, along `dims`
+        over the data axis, then along the specs' dims over the model
+        axis (host side for checkpoints and `params`; a process-group
+        rank gathers from the other ranks)."""
         out = {}
         for nm, v in per_replica[0].items():
-            dim = dims.get(nm)
-            if dim is None:
+            dim, mdim = dims.get(nm), self._tp_dim.get(nm)
+            if not self.group.in_process:
+                if dim is not None:
+                    v = self.group.all_gather([v], dim)[0]
+                if mdim is not None:
+                    v = self._mgroup.all_gather([v], mdim)[0]
                 out[nm] = v
-            elif self.group.in_process:
-                out[nm] = torch.cat([p[nm].to(v.device)
-                                     for p in per_replica], dim)
-            else:
-                out[nm] = self.group.all_gather([v], dim)[0]
+                continue
+
+            def coordinate(m):
+                reps = [r for r in range(len(per_replica))
+                        if self._midx[r] == m]
+                if dim is None:
+                    return per_replica[reps[0]][nm].to(v.device)
+                return torch.cat([per_replica[r][nm].to(v.device)
+                                  for r in reps], dim)
+            out[nm] = coordinate(0) if mdim is None else \
+                torch.cat([coordinate(m) for m in range(self._tp)], mdim)
         return out
 
     @property
@@ -410,14 +553,14 @@ class ShardedTrainer:
         names = set(self._shapes)
         self._opt = [
             _map_named(tree, names, lambda nm, v, r=r: self._place_leaf(
-                v, None if nm is None else self._state_dim.get(nm), r))
+                v, None if nm is None else self._state_dim.get(nm), r, nm))
             for r in range(len(self._local))]
         self._program = self._warm = None
 
-    def _place_leaf(self, v, dim, r):
+    def _place_leaf(self, v, dim, r, name=None):
         v = torch.as_tensor(v)
-        return self._shard(v, dim, r).to(self._dev(r), copy=True) \
-            .contiguous()
+        return self._shard(self._tp_shard(v, name, r), dim, r) \
+            .to(self._dev(r), copy=True).contiguous()
 
     def _gather_state(self, per_replica):
         names = set(self._shapes)
@@ -442,6 +585,12 @@ class ShardedTrainer:
         """Replicas along the batch axis (every rank of a group)."""
         return self._n
 
+    @property
+    def writer(self) -> bool:
+        """Whether this process writes checkpoints (a process group's
+        rank 0)."""
+        return self._rank == 0
+
     def set_learning_rate(self, lr):
         """The lr of the next steps, a captured step's included."""
         self._lr = float(lr)
@@ -457,6 +606,16 @@ class ShardedTrainer:
             return [a._data if isinstance(a, NDArray) else a for a in arr]
         if isinstance(arr, NDArray):
             arr = arr._data
+        if self._tp > 1 and self.group.in_process:
+            # the model replicas of one data coordinate take its rows
+            t = arr if isinstance(arr, torch.Tensor) else \
+                torch.as_tensor(arr)
+            if t.shape[0] % self._n:
+                raise ValueError("a batch of %d rows does not split over "
+                                 "%d data replicas" % (t.shape[0], self._n))
+            rows = t.shape[0] // self._n
+            return [t[self._didx[r] * rows:(self._didx[r] + 1) * rows]
+                    .to(self._dev(r)) for r in range(len(self._local))]
         if not self.group.in_process or len(self._local) == 1:
             t = arr if isinstance(arr, torch.Tensor) else \
                 torch.as_tensor(arr)
@@ -499,9 +658,71 @@ class ShardedTrainer:
             grads = {n: g * poison.to(g.dtype) for n, g in grads.items()}
         return loss, grads, states
 
+    def _tp_forward_backward(self, xs, ys, full, guard=None):
+        """Per local replica (loss, grads, states) of a tensor-parallel
+        step: each replica's forward a body of `spmd.run_replicas` with
+        the plan active (parallel/tensor_parallel.py), its gathered
+        parameters all-gathered first, then ONE backward over every
+        local replica's loss (in one process the collectives' backwards
+        are one node over all replicas, which a backward per replica
+        could not run)."""
+        from . import spmd
+        from . import tensor_parallel as _tpm
+        plan, nl = self._tpplan, len(self._local)
+        train = [n for n in self._names if n not in self._stateful]
+        leaves = [{n: (v.detach().requires_grad_(True)
+                       if n not in self._stateful else v)
+                   for n, v in full[r].items()} for r in range(nl)]
+
+        def body(r):
+            x = xs[r]
+            if self._preprocess is not None:
+                x = self._preprocess(x)
+            sync = _coll.replica_sync(self.group, r) if self._sync_bn \
+                else contextlib.nullcontext()
+            with _tpm.active(plan), sync:
+                p = {n: (_tpm.gather_from(v, plan.tp_dim[n])
+                         if n in plan.gathered else v)
+                     for n, v in leaves[r].items()}
+                out, states = self._fwd[r](p, x)
+                loss = self.loss_fn(out, ys[r])
+            if guard is not None:
+                loss = loss * guard[r][2]
+            return loss, states
+        with torch.enable_grad():
+            results = spmd.run_replicas(body, self.mesh)
+            losses = [res[0] for res in results]
+            gs = torch.autograd.grad(
+                losses, [leaves[r][n] for r in range(nl) for n in train],
+                allow_unused=True)
+        out = []
+        for r in range(nl):
+            part = gs[r * len(train):(r + 1) * len(train)]
+            grads = {n: torch.zeros_like(leaves[r][n]) if g is None else g
+                     for n, g in zip(train, part)}
+            loss = losses[r].detach()
+            if guard is not None:
+                poison = guard[r][0]
+                loss = loss * poison
+                grads = {n: g * poison.to(g.dtype)
+                         for n, g in grads.items()}
+            out.append((loss, grads, results[r][1]))
+        return out
+
+    def _mean_loss(self, losses):
+        """The mean of the local replicas' losses on replica 0's device,
+        over one model coordinate (the model replicas hold one loss)."""
+        mine = [l for r, l in enumerate(losses)
+                if self._midx[r] == self._midx[0]]
+        return mine[0] if len(mine) == 1 else torch.stack(
+            [l.to(self._dev(0)) for l in mine]).mean()
+
     def _forward_backward(self, xs, ys, full, guard=None):
         """Per local replica (loss, grads, states), in lockstep when
         BatchNorm's statistics span the replicas."""
+        if self._tpplan is not None:
+            return self._tp_forward_backward(xs, ys, full, guard)
+
         def one(r):
             return self._replica_grads(r, xs[r], ys[r], full[r], guard)
 
@@ -529,11 +750,14 @@ class ShardedTrainer:
                 list(grads[r].values()), float("inf"))]
             + [losses[r].float()])).all().to(dev0) for r in range(nl)]
         fin = torch.stack(fin).all()
-        loss = torch.stack([l.to(dev0) for l in losses]).mean()
+        loss = self._mean_loss(losses)
         if not group.in_process and self._n > 1:
             both = group.all_reduce([torch.stack(
                 [loss.float(), (~fin).float()])])[0]
             loss, fin = both[0] / self._n, both[1] == 0
+        if self._mgroup is not None:
+            # a non-finite shard on any model rank stops every rank
+            fin = self._mgroup.all_reduce([(~fin).float()])[0] == 0
         loss = loss / guard[0][2]
         ok = fin & torch.isfinite(loss) & (loss <= guard[0][1])
         return loss, [ok if r == 0 else ok.to(self._dev(r))
@@ -592,8 +816,7 @@ class ShardedTrainer:
         self._write_back(results, w_up, ok)
         if guard is not None:
             return gloss, ok[0]
-        loss = losses[0] if nl == 1 else torch.stack(
-            [l.to(self._dev(0)) for l in losses]).mean()
+        loss = self._mean_loss(losses)
         if not group.in_process and self._n > 1:
             loss = group.all_reduce([loss])[0] / self._n
         return loss
@@ -722,7 +945,7 @@ class ShardedTrainer:
                 "opt_state": _map_named(opt, set(self._shapes),
                                         lambda n, v: v.detach().cpu()),
                 "n_step": self._n_step}
-        if not self.group.in_process and self.group.rank_offset != 0:
+        if not self.writer:
             return tree
         os.makedirs(path, exist_ok=True)
         tmp = os.path.join(path, CHECKPOINT_FILE + ".tmp.%d" % os.getpid())

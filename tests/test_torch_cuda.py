@@ -2160,3 +2160,74 @@ def test_shard_map_ppermute_across_two_replicas_of_the_card(card):
     assert cdev == "cuda"
     assert torch.equal(cy, hy) and torch.equal(cg, hg)
     assert torch.equal(cy[:2], torch.from_numpy(x[2:]) * 2)
+
+
+def _tp_bert(device):
+    from incubator_mxnet_tpu_torch.gluon.block import nameless_scope
+    with nameless_scope():
+        return tmx.models.bert_small(vocab_size=64, max_length=16,
+                                     dropout=0.0, device=device)
+
+
+def test_tensor_parallel_step_on_two_replicas_of_the_card(card):
+    """bert_small tensor parallel on a (1, 2) mesh of cuda:0 twice (the
+    flash kernels on 2 of 4 heads a replica) against the same TP step on
+    two CPU replicas: 3 Adam steps, losses and parameters by
+    test_torch_tensor_parallel's rule at 1e-4 of scale (the card's
+    kernels and GEMMs round otherwise)."""
+    from incubator_mxnet_tpu_torch import parallel
+    import test_torch_tensor_parallel as ttp
+    xs, ys = ttp._data("bert", 4)
+    start = None
+    runs = []
+    for devs in (["cuda:0", "cuda:0"], [tmx.cpu(0), tmx.cpu(1)]):
+        net = _tp_bert(str(devs[0]) if devs[0] == "cuda:0" else "cpu")
+        if start is None:
+            start = {k: v.detach().cpu() for k, v in
+                     net.state_dict().items()}
+        net.load_state_dict(start)
+        mesh = parallel.make_mesh((1, 2), ("data", "model"), devices=devs)
+        t = parallel.ShardedTrainer(
+            net, loss_fn=ttp.mlm_loss, optimizer="adam", lr=ttp.LR,
+            mesh=mesh, param_spec_fn=ttp.spec_fn(ttp._roles(net)))
+        losses = ttp._run(t, xs, ys)
+        runs.append((losses, {k: v.cpu().numpy()
+                              for k, v in t.params.items()}, t))
+    (closs, cparams, ct), (hloss, hparams, _) = runs
+    assert ct._local[0].type == "cuda" and ct._tp == 2
+    np.testing.assert_allclose(closs, hloss, rtol=1e-4)
+    grads = []
+    net = _tp_bert("cpu")
+    net.load_state_dict(start)
+    ref = parallel.ShardedTrainer(net, loss_fn=ttp.mlm_loss,
+                                  optimizer="adam", lr=ttp.LR, device="cpu")
+    for x, y in zip(xs, ys):
+        grads.append(ttp._grads(net, ref.params, x, y))
+        ref.step(x, y)
+    ttp._assert_adam_close(cparams, hparams, grads, tol=1e-4)
+
+
+def test_captured_two_rank_step_matches_eager(card, tmp_path):
+    """With two cards or more: bert_small tensor parallel on a (1, 2)
+    process mesh of two NCCL ranks, each rank's step captured (eager,
+    capture, replay) against the same ranks stepping eagerly."""
+    import os
+    import sys
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards: NCCL takes one rank a card")
+    from incubator_mxnet_tpu_torch.tools import launch
+    here = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "test_torch_tensor_parallel.py")
+    out = str(tmp_path / "rank0.pt")
+    with open(str(tmp_path / "log"), "w") as log:
+        rc = launch.launch(2, [sys.executable, here, "cuda-worker", out],
+                           env={"PYTHONPATH": os.path.dirname(
+                               os.path.dirname(here))},
+                           timeout=300, out=log)
+    assert rc == 0, open(str(tmp_path / "log")).read()[-3000:]
+    got = torch.load(out, weights_only=True)
+    assert got["captured_ran"] == [1, 1, 2]
+    assert got["eager_ran"] == [4, 0, 0]
+    assert got["losses"]["captured"] == got["losses"]["eager"]
+    for k, v in got["params"]["eager"].items():
+        assert torch.equal(got["params"]["captured"][k], v), k

@@ -234,7 +234,7 @@ PARALLEL_MODULES = (
     "parallel.spmd", "parallel.resilience", "parallel.elastic",
     "parallel.ring_attention", "parallel.pipeline", "parallel.moe",
     "integrity", "telemetry.fleet", "telemetry.stepstats",
-    "models.transformer")
+    "models.transformer", "parallel.tensor_parallel")
 
 
 def test_parallel_modules_load_no_jax(tmp_path):
@@ -302,3 +302,29 @@ def test_parallel_modules_load_no_jax(tmp_path):
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
 
+
+# runtime, util and engine: importing them loads neither JAX nor the JAX
+# package and builds nothing; Features() reads this host without a card
+RUNTIME_MODULES = ("runtime", "util", "engine")
+
+
+def test_runtime_modules_load_no_jax(tmp_path):
+    env = dict(os.environ, PATH=str(tmp_path), CUDA_HOME=str(tmp_path),
+               PYTHONPATH=str(ROOT))
+    code = ("import importlib, sys\n"
+            "for n in %r:\n"
+            "    importlib.import_module('incubator_mxnet_tpu_torch.' + n)\n"
+            "import incubator_mxnet_tpu_torch as mx\n"
+            "f = mx.runtime.Features()\n"
+            "assert not f.is_enabled('TPU') and f.is_enabled('CPU')\n"
+            "mx.util.set_np, mx.util.use_np, mx.engine.bulk\n"
+            "mx.engine.add_dispatch_listener, mx.engine.wait_all\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in\n"
+            "       ('jax', 'jaxlib', 'incubator_mxnet_tpu')]\n"
+            "assert not bad, bad\n"
+            "print('ok')" % (RUNTIME_MODULES,))
+    out = subprocess.run([sys.executable, "-c", code], cwd=str(tmp_path),
+                         env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
